@@ -1,0 +1,109 @@
+"""Prefill flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and
+its plain PyTorch version, both in the model layout (B, S, heads, D).
+
+Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_bhsd``).
+``repro_torch.kernels.ops.flash_attention`` picks between the two by the
+device of its inputs and counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = (
+            [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def plain(
+    q: torch.Tensor,              # (B, Sq, H, D)
+    k: torch.Tensor,              # (B, Skv, Kv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """The plain version in the model layout: ``ref.flash_attention_ref``
+    on transposed views."""
+    out = ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, prefix_len=prefix_len,
+    )
+    return out.transpose(1, 2)
+
+
+def launch(
+    q: torch.Tensor,              # (B, Sq, H, D) on CUDA
+    k: torch.Tensor,              # (B, Skv, Kv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; returns (B, Sq, H, D).
+    Raises on inputs the kernel does not take and on a refused launch."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, S, heads, D)")
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, Kv, D) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q {q.shape} k {k.shape} v {v.shape}")
+    if H % Kv:
+        raise ValueError(f"heads {H} not divisible by kv heads {Kv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of "
+                        f"{list(DTYPES)} for all three")
+    for t in (q, k, v):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError("q, k, v must lie on one CUDA device")
+        if t.stride(3) != 1:
+            raise ValueError("the D axis of q, k, v must have stride 1")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel_fn()(
+            DTYPES[q.dtype], D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, Kv, Sq, Skv,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
+            int(causal), -1 if window is None else int(window),
+            int(prefix_len), 1.0 / math.sqrt(D), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    return out

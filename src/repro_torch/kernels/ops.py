@@ -1,0 +1,73 @@
+"""Attention kernels in the model layout (counterpart of
+``repro.kernels.ops``).
+
+Each wrapper decides by the device of the tensors it is given, in plain
+Python, before anything runs: a CPU tensor goes to the kernel's plain PyTorch
+version; a CUDA tensor launches the hand-written CUDA kernel, which raises on
+what it does not take.  Nothing falls back from the kernel to the plain
+version.  Each wrapper counts its kernel launches in ``<wrapper>.launches``,
+so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"inputs on devices {sorted(kinds)}; need all CPU or all CUDA")
+
+
+def flash_attention(
+    q: torch.Tensor,              # model layout (B, S, H, D)
+    k: torch.Tensor,              # (B, S, Kv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    if _on_cpu(q, k, v):
+        return _fa.plain(q, k, v, causal=causal, window=window,
+                         prefix_len=prefix_len)
+    out = _fa.launch(q, k, v, causal=causal, window=window,
+                     prefix_len=prefix_len)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_decode(
+    q: torch.Tensor,              # (B, 1, H, D) model layout
+    k_cache: torch.Tensor,        # (B, S, Kv, D)
+    v_cache: torch.Tensor,
+    *,
+    kv_valid: torch.Tensor,       # (B, S)
+) -> torch.Tensor:
+    if _on_cpu(q, k_cache, v_cache, kv_valid):
+        return _fd.plain(q, k_cache, v_cache, kv_valid)
+    out = _fd.launch(q, k_cache, v_cache, kv_valid)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+KERNEL_WRAPPERS = (flash_attention, flash_decode)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the attention kernels, in the reference
+package's kernel layouts (counterpart of ``repro.kernels.ref``).
+
+They are the CPU path of ``repro_torch.kernels.ops`` and the yardstick that
+``chip_smoke.py`` holds each CUDA kernel against on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor,              # (B, H, Sq, D)
+    k: torch.Tensor,              # (B, Kv, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    Kv, Skv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Kv, G, Sq, D).float()
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        c = q_pos[:, None] >= k_pos[None, :]
+        if prefix_len:
+            c = c | (k_pos[None, :] < prefix_len)
+        mask &= c
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", w, v.float())
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_decode_ref(
+    q: torch.Tensor,              # (B, H, D)
+    k: torch.Tensor,              # (B, Kv, S, D)
+    v: torch.Tensor,
+    valid: torch.Tensor,          # (B, S) int8 / bool
+) -> torch.Tensor:
+    B, H, D = q.shape
+    Kv = k.shape[1]
+    G = H // Kv
+    qg = q.reshape(B, Kv, G, D).float()
+    s = torch.einsum("bkgd,bkmd->bkgm", qg, k.float()) / math.sqrt(D)
+    s = torch.where(
+        valid[:, None, None, :].bool(), s, torch.tensor(NEG_INF, device=q.device)
+    )
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgm,bkmd->bkgd", w, v.float())
+    return out.reshape(B, H, D).to(q.dtype)

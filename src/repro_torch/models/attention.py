@@ -1,0 +1,245 @@
+"""Attention: GQA / sliding-window / prefix-LM, prefill + decode paths
+(counterpart of ``repro.models.attention``).
+
+Two compute paths, chosen by ``impl``:
+
+* ``"kernel"`` (default) goes through ``repro_torch.kernels.ops``: the
+  hand-written CUDA kernels for CUDA tensors, their plain versions for CPU
+  tensors.
+* ``"plain"`` runs the kernels' plain PyTorch versions on any device (fp32
+  softmax and products, as in the kernels); ``chip_smoke.py`` holds the
+  kernel path against it on the card.
+
+``naive_attention`` and ``decode_attention`` are the reference's model-level
+oracles, kept for parity with it.
+
+The KV cache is preallocated and written in place: the reference's
+``dynamic_update_slice`` (which returns a new array) becomes a slice
+assignment into the cache tensors, and the returned cache is the same dict.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import ops
+from repro_torch.models.base import ParamSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, rms_norm, rmsnorm_spec
+
+NEG_INF = -1e30
+IMPLS = ("kernel", "plain")
+
+
+# ---------------------------------------------------------------------------
+# Parameter blueprint
+# ---------------------------------------------------------------------------
+
+
+def attention_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    bp: Dict[str, Any] = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        bp["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), "zeros")
+        bp["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
+        bp["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
+    if cfg.qk_norm:
+        bp["q_norm"] = rmsnorm_spec(hd, "head_dim")
+        bp["k_norm"] = rmsnorm_spec(hd, "head_dim")
+    return bp
+
+
+# ---------------------------------------------------------------------------
+# Naive O(S^2) oracles
+# ---------------------------------------------------------------------------
+
+
+_PAD_POS = 2**31 - 2   # sentinel for padded kv slots
+
+
+def _pair_mask(
+    q_pos: torch.Tensor,     # (Sq,)
+    kv_pos: torch.Tensor,    # (Skv,)
+    *,
+    causal: bool,
+    window: Optional[int],
+    prefix_len: int,
+) -> torch.Tensor:
+    """(Sq, Skv) boolean mask. prefix_len>0 = prefix-LM bidirectional zone.
+    Padded KV slots (position == sentinel) are always masked."""
+    m = (kv_pos[None, :] < _PAD_POS).expand(q_pos.shape[0], kv_pos.shape[0])
+    if causal:
+        c = q_pos[:, None] >= kv_pos[None, :]
+        if prefix_len:
+            c = c | (kv_pos[None, :] < prefix_len)
+        m = m & c
+    if window is not None:
+        m = m & (q_pos[:, None] - kv_pos[None, :] < window)
+    return m
+
+
+def naive_attention(
+    q: torch.Tensor,         # (B, Sq, H, D)
+    k: torch.Tensor,         # (B, Skv, Kv, D)
+    v: torch.Tensor,         # (B, Skv, Kv, D)
+    *,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    kv_valid: Optional[torch.Tensor] = None,   # (B, Skv) extra validity
+) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, D)
+    scores = torch.einsum(
+        "bqkgd,bmkd->bkgqm", qg.float(), k.float()
+    ) / math.sqrt(D)
+    mask = _pair_mask(
+        q_pos, kv_pos, causal=causal, window=window, prefix_len=prefix_len
+    )
+    if kv_valid is not None:
+        mask = mask[None] & kv_valid.bool()[:, None, :]
+        mask = mask[:, None, None]          # (B,1,1,Sq,Skv)
+    else:
+        mask = mask[None, None, None]
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqm,bmkd->bqkgd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def decode_attention(
+    q: torch.Tensor,         # (B, 1, H, D)
+    k_cache: torch.Tensor,   # (B, S_cache, Kv, D) — RoPE already applied
+    v_cache: torch.Tensor,
+    *,
+    kv_valid: torch.Tensor,  # (B, S_cache) bool — slot validity
+) -> torch.Tensor:
+    B, _, H, D = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Kv, G, D).float()
+    s = torch.einsum("bkgd,bmkd->bkgm", qg, k_cache.float()) / math.sqrt(D)
+    s = torch.where(kv_valid.bool()[:, None, None, :], s,
+                    torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgm,bmkd->bkgd", w, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention module (projections + rope + cache management)
+# ---------------------------------------------------------------------------
+
+
+def attention_apply(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,                   # (B, S, d_model)
+    *,
+    positions: torch.Tensor,           # (S,) absolute positions
+    mode: str,                         # "full" | "decode"
+    layer_cache: Optional[Dict[str, torch.Tensor]] = None,  # (B, slots, Kv, D)
+    cache_len: Optional[int] = None,   # tokens already in the cache
+    causal: bool = True,
+    prefix_len: int = 0,
+    impl: str = "kernel",
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Returns (output (B,S,d_model), the layer cache written in place or
+    None).
+
+    ``cache_len`` is a host int, so choosing the cache slot needs no device
+    sync.  Full mode writes K/V at slots [0, S) (prefill fills an empty
+    cache; the reference writes at ``positions[0]``, which prefill sets to
+    0); decode mode writes the new token at slot ``cache_len`` (mod the ring
+    size under a sliding window), and ``positions`` must be
+    ``[cache_len]``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    B, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+
+    # einsum("bsd,dhk->bshk") as one matmul per projection
+    q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(B, S, h, hd)
+    k = (x @ p["wk"].to(dt).reshape(d, kv * hd)).view(B, S, kv, hd)
+    v = (x @ p["wv"].to(dt).reshape(d, kv * hd)).view(B, S, kv, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if mode == "full":
+        if impl == "kernel":
+            out = ops.flash_attention(
+                q, k, v, causal=causal, window=cfg.sliding_window,
+                prefix_len=prefix_len,
+            )
+        else:
+            out = _fa.plain(
+                q, k, v, causal=causal, window=cfg.sliding_window,
+                prefix_len=prefix_len,
+            )
+        if layer_cache is not None:
+            ck, cv = layer_cache["k"], layer_cache["v"]
+            slots = ck.shape[1]
+            if cfg.sliding_window is not None and S > slots:
+                # keep the last `slots` positions, ring-aligned
+                idx = positions[-slots:] % slots
+                ck[:, idx] = k[:, -slots:].to(ck.dtype)
+                cv[:, idx] = v[:, -slots:].to(cv.dtype)
+            else:
+                if S > slots:
+                    raise ValueError(f"prompt of {S} tokens exceeds the "
+                                     f"cache's {slots} slots")
+                ck[:, :S] = k.to(ck.dtype)
+                cv[:, :S] = v.to(cv.dtype)
+            new_cache = layer_cache
+    elif mode == "decode":
+        if layer_cache is None or cache_len is None:
+            raise ValueError("decode mode needs layer_cache and cache_len")
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        slots = ck.shape[1]
+        if cfg.sliding_window is not None:
+            slot = cache_len % slots
+        elif cache_len < slots:
+            slot = cache_len
+        else:
+            raise ValueError(f"cache full: {cache_len} of {slots} slots used")
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        n_filled = min(cache_len + 1, slots)
+        valid = (torch.arange(slots, device=x.device) < n_filled)
+        valid = valid[None].expand(B, slots)
+        if impl == "kernel":
+            out = ops.flash_decode(q, ck, cv, kv_valid=valid)
+        else:
+            out = _fd.plain(q, ck, cv, valid)
+        new_cache = layer_cache
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    y = out.reshape(B, S, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
+    return y, new_cache

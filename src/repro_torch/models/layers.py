@@ -1,0 +1,153 @@
+"""Shared layers: norms, RoPE, activations, MLP blocks, embeddings
+(counterpart of ``repro.models.layers``).
+
+Norm and RoPE math runs in float32 and casts back to the input's dtype at
+the same points as the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.base import ParamSpec, dense_spec
+from repro_torch.models.config import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(dim: int, axis: str = "embed") -> ParamSpec:
+    return ParamSpec((dim,), (axis,), "ones")
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def apply_rope(
+    x: torch.Tensor,             # (B, S, H, D)
+    positions: torch.Tensor,     # (S,) or (B, S)
+    theta: float,
+) -> torch.Tensor:
+    """Rotary position embedding on the trailing head_dim."""
+    if x.dim() != 4:
+        raise ValueError(f"apply_rope expects (B,S,H,D), got {tuple(x.shape)}")
+    half = x.shape[-1] // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = 1.0 / (theta ** exponent)
+    ang = positions[..., None].float() * freq     # (S,half) / (B,S,half)
+    if ang.dim() == 2:
+        ang = ang[None]                            # (1, S, half)
+    cos = torch.cos(ang)[:, :, None, :]            # (B|1, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations & MLP
+# ---------------------------------------------------------------------------
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp_blueprint(cfg: ModelConfig, d_ff: Optional[int] = None,
+                  hidden_axis: str = "mlp") -> dict:
+    """SwiGLU (silu) or plain 2-matrix MLP (gelu)."""
+    d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
+    bp = {
+        "wi": dense_spec(d, f, "embed", hidden_axis),
+        "wo": dense_spec(f, d, hidden_axis, "embed"),
+    }
+    if cfg.mlp_gated:
+        bp["wg"] = dense_spec(d, f, "embed", hidden_axis)
+    return bp
+
+
+def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    act = activation(cfg.act)
+    h = x @ p["wi"].to(x.dtype)
+    if "wg" in p:                       # gated (SwiGLU / GeGLU)
+        h = act(x @ p["wg"].to(x.dtype)) * h
+    else:
+        h = act(h)
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_spec(cfg: ModelConfig) -> ParamSpec:
+    # normal(0.02): with tied unembedding, unit-normal embeddings would put
+    # init logits at std ~ sqrt(d); 0.02 gives the standard ln(V) init loss.
+    return ParamSpec(
+        (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), "embed",
+        scale=0.02,
+    )
+
+
+def unembed_spec(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec(
+        (cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), "normal"
+    )
+
+
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
+                 dtype: Any) -> torch.Tensor:
+    # gather then cast: the same values as the reference's cast-then-gather
+    # without casting the whole table
+    return embedding[tokens].to(dtype)
+
+
+def logits_from_hidden(
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    embedding: Optional[torch.Tensor] = None,
+    unembed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Project hidden states to (padded) vocab logits; padding masked."""
+    if cfg.tie_embeddings:
+        if embedding is None:
+            raise ValueError("tied embeddings need the embedding table")
+        logits = x @ embedding.to(x.dtype).T
+    else:
+        if unembed is None:
+            raise ValueError("untied embeddings need the unembed matrix")
+        logits = x @ unembed.to(x.dtype)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = cfg.padded_vocab - cfg.vocab_size
+        mask = torch.cat([
+            torch.zeros(cfg.vocab_size, dtype=logits.dtype, device=logits.device),
+            torch.full((pad,), torch.finfo(logits.dtype).min,
+                       dtype=logits.dtype, device=logits.device),
+        ])
+        logits = logits + mask
+    return logits

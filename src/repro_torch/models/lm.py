@@ -1,0 +1,260 @@
+"""TransformerLM — the decoder-only model, dense / GQA path (counterpart of
+``repro.models.lm``).
+
+The reference stacks per-layer parameters and runs the layer stack as one
+``lax.scan``; here the stack is a loop over an ``nn.ModuleList`` whose
+entries hold one layer's parameters each, in the reference's shapes
+(``attn.wq`` is (d_model, heads, head_dim), and so on).  Families this slice
+does not port (MoE, SSM, hybrid) raise ``NotImplementedError`` naming the
+ROADMAP item that will.
+
+Modes
+-----
+``forward``      full-sequence hidden states
+``prefill``      full sequence + KV cache write, last-position logits
+``decode_step``  one token per sequence against the carried cache
+
+The cache is a dict ``{"len": int, "kv": {"k", "v"}}`` with K/V of shape
+(layers, batch, slots, kv_heads, head_dim), written in place; ``len`` is a
+host int, so no step waits on the device to learn it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.base import (
+    ParamTree,
+    cast_params,
+    init_params,
+    param_count,
+    stack_blueprint,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    embed_spec,
+    embed_tokens,
+    logits_from_hidden,
+    mlp_apply,
+    mlp_blueprint,
+    rms_norm,
+    rmsnorm_spec,
+    unembed_spec,
+)
+
+_NOT_PORTED = {
+    "moe": "ROADMAP Queue 1 item 8 (MoE, with the moe_gmm kernel)",
+    "ssm": "ROADMAP Queue 1 item 9 (Mamba, with the selective_scan kernel)",
+    "hybrid": "ROADMAP Queue 1 item 9 (SSM and hybrid stacks)",
+}
+
+
+def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    """One decoder layer's parameters (dense / GQA family)."""
+    bp: Dict[str, Any] = {
+        "ln1": rmsnorm_spec(cfg.d_model),
+        "attn": attn.attention_blueprint(cfg),
+    }
+    if not cfg.parallel_block:
+        bp["ln2"] = rmsnorm_spec(cfg.d_model)
+    bp["mlp"] = mlp_blueprint(cfg)
+    return bp
+
+
+def lm_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's blueprint: per-layer leaves stacked on a leading
+    'layers' axis under ``decoder``."""
+    bp: Dict[str, Any] = {"embed": embed_spec(cfg)}
+    if not cfg.tie_embeddings:
+        bp["unembed"] = unembed_spec(cfg)
+    bp["final_norm"] = rmsnorm_spec(cfg.d_model)
+    bp["decoder"] = stack_blueprint(layer_blueprint(cfg), cfg.num_layers)
+    return bp
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        impl: str = "kernel",          # attention impl: kernel | plain
+        device: Any = "cuda",
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        family = "moe" if cfg.is_moe else cfg.family
+        if family in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: the {family} family is not ported yet; "
+                f"see {_NOT_PORTED[family]}"
+            )
+        if impl not in attn.IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, model on {dev}")
+        self.cfg = cfg
+        self.impl = impl
+
+        bp = self.blueprint()
+        top = cast_params(
+            init_params({k: v for k, v in bp.items() if k != "decoder"},
+                        generator),
+            dtype,
+        )
+        self.embed = nn.Parameter(top["embed"], requires_grad=False)
+        self.final_norm = nn.Parameter(top["final_norm"], requires_grad=False)
+        if "unembed" in top:
+            self.unembed = nn.Parameter(top["unembed"], requires_grad=False)
+        else:
+            self.unembed = None
+        layer_bp = layer_blueprint(cfg)
+        self.layers = nn.ModuleList(
+            ParamTree(cast_params(init_params(layer_bp, generator), dtype))
+            for _ in range(cfg.num_layers)
+        )
+
+    def blueprint(self) -> Dict[str, Any]:
+        return lm_blueprint(self.cfg)
+
+    def num_params(self) -> int:
+        return param_count(self.blueprint())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ==================================================================
+    # Cache
+    # ==================================================================
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+        cfg = self.cfg
+        slots = (
+            min(max_len, cfg.sliding_window)
+            if cfg.sliding_window is not None
+            else max_len
+        )
+        shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {
+            "len": 0,
+            "kv": {
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+            },
+        }
+
+    # ==================================================================
+    # Blocks
+    # ==================================================================
+    def _attn_block(self, lp, x, *, positions, mode, layer_kv, cache_len,
+                    prefix_len):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = attn.attention_apply(
+            lp["attn"], cfg, h,
+            positions=positions, mode=mode, layer_cache=layer_kv,
+            cache_len=cache_len, prefix_len=prefix_len, impl=self.impl,
+        )
+        if cfg.parallel_block:
+            # command-r: attn and FFN read the SAME normed input, summed
+            return x + a + mlp_apply(lp["mlp"], cfg, h)
+        x = x + a
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + mlp_apply(lp["mlp"], cfg, h2)
+
+    def _run_stack(self, x, *, positions, mode, cache, prefix_len):
+        cache_len = None if cache is None else cache["len"]
+        for i, lp in enumerate(self.layers):
+            layer_kv = None
+            if cache is not None:
+                layer_kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
+            x = self._attn_block(
+                lp, x, positions=positions, mode=mode, layer_kv=layer_kv,
+                cache_len=cache_len, prefix_len=prefix_len,
+            )
+        return x
+
+    # ==================================================================
+    # Public entry points
+    # ==================================================================
+    def _embed_inputs(self, tokens, prefix_embed, dtype) -> Tuple[torch.Tensor, int]:
+        x = embed_tokens(self.embed, tokens, dtype)
+        prefix_len = 0
+        if prefix_embed is not None:
+            x = torch.cat([prefix_embed.to(dtype), x], dim=1)
+            prefix_len = prefix_embed.shape[1]
+        return x, prefix_len
+
+    def forward(
+        self,
+        tokens: torch.Tensor,            # (B, S)
+        *,
+        prefix_embed: Optional[torch.Tensor] = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Full-sequence hidden states (B, S', d) after the final norm."""
+        x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._run_stack(
+            x, positions=positions, mode="full", cache=None,
+            prefix_len=prefix_len if self.cfg.prefix_lm else 0,
+        )
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return logits_from_hidden(
+            hidden, self.cfg, embedding=self.embed, unembed=self.unembed
+        )
+
+    def prefill(
+        self,
+        tokens: torch.Tensor,            # (B, S)
+        cache: Dict[str, Any],
+        *,
+        prefix_embed: Optional[torch.Tensor] = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Process the prompt, fill the (empty) cache in place, return the
+        last-position logits (B, 1, V) and the cache."""
+        if cache["len"] != 0:
+            raise ValueError("prefill needs an empty cache")
+        x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._run_stack(
+            x, positions=positions, mode="full", cache=cache,
+            prefix_len=prefix_len if self.cfg.prefix_lm else 0,
+        )
+        x = rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
+        cache["len"] = positions.shape[0]
+        return self.logits(x), cache
+
+    def decode_step(
+        self,
+        tokens: torch.Tensor,            # (B, 1)
+        cache: Dict[str, Any],
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One decode step: next-token logits (B, 1, V) and the cache,
+        updated in place."""
+        x = embed_tokens(self.embed, tokens, dtype)
+        n = cache["len"]
+        positions = torch.arange(n, n + 1, device=x.device)
+        x = self._run_stack(
+            x, positions=positions, mode="decode", cache=cache, prefix_len=0,
+        )
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        cache["len"] = n + 1
+        return self.logits(x), cache

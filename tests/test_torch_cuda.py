@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip without a CUDA device of compute capability 9.0
+(the kernels are built for ``sm_90a`` and have no CPU mode).  The file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+The cases are those of ``tests/test_kernels.py`` (``test_torch_kernels.py``
+checks that the copies agree), at its tolerances.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+ATTN_CASES = [
+    # (B, H, Kv, Sq, Skv, D, causal, window, prefix)
+    (1, 4, 4, 128, 128, 64, True, None, 0),
+    (2, 4, 2, 256, 256, 64, True, None, 0),          # GQA
+    (1, 8, 1, 128, 128, 128, True, None, 0),         # MQA (paligemma-like)
+    (2, 4, 4, 192, 192, 64, True, None, 0),          # non-multiple of block
+    (1, 4, 4, 128, 128, 64, False, None, 0),         # bidirectional (enc)
+    (1, 4, 4, 256, 256, 64, True, 96, 0),            # sliding window
+    (1, 4, 4, 128, 128, 64, True, None, 32),         # prefix-LM
+]
+
+DECODE_CASES = [
+    (1, 4, 4, 256, 64, 256),     # full cache
+    (2, 8, 2, 512, 64, 300),     # GQA + partial validity
+    (1, 8, 1, 1024, 128, 700),   # MQA long cache
+    (2, 4, 4, 384, 64, 100),     # short occupancy
+]
+
+DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, device):
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    return x.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_matches_plain(card, case, dtype):
+    B, H, Kv, S, D, n_valid = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(100 + DECODE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, S, Kv, D), tdt, card)
+    v = _randn(rng, (B, S, Kv, D), tdt, card)
+    valid = (torch.arange(S, device=card) < n_valid)[None].expand(B, S)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    want = tfd.plain(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfa.launch(q, q, q)
+    q = torch.zeros((1, 8, 4, 64), device=card)
+    with pytest.raises(ValueError, match="kv_valid"):
+        tfd.launch(q[:, :1], q, q, torch.ones((1, 8), device=card))

@@ -1,0 +1,137 @@
+"""Package rules of the port: its own configs equal the reference's, it
+imports neither JAX nor the reference package, and its entry points run on
+CUDA unless the caller asks for the CPU."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as j_config  # noqa: E402
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+from repro_torch.configs import get_config as t_config  # noqa: E402
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
+from repro_torch.models.config import ModelConfig as TModelConfig  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_model_config_fields_match_reference():
+    assert [f.name for f in dataclasses.fields(TModelConfig)] == [
+        f.name for f in dataclasses.fields(JModelConfig)]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_matches_reference(arch):
+    want, got = j_config(arch), t_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("resolved_head_dim", "padded_vocab", "mlp_gated", "is_moe",
+                 "hybrid_blocks", "approx_params"):
+        a, b = getattr(got, prop), getattr(want, prop)
+        assert (a() if callable(a) else a) == (b() if callable(b) else b), prop
+    assert dataclasses.asdict(t_smoke(arch)) == dataclasses.asdict(j_smoke(arch))
+
+
+# ---------------------------------------------------------------------------
+# no JAX, no reference package
+# ---------------------------------------------------------------------------
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(mods), bad)
+sys.exit(1 if bad or len(mods) < 15 else 0)
+"""
+
+
+def test_importing_every_module_loads_no_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax|from\s+jax|import\s+repro(?!_torch)\b|"
+    r"from\s+repro(?!_torch)\b)", re.M)
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_import_no_jax_or_reference():
+    files = list(_sources())
+    assert len(files) >= 20
+    offenders = [f for f in files if _FORBIDDEN.search(open(f).read())]
+    assert offenders == []
+    assert _FORBIDDEN.search("from repro.models import x\n")
+    assert _FORBIDDEN.search("  import jax.numpy as jnp\n")
+    assert not _FORBIDDEN.search("from repro_torch.models import x\n")
+
+
+# ---------------------------------------------------------------------------
+# entry points run on CUDA unless asked for the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this box has CUDA: the entry points would run there")
+
+
+def test_resolve_device(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_defaults_to_cuda(no_cuda):
+    from repro_torch.models.registry import build_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(t_smoke("llama3.2-1b"))
+    assert build_model(t_smoke("llama3.2-1b"), device="cpu").device.type == "cpu"
+
+
+def test_live_entry_point_defaults_to_cuda(no_cuda):
+    from repro_torch.serving import live
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        live.main(["--smoke"])
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda):
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
