@@ -1,5 +1,5 @@
-"""Attention kernels in the model layout (counterpart of
-``repro.kernels.ops``).
+"""Kernel wrappers: attention in the model layout, the selective scan in the
+reference's (B, Q, C, N) layout (counterpart of ``repro.kernels.ops``).
 
 Each wrapper decides by the device of the tensors it is given, in plain
 Python, before anything runs: a CPU tensor goes to the kernel's plain PyTorch
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import selective_scan as _ss
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -65,7 +66,27 @@ def flash_decode(
 
 flash_decode.launches = 0
 
-KERNEL_WRAPPERS = (flash_attention, flash_decode)
+
+def selective_scan(
+    a: torch.Tensor,              # (B, Q, C, N)
+    b: torch.Tensor,
+    h0: torch.Tensor,             # (B, C, N)
+) -> torch.Tensor:
+    """Every h_t of h_t = a_t * h_{t-1} + b_t, (B, Q, C, N) fp32.
+
+    The reference halves ``block_c`` until it divides C: that is the TPU
+    kernel's (block_c, N) VMEM tiling.  The CUDA kernel gives each (c, n)
+    element its own thread and takes any C, so there is no block size."""
+    if _on_cpu(a, b, h0):
+        return _ss.plain(a, b, h0)
+    out = _ss.launch(a, b, h0)
+    selective_scan.launches += 1
+    return out
+
+
+selective_scan.launches = 0
+
+KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention kernels, in the reference
-package's kernel layouts (counterpart of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels, in the reference package's kernel
+layouts (counterpart of ``repro.kernels.ref``).
 
 They are the CPU path of ``repro_torch.kernels.ops`` and the yardstick that
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
@@ -62,3 +62,17 @@ def flash_decode_ref(
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgm,bkmd->bkgd", w, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def selective_scan_ref(
+    a: torch.Tensor,              # (B, Q, C, N)
+    b: torch.Tensor,
+    h0: torch.Tensor,             # (B, C, N)
+) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t for t = 0..Q-1, every h_t in fp32
+    (B, Q, C, N): a sequential loop over Q, one fused step per t."""
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h = h0.float()
+    for t in range(a.shape[1]):
+        h = torch.addcmul(b[:, t].float(), a[:, t].float(), h, out=out[:, t])
+    return out

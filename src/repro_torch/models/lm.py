@@ -1,12 +1,12 @@
-"""TransformerLM — the decoder-only model, dense / GQA path (counterpart of
-``repro.models.lm``).
+"""TransformerLM — the decoder-only model, dense / GQA and Mamba-1 (SSM)
+paths (counterpart of ``repro.models.lm``).
 
 The reference stacks per-layer parameters and runs the layer stack as one
 ``lax.scan``; here the stack is a loop over an ``nn.ModuleList`` whose
 entries hold one layer's parameters each, in the reference's shapes
-(``attn.wq`` is (d_model, heads, head_dim), and so on).  Families this slice
-does not port (MoE, SSM, hybrid) raise ``NotImplementedError`` naming the
-ROADMAP item that will.
+(``attn.wq`` is (d_model, heads, head_dim), and so on).  Families not ported
+yet (MoE, hybrid) raise ``NotImplementedError`` naming the ROADMAP item that
+will.
 
 Modes
 -----
@@ -15,8 +15,11 @@ Modes
 ``decode_step``  one token per sequence against the carried cache
 
 The cache is a dict ``{"len": int, "kv": {"k", "v"}}`` with K/V of shape
-(layers, batch, slots, kv_heads, head_dim), written in place; ``len`` is a
-host int, so no step waits on the device to learn it.
+(layers, batch, slots, kv_heads, head_dim), or for the SSM family
+``{"len": int, "ssm_state": {"conv", "ssm"}}`` with fp32 states of shape
+(layers, batch, conv - 1, d_inner) and (layers, batch, d_inner, ssm_state).
+Either is written in place; ``len`` is a host int, so no step waits on the
+device to learn it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.base import (
     ParamTree,
     cast_params,
@@ -49,17 +53,17 @@ from repro_torch.models.layers import (
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 8 (MoE, with the moe_gmm kernel)",
-    "ssm": "ROADMAP Queue 1 item 9 (Mamba, with the selective_scan kernel)",
-    "hybrid": "ROADMAP Queue 1 item 9 (SSM and hybrid stacks)",
+    "hybrid": "ROADMAP Queue 1 item 9 (Mamba-2 and the hybrid stack)",
 }
 
 
 def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
-    """One decoder layer's parameters (dense / GQA family)."""
-    bp: Dict[str, Any] = {
-        "ln1": rmsnorm_spec(cfg.d_model),
-        "attn": attn.attention_blueprint(cfg),
-    }
+    """One decoder layer's parameters (dense / GQA or Mamba-1 family)."""
+    bp: Dict[str, Any] = {"ln1": rmsnorm_spec(cfg.d_model)}
+    if cfg.family == "ssm":
+        bp["mixer"] = ssm.mamba1_blueprint(cfg)
+        return bp
+    bp["attn"] = attn.attention_blueprint(cfg)
     if not cfg.parallel_block:
         bp["ln2"] = rmsnorm_spec(cfg.d_model)
     bp["mlp"] = mlp_blueprint(cfg)
@@ -78,13 +82,15 @@ def lm_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix)."""
+    """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix,
+    Mamba-1)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         *,
-        impl: str = "kernel",          # attention impl: kernel | plain
+        impl: str = "kernel",          # attention / scan impl: kernel | plain
+        ssm_chunk: int = 256,          # Mamba-1 prefill: steps per scan
         device: Any = "cuda",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
@@ -105,6 +111,7 @@ class TransformerLM(nn.Module):
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         self.cfg = cfg
         self.impl = impl
+        self.ssm_chunk = ssm_chunk
 
         bp = self.blueprint()
         top = cast_params(
@@ -140,6 +147,18 @@ class TransformerLM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            # the states are fp32 whatever the activation dtype, as in the
+            # reference; a bf16 conv state written here is exact
+            L = cfg.num_layers
+            return {
+                "len": 0,
+                "ssm_state": {
+                    k: torch.zeros((L,) + s, dtype=torch.float32,
+                                   device=self.device)
+                    for k, s in ssm.mamba1_state_shapes(cfg, batch).items()
+                },
+            }
         slots = (
             min(max_len, cfg.sliding_window)
             if cfg.sliding_window is not None
@@ -174,7 +193,35 @@ class TransformerLM(nn.Module):
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + mlp_apply(lp["mlp"], cfg, h2)
 
+    def _mamba_block(self, lp, x, *, mode, state):
+        h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
+        if mode == "decode":
+            y, new_state = ssm.mamba1_decode(lp["mixer"], self.cfg, h, state)
+        else:
+            y, new_state = ssm.mamba1_full(
+                lp["mixer"], self.cfg, h, chunk=self.ssm_chunk, state=state,
+                impl=self.impl,
+            )
+        return x + y, new_state
+
+    def _run_ssm_stack(self, x, *, mode, cache):
+        """Mamba-1 layers; with a cache, each layer reads its state and
+        writes the new one back in place.  Without one every layer starts
+        from zeros, as the reference's zero states."""
+        states = None if cache is None else cache["ssm_state"]
+        for i, lp in enumerate(self.layers):
+            state = None
+            if states is not None:
+                state = {k: v[i] for k, v in states.items()}
+            x, new_state = self._mamba_block(lp, x, mode=mode, state=state)
+            if state is not None:
+                for k, v in state.items():
+                    v.copy_(new_state[k])
+        return x
+
     def _run_stack(self, x, *, positions, mode, cache, prefix_len):
+        if self.cfg.family == "ssm":
+            return self._run_ssm_stack(x, mode=mode, cache=cache)
         cache_len = None if cache is None else cache["len"]
         for i, lp in enumerate(self.layers):
             layer_kv = None

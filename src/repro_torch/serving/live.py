@@ -9,6 +9,12 @@ requests are dropped and retried client-side, re-prefilled on a survivor
 
     python -m repro_torch.serving.live                 # llama3.2-1b on CUDA
     python -m repro_torch.serving.live --smoke --device cpu
+    python -m repro_torch.serving.live --arch falcon-mamba-7b
+    python -m repro_torch.serving.live --arch falcon-mamba-7b --smoke --device cpu
+
+The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
+``decode_step``, whatever the model keeps in its cache (KV for attention,
+conv and SSM states for Mamba-1).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ class LiveReplica:
         self.alive = True
         self.inflight: List[list] = []   # [req_id, cache, tok, remaining, out]
         self.prefill_s: List[float] = []
+        self.prefill_lens: List[int] = []
         self.decode_s: List[float] = []
 
     @torch.inference_mode()
@@ -45,6 +52,7 @@ class LiveReplica:
         tok = logits.argmax(-1)                        # (1, 1)
         out = [int(tok[0, 0])]                         # waits for the device
         self.prefill_s.append(time.perf_counter() - t0)
+        self.prefill_lens.append(int(prompt.shape[0]))
         self.inflight.append([req_id, cache, tok, out_tokens, out])
 
     @torch.inference_mode()
@@ -81,6 +89,7 @@ class FleetResult:
     prefills: int                        # model.prefill calls, retries included
     decode_steps: int                    # model.decode_step calls
     prefill_s: List[float]               # host seconds per prefill
+    prefill_lens: List[int]              # prompt length of each prefill
     decode_s: List[float]                # host seconds per decode step
     wall_s: float
 
@@ -130,9 +139,10 @@ def serve_fleet(
             pending = failed + pending
     wall = time.perf_counter() - t0
     prefill_s = [t for r in reps for t in r.prefill_s]
+    prefill_lens = [n for r in reps for n in r.prefill_lens]
     decode_s = [t for r in reps for t in r.decode_s]
     return FleetResult(completed, retried, len(prefill_s), len(decode_s),
-                       prefill_s, decode_s, wall)
+                       prefill_s, prefill_lens, decode_s, wall)
 
 
 def make_prompts(cfg, *, n: int, min_len: int, max_len: int, seed: int,

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 ATTN_CASES = [
@@ -35,6 +36,12 @@ DECODE_CASES = [
     (2, 8, 2, 512, 64, 300),     # GQA + partial validity
     (1, 8, 1, 1024, 128, 700),   # MQA long cache
     (2, 4, 4, 384, 64, 100),     # short occupancy
+]
+
+SCAN_CASES = [
+    (1, 32, 64, 16),
+    (2, 64, 128, 16),
+    (2, 17, 256, 8),      # odd chunk length
 ]
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -92,6 +99,48 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _scan_inputs(rng, shape, dtype, device):
+    a = torch.sigmoid(_randn(rng, shape, torch.float32, device)).to(dtype)
+    b = (0.1 * _randn(rng, shape, torch.float32, device)).to(dtype)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_selective_scan_kernel_matches_plain(card, case, dtype):
+    """Tolerance 1e-5, the reference's scan tolerance; bf16 inputs are
+    widened to fp32 by both, so the tolerance holds there too."""
+    B, Q, C, N = case
+    tdt = DTYPES[dtype][0]
+    rng = np.random.default_rng(200 + SCAN_CASES.index(case))
+    a, b = _scan_inputs(rng, (B, Q, C, N), tdt, card)
+    h0 = _randn(rng, (B, C, N), torch.float32, card)
+    before = ops.selective_scan.launches
+    got = ops.selective_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, Q, C, N)
+    torch.testing.assert_close(got, tss.plain(a, b, h0), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_on_chunk_views(card):
+    """Chunk slices of a (B, S, C, N) tensor launch with no copy, and the
+    state carried between them gives the whole sequence's scan."""
+    rng = np.random.default_rng(7)
+    a, b = _scan_inputs(rng, (2, 50, 96, 16), torch.float32, card)
+    h0 = _randn(rng, (2, 96, 16), torch.float32, card)
+    whole = tss.plain(a, b, h0)
+    h, parts = h0, []
+    for c0 in range(0, 50, 16):
+        hs = ops.selective_scan(a[:, c0:c0 + 16], b[:, c0:c0 + 16], h)
+        parts.append(hs)
+        h = hs[:, -1]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(parts, dim=1), whole, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
@@ -100,3 +149,5 @@ def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card)
     with pytest.raises(ValueError, match="kv_valid"):
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), device=card))
+    with pytest.raises(ValueError, match="unit stride"):
+        tss.launch(q.transpose(2, 3), q.transpose(2, 3), q[:, 0].transpose(1, 2))

@@ -1,10 +1,11 @@
-"""The port's attention kernels against the reference package's.
+"""The port's kernels (attention, selective scan) against the reference
+package's.
 
 On the CPU the port's wrappers run their kernels' plain PyTorch versions;
 these must match the Pallas kernels (run in interpret mode, as
 ``test_kernels.py`` runs them) and the reference's jnp oracles on every case
 of ``test_kernels.py``, at its tolerances (2e-5 in float32, 2e-2 in
-bfloat16).  The CUDA kernels themselves run only on the card:
+bfloat16; 1e-5 for the scan).  The CUDA kernels themselves run only on the card:
 ``test_torch_cuda.py`` holds them against the plain versions there.
 """
 
@@ -13,16 +14,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
 from repro.kernels.flash_decode import flash_decode_bhd  # noqa: E402
+from repro.kernels.selective_scan import selective_scan_bqcn  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from test_kernels import ATTN_CASES, DECODE_CASES  # noqa: E402
+from test_kernels import ATTN_CASES, DECODE_CASES, SCAN_CASES  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -87,14 +91,60 @@ def test_flash_decode_plain_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
 
 
+def _scan_inputs(rng, B, Q, C, N):
+    """a in (0, 1) like exp(delta * A), b small, as ``test_kernels.py``."""
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, Q, C, N), dtype=np.float32)))
+    b = 0.1 * rng.standard_normal((B, Q, C, N), dtype=np.float32)
+    h0 = rng.standard_normal((B, C, N), dtype=np.float32)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_selective_scan_plain_matches_pallas_and_ref(case):
+    B, Q, C, N = case
+    a, b, h0 = _scan_inputs(np.random.default_rng(200 + SCAN_CASES.index(case)),
+                            B, Q, C, N)
+    ja, jb, jh0 = jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0)
+    pallas = selective_scan_bqcn(ja, jb, jh0, block_c=64, interpret=True)
+    oracle = jref.selective_scan_ref(ja, jb, jh0)
+    ta, tb, th0 = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0)
+    got = ops.selective_scan(ta, tb, th0)
+    assert got.dtype == torch.float32 and got.shape == (B, Q, C, N)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(tss.plain(ta, tb, th0)), _np(oracle),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_selective_scan_chunk_views_match_whole_scan():
+    """Scanning chunk views of a (B, S, C, N) tensor, each from the last h
+    of the one before (the way ``mamba1_full`` calls it), gives the scan of
+    the whole sequence; the reference's associative form agrees."""
+    a, b, h0 = _scan_inputs(np.random.default_rng(7), 2, 23, 16, 8)
+    ta, tb, th0 = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0)
+    whole = ops.selective_scan(ta, tb, th0)
+    h, parts = th0, []
+    for c0 in range(0, 23, 8):
+        hs = ops.selective_scan(ta[:, c0:c0 + 8], tb[:, c0:c0 + 8], h)
+        parts.append(hs)
+        h = hs[:, -1]
+    torch.testing.assert_close(torch.cat(parts, dim=1), whole, atol=0, rtol=0)
+    a_s, b_s = jax.lax.associative_scan(
+        lambda l, r: (l[0] * r[0], l[1] * r[0] + r[1]),
+        (jnp.asarray(a), jnp.asarray(b)), axis=1)
+    assoc = b_s + a_s * jnp.asarray(h0)[:, None]
+    np.testing.assert_allclose(_np(whole), _np(assoc), atol=1e-5, rtol=1e-5)
+
+
 def test_cpu_path_counts_no_launch():
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((1, 64, 4, 64), dtype=np.float32))
     valid = torch.ones((1, 64), dtype=torch.bool)
-    before = (ops.flash_attention.launches, ops.flash_decode.launches)
+    before = tuple(fn.launches for fn in ops.KERNEL_WRAPPERS)
     ops.flash_attention(q, q, q)
     ops.flash_decode(q[:, :1], q, q, kv_valid=valid)
-    assert (ops.flash_attention.launches, ops.flash_decode.launches) == before
+    ops.selective_scan(q, q, q[:, 0])
+    assert tuple(fn.launches for fn in ops.KERNEL_WRAPPERS) == before
 
 
 def test_kernel_launch_refuses_cpu_tensors():
@@ -107,6 +157,14 @@ def test_kernel_launch_refuses_cpu_tensors():
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), dtype=torch.bool))
     with pytest.raises(ValueError, match="head_dim"):
         tfa.launch(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.launch(q, q, q[:, 0])
+    with pytest.raises(ValueError, match="h0"):
+        tss.launch(q, q, q)
+    with pytest.raises(TypeError):
+        tss.launch(q.half(), q.half(), q[:, 0])
+    with pytest.raises(ValueError, match="unit stride"):
+        tss.launch(q.transpose(2, 3), q.transpose(2, 3), q[:, 0].transpose(1, 2))
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -127,6 +185,7 @@ def test_build_names_libraries_by_source_hash():
     p = build.library_path("flash_attention")
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
     assert p != build.library_path("flash_decode")
+    assert "selective_scan" in build.KERNELS
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -139,3 +198,4 @@ def test_card_test_cases_are_the_reference_cases():
 
     assert test_torch_cuda.ATTN_CASES == ATTN_CASES
     assert test_torch_cuda.DECODE_CASES == DECODE_CASES
+    assert test_torch_cuda.SCAN_CASES == SCAN_CASES

@@ -140,7 +140,8 @@ def test_impl_plain_matches_impl_kernel_on_cpu():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-3b", "command-r-35b",
-                                  "h2o-danube3-4b", "paligemma-3b"])
+                                  "h2o-danube3-4b", "paligemma-3b",
+                                  "falcon-mamba-7b"])
 def test_param_count_matches_reference(arch):
     """Blueprint counts only: nothing is allocated at full width."""
     assert param_count(lm_blueprint(t_config(arch))) == j_param_count(
@@ -151,13 +152,38 @@ def test_llama_3_2_1b_full_width_count():
     assert param_count(lm_blueprint(t_config("llama3.2-1b"))) == 1_235_814_400
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
-                                  "phi3.5-moe-42b", "qwen3-moe-30b",
-                                  "whisper-medium"])
+def test_falcon_mamba_7b_full_width_count():
+    assert param_count(lm_blueprint(t_config("falcon-mamba-7b"))) == 7_272_665_088
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "phi3.5-moe-42b",
+                                  "qwen3-moe-30b", "whisper-medium"])
 def test_unported_families_raise(arch):
     assert arch in ARCH_IDS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_build(t_smoke(arch), device="cpu")
+
+
+def test_falcon_mamba_smoke_builds_and_serves_on_cpu():
+    """The SSM family is ported: its smoke model serves the fleet across
+    the preemption, one prefill length recorded per prefill, and on the CPU
+    no kernel is launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.live import make_prompts, serve_fleet
+
+    cfg = t_smoke("falcon-mamba-7b")
+    model = t_build(cfg, device="cpu", ssm_chunk=4)
+    prompts = make_prompts(cfg, n=4, min_len=3, max_len=11, seed=2, device="cpu")
+    ops.reset_launch_counts()
+    res = serve_fleet(model, prompts, replicas=2, out_tokens=5, kill_step=2,
+                      dtype=torch.float32, log=lambda s: None)
+    assert sorted(res.completed) == sorted(prompts)
+    assert all(len(t) == 6 for t in res.completed.values())
+    assert res.retried and res.prefills == len(prompts) + len(res.retried)
+    assert sorted(res.prefill_lens) == sorted(
+        [len(p) for p in prompts.values()]
+        + [len(prompts[r]) for r in res.retried])
+    assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
 
 
 def test_init_is_seeded():
