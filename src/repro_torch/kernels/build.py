@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "flash_decode", "selective_scan")
+KERNELS = ("flash_attention", "flash_decode", "selective_scan", "moe_gmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,5 +1,7 @@
 """Kernel wrappers: attention in the model layout, the selective scan in the
-reference's (B, Q, C, N) layout (counterpart of ``repro.kernels.ops``).
+reference's (B, Q, C, N) layout, the MoE grouped matmul in its (E, C, D)
+layout and the expert FFN built on it (counterpart of
+``repro.kernels.ops``).
 
 Each wrapper decides by the device of the tensors it is given, in plain
 Python, before anything runs: a CPU tensor goes to the kernel's plain PyTorch
@@ -17,7 +19,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import selective_scan as _ss
+from repro_torch.models.layers import activation
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -86,7 +90,52 @@ def selective_scan(
 
 selective_scan.launches = 0
 
-KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan)
+
+def moe_gmm(
+    x: torch.Tensor,              # (E, C, D)
+    w: torch.Tensor,              # (E, D, F)
+) -> torch.Tensor:
+    """y[e] = x[e] @ w[e], (E, C, F) in x's dtype, products summed in fp32.
+
+    The reference pads C, D and F to its 128/512 blocks: that is the TPU
+    kernel's MXU tiling.  The CUDA kernel masks ragged edges itself, so
+    nothing is padded or copied."""
+    if _on_cpu(x, w):
+        return _gmm.plain(x, w)
+    out = _gmm.launch(x, w)
+    moe_gmm.launches += 1
+    return out
+
+
+moe_gmm.launches = 0
+
+
+def moe_ffn(
+    xe: torch.Tensor,             # (E, C, D)
+    wi: torch.Tensor,             # (E, D, F)
+    wg: Optional[torch.Tensor],   # (E, D, F) or None
+    wo: torch.Tensor,             # (E, F, D)
+    *,
+    act: str = "silu",
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """The expert FFN as grouped matmuls: h = x @ wi, h = act(x @ wg) * h
+    (or act(h) without a gate), then h @ wo; three products with a gate, two
+    without.  ``impl="kernel"`` runs each through ``moe_gmm``, ``"plain"``
+    through its plain version on any device."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    gmm = moe_gmm if impl == "kernel" else _gmm.plain
+    a = activation(act)
+    h = gmm(xe, wi)
+    if wg is not None:
+        h = a(gmm(xe, wg)) * h
+    else:
+        h = a(h)
+    return gmm(h, wo)
+
+
+KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan, moe_gmm)
 
 
 def reset_launch_counts() -> None:

@@ -76,3 +76,11 @@ def selective_scan_ref(
     for t in range(a.shape[1]):
         h = torch.addcmul(b[:, t].float(), a[:, t].float(), h, out=out[:, t])
     return out
+
+
+def moe_gmm_ref(
+    x: torch.Tensor,              # (E, C, D)
+    w: torch.Tensor,              # (E, D, F)
+) -> torch.Tensor:
+    """y[e] = x[e] @ w[e] in fp32, cast back to x's dtype (E, C, F)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

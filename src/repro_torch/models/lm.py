@@ -1,12 +1,14 @@
-"""TransformerLM — the decoder-only model, dense / GQA and Mamba-1 (SSM)
-paths (counterpart of ``repro.models.lm``).
+"""TransformerLM — the decoder-only model: dense / GQA, MoE and Mamba-1
+(SSM) paths (counterpart of ``repro.models.lm``).
 
 The reference stacks per-layer parameters and runs the layer stack as one
 ``lax.scan``; here the stack is a loop over an ``nn.ModuleList`` whose
 entries hold one layer's parameters each, in the reference's shapes
-(``attn.wq`` is (d_model, heads, head_dim), and so on).  Families not ported
-yet (MoE, hybrid) raise ``NotImplementedError`` naming the ROADMAP item that
-will.
+(``attn.wq`` is (d_model, heads, head_dim), and so on).  An MoE layer holds
+``moe`` in place of ``mlp``; its expert FFN follows the model's ``impl``
+(the reference's model always takes its einsum path).  The hybrid family is
+not ported yet and raises ``NotImplementedError`` naming the ROADMAP item
+that will.
 
 Modes
 -----
@@ -31,7 +33,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.base import (
     ParamTree,
     cast_params,
@@ -52,13 +54,12 @@ from repro_torch.models.layers import (
 )
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 8 (MoE, with the moe_gmm kernel)",
     "hybrid": "ROADMAP Queue 1 item 9 (Mamba-2 and the hybrid stack)",
 }
 
 
 def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
-    """One decoder layer's parameters (dense / GQA or Mamba-1 family)."""
+    """One decoder layer's parameters (dense / GQA, MoE or Mamba-1)."""
     bp: Dict[str, Any] = {"ln1": rmsnorm_spec(cfg.d_model)}
     if cfg.family == "ssm":
         bp["mixer"] = ssm.mamba1_blueprint(cfg)
@@ -66,7 +67,10 @@ def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
     bp["attn"] = attn.attention_blueprint(cfg)
     if not cfg.parallel_block:
         bp["ln2"] = rmsnorm_spec(cfg.d_model)
-    bp["mlp"] = mlp_blueprint(cfg)
+    if cfg.is_moe:
+        bp["moe"] = moe.moe_blueprint(cfg)
+    else:
+        bp["mlp"] = mlp_blueprint(cfg)
     return bp
 
 
@@ -83,24 +87,23 @@ def lm_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
 
 class TransformerLM(nn.Module):
     """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix,
-    Mamba-1)."""
+    MoE, Mamba-1)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         *,
-        impl: str = "kernel",          # attention / scan impl: kernel | plain
+        impl: str = "kernel",          # attention / MoE / scan: kernel | plain
         ssm_chunk: int = 256,          # Mamba-1 prefill: steps per scan
         device: Any = "cuda",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        family = "moe" if cfg.is_moe else cfg.family
-        if family in _NOT_PORTED:
+        if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
-                f"{cfg.name}: the {family} family is not ported yet; "
-                f"see {_NOT_PORTED[family]}"
+                f"{cfg.name}: the {cfg.family} family is not ported yet; "
+                f"see {_NOT_PORTED[cfg.family]}"
             )
         if impl not in attn.IMPLS:
             raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
@@ -177,6 +180,13 @@ class TransformerLM(nn.Module):
     # ==================================================================
     # Blocks
     # ==================================================================
+    def _ffn(self, lp, h):
+        """The layer's FFN: the MLP, or the MoE layer (no aux loss: the
+        port serves)."""
+        if self.cfg.is_moe:
+            return moe.moe_apply(lp["moe"], self.cfg, h, impl=self.impl)[0]
+        return mlp_apply(lp["mlp"], self.cfg, h)
+
     def _attn_block(self, lp, x, *, positions, mode, layer_kv, cache_len,
                     prefix_len):
         cfg = self.cfg
@@ -188,10 +198,10 @@ class TransformerLM(nn.Module):
         )
         if cfg.parallel_block:
             # command-r: attn and FFN read the SAME normed input, summed
-            return x + a + mlp_apply(lp["mlp"], cfg, h)
+            return x + a + self._ffn(lp, h)
         x = x + a
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + mlp_apply(lp["mlp"], cfg, h2)
+        return x + self._ffn(lp, h2)
 
     def _mamba_block(self, lp, x, *, mode, state):
         h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)

@@ -11,10 +11,12 @@ requests are dropped and retried client-side, re-prefilled on a survivor
     python -m repro_torch.serving.live --smoke --device cpu
     python -m repro_torch.serving.live --arch falcon-mamba-7b
     python -m repro_torch.serving.live --arch falcon-mamba-7b --smoke --device cpu
+    python -m repro_torch.serving.live --arch qwen3-moe-30b
+    python -m repro_torch.serving.live --arch qwen3-moe-30b --smoke --device cpu
 
 The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
 ``decode_step``, whatever the model keeps in its cache (KV for attention,
-conv and SSM states for Mamba-1).
+dense or MoE, conv and SSM states for Mamba-1).
 """
 
 from __future__ import annotations

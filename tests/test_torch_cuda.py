@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -43,6 +44,15 @@ SCAN_CASES = [
     (2, 64, 128, 16),
     (2, 17, 256, 8),      # odd chunk length
 ]
+
+GMM_CASES = [
+    (4, 64, 128, 256),
+    (8, 96, 200, 64),       # non-aligned dims exercise padding
+    (2, 256, 512, 512),
+]
+
+# the grouped matmul's own tolerances in the reference (test_kernels.py)
+GMM_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
@@ -142,6 +152,66 @@ def test_selective_scan_kernel_on_chunk_views(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CASES)
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_kernel_matches_plain(card, case, dtype):
+    E, C, D, F = case
+    tdt, tol = GMM_TOL[dtype]
+    rng = np.random.default_rng(300 + GMM_CASES.index(case))
+    x = _randn(rng, (E, C, D), tdt, card)
+    w = _randn(rng, (E, D, F), tdt, card)
+    before = ops.moe_gmm.launches
+    got = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == before + 1
+    assert got.dtype == tdt and got.shape == (E, C, F)
+    torch.testing.assert_close(got.float(), tgmm.plain(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
+# (E, C, D, F): decode capacities 1-8 (rows in registers, D split across the
+# block), C between the two kernels, ragged F without vector loads
+GMM_EDGE_CASES = [(16, 1, 256, 128), (16, 3, 130, 66), (8, 8, 200, 64),
+                  (8, 9, 64, 100), (4, 200, 64, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_EDGE_CASES)
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_kernel_on_strided_capacity_views(card, case, dtype):
+    """x as ``moe_apply`` hands it over: the first C rows of an (E, C + 1,
+    D) dispatch buffer, a view with a dense last axis."""
+    E, C, D, F = case
+    tdt, tol = GMM_TOL[dtype]
+    rng = np.random.default_rng(400 + GMM_EDGE_CASES.index(case))
+    x = _randn(rng, (E, C + 1, D), tdt, card)[:, :C]
+    w = _randn(rng, (E, D, F), tdt, card)
+    assert not x.is_contiguous()
+    got = tgmm.launch(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), tgmm.plain(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_kernel_matches_plain(card):
+    """Three launches with a gate, each product held by the plain path."""
+    rng = np.random.default_rng(9)
+    E, C, D, F = 8, 20, 128, 96
+    xe = _randn(rng, (E, C, D), torch.float32, card)
+    wi, wg = (_randn(rng, (E, D, F), torch.float32, card) / D ** 0.5
+              for _ in range(2))
+    wo = _randn(rng, (E, F, D), torch.float32, card) / F ** 0.5
+    before = ops.moe_gmm.launches
+    got = ops.moe_ffn(xe, wi, wg, wo, act="silu")
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == before + 3
+    want = ops.moe_ffn(xe, wi, wg, wo, act="silu", impl="plain")
+    assert ops.moe_gmm.launches == before + 3
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -151,3 +221,9 @@ def test_kernels_refuse_what_they_do_not_take(card):
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), device=card))
     with pytest.raises(ValueError, match="unit stride"):
         tss.launch(q.transpose(2, 3), q.transpose(2, 3), q[:, 0].transpose(1, 2))
+    x = torch.zeros((4, 3, 8), device=card)
+    with pytest.raises(TypeError):
+        tgmm.launch(x, torch.zeros((4, 8, 5), device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="unit stride"):
+        tgmm.launch(x.transpose(1, 2).contiguous().transpose(1, 2),
+                    torch.zeros((4, 8, 5), device=card))

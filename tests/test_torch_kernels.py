@@ -1,5 +1,5 @@
 """The port's kernels (attention, selective scan) against the reference
-package's.
+package's; the grouped matmul's are in ``test_torch_moe.py``.
 
 On the CPU the port's wrappers run their kernels' plain PyTorch versions;
 these must match the Pallas kernels (run in interpret mode, as
@@ -24,9 +24,12 @@ from repro.kernels.selective_scan import selective_scan_bqcn  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from test_kernels import ATTN_CASES, DECODE_CASES, SCAN_CASES  # noqa: E402
+from test_kernels import (  # noqa: E402
+    ATTN_CASES, DECODE_CASES, GMM_CASES, SCAN_CASES,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -144,6 +147,8 @@ def test_cpu_path_counts_no_launch():
     ops.flash_attention(q, q, q)
     ops.flash_decode(q[:, :1], q, q, kv_valid=valid)
     ops.selective_scan(q, q, q[:, 0])
+    ops.moe_gmm(q[0], q[0].transpose(1, 2))
+    ops.moe_ffn(q[0], q[0].transpose(1, 2), None, q[0])
     assert tuple(fn.launches for fn in ops.KERNEL_WRAPPERS) == before
 
 
@@ -165,6 +170,8 @@ def test_kernel_launch_refuses_cpu_tensors():
         tss.launch(q.half(), q.half(), q[:, 0])
     with pytest.raises(ValueError, match="unit stride"):
         tss.launch(q.transpose(2, 3), q.transpose(2, 3), q[:, 0].transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgmm.launch(q[0], q[0].transpose(1, 2).contiguous())
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -185,7 +192,8 @@ def test_build_names_libraries_by_source_hash():
     p = build.library_path("flash_attention")
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
     assert p != build.library_path("flash_decode")
-    assert "selective_scan" in build.KERNELS
+    assert "selective_scan" in build.KERNELS and "moe_gmm" in build.KERNELS
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(build.KERNELS)
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -199,3 +207,4 @@ def test_card_test_cases_are_the_reference_cases():
     assert test_torch_cuda.ATTN_CASES == ATTN_CASES
     assert test_torch_cuda.DECODE_CASES == DECODE_CASES
     assert test_torch_cuda.SCAN_CASES == SCAN_CASES
+    assert test_torch_cuda.GMM_CASES == GMM_CASES

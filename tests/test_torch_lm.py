@@ -141,7 +141,8 @@ def test_impl_plain_matches_impl_kernel_on_cpu():
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-3b", "command-r-35b",
                                   "h2o-danube3-4b", "paligemma-3b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "phi3.5-moe-42b",
+                                  "qwen3-moe-30b"])
 def test_param_count_matches_reference(arch):
     """Blueprint counts only: nothing is allocated at full width."""
     assert param_count(lm_blueprint(t_config(arch))) == j_param_count(
@@ -156,8 +157,11 @@ def test_falcon_mamba_7b_full_width_count():
     assert param_count(lm_blueprint(t_config("falcon-mamba-7b"))) == 7_272_665_088
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "phi3.5-moe-42b",
-                                  "qwen3-moe-30b", "whisper-medium"])
+def test_qwen3_moe_30b_full_width_count():
+    assert param_count(lm_blueprint(t_config("qwen3-moe-30b"))) == 30_532_646_912
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-medium"])
 def test_unported_families_raise(arch):
     assert arch in ARCH_IDS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
