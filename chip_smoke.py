@@ -16,6 +16,8 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
    function (a yardstick the port never calls), and the card's bound;
+   flash_attention also at qwen3-moe-30b's shape (H=32, Kv=4, D=128) and
+   moe_gmm also at the S=975 prefill capacity, each on a log line;
 4. serves three full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -68,6 +70,8 @@ SCAN_TOL = 1e-5           # the reference's scan tolerance (test_kernels.py)
 MAIN_H, MAIN_KV, MAIN_D = 32, 8, 64
 PREFILL_S = 1024
 DECODE_S = 2048
+# qwen3-moe-30b attention
+QWEN_H, QWEN_KV, QWEN_D = 32, 4, 128
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -79,6 +83,10 @@ FA_CASES = [
     (torch.bfloat16, 2, 4, 4, 192, 64, False, None, 0),     # bidirectional
     (torch.float32, 1, 32, 8, 256, 64, True, None, 0),
     (torch.float32, 2, 8, 2, 200, 128, True, 96, 0),
+    # qwen3-moe-30b's attention (H=32, Kv=4, D=128): ragged lengths around
+    # the 64-row tiles, with the causal, sliding-window and prefix-LM masks
+    *((torch.bfloat16, 1, 32, 4, S, 128, True, window, prefix)
+      for S in (1, 63, 65, 975) for window, prefix in ((None, 0), (96, 0), (None, 37))),
 ]
 
 FD_CASES = [
@@ -114,22 +122,29 @@ GMM_E, GMM_D, GMM_F = 128, 2048, 768
 GMM_DECODE_C, GMM_PREFILL_C = 1, 77
 
 GMM_CASES = [
-    # (label, dtype, E, C, D, F, x strided in C)
-    ("reference case", torch.float32, 4, 64, 128, 256, False),
-    ("reference case, D and F not aligned", torch.float32, 8, 96, 200, 64, False),
-    ("reference case, C > one tile", torch.float32, 2, 256, 512, 512, False),
-    ("reference case", torch.bfloat16, 4, 64, 128, 256, False),
-    ("reference case, D and F not aligned", torch.bfloat16, 8, 96, 200, 64, False),
-    ("reference case, C > one tile", torch.bfloat16, 2, 256, 512, 512, False),
-    ("qwen3 decode", torch.bfloat16, 128, 1, 2048, 768, True),
-    ("qwen3 decode", torch.float32, 128, 1, 2048, 768, True),
-    ("qwen3 prefill S=975", torch.bfloat16, 128, 77, 2048, 768, True),
-    ("qwen3 prefill S=975", torch.float32, 128, 77, 2048, 768, True),
-    ("qwen3 wo product", torch.bfloat16, 128, 77, 768, 2048, False),
-    ("phi3.5-moe prefill S=975", torch.bfloat16, 16, 153, 4096, 6400, False),
-    ("small C, F not a multiple of 4", torch.bfloat16, 8, 5, 200, 102, True),
-    ("small C, F not a multiple of 4", torch.float32, 8, 3, 130, 66, False),
-    ("C=12, one 16-row tile", torch.float32, 8, 12, 200, 64, True),
+    # (label, dtype, E, C, D, F, layout of x: see gmm_x)
+    ("reference case", torch.float32, 4, 64, 128, 256, "contiguous"),
+    ("reference case, D and F not aligned", torch.float32, 8, 96, 200, 64, "contiguous"),
+    ("reference case, C > one tile", torch.float32, 2, 256, 512, 512, "contiguous"),
+    ("reference case", torch.bfloat16, 4, 64, 128, 256, "contiguous"),
+    ("reference case, D and F not aligned", torch.bfloat16, 8, 96, 200, 64, "contiguous"),
+    ("reference case, C > one tile", torch.bfloat16, 2, 256, 512, 512, "contiguous"),
+    ("qwen3 decode", torch.bfloat16, 128, 1, 2048, 768, "dispatch"),
+    ("qwen3 decode", torch.float32, 128, 1, 2048, 768, "dispatch"),
+    ("qwen3 prefill S=975", torch.bfloat16, 128, 77, 2048, 768, "dispatch"),
+    ("qwen3 prefill S=975", torch.float32, 128, 77, 2048, 768, "dispatch"),
+    ("qwen3 wo product", torch.bfloat16, 128, 77, 768, 2048, "contiguous"),
+    ("phi3.5-moe prefill S=975", torch.bfloat16, 16, 153, 4096, 6400, "contiguous"),
+    ("small C, F not a multiple of 4", torch.bfloat16, 8, 5, 200, 102, "dispatch"),
+    ("small C, F not a multiple of 4", torch.float32, 8, 3, 130, 66, "contiguous"),
+    ("C=12, one 16-row tile", torch.float32, 8, 12, 200, 64, "dispatch"),
+    # the tensor-core kernel's row tiles (16-row fragments, balanced tiles
+    # of <= 128 rows) at qwen3's D and F
+    *((f"qwen3 D and F, C={C}", torch.bfloat16, 16, C, 2048, 768, "dispatch")
+      for C in (9, 16, 17, 63, 64, 65, 77, 128, 129, 153)),
+    ("ragged D slice", torch.bfloat16, 8, 40, 200, 768, "dispatch"),
+    ("D not a multiple of 8: element loads", torch.bfloat16, 8, 40, 203, 768, "contiguous"),
+    ("x base not 16-byte aligned: element loads", torch.bfloat16, 8, 40, 2048, 768, "offset"),
 ]
 
 
@@ -151,6 +166,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 10, attempts: int = 2):
+    """Mean device time of ``fn`` in ms with no host gaps: a spin kernel
+    holds the stream while the host enqueues ``iters`` calls, so they run
+    back to back between two CUDA events.  The spin is lengthened until the
+    enqueue ends inside it (its cycles over the 1.98 GHz top clock bound
+    its length from below).  None where it never does: ``fn`` waits for the
+    device (a host-to-device copy does), so its calls cannot be queued."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    for _ in range(attempts):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        if enqueue_ms < cycles / 1.98e6:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return None
 
 
 def _on_device(events):
@@ -235,9 +277,12 @@ def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     ``torch.profiler`` records over ``iters`` calls after ``warmup`` calls,
     so host overhead between launches does not count.  Where the profiler
     fails in every window (on the card it once recorded no device event at
-    all, late in a run), the CUDA-event time of ``iters`` back-to-back calls
-    is returned instead, and the log says so: it includes any host gaps
-    between launches, so it is an upper bound."""
+    all, late in a run), ``queued_ms`` is returned instead, and the log says
+    so: CUDA events around calls queued behind a spin kernel, which leave
+    out the host's gaps too (plain CUDA events around a kernel faster than
+    its wrapper's host work time the host).  Where ``fn`` waits for the
+    device and cannot be queued, plain CUDA events around ``iters``
+    back-to-back calls are the fallback: an upper bound."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -245,8 +290,14 @@ def device_ms(fn, iters: int = 10, warmup: int = 3) -> float:
         events, _, _ = checked_profile(lambda: [fn() for _ in range(iters)],
                                        iters=iters)
     except ProfilerFailed as e:
+        ms = queued_ms(fn, iters=iters)
+        if ms is not None:
+            log(f"{e}; timed with CUDA events behind a spin kernel instead: "
+                f"{ms:.4f} ms per call")
+            return ms
         ms = cuda_ms(fn, iters=iters, warmup=0)
-        log(f"{e}; timed with CUDA events instead: {ms:.4f} ms per call")
+        log(f"{e}; timed with CUDA events instead (calls that wait for the "
+            f"device; host gaps included, an upper bound): {ms:.4f} ms per call")
         return ms
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
@@ -290,9 +341,12 @@ def phase_card_and_build() -> None:
     paths = build.build()
     log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
     for name in paths:
+        entry = ""
         for line in build.log_path(name).read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+                log(f"  ptxas[{name}] {entry}: {line.strip()}")
 
 
 def attention_pairs(S: int, causal: bool, window, prefix: int) -> int:
@@ -407,12 +461,19 @@ def check_selective_scan() -> float:
     return worst
 
 
-def gmm_x(rng, E: int, C: int, D: int, dtype, strided: bool) -> torch.Tensor:
-    """x (E, C, D); strided: the first C rows of an (E, C + 1, D) buffer, as
-    ``moe_apply`` hands the dispatch buffer over without its overflow row."""
-    if not strided:
+def gmm_x(rng, E: int, C: int, D: int, dtype, layout: str) -> torch.Tensor:
+    """x (E, C, D), laid out as ``layout`` says: "contiguous"; "dispatch",
+    the first C rows of an (E, C + 1, D) buffer, as ``moe_apply`` hands the
+    dispatch buffer over without its overflow row; "offset", a contiguous
+    view that starts one element into a flat buffer, so its base is aligned
+    to the element but not to 16 bytes."""
+    if layout == "contiguous":
         return randn(rng, (E, C, D), dtype)
-    return randn(rng, (E, C + 1, D), dtype)[:, :C]
+    if layout == "dispatch":
+        return randn(rng, (E, C + 1, D), dtype)[:, :C]
+    if layout == "offset":
+        return randn(rng, (E * C * D + 1,), dtype)[1:].view(E, C, D)
+    raise ValueError(f"unknown layout {layout!r}")
 
 
 def check_moe_gmm() -> float:
@@ -422,8 +483,8 @@ def check_moe_gmm() -> float:
 
     rng = np.random.default_rng(17)
     worst = 0.0
-    for label, dtype, E, C, D, F, strided in GMM_CASES:
-        x = gmm_x(rng, E, C, D, dtype, strided)
+    for label, dtype, E, C, D, F, layout in GMM_CASES:
+        x = gmm_x(rng, E, C, D, dtype, layout)
         w = randn(rng, (E, D, F), dtype)
         got = gmm.launch(x, w)
         want = gmm.plain(x, w)
@@ -433,7 +494,7 @@ def check_moe_gmm() -> float:
         ok = (got.dtype == x.dtype and got.shape == (E, C, F)
               and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
         log(f"moe_gmm {label}: {str(dtype)[6:]} E={E} C={C} D={D} F={F} "
-            f"contiguous={x.is_contiguous()}: max_abs_err={err:.3g} "
+            f"x {layout}: max_abs_err={err:.3g} "
             f"max|y|={want.float().abs().max().item():.3g} tol={tol} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -737,11 +798,16 @@ def profile_serving(model, prompts, decode_steps: int = 8) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_flash_attention() -> dict:
+def time_flash_attention_at(H: int, Kv: int, D: int) -> dict:
+    """flash_attention, bf16, B=1, S=1024, causal, at H query and Kv kv
+    heads of width D: kernel, plain, SDPA (the library yardstick, never
+    called by the port) and the bound (the larger of the unmasked pairs'
+    products over the bf16 tensor-core peak and the bytes over the HBM
+    rate)."""
     from repro_torch.kernels import flash_attention as fa
 
-    rng = np.random.default_rng(13)
-    B, S, H, Kv, D = 1, PREFILL_S, MAIN_H, MAIN_KV, MAIN_D
+    rng = np.random.default_rng(13 + D)
+    B, S = 1, PREFILL_S
     q = randn(rng, (B, S, H, D), torch.bfloat16)
     k = randn(rng, (B, S, Kv, D), torch.bfloat16)
     v = randn(rng, (B, S, Kv, D), torch.bfloat16)
@@ -754,13 +820,17 @@ def time_flash_attention() -> dict:
     }
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
+    queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
     flops = 4.0 * B * H * D * attention_pairs(S, True, None, 0)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"flash_attention timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} causal: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by}) [device time, torch.profiler]; "
-        f"per call with host overhead (CUDA events): {json.dumps(call_ms)}")
+        f"(SDPA) kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} "
+        f"({b_by}) achieved {flops / ms / 1e9:.1f} TFLOP/s [device time, "
+        f"torch.profiler]; back to back behind a spin kernel (CUDA events): "
+        f"{json.dumps(queued)}; per call with host overhead (CUDA events): "
+        f"{json.dumps(call_ms)}")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -768,6 +838,13 @@ def time_flash_attention() -> dict:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
+
+
+def time_flash_attention() -> dict:
+    """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
+    Kv=4, D=128) is logged beside it."""
+    time_flash_attention_at(QWEN_H, QWEN_KV, QWEN_D)
+    return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
 def time_flash_decode() -> dict:
@@ -849,7 +926,7 @@ def time_moe_gmm_at(C: int) -> dict:
 
     rng = np.random.default_rng(18 + C)
     E, D, F = GMM_E, GMM_D, GMM_F
-    x = gmm_x(rng, E, C, D, torch.bfloat16, strided=True)
+    x = gmm_x(rng, E, C, D, torch.bfloat16, "dispatch")
     w = randn(rng, (E, D, F), torch.bfloat16)
     xc = x.contiguous()
     calls = {
@@ -859,14 +936,17 @@ def time_moe_gmm_at(C: int) -> dict:
     }
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
+    queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
     flops = 2.0 * E * C * D * F
     nbytes = 2.0 * (E * C * D + E * D * F + E * C * F)
     b_ms, b_by = bound_ms(flops, nbytes)
     fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
     log(f"moe_gmm timing bf16 E={E} C={C} D={D} F={F}: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.bmm) "
-        f"bound_ms={b_ms:.5f} ({b_by}; the same products on the fp32 units "
-        f"alone take >= {fp32_ms:.4f} ms) [device time, torch.profiler]; "
+        f"kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}; "
+        f"the same products on the fp32 units alone take >= {fp32_ms:.4f} ms) "
+        f"achieved {nbytes / ms / 1e6:.1f} GB/s [device time, torch.profiler]; "
+        f"back to back behind a spin kernel (CUDA events): {json.dumps(queued)}; "
         f"per call with host overhead (CUDA events): {json.dumps(call_ms)}")
     return {
         "name": "moe_gmm", "route": "cuda",

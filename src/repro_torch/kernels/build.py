@@ -4,9 +4,10 @@ plays for the Pallas kernels in the reference package).
 Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` beside
 this file (listed in ``.gitignore``) and loaded with ``ctypes``.  A library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale one is never loaded.  Sources are compiled in parallel,
-one ``nvcc`` each.  Nothing is downloaded; a failed build raises.
+file name carries a hash of its source, the ``csrc`` headers it includes
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded.  Sources are compiled in parallel, one ``nvcc`` each.
+Nothing is downloaded; a failed build raises.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,10 +49,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the headers of ``csrc`` it includes by
+    ``#include "..."``."""
+    src = CSRC / f"{name}.cu"
+    headers = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src] + [CSRC / h for h in headers]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def log_path(name: str) -> Path:

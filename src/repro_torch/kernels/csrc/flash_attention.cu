@@ -1,6 +1,6 @@
 // Prefill flash attention for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:121
 // (flash_attention_bhsd, wrapper repro.kernels.ops.flash_attention): online
 // softmax over KV tiles with the running max m, denominator l and the
 // accumulator in fp32; causal, sliding-window and prefix-LM masks; GQA maps
@@ -22,36 +22,54 @@
 //
 // What bounds it.  Causal prefill does H S / (2 H + 2 Kv) flops per byte it
 // must move (about 410 for llama3.2-1b at S = 1024), above the H100's 295
-// flop/byte balance point: it is bound by operations.  This first version
-// multiplies with scalar fp32 FMAs from shared memory (a 16 x 16 thread
-// grid, each thread a 4 x 4 score tile and a 4 x D/16 output tile), so it
-// runs far from the tensor-core bound; moving both products to wgmma is the
-// next step.
+// flop/byte balance point: it is bound by operations, and only the tensor
+// cores reach that bound.
 //
-// Element types: float and bfloat16 (math in fp32).  Head dims: 64, 128.
+// bf16 (the served path): the FA2 form on Hopper's warpgroup products (wgmma,
+// bf16 in, fp32 sums; helpers in mma_sm90.cuh).  A block is one warpgroup (4
+// warps) owning 64 query rows, each warp 16 of them, with its Q fragments in
+// registers for the whole KV loop (loaded once by ldmatrix).  K and V tiles of
+// 64 keys stream through a 3-stage cp.async ring of 16-byte copies (ragged rows
+// zero-filled with src-size 0) into shared memory in the 128-byte swizzle that
+// wgmma's descriptors name: Q.K^T reads K as a K-major operand, P.V reads V as
+// an MN-major one, so no ldmatrix of K or V is issued.  The score accumulator
+// is scaled to the log2 domain, masked where the tile needs it, exponentiated
+// on the special-function unit and packed to bf16 in registers, where it is
+// already laid out as the register A operand of the P.V product, so P never
+// goes through shared memory.  The loop is software-pipelined: tile t + 1's
+// Q.K^T runs on the tensor cores while tile t's softmax runs, two tiles per
+// pass so the score buffers swap without a copy.  P is rounded to bf16 before
+// P.V (the denominator sums the fp32 P), as every tensor-core flash kernel
+// does; the error against the fp32-P reference stays within its 2e-2 bf16
+// tolerance (tests/test_torch_kernels.py emulates the rounding).  The query
+// tile is the grid's slowest axis, last tile first, so the long causal blocks
+// start first.  Registers (ptxas, sm_90a): 163 a thread at D = 64 (three blocks
+// per SM) and 240 at D = 128 (two), no spill.  What is left between this kernel
+// and SDPA is the per-tile softmax, which only other blocks' products overlap:
+// two consumer warpgroups per block, ping-ponging, fed by a TMA producer warp,
+// are the next step.
+//
+// fp32: the scalar form (a 16 x 16 thread grid, each thread a 4 x 4 score
+// tile and a 4 x D/16 output tile, fp32 FMAs from shared memory).  TF32
+// tensor cores keep only about three decimal digits, which would break the
+// reference's fp32 tolerance of 2e-5; fp32 attention only carries the
+// fp32 logits check, not the served path.
+//
+// Head dims: 64, 128.  The bf16 kernel needs 16-byte-aligned rows (the
+// wrapper checks the base pointers and strides before the launch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per KV tile
-constexpr int THREADS = 256;    // 16 x 16 thread grid
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -69,6 +87,281 @@ struct Params {
   float scale;
 };
 
+// The KV tiles a block with query rows [q_start, q_start + rows) visits, in
+// order: the prefix tiles [0, min(n_prefix, lo)) first, then [lo,
+// max(hi, n_prefix)), where [lo, hi) can hold an unmasked key of a real row.
+struct TileRange {
+  int first_end, lo, n;
+
+  __device__ TileRange(const Params& p, int q_start, int rows) {
+    const int n_kv = (p.Skv + BK - 1) / BK;
+    const int q_last = min(q_start + rows, p.Sq) - 1;
+    const int hi = p.causal ? min(n_kv, q_last / BK + 1) : n_kv;
+    lo = p.window > 0 ? max(0, q_start - p.window + 1) / BK : 0;
+    const int n_prefix = min(n_kv, (p.prefix_len + BK - 1) / BK);
+    first_end = min(n_prefix, lo);
+    n = first_end + max(0, max(hi, n_prefix) - lo);
+  }
+  __device__ int tile(int t) const {
+    return t < first_end ? t : lo + (t - first_end);
+  }
+};
+
+// The Pallas kernel's element mask as a key range: query qpos sees the
+// keys [lo, hi) (causal | prefix, window, Skv).  Rows past Sq are computed
+// but never written.
+struct VisibleKeys {
+  int lo, hi;
+
+  __device__ VisibleKeys(const Params& p, int qpos) {
+    hi = p.Skv;
+    lo = 0;
+    if (p.causal) hi = min(hi, max(qpos + 1, p.prefix_len));
+    if (p.window > 0) lo = qpos - p.window + 1;
+  }
+  __device__ bool operator()(int kpos) const { return kpos >= lo && kpos < hi; }
+};
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps x 16 query rows
+constexpr int STAGES = 3;         // K/V tiles in the cp.async ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  // the Q tile, then STAGES tiles of K and STAGES of V, all bf16
+  return static_cast<int>(sizeof(bf16)) * (BQ * D + 2 * STAGES * BK * D);
+}
+
+// 2^x on the special-function unit; -1e30 gives 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_attention_mma(const Params p) {
+  using namespace mma_sm90;
+  constexpr int RC = D / 8;     // 16-byte chunks per row
+  constexpr int KD = D / 16;    // k16 steps of Q.K^T
+  constexpr int ND = D / 8;     // n8 blocks of the output
+  constexpr int NK = BK / 8;    // n8 blocks of the scores
+  // 64-row tiles in 64-column SW128 blocks (sw128_index), each 1024-byte
+  // aligned: the layout the wgmma descriptors name
+  extern __shared__ __align__(1024) unsigned char fa_mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fa_mma_smem);
+  bf16* ks = qs + BQ * D;            // [STAGES][BK x D]
+  bf16* vs = ks + STAGES * BK * D;   // [STAGES][BK x D]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (p.H / p.Kv);
+  // the query tile is the grid's slowest axis, last tile first: the
+  // longest causal blocks start first
+  const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // rows [start, start + 64) of an (S, D) operand into a tile; rows at or
+  // past `limit` are zero-filled
+  auto load_rows = [&](bf16* dst, const bf16* src, long long ss, int start,
+                       int limit) {
+    for (int i = tid; i < 64 * RC; i += MMA_THREADS) {
+      const int r = i / RC, c = i % RC;
+      const int s = start + r;
+      const bool in = s < limit;
+      cp_async16(dst + sw128_index<64>(r, c), src + (in ? s * ss + c * 8 : 0),
+                 in ? 16 : 0);
+    }
+  };
+  const TileRange tiles(p, q_start, BQ);
+  auto load_kv = [&](int t) {   // tile t of the walk into stage t % STAGES
+    const int k0 = tiles.tile(t) * BK, st = t % STAGES;
+    load_rows(ks + st * BK * D, k, p.k_ss, k0, p.Skv);
+    load_rows(vs + st * BK * D, v, p.v_ss, k0, p.Skv);
+  };
+
+  // Q fragments, in registers for the whole KV loop
+  uint32_t qf[KD][4];
+  // issue s = Q K^T of the tile in stage st: the warpgroup's 64 rows x 64
+  // keys, K a K-major operand, 16 of D per product
+  auto issue_qk = [&](int st, float s[NK * 4]) {
+    const bf16* kt = ks + st * BK * D;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+      wgmma_m64n64_kmajor(
+          s, qf[kd], sw128_desc(kt + (kd / 4) * BK * 64 + (kd % 4) * 16, 16),
+          kd > 0);
+  };
+
+  load_rows(qs, q, p.q_ss, q_start, p.Sq);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < tiles.n) load_kv(t);
+    cp_async_commit();
+  }
+
+  float acc[ND * 4];            // O: acc[4 j + e] is C fragment e of block j
+#pragma unroll
+  for (int j = 0; j < ND * 4; ++j) acc[j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};   // rows g and g + 8 of the warp's 16
+  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
+  const float scale_log2 = p.scale * LOG2E;
+  const int w_q0 = q_start + warp * 16;
+
+  // Software pipeline: the scores of tile t + 1 are multiplied on the
+  // tensor cores while the softmax of tile t runs.
+  float s[NK * 4];
+  cp_async_wait<STAGES - 2>();
+  fence_proxy_async();
+  __syncthreads();              // Q and tile 0 landed
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+    ldmatrix_x4(qf[kd], qs + sw128_index<64>(warp * 16 + (lane & 15),
+                                             kd * 2 + (lane >> 4)));
+  if (tiles.n > 0) {
+    wgmma_fence();
+    issue_qk(0, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers<NK * 4>(s);
+  }
+
+  // one KV tile: s holds its scores, sn receives the next tile's
+  auto step = [&](int t, float s[NK * 4], float sn[NK * 4]) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();            // tile t+1 landed; tile t-1 is read by all
+    if (t + STAGES - 1 < tiles.n) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    const int k_start = tiles.tile(t) * BK;
+
+    // the next tile's scores, in flight during this tile's softmax (its
+    // stage holds stale data after the last tile; they are then never read)
+    wgmma_fence();
+    issue_qk((t + 1) % STAGES, sn);
+    wgmma_commit();
+
+    // scale to the log2 domain; mask only where a key of this tile can be
+    // invisible to a row of this warp (the diagonal tile of a causal walk, a
+    // window's edge, the ragged end): a per-element test compiled into every
+    // tile was the kernel's largest cost after the products
+#pragma unroll
+    for (int j = 0; j < NK * 4; ++j) s[j] *= scale_log2;
+    const bool need_mask =
+        k_start + BK > p.Skv ||
+        (p.causal && k_start + BK - 1 > w_q0 && k_start + BK > p.prefix_len) ||
+        (p.window > 0 && w_q0 + 15 - k_start >= p.window);
+    if (need_mask) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const VisibleKeys visible(p, w_q0 + g + i * 8);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!visible(k_start + j * 8 + t4 * 2 + e)) s[j * 4 + 2 * i + e] = NEG_INF;
+      }
+    }
+
+    // running max of each row: a tree over this thread's 16 scores, then
+    // over the 4 lanes of the quad holding the row
+    float mx[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float r[NK];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) r[j] = fmaxf(s[j * 4 + 2 * i], s[j * 4 + 2 * i + 1]);
+#pragma unroll
+      for (int w = NK / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int j = 0; j < w; ++j) r[j] = fmaxf(r[j], r[j + w]);
+      mx[i] = fmaxf(m[i], r[0]);
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
+    m[0] = mx[0];
+    m[1] = mx[1];
+    l[0] *= corr[0];
+    l[1] *= corr[1];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j * 4 + 0] *= corr[0];
+      acc[j * 4 + 1] *= corr[0];
+      acc[j * 4 + 2] *= corr[1];
+      acc[j * 4 + 3] *= corr[1];
+    }
+
+    // P = exp2(S - m) packed to bf16 as the A fragments of P.V: keys
+    // [16 c, 16 c + 16) are score blocks 2c and 2c + 1
+    uint32_t pf[NK / 2][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float p0 = fast_exp2(s[j * 4 + 0] - mx[0]), p1 = fast_exp2(s[j * 4 + 1] - mx[0]);
+      const float p2 = fast_exp2(s[j * 4 + 2] - mx[1]), p3 = fast_exp2(s[j * 4 + 3] - mx[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[j / 2][(j & 1) * 2] = pack_bf16x2(p0, p1);
+      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+    }
+
+    // O += P V: V an MN-major operand, 16 keys per product; at D = 128 its
+    // two 64-column blocks lie BK * 64 elements apart
+    const bf16* vt = vs + (t % STAGES) * BK * D;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NK / 2; ++c) {
+      const uint64_t dv = sw128_desc(vt + c * 16 * 64, BK * 64 * sizeof(bf16));
+      if constexpr (D == 64) wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
+      else wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers<ND * 4>(acc);
+    fence_registers<NK * 4>(sn);
+  };
+  // two steps per pass, so the score buffers swap roles without a copy
+  float s2[NK * 4];
+  for (int t = 0; t < tiles.n; t += 2) {
+    step(t, s, s2);
+    if (t + 1 < tiles.n) step(t + 1, s2, s);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qpos = w_q0 + g + i * 8;
+    if (qpos < p.Sq) {
+      const float denom = fmaxf(l[i], 1e-20f);
+      bf16* orow = o + qpos * p.o_ss + t4 * 2;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = 256;    // 16 x 16 thread grid
+
 template <int D>
 constexpr size_t smem_bytes() {
   // qs [BQ][D+1], ks [BK][D+1], vs [BK][D], ps [BQ][BK+1], all fp32
@@ -76,9 +369,9 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const Params p) {
+flash_attention_f32(const Params p) {
   constexpr int DP = D + 1;     // padded rows: column reads hit 16 banks
   constexpr int PP = BK + 1;
   constexpr int NJ = D / 16;    // output columns per thread
@@ -96,15 +389,15 @@ flash_attention_kernel(const Params p) {
   const int kvh = h / (p.H / p.Kv);
   const int q_start = blockIdx.x * BQ;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int s = q_start + r;
-    qs[r * DP + c] = s < p.Sq ? to_float(q[s * p.q_ss + c]) : 0.f;
+    qs[r * DP + c] = s < p.Sq ? q[s * p.q_ss + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][NJ];
@@ -116,101 +409,84 @@ flash_attention_kernel(const Params p) {
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // Tiles that can hold an unmasked key for a real row of this block.
-  const int n_kv = (p.Skv + BK - 1) / BK;
-  const int q_last = min(q_start + BQ, p.Sq) - 1;
-  const int hi = p.causal ? min(n_kv, q_last / BK + 1) : n_kv;
-  const int lo = p.window > 0 ? max(0, q_start - p.window + 1) / BK : 0;
-  const int n_prefix = min(n_kv, (p.prefix_len + BK - 1) / BK);
-  // Visit [0, min(n_prefix, lo)) and then [lo, max(hi, n_prefix)).
-  const int first_end = min(n_prefix, lo);
-  const int second_end = max(hi, n_prefix);
+  const TileRange tiles(p, q_start, BQ);
+  for (int t = 0; t < tiles.n; ++t) {
+    const int k_start = tiles.tile(t) * BK;
+    __syncthreads();            // the previous tile's ks / vs / ps are read
+    for (int i = tid; i < BK * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const int s = k_start + r;
+      const bool in = s < p.Skv;
+      ks[r * DP + c] = in ? k[s * p.k_ss + c] : 0.f;
+      vs[r * D + c] = in ? v[s * p.v_ss + c] : 0.f;
+    }
+    __syncthreads();
 
-  for (int pass = 0; pass < 2; ++pass) {
-    const int j0 = pass == 0 ? 0 : lo;
-    const int j1 = pass == 0 ? first_end : second_end;
-    for (int jt = j0; jt < j1; ++jt) {
-      const int k_start = jt * BK;
-      __syncthreads();          // the previous tile's ks / vs / ps are read
-      for (int i = tid; i < BK * D; i += THREADS) {
-        const int r = i / D, c = i % D;
-        const int s = k_start + r;
-        const bool in = s < p.Skv;
-        ks[r * DP + c] = in ? to_float(k[s * p.k_ss + c]) : 0.f;
-        vs[r * D + c] = in ? to_float(v[s * p.v_ss + c]) : 0.f;
-      }
-      __syncthreads();
-
-      float sc[4][4];
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) bv[jj] = ks[(tx + 16 * jj) * DP + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) bv[jj] = ks[(tx + 16 * jj) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            sc[i][jj] = fmaf(a[i], bv[jj], sc[i][jj]);
-      }
+        for (int jj = 0; jj < 4; ++jj)
+          sc[i][jj] = fmaf(a[i], bv[jj], sc[i][jj]);
+    }
 
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = q_start + r;
-        float row_max = NEG_INF;
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const VisibleKeys visible(p, q_start + r);
+      float row_max = NEG_INF;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int kpos = k_start + tx + 16 * jj;
-          bool ok = kpos < p.Skv && qpos < p.Sq;
-          if (p.causal)
-            ok = ok && (qpos >= kpos || kpos < p.prefix_len);
-          if (p.window > 0) ok = ok && (qpos - kpos < p.window);
-          const float x = ok ? sc[i][jj] * p.scale : NEG_INF;
-          sc[i][jj] = x;
-          row_max = fmaxf(row_max, x);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-        const float m_new = fmaxf(m[i], row_max);
-        const float corr = expf(m[i] - m_new);
-        float row_sum = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float pv = expf(sc[i][jj] - m_new);
-          ps[r * PP + tx + 16 * jj] = pv;
-          row_sum += pv;
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-        l[i] = l[i] * corr + row_sum;
-        m[i] = m_new;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+      for (int jj = 0; jj < 4; ++jj) {
+        const float x = visible(k_start + tx + 16 * jj) ? sc[i][jj] * p.scale
+                                                        : NEG_INF;
+        sc[i][jj] = x;
+        row_max = fmaxf(row_max, x);
       }
-      __syncthreads();          // ps complete
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+      const float m_new = fmaxf(m[i], row_max);
+      const float corr = expf(m[i] - m_new);
+      float row_sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float pv = expf(sc[i][jj] - m_new);
+        ps[r * PP + tx + 16 * jj] = pv;
+        row_sum += pv;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
+      l[i] = l[i] * corr + row_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();            // ps complete
 
 #pragma unroll 4
-      for (int c = 0; c < BK; ++c) {
-        float pr[4], vv[NJ];
+    for (int c = 0; c < BK; ++c) {
+      float pr[4], vv[NJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * PP + c];
+      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * PP + c];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) vv[j] = vs[c * D + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = vs[c * D + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
-      }
+        for (int j = 0; j < NJ; ++j)
+          acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
     }
   }
 
@@ -221,26 +497,39 @@ flash_attention_kernel(const Params p) {
       const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        o[qpos * p.o_ss + tx + 16 * j] = from_float<T>(acc[i][j] / denom);
+        o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = static_cast<int>(smem_bytes<D>());
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, cudaStream_t s) {
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
+  return launch(flash_attention_f32<D>, grid, THREADS,
+                static_cast<int>(smem_bytes<D>()), p, s);
+}
+
+template <int D>
+cudaError_t launch_mma(const Params& p, cudaStream_t s) {
+  const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
+  return launch(flash_attention_mma<D>, grid, MMA_THREADS, mma_smem_bytes<D>(),
+                p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).  Returns
+// a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, void* o,
@@ -260,9 +549,9 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.window = window; p.prefix_len = prefix_len;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, s);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, s);
+  if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, s);
+  if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, s);
+  if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -57,6 +57,14 @@ def plain(
     return out.transpose(1, 2)
 
 
+def _rows_16_byte_aligned(t: torch.Tensor) -> bool:
+    """The base pointer and the stride of every axis of length > 1 but the
+    last (unit) one are multiples of 16 bytes."""
+    width = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * width % 16 == 0 for i in range(t.dim() - 1) if t.shape[i] > 1)
+
+
 def launch(
     q: torch.Tensor,              # (B, Sq, H, D) on CUDA
     k: torch.Tensor,              # (B, Skv, Kv, D)
@@ -86,6 +94,9 @@ def launch(
             raise ValueError("q, k, v must lie on one CUDA device")
         if t.stride(3) != 1:
             raise ValueError("the D axis of q, k, v must have stride 1")
+        if q.dtype == torch.bfloat16 and not _rows_16_byte_aligned(t):
+            raise ValueError("bf16 q, k, v need 16-byte-aligned rows: the "
+                             "kernel copies them in 16-byte pieces")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

@@ -51,6 +51,26 @@ GMM_CASES = [
     (2, 256, 512, 512),
 ]
 
+# qwen3-moe-30b's attention (H=32, Kv=4, D=128) in bf16, in the layout of
+# ATTN_CASES: ragged lengths around the tensor-core kernel's 64-row tiles,
+# each with the causal, sliding-window and prefix-LM masks
+QWEN_ATTN_CASES = [(1, 32, 4, S, S, 128, True, window, prefix)
+                   for S in (1, 63, 65, 975)
+                   for window, prefix in ((None, 0), (96, 0), (None, 37))]
+
+# (E, C, D, F, layout of x) in bf16 for the tensor-core grouped matmul:
+# capacities around its 16-row fragments and 128-row tiles at qwen3's D and
+# F, with x the dispatch buffer's first C rows; qwen3's wo product; a ragged
+# last D slice; element loads where rows or the base are not 16-byte aligned
+QWEN_GMM_CASES = [
+    *((16, C, 2048, 768, "dispatch")
+      for C in (9, 16, 17, 63, 64, 65, 77, 128, 129, 153)),
+    (128, 77, 768, 2048, "contiguous"),
+    (8, 40, 200, 768, "dispatch"),
+    (8, 40, 203, 768, "contiguous"),
+    (8, 40, 2048, 768, "offset"),
+]
+
 # the grouped matmul's own tolerances in the reference (test_kernels.py)
 GMM_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
 
@@ -106,6 +126,22 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert ops.flash_decode.launches == before + 1
     want = tfd.plain(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QWEN_ATTN_CASES)
+def test_flash_attention_bf16_kernel_at_qwen3_shapes(card, case):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES["bfloat16"]
+    rng = np.random.default_rng(500 + QWEN_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = tfa.launch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = tfa.plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -193,6 +229,34 @@ def test_moe_gmm_kernel_on_strided_capacity_views(card, case, dtype):
                                atol=tol, rtol=tol)
 
 
+def _gmm_x(rng, E, C, D, dtype, device, layout):
+    """x (E, C, D): "contiguous"; "dispatch", the first C rows of an
+    (E, C + 1, D) buffer; "offset", a view one element into a flat buffer
+    (aligned to the element, not to 16 bytes)."""
+    if layout == "contiguous":
+        return _randn(rng, (E, C, D), dtype, device)
+    if layout == "dispatch":
+        return _randn(rng, (E, C + 1, D), dtype, device)[:, :C]
+    return _randn(rng, (E * C * D + 1,), dtype, device)[1:].view(E, C, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QWEN_GMM_CASES)
+def test_moe_gmm_bf16_kernel_on_tensor_core_tiles(card, case):
+    E, C, D, F, layout = case
+    tdt, tol = GMM_TOL["bfloat16"]
+    rng = np.random.default_rng(600 + QWEN_GMM_CASES.index(case))
+    x = _gmm_x(rng, E, C, D, tdt, card, layout)
+    w = _randn(rng, (E, D, F), tdt, card)
+    if layout == "offset":
+        assert x.data_ptr() % 16 == 2
+    got = tgmm.launch(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and got.shape == (E, C, F)
+    torch.testing.assert_close(got.float(), tgmm.plain(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_moe_ffn_kernel_matches_plain(card):
     """Three launches with a gate, each product held by the plain path."""
@@ -215,6 +279,11 @@ def test_moe_ffn_kernel_matches_plain(card):
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
+        tfa.launch(q, q, q)
+    # bf16 rows go in 16-byte copies: a base one element off is refused
+    q = torch.zeros((1 * 8 * 4 * 64 + 1,), device=card,
+                    dtype=torch.bfloat16)[1:].view(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
         tfa.launch(q, q, q)
     q = torch.zeros((1, 8, 4, 64), device=card)
     with pytest.raises(ValueError, match="kv_valid"):

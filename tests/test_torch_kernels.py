@@ -9,6 +9,8 @@ bfloat16; 1e-5 for the scan).  The CUDA kernels themselves run only on the card:
 ``test_torch_cuda.py`` holds them against the plain versions there.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -71,6 +73,46 @@ def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(
         _np(tref.flash_attention_ref(tq, tk, tv, **kw)), _np(oracle),
         atol=tol, rtol=tol)
+
+
+def _attention_with_p_in_bf16(q, k, v, *, causal, window, prefix_len):
+    """Attention as the tensor-core kernel rounds it (test only): fp32
+    scores of the bf16 inputs, P = exp(s - row max) rounded to bf16 before
+    P.V (products summed in fp32), each row divided by the fp32 sum of the
+    unrounded P.  q (B, H, Sq, D); k, v (B, Kv, Skv, D)."""
+    B, H, Sq, D = q.shape
+    Kv, Skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Kv, H // Kv, Sq, D)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(D)
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= (qp >= kp) | (kp < prefix_len)
+    if window is not None:
+        mask &= qp - kp < window
+    s = torch.where(mask, s, torch.tensor(tref.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bkgqm,bkmd->bkgqd", p.to(torch.bfloat16).float(),
+                       v.float()) / p.sum(-1, keepdim=True)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_bf16_rounding_of_p_stays_within_the_reference_tolerance(case):
+    """The bf16 CUDA kernel rounds P to bf16 before P.V, where the Pallas
+    kernel keeps it in fp32; with that rounding the result stays within the
+    reference's bf16 tolerance (2e-2) of the Pallas kernel."""
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    rng = np.random.default_rng(ATTN_CASES.index(case))
+    jq, tq = _pair(rng, (B, H, Sq, D), "bfloat16")
+    jk, tk = _pair(rng, (B, Kv, Skv, D), "bfloat16")
+    jv, tv = _pair(rng, (B, Kv, Skv, D), "bfloat16")
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    pallas = flash_attention_bhsd(jq, jk, jv, block_q=64, block_kv=64,
+                                  interpret=True, **kw)
+    got = _attention_with_p_in_bf16(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -188,7 +230,7 @@ def test_decode_splits_fill_the_card():
     assert tfd.num_splits(1, 8, 40, 132) == 2      # short cache: few splits
 
 
-def test_build_names_libraries_by_source_hash():
+def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     p = build.library_path("flash_attention")
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
     assert p != build.library_path("flash_decode")
@@ -197,6 +239,22 @@ def test_build_names_libraries_by_source_hash():
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # the shared tensor-core header is part of its includers' names
+    header = build.CSRC / "mma_sm90.cuh"
+    for name in ("flash_attention", "moe_gmm"):
+        assert header in build.sources(name)
+    assert build.sources("flash_decode") == [build.CSRC / "flash_decode.cu"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.KERNELS}
+    assert before == {n: build.library_path(n) for n in build.KERNELS}
+    (csrc / "mma_sm90.cuh").write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.KERNELS}
+    assert {n for n in build.KERNELS if after[n] != before[n]} == {
+        "flash_attention", "moe_gmm"}
 
 
 def test_card_test_cases_are_the_reference_cases():
@@ -208,3 +266,26 @@ def test_card_test_cases_are_the_reference_cases():
     assert test_torch_cuda.DECODE_CASES == DECODE_CASES
     assert test_torch_cuda.SCAN_CASES == SCAN_CASES
     assert test_torch_cuda.GMM_CASES == GMM_CASES
+
+
+def test_card_only_cases_are_checked_by_chip_smoke():
+    """The card-only cases of the tensor-core kernels (qwen3-moe-30b's
+    shapes) are also among ``chip_smoke.py``'s checks, run on every chip
+    run."""
+    import importlib.util
+    from pathlib import Path
+
+    import test_torch_cuda
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    fa = {(B, H, Kv, S, S, D, causal, window, prefix)
+          for dt, B, H, Kv, S, D, causal, window, prefix in smoke.FA_CASES
+          if dt == torch.bfloat16}
+    assert set(test_torch_cuda.QWEN_ATTN_CASES) <= fa
+    gmm = {(E, C, D, F, layout)
+           for _, dt, E, C, D, F, layout in smoke.GMM_CASES
+           if dt == torch.bfloat16}
+    assert set(test_torch_cuda.QWEN_GMM_CASES) <= gmm
