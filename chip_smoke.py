@@ -11,13 +11,18 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
 2. holds each kernel against its plain PyTorch version on the card, at the
    reference package's kernel tolerances (attention 2e-2 in bf16, 2e-5 in
    float32; the selective scan 1e-5; the MoE grouped matmul 5e-2 in bf16,
-   1e-4 in float32), including the main paths' shapes;
+   1e-4 in float32), including the main paths' shapes, flash_decode's
+   masks (an all-masked row, one valid slot in the last tile, a ring) and
+   the grouped matmul with the occupancy ``rows`` (0, 8 and 128 of 128
+   experts; nonzero x past the rows);
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
    function (a yardstick the port never calls), and the card's bound;
-   flash_attention also at qwen3-moe-30b's shape (H=32, Kv=4, D=128) and
-   moe_gmm also at the S=975 prefill capacity, each on a log line;
+   flash_attention and flash_decode also at qwen3-moe-30b's shape (H=32,
+   Kv=4, D=128), and moe_gmm with the rows of a real routing of one token
+   (decode) and of 975 (the S=975 prefill), beside its time with every
+   expert read; the extra shapes each on a log line;
 4. serves three full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -89,14 +94,28 @@ FA_CASES = [
       for S in (1, 63, 65, 975) for window, prefix in ((None, 0), (96, 0), (None, 37))),
 ]
 
+# flash_decode's tile skipping (tests/test_torch_cuda.py CARD_DECODE_CASES):
+# (B, H, Kv, S, D, mask) with an all-masked row beside a partial one, one
+# valid slot in the last tile, a ring wrapping past the end, S off the
+# 64-slot tiles, and qwen3-moe-30b's decode shape
+CARD_DECODE_CASES = [
+    (2, 32, 8, 2048, 64, "empty beside 600"),
+    (1, 32, 8, 2048, 64, "last"),
+    (2, 32, 8, 2048, 64, "ring"),
+    (2, 32, 8, 1000, 64, "ring"),
+    (1, 32, 4, 2048, 128, "600"),
+    (1, 32, 4, 2048, 128, "empty"),
+]
+
 FD_CASES = [
-    # (dtype, B, H, Kv, S, D, valid lengths per batch row, ring)
-    (torch.bfloat16, 1, 32, 8, 2048, 64, [600], False),     # main path
-    (torch.bfloat16, 4, 32, 8, 2048, 64, [1, 300, 1000, 2048], False),
-    (torch.bfloat16, 4, 32, 8, 2048, 64, [2048] * 4, True),  # ring slots
-    (torch.bfloat16, 2, 8, 1, 1024, 128, [700, 1024], False),
-    (torch.float32, 2, 32, 8, 2048, 64, [300, 1500], False),
-    (torch.float32, 1, 8, 1, 1024, 128, [700], False),
+    # (dtype, B, H, Kv, S, D, mask: see make_valid)
+    (torch.bfloat16, 1, 32, 8, 2048, 64, "600"),            # main path
+    (torch.bfloat16, 4, 32, 8, 2048, 64, "1,300,1000,2048"),
+    (torch.bfloat16, 2, 8, 1, 1024, 128, "700,1024"),
+    (torch.float32, 2, 32, 8, 2048, 64, "300,1500"),
+    (torch.float32, 1, 8, 1, 1024, 128, "700"),
+    *((dtype, *case) for case in CARD_DECODE_CASES
+      for dtype in (torch.bfloat16, torch.float32)),
 ]
 
 # falcon-mamba-7b's scan: d_inner 8192, ssm_state 16, 256-step chunks
@@ -145,6 +164,17 @@ GMM_CASES = [
     ("ragged D slice", torch.bfloat16, 8, 40, 200, 768, "dispatch"),
     ("D not a multiple of 8: element loads", torch.bfloat16, 8, 40, 203, 768, "contiguous"),
     ("x base not 16-byte aligned: element loads", torch.bfloat16, 8, 40, 2048, 768, "offset"),
+    # rows (tests/test_torch_cuda.py CARD_ROWS_GMM_CASES): N of qwen3's 128
+    # experts hold tokens, x zero past rows[e] or nonzero there ("garbage")
+    *((f"rows, {layout.split(':')[1]} experts occupied, C={C}", dtype, 128, C,
+       2048, 768, layout)
+      for C in (1, 5, 77)
+      for layout in ("occupied:0", "occupied:8", "occupied:128")
+      for dtype in (torch.bfloat16, torch.float32)),
+    *((f"rows, nonzero x past them, C={C}", dtype, 128, C, 2048, 768, "garbage:8")
+      for C in (1, 77) for dtype in (torch.bfloat16, torch.float32)),
+    ("rows, small C, F not a multiple of 4", torch.bfloat16, 8, 5, 200, 102, "garbage:3"),
+    ("rows, small C, F not a multiple of 4", torch.float32, 8, 3, 130, 66, "occupied:3"),
 ]
 
 
@@ -392,12 +422,23 @@ def check_flash_attention() -> float:
     return worst
 
 
-def make_valid(B: int, S: int, lengths, ring: bool, rng) -> torch.Tensor:
-    if ring:        # a ring buffer mid-wrap: an arbitrary set of live slots
-        valid = rng.random((B, S)) < 0.7
-        valid[:, 0] = True
+def make_valid(B: int, S: int, mask: str, rng) -> torch.Tensor:
+    """The (B, S) int8 mask ``mask`` names: "N" or "N0,N1,..", the first N
+    slots of every row or of each; "empty", none; "empty beside N", none in
+    row 0 and the first N in the others; "last", slot S - 1 alone; "ring",
+    a window of live slots wrapping past the end, with holes."""
+    pos = np.arange(S)[None, :].repeat(B, 0)
+    if mask == "last":
+        valid = pos == S - 1
+    elif mask == "ring":
+        valid = ((pos - (S - 300)) % S < 900) & (rng.random((B, S)) < 0.9)
+    elif mask == "empty":
+        valid = np.zeros((B, S), bool)
+    elif mask.startswith("empty beside "):
+        valid = pos < int(mask.split()[-1])
+        valid[0] = False
     else:
-        valid = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+        valid = pos < np.array([int(n) for n in mask.split(",")])[:, None]
     return torch.from_numpy(valid.astype(np.int8)).cuda()
 
 
@@ -407,20 +448,21 @@ def check_flash_decode() -> float:
 
     rng = np.random.default_rng(12)
     worst = 0.0
-    for dtype, B, H, Kv, S, D, lengths, ring in FD_CASES:
+    for dtype, B, H, Kv, S, D, mask in FD_CASES:
         q = randn(rng, (B, 1, H, D), dtype)
         k = randn(rng, (B, S, Kv, D), dtype)
         v = randn(rng, (B, S, Kv, D), dtype)
-        valid = make_valid(B, S, lengths, ring, rng)
+        valid = make_valid(B, S, mask, rng)
         got = fd.launch(q, k, v, valid)
         want = fd.plain(q, k, v, valid)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[dtype]
-        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        ok = (torch.isfinite(got).all().item()
+              and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
         log(f"flash_decode {str(dtype)[6:]} B={B} H={H} Kv={Kv} S={S} D={D} "
-            f"valid={'ring' if ring else lengths}: max_abs_err={err:.3g} "
-            f"tol={tol} {'ok' if ok else 'FAIL'}")
+            f"valid={mask}: max_abs_err={err:.3g} tol={tol} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_decode disagrees with its plain version")
         worst = max(worst, err)
@@ -461,19 +503,41 @@ def check_selective_scan() -> float:
     return worst
 
 
-def gmm_x(rng, E: int, C: int, D: int, dtype, layout: str) -> torch.Tensor:
-    """x (E, C, D), laid out as ``layout`` says: "contiguous"; "dispatch",
-    the first C rows of an (E, C + 1, D) buffer, as ``moe_apply`` hands the
-    dispatch buffer over without its overflow row; "offset", a contiguous
-    view that starts one element into a flat buffer, so its base is aligned
-    to the element but not to 16 bytes."""
+def gmm_x(rng, E: int, C: int, D: int, dtype, layout: str):
+    """x (E, C, D) and rows (E,) int32 or None, as ``layout`` says:
+    "contiguous"; "dispatch", the first C rows of an (E, C + 1, D) buffer,
+    as ``moe_apply`` hands the dispatch buffer over without its overflow
+    row; "offset", a contiguous view that starts one element into a flat
+    buffer, so its base is aligned to the element but not to 16 bytes;
+    "occupied:N", the dispatch view with rows: N experts (drawn from the
+    seed) hold 1..C rows, one of them C, the rest none, and x is zero past
+    rows[e]; "garbage:N", the same rows with x nonzero past them."""
     if layout == "contiguous":
-        return randn(rng, (E, C, D), dtype)
+        return randn(rng, (E, C, D), dtype), None
     if layout == "dispatch":
-        return randn(rng, (E, C + 1, D), dtype)[:, :C]
+        return randn(rng, (E, C + 1, D), dtype)[:, :C], None
     if layout == "offset":
-        return randn(rng, (E * C * D + 1,), dtype)[1:].view(E, C, D)
-    raise ValueError(f"unknown layout {layout!r}")
+        return randn(rng, (E * C * D + 1,), dtype)[1:].view(E, C, D), None
+    kind, n = layout.split(":")
+    if kind not in ("occupied", "garbage"):
+        raise ValueError(f"unknown layout {layout!r}")
+    occupied = rng.choice(E, size=int(n), replace=False)
+    rows = np.zeros(E, np.int32)
+    rows[occupied] = rng.integers(1, C + 1, size=int(n))
+    if int(n):
+        rows[occupied[0]] = C
+    return dispatch_x(rng, C, D, dtype, torch.from_numpy(rows).cuda(),
+                      zero_past=kind == "occupied")
+
+
+def dispatch_x(rng, C: int, D: int, dtype, rows: torch.Tensor, zero_past=True):
+    """The first C rows of an (E, C + 1, D) dispatch buffer of unit-normal
+    rows, zero at and past rows[e] unless ``zero_past`` is False; returns
+    (x, rows)."""
+    x = randn(rng, (rows.shape[0], C + 1, D), dtype)[:, :C]
+    if zero_past:
+        x[torch.arange(C, device="cuda")[None, :] >= rows[:, None]] = 0
+    return x, rows
 
 
 def check_moe_gmm() -> float:
@@ -484,15 +548,26 @@ def check_moe_gmm() -> float:
     rng = np.random.default_rng(17)
     worst = 0.0
     for label, dtype, E, C, D, F, layout in GMM_CASES:
-        x = gmm_x(rng, E, C, D, dtype, layout)
+        x, rows = gmm_x(rng, E, C, D, dtype, layout)
         w = randn(rng, (E, D, F), dtype)
-        got = gmm.launch(x, w)
-        want = gmm.plain(x, w)
+        if rows is not None:
+            # fan-in scale, as the model's weights: with unit-normal ones an
+            # fp32 sum of 2048 products is O(100), and two correct fp32 orders
+            # of it (cuBLAS's, the kernel's) differ by ~2e-4
+            w = w / math.sqrt(D)
+        got = gmm.launch(x, w, rows)
+        want = gmm.plain(x, w, rows)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = GMM_TOL[dtype]
         ok = (got.dtype == x.dtype and got.shape == (E, C, F)
               and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+        if rows is not None:    # zeros past rows[e]; x zero there: the product
+            past = torch.arange(C, device="cuda")[None, :] >= rows[:, None]
+            ok = ok and bool(got[past].eq(0).all())
+            if layout.startswith("occupied"):
+                ok = ok and torch.allclose(got.float(), gmm.plain(x, w).float(),
+                                           atol=tol, rtol=tol)
         log(f"moe_gmm {label}: {str(dtype)[6:]} E={E} C={C} D={D} F={F} "
             f"x {layout}: max_abs_err={err:.3g} "
             f"max|y|={want.float().abs().max().item():.3g} tol={tol} "
@@ -847,16 +922,23 @@ def time_flash_attention() -> dict:
     return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
-def time_flash_decode() -> dict:
+def time_flash_decode_at(H: int, Kv: int, D: int) -> dict:
+    """flash_decode, bf16, B=1, 2048 cache slots of which the first 600 are
+    valid (the fleet's mid-decode occupancy), at H query and Kv kv heads of
+    width D: kernel, plain, SDPA with a bool mask (the library yardstick,
+    never called by the port) and the bound (the larger of the products
+    over the bf16 tensor-core peak and the bytes that must move: q and the
+    output, the mask, and the K/V rows of the valid slots, over the HBM
+    rate)."""
     from repro_torch.kernels import flash_decode as fd
 
-    rng = np.random.default_rng(14)
-    B, S, H, Kv, D = 1, DECODE_S, MAIN_H, MAIN_KV, MAIN_D
+    rng = np.random.default_rng(14 + D)
+    B, S = 1, DECODE_S
     n_valid = 600
     q = randn(rng, (B, 1, H, D), torch.bfloat16)
     k = randn(rng, (B, S, Kv, D), torch.bfloat16)
     v = randn(rng, (B, S, Kv, D), torch.bfloat16)
-    valid = make_valid(B, S, [n_valid], False, rng)
+    valid = make_valid(B, S, str(n_valid), rng)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = valid.bool()[:, None, None, :]
     calls = {
@@ -867,15 +949,17 @@ def time_flash_decode() -> dict:
     }
     ms, plain_ms, library_ms = (device_ms(f, iters=20) for f in calls.values())
     call_ms = {k: cuda_ms(f, iters=50) for k, f in calls.items()}
+    queued = {k: queued_ms(calls[k], iters=20) for k in ("kernel", "library")}
     flops = 4.0 * B * H * D * n_valid
-    # q and out, the mask, and the K/V rows of valid slots (bf16)
     nbytes = 2 * 2 * B * H * D + B * S + 2 * 2 * B * n_valid * Kv * D
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"flash_decode timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
         f"valid={n_valid}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
-        f"[device time, torch.profiler]; per call with host overhead "
-        f"(CUDA events): {json.dumps(call_ms)}")
+        f"library_ms={library_ms:.4f} (SDPA) kernel/library="
+        f"{ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}) [device time, "
+        f"torch.profiler]; back to back behind a spin kernel (CUDA events): "
+        f"{json.dumps(queued)}; per call with host overhead (CUDA events): "
+        f"{json.dumps(call_ms)}")
     return {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -883,6 +967,13 @@ def time_flash_decode() -> dict:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
+
+
+def time_flash_decode() -> dict:
+    """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
+    Kv=4, D=128) is logged beside it."""
+    time_flash_decode_at(QWEN_H, QWEN_KV, QWEN_D)
+    return time_flash_decode_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
 def time_selective_scan() -> dict:
@@ -917,37 +1008,59 @@ def time_selective_scan() -> dict:
     }
 
 
-def time_moe_gmm_at(C: int) -> dict:
-    """moe_gmm at qwen3-moe-30b's (128, C, 2048) x (128, 2048, 768), bf16:
-    kernel, plain, ``torch.bmm`` (the library yardstick, never called by the
-    port) and the bound (the larger of bytes over the HBM rate and the
-    products over the bf16 tensor-core peak)."""
+def routed_rows(rng, n_tokens: int, C: int) -> torch.Tensor:
+    """The rows ``moe_apply`` hands the grouped matmul for ``n_tokens``
+    tokens routed top-8 over qwen3-moe-30b's 128 experts by a random router
+    (``route_topk`` of unit-normal logits): each expert's routed (token, k)
+    pairs clamped to the capacity C, int32 on the card."""
+    from repro_torch.models.moe import route_topk
+
+    idx = route_topk(randn(rng, (n_tokens, GMM_E), torch.float32), 8)[1]
+    counts = torch.bincount(idx.reshape(-1), minlength=GMM_E)
+    return counts.clamp(max=C).to(torch.int32)
+
+
+def time_moe_gmm_at(C: int, n_tokens: int) -> dict:
+    """moe_gmm at qwen3-moe-30b's (128, C, 2048) x (128, 2048, 768), bf16,
+    with the rows of a real routing of ``n_tokens`` tokens (x zero past
+    them, as the dispatch buffer is): kernel, the kernel without rows (every
+    expert read), plain, ``torch.bmm`` on the whole buffer (the library
+    yardstick, the same output, never called by the port) and the bound
+    (the larger of bytes over the HBM rate and the occupied rows' products
+    over the bf16 tensor-core peak; the bytes are the occupied experts'
+    weights, the occupied rows of x, and all of y)."""
     from repro_torch.kernels import moe_gmm as gmm
 
     rng = np.random.default_rng(18 + C)
     E, D, F = GMM_E, GMM_D, GMM_F
-    x = gmm_x(rng, E, C, D, torch.bfloat16, "dispatch")
+    x, rows = dispatch_x(rng, C, D, torch.bfloat16, routed_rows(rng, n_tokens, C))
     w = randn(rng, (E, D, F), torch.bfloat16)
     xc = x.contiguous()
     calls = {
-        "kernel": lambda: gmm.launch(x, w),
-        "plain": lambda: gmm.plain(x, w),
+        "kernel": lambda: gmm.launch(x, w, rows),
+        "plain": lambda: gmm.plain(x, w, rows),
         "library": lambda: torch.bmm(xc, w),
+        "kernel, every expert": lambda: gmm.launch(x, w),
     }
-    ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
+    ms, plain_ms, library_ms, full_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
-    queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
-    flops = 2.0 * E * C * D * F
-    nbytes = 2.0 * (E * C * D + E * D * F + E * C * F)
+    queued = {k: queued_ms(calls[k]) for k in ("kernel", "library",
+                                               "kernel, every expert")}
+    n_rows = int(rows.sum())                 # one read for the bound's count
+    n_occ = int((rows > 0).sum())
+    flops = 2.0 * n_rows * D * F
+    nbytes = 2.0 * (n_occ * D * F + n_rows * D + E * C * F)
     b_ms, b_by = bound_ms(flops, nbytes)
-    fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
-    log(f"moe_gmm timing bf16 E={E} C={C} D={D} F={F}: kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.bmm) "
-        f"kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}; "
-        f"the same products on the fp32 units alone take >= {fp32_ms:.4f} ms) "
-        f"achieved {nbytes / ms / 1e6:.1f} GB/s [device time, torch.profiler]; "
-        f"back to back behind a spin kernel (CUDA events): {json.dumps(queued)}; "
-        f"per call with host overhead (CUDA events): {json.dumps(call_ms)}")
+    full_b_ms, _ = bound_ms(2.0 * E * C * D * F, 2.0 * (E * C * D + E * D * F + E * C * F))
+    log(f"moe_gmm timing bf16 E={E} C={C} D={D} F={F}, rows of {n_tokens} "
+        f"routed token(s): {n_occ} experts occupied, {n_rows} rows: "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"(torch.bmm, every expert) kernel/library={ms / library_ms:.2f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) achieved {nbytes / ms / 1e6:.1f} GB/s; "
+        f"without rows (every expert): kernel_ms={full_ms:.4f} bound_ms="
+        f"{full_b_ms:.5f} [device time, torch.profiler]; back to back behind "
+        f"a spin kernel (CUDA events): {json.dumps(queued)}; per call with "
+        f"host overhead (CUDA events): {json.dumps(call_ms)}")
     return {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -958,10 +1071,11 @@ def time_moe_gmm_at(C: int) -> dict:
 
 
 def time_moe_gmm() -> dict:
-    """The decode shape goes on the kernels line (the main path launches it
-    there most); the S = 975 prefill shape is logged beside it."""
-    time_moe_gmm_at(GMM_PREFILL_C)
-    return time_moe_gmm_at(GMM_DECODE_C)
+    """The decode shape (one token) goes on the kernels line (the main path
+    launches it there most); the S = 975 prefill shape is logged beside
+    it."""
+    time_moe_gmm_at(GMM_PREFILL_C, 975)
+    return time_moe_gmm_at(GMM_DECODE_C, 1)
 
 
 def serve_path(arch: str) -> dict:

@@ -9,48 +9,78 @@
 //
 // Translation.  The Pallas grid (B, H, nKV) reduced the KV axis in order on
 // one core, one query head per program, so each K/V block was read G = H/Kv
-// times.  Here one block owns (batch, kv head, split of S) and holds the G
-// query heads that share that kv head, so each K/V row is read once.  At
-// batch 1 with 8 kv heads there would be only 8 blocks for 132 SMs, so S is
-// cut into splits; every block writes its split's (m, l, acc) to fp32
-// scratch and a second small kernel merges the splits by log-sum-exp.  Masked
-// slots score the finite -1e30 of the TPU kernel, so a split with no valid
-// slot carries m = -1e30 and its weight exp(-1e30 - m) is 0 as soon as any
-// split saw a valid slot; rows are normalised by max(l, 1e-20).  The cache
+// times.  Here one block owns (batch, kv head, split) and holds the G query
+// heads that share that kv head, so each K/V row is read once.  At batch 1
+// with 8 kv heads there would be only 8 blocks for 132 SMs, so the work is
+// split; the splits are merged by log-sum-exp in the same launch.  The cache
 // is read in the model layout (B, S, Kv, D) through strides, so there is no
 // per-step transposed copy of the cache.
 //
-// What bounds it.  Decode reads the cache once per token and does about G
-// flops per byte it reads (4 for llama3.2-1b), far below the H100's 295
-// flop/byte balance point: it is bound by bytes.  Within a block each warp
-// walks its own keys with one D-slice per lane (coalesced 2-4 element loads)
-// and an online softmax per key; the split count makes the grid fill the
-// SMs.
+// What bounds it.  Decode does about G flops per byte it reads (4 for
+// llama3.2-1b), far below the H100's 295 flop/byte balance point, so the
+// bound is bytes: the K/V rows of the tiles that hold a valid slot.  At the
+// sizes decode runs (600 valid slots of 2048, 1.2 MB) that bound is well
+// under a microsecond, so what the launch really costs is latency: the mask
+// read, one round trip for the tiles, the merge.  The design:
+//
+// * Only tiles that hold data are read.  S is cut into tiles of 64 slots.
+//   Every block first reads its batch row of the mask (16-byte loads, one
+//   tile per thread, a ballot per 32 tiles) and compacts the tiles that hold
+//   at least one valid slot into a list in shared memory.  Masked slots
+//   score the finite -1e30 of the TPU kernel, so in a row with a valid slot
+//   a fully masked tile has weight exp(-1e30 - m) = 0 exactly in fp32, and
+//   skipping it changes no bit.  A row with no valid slot at all averages V
+//   over every slot (the reference's result), so there the list is every
+//   tile.  The blocks of a (batch, kv head) divide the listed tiles among
+//   themselves, whole tiles each, so no block walks only masked slots.  The
+//   split count is chosen on the host from (B, Kv, S) and the SM count; the
+//   mask is never read back to the host.
+// * Whole tiles move.  A tile's K and V rows go into shared memory through
+//   16-byte cp.async, double-buffered, so tile t + 1 is in flight while tile
+//   t is computed.  Each warp takes 16 slots of a tile and keeps its own
+//   online softmax (one max and one rescale per 16 slots, not per key).  In
+//   bf16 the G <= 8 query heads are the rows of mma.sync.m16n8k16, padded to
+//   16, for both Q.K^T (K through ldmatrix) and P.V (V through
+//   ldmatrix.trans; P rounded to bf16, l summed from the unrounded P, as the
+//   prefill kernel does).  fp32 stays on scalar FMAs from shared memory.
+// * One launch.  Each block writes its split's (m, l, acc) to fp32 scratch
+//   and takes a ticket from a per-(batch, kv head) counter; the last block
+//   to arrive merges the splits in split order, so the result is the same
+//   every run, and sets the counter back to 0 for the next launch.  The
+//   ticket is the only atomic: no sum goes through one.
 //
 // Element types: float and bfloat16 (math in fp32).  Head dims: 64, 128.
-// Query heads per kv head: at most MAX_G.
+// Query heads per kv head: at most MAX_G.  K and V rows must be 16-byte
+// aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = 64;                  // cache slots per tile
+constexpr int WARP_KEYS = TILE / WARPS;   // slots of a tile per warp
+constexpr int STAGES = 2;
 constexpr int MAX_G = 8;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -60,10 +90,9 @@ struct Params {
   const void* v;
   const uint8_t* valid;         // (B, S), nonzero = valid
   void* o;                      // (B, 1, H, D)
-  float* part_m;                // (B * H, splits)
-  float* part_l;                // (B * H, splits)
-  float* part_acc;              // (B * H, splits, D)
-  int B, H, Kv, S, splits, chunk;
+  float* part;                  // (B * H, splits, D) acc, then (B * H, splits) m, then l
+  int* tickets;                 // (B * Kv), zero between launches
+  int B, H, Kv, S, splits, n_tiles, vec_mask;
   long long q_sb, q_sh;         // strides in elements; the D stride is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -72,141 +101,446 @@ struct Params {
   float scale;
 };
 
+// Dynamic shared memory: the K/V ring, then the tile bitmap and the list.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_split_kernel(const Params p) {
-  constexpr int E = D / 32;     // elements of a row per lane
-  __shared__ float wm[WARPS][MAX_G];
-  __shared__ float wl[WARPS][MAX_G];
-  __shared__ float wacc[WARPS][MAX_G][D];
+__host__ __device__ constexpr int ring_bytes() {
+  return STAGES * 2 * TILE * D * static_cast<int>(sizeof(T));
+}
 
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+inline size_t smem_bytes(int ring, int n_tiles) {
+  const int n_words = (n_tiles + 31) / 32;
+  return static_cast<size_t>(ring) + 4 * static_cast<size_t>(n_words + n_tiles);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
+  using namespace mma_sm90;
+  constexpr int CH = D * static_cast<int>(sizeof(T)) / 16;   // chunks per row
+  constexpr int EPC = 16 / static_cast<int>(sizeof(T));      // elements per chunk
+  constexpr bool BF16 = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(128) unsigned char fd_smem[];
+  T* ring = reinterpret_cast<T*>(fd_smem);
+  uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, D>());
+  const int n_words = (p.n_tiles + 31) / 32;
+  int* list = reinterpret_cast<int*>(words + n_words);
+  // the merge of the warps reuses the ring once the tiles are done
+  float* wacc = reinterpret_cast<float*>(fd_smem);          // [WARPS][MAX_G][D]
+  __shared__ float wm[WARPS][MAX_G], wl[WARPS][MAX_G];
+  __shared__ float qs[BF16 ? 1 : MAX_G][D];                 // fp32: the query rows
+  __shared__ float ps[BF16 ? 1 : WARPS][MAX_G][WARP_KEYS];  // fp32: a warp's P
+  __shared__ float rowc[BF16 ? 1 : WARPS][3][MAX_G];        // fp32: m, corr, sum
+  __shared__ int s_n, s_last;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = p.H / p.Kv;
-  const int s0 = split * p.chunk;
-  const int s1 = min(p.S, s0 + p.chunk);
-
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (kvh * G) * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const uint8_t* valid = p.valid + b * p.valid_sb;
 
-  float qv[MAX_G][E], m[MAX_G], l[MAX_G], acc[MAX_G][E];
+  // The query rows: bf16 as mma A fragments (rows g < G, the rest zero),
+  // fp32 into shared memory.  Issued first, so they arrive during the scan.
+  uint32_t qa[BF16 ? D / 16 : 1][4];
+  if constexpr (BF16) {
+    const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qv[g][e] = g < G ? to_float(q[g * p.q_sh + lane * E + e]) : 0.f;
-      acc[g][e] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (g < G) {
+        const T* qr = q + g * p.q_sh + kk * 16 + c;
+        f[0] = to_float(qr[0]);
+        f[1] = to_float(qr[1]);
+        f[2] = to_float(qr[8]);
+        f[3] = to_float(qr[9]);
+      }
+      qa[kk][0] = pack_bf16x2(f[0], f[1]);
+      qa[kk][1] = 0u;
+      qa[kk][2] = pack_bf16x2(f[2], f[3]);
+      qa[kk][3] = 0u;
+    }
+  } else {
+    for (int i = tid; i < MAX_G * D; i += THREADS) {
+      const int g = i / D, d = i % D;
+      qs[g][d] = g < G ? to_float(q[g * p.q_sh + d]) : 0.f;
     }
   }
 
-  for (int s = s0 + warp; s < s1; s += WARPS) {
-    float kr[E], vr[E];
+  // 1. The tiles of this batch row that hold a valid slot: one tile per
+  //    thread, a ballot per 32 tiles.
+  for (int t0 = 0; t0 < n_words * 32; t0 += THREADS) {
+    const int t = t0 + tid;
+    bool any = false;
+    if (t < p.n_tiles) {
+      const int s0 = t * TILE, s1 = min(p.S, s0 + TILE);
+      if (p.vec_mask && s1 - s0 == TILE) {
+        const uint4* m4 = reinterpret_cast<const uint4*>(valid + s0);
+        uint32_t acc = 0;
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      kr[e] = to_float(k[s * p.k_ss + lane * E + e]);
-      vr[e] = to_float(v[s * p.v_ss + lane * E + e]);
-    }
-    const bool ok = valid[s] != 0;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) {              // uniform across the warp
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot = fmaf(qv[g][e], kr[e], dot);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const float x = ok ? dot * p.scale : NEG_INF;
-        const float m_new = fmaxf(m[g], x);
-        const float corr = expf(m[g] - m_new);
-        const float pv = expf(x - m_new);
-        l[g] = l[g] * corr + pv;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = acc[g][e] * corr + pv * vr[e];
-        m[g] = m_new;
+        for (int j = 0; j < TILE / 16; ++j) {
+          const uint4 x = __ldg(m4 + j);
+          acc |= x.x | x.y | x.z | x.w;
+        }
+        any = acc != 0;
+      } else {
+        for (int s = s0; s < s1; ++s) any |= __ldg(valid + s) != 0;
       }
     }
-  }
-
-  // Merge the warps of this block, then write the split's partials.
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        wm[warp][g] = m[g];
-        wl[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) wacc[warp][g][lane * E + e] = acc[g][e];
-    }
+    const uint32_t bits = __ballot_sync(0xffffffffu, any);
+    const int w = t0 / 32 + warp;
+    if (lane == 0 && w < n_words) words[w] = bits;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float wt = expf(wm[w][g] - mx);
-      ls += wl[w][g] * wt;
-      as += wacc[w][g][d] * wt;
+  if (warp == 0) {      // compact, in tile order
+    int n = 0;
+    for (int w = 0; w < n_words; ++w) {
+      const uint32_t bits = words[w];
+      if ((bits >> lane) & 1u) list[n + __popc(bits & ((1u << lane) - 1u))] = w * 32 + lane;
+      n += __popc(bits);
     }
-    const long long row = (long long)(b * p.H + kvh * G + g) * p.splits + split;
-    p.part_acc[row * D + d] = as;
-    if (d == 0) {
-      p.part_m[row] = mx;
-      p.part_l[row] = ls;
+    if (n == 0) {       // no valid slot: the row averages V over every slot
+      for (int t = lane; t < p.n_tiles; t += 32) list[t] = t;
+      n = p.n_tiles;
     }
+    if (lane == 0) s_n = n;
   }
-}
+  __syncthreads();
 
-template <typename T, int D>
-__global__ void __launch_bounds__(D) flash_decode_merge_kernel(const Params p) {
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const int d = threadIdx.x;
-  const float* pm = p.part_m + (long long)bh * p.splits;
-  const float* pl = p.part_l + (long long)bh * p.splits;
-  const float* pa = p.part_acc + (long long)bh * p.splits * D;
-  float mx = NEG_INF;
-  for (int s = 0; s < p.splits; ++s) mx = fmaxf(mx, pm[s]);
-  float ls = 0.f, as = 0.f;
-  for (int s = 0; s < p.splits; ++s) {
-    const float wt = expf(pm[s] - mx);
-    ls += pl[s] * wt;
-    as += pa[s * D + d] * wt;
+  // 2. This split's run of listed tiles.
+  const int n = s_n;
+  const int per = (n + p.splits - 1) / p.splits;
+  const int active = (n + per - 1) / per;     // splits that hold a tile
+  const int r0 = split * per, r1 = min(n, r0 + per);
+  const int row0 = b * p.H + kvh * G;         // first (b, h) row of this kv head
+
+  if (r0 < r1) {
+    auto load_tile = [&](int st, int tile) {
+      T* ks = ring + st * 2 * TILE * D;
+      T* vs = ks + TILE * D;
+      for (int i = tid; i < TILE * CH; i += THREADS) {
+        const int r = i / CH, c = i % CH;
+        const int s = tile * TILE + r;
+        const bool in = s < p.S;
+        const int dst = BF16 ? swizzle<(BF16 ? CH : 8)>(r, c) : r * D + c * EPC;
+        cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
+        cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
+      }
+    };
+
+    // per-warp online softmax state: bf16 in mma C layout (row lane / 4),
+    // fp32 warp-uniform per row with the columns split over the lanes
+    float m_b = NEG_INF, l_b = 0.f;
+    float acc_b[BF16 ? D / 8 : 1][4];
+    float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : D / 32];
+#pragma unroll
+    for (int i = 0; i < (BF16 ? D / 8 : 1); ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_b[i][j] = 0.f;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      m_f[g] = NEG_INF;
+      l_f[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < (BF16 ? 1 : D / 32); ++j) acc_f[BF16 ? 0 : g][j] = 0.f;
+    }
+
+    load_tile(0, list[r0]);
+    cp_async_commit();
+    for (int i = 0; i < r1 - r0; ++i) {
+      if (r0 + i + 1 < r1) load_tile((i + 1) % STAGES, list[r0 + i + 1]);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();                        // tile i landed
+      const int tile = list[r0 + i];
+      const T* ks = ring + (i % STAGES) * 2 * TILE * D;
+      const T* vs = ks + TILE * D;
+
+      if constexpr (BF16) {
+        // scores of this warp's 16 slots, rows = query heads
+        float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t r[4];
+          ldmatrix_x4(r, ks + swizzle<(BF16 ? CH : 8)>(
+                                  warp * WARP_KEYS + (lane & 7) + ((lane >> 4) << 3),
+                                  kk * 2 + ((lane >> 3) & 1)));
+          mma_bf16(c[0], qa[kk], r[0], r[1]);
+          mma_bf16(c[1], qa[kk], r[2], r[3]);
+        }
+        const int key0 = tile * TILE + warp * WARP_KEYS + 2 * (lane % 4);
+        float s[2][2], mt = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = key0 + j * 8 + e;
+            // slots past S do not exist: weight exactly 0, even in a row
+            // with no valid slot
+            s[j][e] = key >= p.S ? -CUDART_INF_F
+                      : __ldg(valid + key) ? c[j][e] * p.scale : NEG_INF;
+            mt = fmaxf(mt, s[j][e]);
+          }
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m_b, mt);
+        const float corr = expf(m_b - m_new);
+        float pr[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) pr[j][e] = expf(s[j][e] - m_new);
+        l_b = l_b * corr + pr[0][0] + pr[0][1] + pr[1][0] + pr[1][1];
+        m_b = m_new;
+        const uint32_t a[4] = {pack_bf16x2(pr[0][0], pr[0][1]), 0u,
+                               pack_bf16x2(pr[1][0], pr[1][1]), 0u};
+#pragma unroll
+        for (int nb = 0; nb < D / 8; ++nb) {
+          acc_b[nb][0] *= corr;
+          acc_b[nb][1] *= corr;
+        }
+#pragma unroll
+        for (int db = 0; db < D / 16; ++db) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vs + swizzle<(BF16 ? CH : 8)>(
+                                        warp * WARP_KEYS + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                        db * 2 + (lane >> 4)));
+          mma_bf16(acc_b[2 * db], a, r[0], r[1]);
+          mma_bf16(acc_b[2 * db + 1], a, r[2], r[3]);
+        }
+      } else {
+        // lane: slot kk of the warp's 16, heads half * 4 .. half * 4 + 3
+        const int kk = lane & 15, half = lane >> 4;
+        const int key = tile * TILE + warp * WARP_KEYS + kk;
+        const float* kr = reinterpret_cast<const float*>(ks) + (warp * WARP_KEYS + kk) * D;
+        float s[4];
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) s[i2] = 0.f;
+        for (int dd = 0; dd < D; ++dd) {
+          const int d = (dd + kk) & (D - 1);    // rotated: no bank conflict on K
+          const float kv = kr[d];
+#pragma unroll
+          for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
+        }
+        const bool in = key < p.S;
+        const bool ok = in && __ldg(valid + key) != 0;
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const int g = half * 4 + i2;
+          float x = !in || g >= G ? -CUDART_INF_F : ok ? s[i2] * p.scale : NEG_INF;
+          float mt = x;
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+          const float m_old = half ? m_f[4 + i2] : m_f[i2];
+          const float m_new = fmaxf(m_old, mt);
+          const float pv = expf(x - m_new);
+          float sum = pv;
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          ps[warp][g][kk] = pv;
+          if (kk == 0) {
+            rowc[warp][0][g] = m_new;
+            rowc[warp][1][g] = expf(m_old - m_new);
+            rowc[warp][2][g] = sum;
+          }
+        }
+        __syncwarp();
+        const float* vr = reinterpret_cast<const float*>(vs) + warp * WARP_KEYS * D;
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) {
+          if (g < G) {                        // uniform across the warp
+            const float corr = rowc[warp][1][g];
+            m_f[g] = rowc[warp][0][g];
+            l_f[g] = l_f[g] * corr + rowc[warp][2][g];
+#pragma unroll
+            for (int j = 0; j < D / 32; ++j) {
+              float a = acc_f[BF16 ? 0 : g][j] * corr;
+#pragma unroll
+              for (int kk2 = 0; kk2 < WARP_KEYS; ++kk2)
+                a = fmaf(ps[warp][g][kk2], vr[kk2 * D + lane + 32 * j], a);
+              acc_f[BF16 ? 0 : g][j] = a;
+            }
+          }
+        }
+        __syncwarp();
+      }
+      __syncthreads();                        // stage i % STAGES is free
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // 3. Merge the warps of this block; write the split's partials.
+    if constexpr (BF16) {
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+      const int g = lane / 4;
+      if (g < G) {
+        if (lane % 4 == 0) {
+          wm[warp][g] = m_b;
+          wl[warp][g] = l_b;
+        }
+#pragma unroll
+        for (int nb = 0; nb < D / 8; ++nb) {
+          float* dst = wacc + (warp * MAX_G + g) * D + nb * 8 + 2 * (lane % 4);
+          dst[0] = acc_b[nb][0];
+          dst[1] = acc_b[nb][1];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        if (g < G) {
+          if (lane == 0) {
+            wm[warp][g] = m_f[g];
+            wl[warp][g] = l_f[g];
+          }
+#pragma unroll
+          for (int j = 0; j < D / 32; ++j)
+            wacc[(warp * MAX_G + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
+        }
+      }
+    }
+    __syncthreads();
+    const long long n_rows = (long long)p.B * p.H * p.splits;
+    for (int i = tid; i < G * D; i += THREADS) {
+      const int g = i / D, d = i % D;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+      float ls = 0.f, as = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float wt = expf(wm[w][g] - mx);
+        ls += wl[w][g] * wt;
+        as += wacc[(w * MAX_G + g) * D + d] * wt;
+      }
+      const long long row = (long long)(row0 + g) * p.splits + split;
+      p.part[row * D + d] = as;
+      if (d == 0) {
+        p.part[n_rows * D + row] = mx;
+        p.part[n_rows * (D + 1) + row] = ls;
+      }
+    }
   }
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  o[d] = from_float<T>(as / fmaxf(ls, 1e-20f));
+
+  // 4. The last block of this (batch, kv head) merges the splits in order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(p.tickets + b * p.Kv + kvh, 1);
+    s_last = ticket == p.splits - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // (a) each row's weight per split, exp(m_s - max m) / sum_s l_s exp(..),
+  //     in shared memory (the ring is free): a warp per row, lanes over the
+  //     splits, m and l fetched in one round trip, sums in a fixed order
+  const long long n_rows = (long long)p.B * p.H * p.splits;
+  const float* pm = p.part + n_rows * D;
+  const float* pl = pm + n_rows;
+  float* sw = reinterpret_cast<float*>(fd_smem);            // [MAX_G][active]
+  float* sl = sw + MAX_G * active;
+  for (int g = warp; g < G; g += WARPS) {
+    const long long row = (long long)(row0 + g) * p.splits;
+    float mx = NEG_INF;
+    for (int s = lane; s < active; s += 32) {
+      const float m = __ldcg(pm + row + s), l = __ldcg(pl + row + s);
+      sw[g * active + s] = m;
+      sl[g * active + s] = l;
+      mx = fmaxf(mx, m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float ls = 0.f;
+    for (int s = lane; s < active; s += 32) {
+      const float wt = expf(sw[g * active + s] - mx);
+      sw[g * active + s] = wt;
+      ls += sl[g * active + s] * wt;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    const float inv = 1.f / fmaxf(ls, 1e-20f);
+    for (int s = lane; s < active; s += 32) sw[g * active + s] *= inv;
+  }
+  __syncthreads();
+  // (b) the output: 4 columns per thread and MERGE splits' accumulators in
+  //     flight at once (16-byte loads), added in split order
+  constexpr int N4 = (MAX_G * D / 4 + THREADS - 1) / THREADS;   // float4 per thread
+  constexpr int MERGE = 8;
+  float4 out[N4];
+#pragma unroll
+  for (int i = 0; i < N4; ++i) out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4* pacc = reinterpret_cast<const float4*>(p.part) +
+                       (long long)row0 * p.splits * (D / 4);
+  for (int s0 = 0; s0 < active; s0 += MERGE) {
+    float4 a[MERGE][N4];
+#pragma unroll
+    for (int u = 0; u < MERGE; ++u)
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        const int j = tid + i * THREADS, g = j / (D / 4), d4 = j % (D / 4);
+        a[u][i] = s0 + u < active && g < G
+                      ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * (D / 4) + d4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int u = 0; u < MERGE; ++u)
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        const int g = (tid + i * THREADS) / (D / 4);
+        if (s0 + u < active && g < G) {
+          const float wt = sw[g * active + s0 + u];
+          out[i].x = fmaf(a[u][i].x, wt, out[i].x);
+          out[i].y = fmaf(a[u][i].y, wt, out[i].y);
+          out[i].z = fmaf(a[u][i].z, wt, out[i].z);
+          out[i].w = fmaf(a[u][i].w, wt, out[i].w);
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < N4; ++i) {
+    const int j = tid + i * THREADS, g = j / (D / 4), d = 4 * (j % (D / 4));
+    if (g < G) {
+      T* o = static_cast<T*>(p.o) + b * p.o_sb + (kvh * G + g) * p.o_sh + d;
+      o[0] = from_float<T>(out[i].x);
+      o[1] = from_float<T>(out[i].y);
+      o[2] = from_float<T>(out[i].z);
+      o[3] = from_float<T>(out[i].w);
+    }
+  }
+  if (tid == 0) p.tickets[b * p.Kv + kvh] = 0;
 }
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  static size_t attr_bytes = 0;   // the dynamic shared memory allowed so far
+  const size_t smem = smem_bytes(ring_bytes<T, D>(), p.n_tiles);
+  if (smem > 200 * 1024) return cudaErrorInvalidValue;
+  if (smem > attr_bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    attr_bytes = smem;
+  }
   const dim3 grid(p.splits, p.Kv, p.B);
-  flash_decode_split_kernel<T, D><<<grid, THREADS, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_decode_merge_kernel<T, D><<<p.B * p.H, D, 0, stream>>>(p);
+  flash_decode_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  part: B * H * splits * (D + 2) floats
+// of scratch, 16-byte aligned; tickets: B * Kv ints, zero before the launch and zero after it.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_decode_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, const void* valid, void* o,
-    void* part_m, void* part_l, void* part_acc,
-    int B, int H, int Kv, int S, int splits, int chunk,
+    void* part, void* tickets,
+    int B, int H, int Kv, int S, int splits, int vec_mask,
     long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -216,21 +550,24 @@ extern "C" int flash_decode_fwd(
   p.q = q; p.k = k; p.v = v;
   p.valid = static_cast<const uint8_t*>(valid);
   p.o = o;
-  p.part_m = static_cast<float*>(part_m);
-  p.part_l = static_cast<float*>(part_l);
-  p.part_acc = static_cast<float*>(part_acc);
-  p.B = B; p.H = H; p.Kv = Kv; p.S = S; p.splits = splits; p.chunk = chunk;
+  p.part = static_cast<float*>(part);
+  p.tickets = static_cast<int*>(tickets);
+  p.B = B; p.H = H; p.Kv = Kv; p.S = S; p.splits = splits;
+  p.n_tiles = (S + TILE - 1) / TILE;
+  p.vec_mask = vec_mask;
   p.q_sb = q_sb; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.valid_sb = valid_sb;
   p.o_sb = o_sb; p.o_sh = o_sh;
   p.scale = scale;
-  if (H % Kv != 0 || H / Kv > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
+  if (H % Kv != 0 || H / Kv > MAX_G || S <= 0 || splits <= 0 || B > 65535 ||
+      Kv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, s);
+  if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, s);
+  if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,8 @@
-"""Decode attention: the CUDA kernel ``csrc/flash_decode.cu`` (split-KV with
-a log-sum-exp merge) and its plain PyTorch version, both in the model layout:
-q (B, 1, H, D), cache (B, S, Kv, D), valid (B, S).
+"""Decode attention: the CUDA kernel ``csrc/flash_decode.cu`` (one launch
+that reads only the 64-slot tiles holding a valid slot, split over blocks
+and merged by log-sum-exp by the last block of each kv head) and its plain
+PyTorch version, both in the model layout: q (B, 1, H, D), cache
+(B, S, Kv, D), valid (B, S).
 
 Counterpart of ``repro.kernels.flash_decode`` (``flash_decode_bhd``).
 ``repro_torch.kernels.ops.flash_decode`` picks between the two by the device
@@ -10,17 +12,16 @@ of its inputs and counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.grid import arrival_counters, sm_count
 
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_G = 8                 # query heads per kv head (csrc MAX_G)
-MIN_SPLIT = 32            # fewest cache slots a split walks
+TILE = 64                 # cache slots per tile (csrc TILE); a split takes whole tiles
 BLOCKS_PER_SM = 2         # grid size the split count aims for
 
 _fn = None
@@ -32,7 +33,7 @@ def _kernel_fn():
         fn = build.load("flash_decode").flash_decode_fwd
         fn.argtypes = (
             [ctypes.c_int] * 2
-            + [ctypes.c_void_p] * 8
+            + [ctypes.c_void_p] * 7
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 11
             + [ctypes.c_float, ctypes.c_void_p]
@@ -42,17 +43,14 @@ def _kernel_fn():
     return _fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def num_splits(B: int, Kv: int, S: int, sm_count: int) -> int:
-    """Splits of S so that B * Kv * splits blocks fill the SMs about
-    ``BLOCKS_PER_SM`` times over, each split walking at least ``MIN_SPLIT``
-    slots."""
-    want = -(-BLOCKS_PER_SM * sm_count // max(B * Kv, 1))
-    return max(1, min(want, -(-S // MIN_SPLIT)))
+def num_splits(B: int, Kv: int, S: int, sms: int) -> int:
+    """Splits of each (batch, kv head) so that B * Kv * splits blocks fill
+    the SMs about ``BLOCKS_PER_SM`` times over, and no more splits than S
+    has tiles.  Chosen from shapes alone: the kernel divides the tiles that
+    hold a valid slot among the splits on the card, so the mask is never
+    read back to the host."""
+    want = -(-BLOCKS_PER_SM * sms // max(B * Kv, 1))
+    return max(1, min(want, -(-S // TILE)))
 
 
 def plain(
@@ -75,9 +73,8 @@ def launch(
     v_cache: torch.Tensor,
     kv_valid: torch.Tensor,       # (B, S) bool / int8 / uint8
 ) -> torch.Tensor:
-    """Launch the split and merge kernels on the current stream; returns
-    (B, 1, H, D).  Raises on inputs the kernel does not take and on a
-    refused launch."""
+    """Launch the kernel on the current stream; returns (B, 1, H, D).
+    Raises on inputs the kernel does not take and on a refused launch."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     B, _, H, D = q.shape
@@ -104,21 +101,29 @@ def launch(
             raise ValueError("q, caches and kv_valid must lie on one CUDA device")
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError("the last axis of every input must have stride 1")
+    per_chunk = 16 // q.element_size()
+    for t in (k_cache, v_cache):      # rows move in 16-byte copies
+        if t.data_ptr() % 16 or any(st % per_chunk for st in t.stride()[:3]):
+            raise ValueError("cache rows must be 16-byte aligned")
+    if S == 0:
+        raise ValueError("the cache has no slots")
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    splits = num_splits(B, Kv, S, _sm_count(q.device.index or 0))
-    chunk = -(-S // splits)
-    part_ml = torch.empty((2, B * H * splits), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B * H * splits, D), dtype=torch.float32, device=q.device)
+    splits = num_splits(B, Kv, S, sm_count(q.device.index or 0))
+    part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    vec_mask = int(kv_valid.data_ptr() % 16 == 0
+                   and (B == 1 or kv_valid.stride(0) % 16 == 0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn()(
             DTYPES[q.dtype], D,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_valid.data_ptr(), out.data_ptr(),
-            part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
-            B, H, Kv, S, splits, chunk,
+            kv_valid.data_ptr(), out.data_ptr(), part.data_ptr(),
+            arrival_counters("flash_decode", q.device, stream,
+                             B * Kv).data_ptr(),
+            B, H, Kv, S, splits, vec_mask,
             q.stride(0), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

@@ -94,15 +94,20 @@ selective_scan.launches = 0
 def moe_gmm(
     x: torch.Tensor,              # (E, C, D)
     w: torch.Tensor,              # (E, D, F)
+    rows: Optional[torch.Tensor] = None,   # (E,) int32
 ) -> torch.Tensor:
     """y[e] = x[e] @ w[e], (E, C, F) in x's dtype, products summed in fp32.
+    With ``rows`` (int32 on x's device), rows[e] leading rows of x[e] hold
+    tokens and y's rows past it are zeros; the result equals the product
+    without it wherever x's rows past rows[e] are zero, as the MoE dispatch
+    buffer's are, and the kernel skips the weights of empty experts.
 
     The reference pads C, D and F to its 128/512 blocks: that is the TPU
     kernel's MXU tiling.  The CUDA kernel masks ragged edges itself, so
     nothing is padded or copied."""
-    if _on_cpu(x, w):
-        return _gmm.plain(x, w)
-    out = _gmm.launch(x, w)
+    if _on_cpu(*(t for t in (x, w, rows) if t is not None)):
+        return _gmm.plain(x, w, rows)
+    out = _gmm.launch(x, w, rows)
     moe_gmm.launches += 1
     return out
 
@@ -118,21 +123,23 @@ def moe_ffn(
     *,
     act: str = "silu",
     impl: str = "kernel",
+    rows: Optional[torch.Tensor] = None,   # (E,) int32
 ) -> torch.Tensor:
     """The expert FFN as grouped matmuls: h = x @ wi, h = act(x @ wg) * h
     (or act(h) without a gate), then h @ wo; three products with a gate, two
-    without.  ``impl="kernel"`` runs each through ``moe_gmm``, ``"plain"``
-    through its plain version on any device."""
+    without, each given ``rows`` (see ``moe_gmm``).  ``impl="kernel"`` runs
+    each through ``moe_gmm``, ``"plain"`` through its plain version on any
+    device."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
     gmm = moe_gmm if impl == "kernel" else _gmm.plain
     a = activation(act)
-    h = gmm(xe, wi)
+    h = gmm(xe, wi, rows)
     if wg is not None:
-        h = a(gmm(xe, wg)) * h
+        h = a(gmm(xe, wg, rows)) * h
     else:
         h = a(h)
-    return gmm(h, wo)
+    return gmm(h, wo, rows)
 
 
 KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan, moe_gmm)

@@ -81,6 +81,14 @@ def selective_scan_ref(
 def moe_gmm_ref(
     x: torch.Tensor,              # (E, C, D)
     w: torch.Tensor,              # (E, D, F)
+    rows: Optional[torch.Tensor] = None,   # (E,) int
 ) -> torch.Tensor:
-    """y[e] = x[e] @ w[e] in fp32, cast back to x's dtype (E, C, F)."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    """y[e] = x[e] @ w[e] in fp32, cast back to x's dtype (E, C, F).  With
+    ``rows``, only the first rows[e] rows of x[e] hold tokens: y's rows at
+    or past rows[e] are zeros, whatever x holds there."""
+    y = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    if rows is None:
+        return y
+    live = torch.arange(x.shape[1], device=x.device)[None, :] < rows[:, None]
+    return torch.where(live[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                        device=y.device))

@@ -131,9 +131,13 @@ def moe_apply(
     xe = buf.view(E, C + 1, d)[:, :C]                      # (E, C, d) view
 
     # ---- expert FFN -------------------------------------------------------
+    # rows[e]: the leading rows of xe[e] that hold tokens, the capacity count
+    # clamped to C, handed over on the device (no sync): the kernel reads no
+    # weight of an empty expert, 120 of 128 in a qwen3-moe decode step
+    rows = counts[:, -1].clamp(max=C).to(torch.int32)
     ye = ops.moe_ffn(
         xe, p["wi"].to(dt), p["wg"].to(dt) if "wg" in p else None,
-        p["wo"].to(dt), act=cfg.act, impl=impl,
+        p["wo"].to(dt), act=cfg.act, impl=impl, rows=rows,
     )
 
     # ---- combine (the same wire format on the way back) -----------------

@@ -71,6 +71,28 @@ QWEN_GMM_CASES = [
     (8, 40, 2048, 768, "offset"),
 ]
 
+# (B, H, Kv, S, D, mask) for flash_decode's tile skipping: an all-masked
+# row beside a partial one, one valid slot in the last tile, a ring of live
+# slots wrapping past the end, S off the 64-slot tiles, and qwen3-moe-30b's
+# decode shape (H=32, Kv=4, D=128) with 600 valid slots and with none
+CARD_DECODE_CASES = [
+    (2, 32, 8, 2048, 64, "empty beside 600"),
+    (1, 32, 8, 2048, 64, "last"),
+    (2, 32, 8, 2048, 64, "ring"),
+    (2, 32, 8, 1000, 64, "ring"),
+    (1, 32, 4, 2048, 128, "600"),
+    (1, 32, 4, 2048, 128, "empty"),
+]
+
+# (E, C, D, F, layout of x) for the grouped matmul with rows at qwen3's
+# widths: "occupied:N", N of the 128 experts hold tokens (x zero past rows);
+# "garbage:N", the same rows with nonzero values past them
+CARD_ROWS_GMM_CASES = [
+    *((128, C, 2048, 768, f"occupied:{n}") for C in (1, 5, 77) for n in (0, 8, 128)),
+    (128, 1, 2048, 768, "garbage:8"),
+    (128, 77, 2048, 768, "garbage:8"),
+]
+
 # the grouped matmul's own tolerances in the reference (test_kernels.py)
 GMM_TOL = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 5e-2)}
 
@@ -127,6 +149,123 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     assert ops.flash_decode.launches == before + 1
     want = tfd.plain(q, k, v, valid)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def decode_mask(B, S, mask, device, seed=0):
+    """The (B, S) int8 mask of a CARD_DECODE_CASES kind: "N", the first N
+    slots; "empty", none; "empty beside N", none in row 0 and the first N
+    in the others; "last", slot S - 1 alone; "ring", a window of live slots
+    wrapping past the end, with holes."""
+    pos = np.arange(S)[None, :].repeat(B, 0)
+    if mask == "last":
+        valid = pos == S - 1
+    elif mask == "ring":
+        rng = np.random.default_rng(seed)
+        valid = ((pos - (S - 300)) % S < 900) & (rng.random((B, S)) < 0.9)
+    elif mask == "empty":
+        valid = np.zeros((B, S), bool)
+    elif mask.startswith("empty beside "):
+        valid = pos < int(mask.split()[-1])
+        valid[0] = False
+    else:
+        valid = pos < int(mask)
+    return torch.from_numpy(valid.astype(np.int8)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_skips_empty_tiles_exactly(card, case, dtype):
+    B, H, Kv, S, D, mask = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(800 + CARD_DECODE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, S, Kv, D), tdt, card)
+    v = _randn(rng, (B, S, Kv, D), tdt, card)
+    valid = decode_mask(B, S, mask, card)
+    for _ in range(2):      # the second launch finds the tickets reset
+        got = ops.flash_decode(q, k, v, kv_valid=valid)
+        torch.cuda.synchronize()
+        want = tfd.plain(q, k, v, valid)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # the same inputs with the masked slots' K and V set to NaN: a tile
+    # without a valid slot is never read (a row with none reads them all)
+    kn, vn = k.clone(), v.clone()
+    dead = ~valid.bool()
+    for b in range(B):
+        if valid[b].any():
+            kn[b][dead[b]] = float("nan")
+            vn[b][dead[b]] = float("nan")
+    tiles = dead.reshape(B, -1, tfd.TILE).all(-1) if S % tfd.TILE == 0 else None
+    if tiles is not None and tiles.any():
+        keep = tiles.repeat_interleave(tfd.TILE, 1)
+        kn = torch.where(keep[..., None, None], kn, k)
+        vn = torch.where(keep[..., None, None], vn, v)
+        got = ops.flash_decode(q, kn, vn, kv_valid=valid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _rows_x(rng, E, C, D, dtype, device, layout):
+    """x (E, C, D) as the dispatch buffer's first C rows and rows (E,)
+    int32 for an "occupied:N" or "garbage:N" layout: N experts (drawn from
+    the seed) hold 1..C rows, the rest none; x is zero past rows[e], or
+    random there for "garbage"."""
+    kind, n = layout.split(":")
+    occupied = rng.choice(E, size=int(n), replace=False)
+    rows = np.zeros(E, np.int32)
+    rows[occupied] = rng.integers(1, C + 1, size=int(n))
+    if int(n):
+        rows[occupied[0]] = C                    # one full expert at least
+    x = _randn(rng, (E, C + 1, D), dtype, device)[:, :C]
+    rows_t = torch.from_numpy(rows).to(device)
+    if kind == "occupied":
+        past = torch.arange(C, device=device)[None, :] >= rows_t[:, None]
+        x[past] = 0
+    return x, rows_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_ROWS_GMM_CASES)
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_kernel_with_rows(card, case, dtype):
+    """With rows, the kernel equals the plain version with rows; where x is
+    zero past rows[e] (the dispatch buffer), that is the product of the
+    whole buffer; rows past rows[e] are zeros whatever x holds there."""
+    E, C, D, F, layout = case
+    tdt, tol = GMM_TOL[dtype]
+    rng = np.random.default_rng(900 + CARD_ROWS_GMM_CASES.index(case))
+    x, rows = _rows_x(rng, E, C, D, tdt, card, layout)
+    # weights at fan-in scale, as the model's are: with unit-normal weights
+    # an fp32 sum of 2048 products is O(100), and two correct fp32 orders of
+    # it (cuBLAS's in the plain version, the kernel's) differ by ~2e-4
+    w = _randn(rng, (E, D, F), tdt, card) / D ** 0.5
+    before = ops.moe_gmm.launches
+    for _ in range(2):      # the second launch finds the tickets reset
+        got = ops.moe_gmm(x, w, rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), tgmm.plain(x, w, rows).float(),
+                                   atol=tol, rtol=tol)
+    assert ops.moe_gmm.launches == before + 2
+    past = torch.arange(C, device=card)[None, :] >= rows[:, None]
+    assert bool(got[past].eq(0).all())
+    if layout.startswith("occupied"):
+        torch.testing.assert_close(got.float(), tgmm.plain(x, w).float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 77])
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_kernel_without_rows_is_rows_all_c(card, C, dtype):
+    tdt, _ = GMM_TOL[dtype]
+    rng = np.random.default_rng(950 + C)
+    x = _randn(rng, (128, C + 1, 2048), tdt, card)[:, :C]
+    w = _randn(rng, (128, 2048, 768), tdt, card)
+    full = torch.full((128,), C, dtype=torch.int32, device=card)
+    got = tgmm.launch(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tgmm.launch(x, w, full))
 
 
 @pytest.mark.cuda

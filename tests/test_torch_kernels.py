@@ -136,6 +136,94 @@ def test_flash_decode_plain_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
 
 
+def _decode_mask(kind, B, S):
+    """(B, S) int8 masks of the shapes flash_decode must honour: a prefix
+    (cache occupancy), a ring (a sliding window's live slots wrapping past
+    the end), one valid slot in the last tile, no valid slot at all, and an
+    empty row beside a partial one."""
+    pos = np.arange(S)[None, :].repeat(B, 0)
+    if kind == "prefix":
+        valid = pos < np.array([[137], [300]])[:B]
+    elif kind == "ring":
+        valid = (pos - (S - 100)) % S < 230
+    elif kind == "last":
+        valid = pos == S - 1
+    elif kind == "none":
+        valid = np.zeros((B, S), bool)
+    elif kind == "empty beside partial":
+        valid = pos < np.array([[0], [75]])[:B]
+    else:
+        raise ValueError(kind)
+    return valid.astype(np.int8)
+
+
+def _decode_over_listed_tiles(q, k, v, valid, splits, tile):
+    """flash_decode's tile-skip rule in plain PyTorch (test only).  Per
+    batch row, the tiles of ``tile`` slots that hold a valid slot (every
+    tile when none does) are listed in order and divided among ``splits``
+    blocks, whole tiles each; a block attends over its tiles' slots alone
+    (masked slots score -1e30), and the blocks' (m, l, acc) are merged by
+    log-sum-exp in block order, rows normalised by max(l, 1e-20).  q
+    (B, H, D); k, v (B, Kv, S, D); valid (B, S).  fp32 throughout.  Returns
+    the output and the number of slots attended per row."""
+    B, H, D = q.shape
+    Kv, S = k.shape[1], k.shape[2]
+    n_tiles = -(-S // tile)
+    out, attended = torch.empty(B, H, D), []
+    for b in range(B):
+        listed = [t for t in range(n_tiles)
+                  if valid[b, t * tile:(t + 1) * tile].any()]
+        listed = listed or list(range(n_tiles))
+        per = -(-len(listed) // splits)
+        qg = q[b].float().reshape(Kv, H // Kv, D)
+        parts = []
+        for r0 in range(0, len(listed), per):
+            slots = torch.cat([torch.arange(t * tile, min(S, (t + 1) * tile))
+                               for t in listed[r0:r0 + per]])
+            sc = torch.einsum("kgd,kmd->kgm", qg, k[b][:, slots].float())
+            sc = torch.where(valid[b, slots].bool(), sc / math.sqrt(D),
+                             torch.tensor(tref.NEG_INF))
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            acc = torch.einsum("kgm,kmd->kgd", p, v[b][:, slots].float())
+            parts.append((m, p.sum(-1), acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[b] = (acc / l.clamp_min(1e-20)[..., None]).reshape(H, D)
+        attended.append(sum(min(S, (t + 1) * tile) - t * tile for t in listed))
+    return out.to(q.dtype), attended
+
+
+@pytest.mark.parametrize("kind", ["prefix", "ring", "last", "none",
+                                  "empty beside partial"])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_tile_skip_matches_pallas_and_ref(kind, splits, dtype):
+    """Attending over the 64-slot tiles that hold a valid slot (all of them
+    in a row with none), split and merged as the CUDA kernel does, gives the
+    reference's result.  S is a multiple of the Pallas block, so the
+    reference pads no slot into the all-masked mean."""
+    B, H, Kv, S, D = 2, 8, 2, 512, 64
+    tol = DTYPES[dtype][2]
+    rng = np.random.default_rng(150 + splits)
+    jq, tq = _pair(rng, (B, H, D), dtype)
+    jk, tk = _pair(rng, (B, Kv, S, D), dtype)
+    jv, tv = _pair(rng, (B, Kv, S, D), dtype)
+    valid = _decode_mask(kind, B, S)
+    got, attended = _decode_over_listed_tiles(tq, tk, tv, torch.from_numpy(valid),
+                                              splits, tfd.TILE)
+    pallas = flash_decode_bhd(jq, jk, jv, jnp.asarray(valid), block_kv=128,
+                              interpret=True)
+    oracle = tref.flash_decode_ref(tq, tk, tv, torch.from_numpy(valid))
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
+    # the rule skips: only a row with no valid slot takes every tile
+    for b in range(B):
+        n_valid_tiles = int(np.any(valid[b].reshape(-1, tfd.TILE), 1).sum())
+        assert attended[b] == tfd.TILE * (n_valid_tiles or S // tfd.TILE)
+
+
 def _scan_inputs(rng, B, Q, C, N):
     """a in (0, 1) like exp(delta * A), b small, as ``test_kernels.py``."""
     a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, Q, C, N), dtype=np.float32)))
@@ -225,9 +313,10 @@ def test_wrappers_refuse_mixed_devices():
 def test_decode_splits_fill_the_card():
     # llama3.2-1b at batch 1: 8 kv heads alone would leave 124 of 132 SMs idle
     s = tfd.num_splits(1, 8, 2048, 132)
-    assert 8 * s >= 132 and -(-2048 // s) >= tfd.MIN_SPLIT
+    assert 8 * s >= 132 and s <= 2048 // tfd.TILE   # whole tiles per split
     assert tfd.num_splits(64, 8, 2048, 132) == 1
-    assert tfd.num_splits(1, 8, 40, 132) == 2      # short cache: few splits
+    assert tfd.num_splits(1, 8, 40, 132) == 1      # short cache: one tile
+    assert tfd.num_splits(1, 8, 100, 132) == 2     # two tiles, two splits
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
@@ -241,9 +330,9 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     # the shared tensor-core header is part of its includers' names
     header = build.CSRC / "mma_sm90.cuh"
-    for name in ("flash_attention", "moe_gmm"):
+    for name in ("flash_attention", "flash_decode", "moe_gmm"):
         assert header in build.sources(name)
-    assert build.sources("flash_decode") == [build.CSRC / "flash_decode.cu"]
+    assert build.sources("selective_scan") == [build.CSRC / "selective_scan.cu"]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in build.CSRC.iterdir():
@@ -254,7 +343,7 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     (csrc / "mma_sm90.cuh").write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_path(n) for n in build.KERNELS}
     assert {n for n in build.KERNELS if after[n] != before[n]} == {
-        "flash_attention", "moe_gmm"}
+        "flash_attention", "flash_decode", "moe_gmm"}
 
 
 def test_card_test_cases_are_the_reference_cases():
@@ -269,9 +358,9 @@ def test_card_test_cases_are_the_reference_cases():
 
 
 def test_card_only_cases_are_checked_by_chip_smoke():
-    """The card-only cases of the tensor-core kernels (qwen3-moe-30b's
-    shapes) are also among ``chip_smoke.py``'s checks, run on every chip
-    run."""
+    """The card-only cases (the tensor-core kernels at qwen3-moe-30b's
+    shapes, flash_decode's tile skipping, the grouped matmul with rows) are
+    also among ``chip_smoke.py``'s checks, run on every chip run."""
     import importlib.util
     from pathlib import Path
 
@@ -289,3 +378,7 @@ def test_card_only_cases_are_checked_by_chip_smoke():
            for _, dt, E, C, D, F, layout in smoke.GMM_CASES
            if dt == torch.bfloat16}
     assert set(test_torch_cuda.QWEN_GMM_CASES) <= gmm
+    assert set(test_torch_cuda.CARD_ROWS_GMM_CASES) <= gmm
+    fd = {(B, H, Kv, S, D, mask)
+          for dt, B, H, Kv, S, D, mask in smoke.FD_CASES if dt == torch.bfloat16}
+    assert set(test_torch_cuda.CARD_DECODE_CASES) <= fd

@@ -79,6 +79,65 @@ def test_moe_gmm_plain_matches_pallas_and_ref(case, dtype):
                                atol=tol, rtol=tol)
 
 
+# rows[e] of an 8-expert case: empty, full and partly filled experts
+ROWS_PATTERN = (0, None, 3, 0, 1, None, 17, 0)     # None: all C rows
+
+
+def _rows_case(rng, C, dtype_name, garbage=False):
+    """x (8, C, 128) like the dispatch buffer: rows at or past rows[e] are
+    zeros, or random when ``garbage``; w (8, 128, 96); rows (8,) int32."""
+    jdt, tdt, _ = GMM_TOL[dtype_name]
+    E, D, F = len(ROWS_PATTERN), 128, 96
+    rows = np.array([C if r is None else min(r, C) for r in ROWS_PATTERN],
+                    np.int32)
+    x = rng.standard_normal((E, C, D), dtype=np.float32)
+    if not garbage:
+        x[np.arange(C)[None, :] >= rows[:, None]] = 0.0
+    w = rng.standard_normal((E, D, F), dtype=np.float32)
+    return ((jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)),
+            (torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)),
+            torch.from_numpy(rows))
+
+
+@pytest.mark.parametrize("C", [1, 5, 24])
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_plain_with_rows_matches_pallas(C, dtype):
+    """With the occupancy ``rows`` of a dispatch-like x (zeros past
+    rows[e]; empty, full and partial experts), the grouped matmul is the
+    reference's on the whole buffer, and equals the port's without rows."""
+    tol = GMM_TOL[dtype][2]
+    (jx, jw), (tx, tw), rows = _rows_case(np.random.default_rng(700 + C), C,
+                                          dtype)
+    pallas = moe_gmm_ecf(jx, jw, block_c=64, block_d=64, block_f=64,
+                         interpret=True)
+    before = ops.moe_gmm.launches
+    got = ops.moe_gmm(tx, tw, rows)
+    assert ops.moe_gmm.launches == before        # CPU: the plain version
+    assert got.dtype == tx.dtype and got.shape == (8, C, 96)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+    torch.testing.assert_close(got, ops.moe_gmm(tx, tw), atol=0, rtol=0)
+    torch.testing.assert_close(got, tref.moe_gmm_ref(tx, tw, rows), atol=0,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", list(GMM_TOL))
+def test_moe_gmm_rows_past_the_occupancy_come_out_zero(dtype):
+    """Rows at or past rows[e] are zeros whatever x holds there; the rows
+    before are the product's."""
+    C = 24
+    _, (tx, tw), rows = _rows_case(np.random.default_rng(9), C, dtype,
+                                   garbage=True)
+    got = ops.moe_gmm(tx, tw, rows)
+    full = ops.moe_gmm(tx, tw)
+    live = torch.arange(C)[None, :] < rows[:, None]
+    assert bool(full[~live].ne(0).any())         # the garbage was not zero
+    assert bool(got[~live].eq(0).all())
+    torch.testing.assert_close(got[live], full[live], atol=0, rtol=0)
+    # the expert FFN hands rows to each product: past them, zeros too
+    y = ops.moe_ffn(tx, tw, tw, tw.transpose(1, 2), rows=rows)
+    assert bool(y[~live].eq(0).all())
+
+
 def _ffn_weights(rng, E, D, F, gated):
     """Weights at fan-in scale, so every stage stays O(1)."""
     wi = rng.standard_normal((E, D, F), dtype=np.float32) / np.sqrt(D)
@@ -189,6 +248,40 @@ def test_moe_apply_matches_reference(name, j_impl):
     torch.testing.assert_close(py, ty, atol=0, rtol=0)
     assert tmoe.moe_apply(tp, tcfg, torch.from_numpy(x),
                           chunk_tokens=chunk)[1] is None
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_moe_apply_hands_the_occupancy_to_the_expert_ffn(name, monkeypatch):
+    """``moe_apply`` passes each chunk's capacity count, clamped to C, as
+    ``rows``: int32 on the input's device, every row of xe[e] before it a
+    token (nonzero) and every row from it on zero."""
+    jcfg, tcfg, b, s, chunk = _moe_case(name)
+    tp = {k: torch.from_numpy(v)
+          for k, v in _moe_params(jcfg, MOE_CASES.index(name)).items()}
+    x = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        (b, s, tcfg.d_model), dtype=np.float32))
+    seen, ffn = [], ops.moe_ffn
+
+    def record(xe, *args, rows=None, **kw):
+        seen.append((xe, rows))
+        return ffn(xe, *args, rows=rows, **kw)
+
+    monkeypatch.setattr(tmoe.ops, "moe_ffn", record)
+    tmoe.moe_apply(tp, tcfg, x, chunk_tokens=chunk)
+    n_chunks = b * s // chunk if b * s > chunk else 1
+    assert len(seen) == n_chunks
+    chunks = x.reshape(len(seen), -1, tcfg.d_model)
+    for (xe, rows), xc in zip(seen, chunks):
+        E, C = xe.shape[:2]
+        assert rows.dtype == torch.int32 and rows.shape == (E,)
+        assert rows.device == x.device
+        nonzero = xe.ne(0).any(-1)                       # (E, C)
+        live = torch.arange(C)[None, :] < rows[:, None].long()
+        assert torch.equal(nonzero, live)
+        # the (token, k) pairs each expert was routed, up to its capacity
+        idx = tmoe.route_topk(xc @ tp["router"], tcfg.experts_per_token)[1]
+        routed = torch.bincount(idx.reshape(-1), minlength=E)
+        assert torch.equal(rows.long(), routed.clamp(max=C))
 
 
 def test_moe_cases_drop_and_chunk():
