@@ -23,7 +23,12 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    Kv=4, D=128), and moe_gmm with the rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
-4. serves three full-width models, one after the other, with seeded random
+4. profiles the kernels of the three served models on the ``h100``
+   instance (``repro_torch.profiles``, the kernels timed with CUDA events),
+   writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
+   port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
+   must lie in (0, 1.05];
+5. serves three full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
    the selective scan once per 256-token chunk of every prefill, no kernel
@@ -31,15 +36,21 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    top-8 MoE: flash_attention, flash_decode, and three moe_gmm launches per
    layer in prefill and decode).  Each fleet has two replicas and eight
    requests of 128-1024 prompt tokens, least-loaded dispatch, replica 0
-   preempted at step 4 and its requests retried on the survivor.  The
+   preempted at step 4 and its requests retried on the survivor.  Each
+   replica captures one serve step per cache slot as a CUDA graph when it
+   is built, and every decode step replays one (prefill stays eager).  The
    launch counters are zeroed just before each fleet run and read just
-   after: every request must complete with 33 tokens and every kernel must
-   have launched exactly as often as the model's path says.  For the MoE
+   after (a replay adds its graph's launches, counted at capture): every
+   request must complete with 33 tokens and every kernel must have
+   launched exactly as often as the model's path says.  One request of the
+   longest prompt then decodes 32 steps eagerly and 32 by replay from the
+   same prefill: the tokens must be equal (the largest logit difference is
+   printed).  For the MoE
    model one full-width MoE layer is held kernel against plain.  Prefill
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
-   one prefill plus eight decode steps are profiled;
-5. prints a ``kernels`` JSON line (all four kernels), the card line and,
+   one prefill plus eight decode steps, eager and replayed, are profiled;
+6. prints a ``kernels`` JSON line (all four kernels), the card line and,
    last, the device JSON line.
 
 Any failure exits non-zero; without CUDA it exits 1 before printing results.
@@ -51,7 +62,6 @@ import contextlib
 import gc
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -341,11 +351,9 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()] if out else ""
+    from repro_torch.profiles.profiler import card_description
+
+    return card_description(torch.device("cuda", torch.cuda.current_device()))
 
 
 def randn(rng: np.random.Generator, shape, dtype) -> torch.Tensor:
@@ -668,6 +676,10 @@ def phase_serve(model, prompts) -> dict:
                              f"{res.decode_steps} decode steps)")
     if not res.retried:
         raise AssertionError("the preemption retried no request")
+    if res.graphs != 2 * len(prompts):
+        raise AssertionError(f"{name}: {res.graphs} captured serve steps, want "
+                             f"{2 * len(prompts)} (2 replicas x "
+                             f"{len(prompts)} cache slots)")
     if torch.cuda.max_memory_allocated() >= CARD_BYTES:
         raise AssertionError(f"{name}: peak device memory "
                              f"{torch.cuda.max_memory_allocated():,} B")
@@ -678,8 +690,10 @@ def phase_serve(model, prompts) -> dict:
         f"prefills={res.prefills} (lengths {res.prefill_lens}) "
         f"mean_prefill_ms={1e3 * np.mean(res.prefill_s):.3f}, "
         f"decode_steps={res.decode_steps} "
-        f"mean_decode_step_ms={1e3 * np.mean(res.decode_s):.3f}, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"mean_decode_step_ms={1e3 * np.mean(res.decode_s):.3f} (captured "
+        f"steps replayed), set-up {res.setup_s:.3f} s for {res.graphs} cache "
+        f"slots with captured steps, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{name} launches on the serving path (want {json.dumps(want)}):",
         json.dumps(launches))
     return launches
@@ -830,26 +844,80 @@ def check_moe_layer(model, prompts) -> None:
             raise AssertionError("MoE layer: kernel path disagrees with plain")
 
 
+def copy_cache(dst, src) -> None:
+    """Write ``src``'s contents into ``dst``'s tensors (same shapes)."""
+    dst["len"].copy_(src["len"])
+    for key in ("kv", "ssm_state"):
+        for name, t in src.get(key, {}).items():
+            dst[key][name].copy_(t)
+
+
+@torch.inference_mode()
+def check_replay(model, prompts, steps: int = 32) -> None:
+    """One request of the longest prompt, prefilled once: ``steps`` eager
+    decode steps on one copy of the cache and ``steps`` replays of a
+    captured serve step on another.  Any token that differs fails the run;
+    the largest difference in logits is printed."""
+    from repro_torch.launch.steps import build_serve_step
+
+    tokens = max(prompts.values(), key=len)[None]
+    graph_cache = model.init_cache(1, 2048)
+    t0 = time.perf_counter()
+    step = build_serve_step(model, graph_cache)   # hands the cache back empty
+    capture_s = time.perf_counter() - t0
+    eager_cache = model.init_cache(1, 2048)
+    logits, _ = model.prefill(tokens, eager_cache)
+    copy_cache(graph_cache, eager_cache)
+    tok = logits.argmax(-1)
+    step.tokens.copy_(tok)
+    eager, replayed, worst = [], [], 0.0
+    for _ in range(steps):
+        logits, _ = model.decode_step(tok, eager_cache)
+        tok = logits.argmax(-1)
+        eager.append(int(tok[0, 0]))
+        replayed.append(int(step()[0, 0]))
+        worst = max(worst, (step.logits.float() - logits.float()).abs().max().item())
+    log(f"{model.cfg.name} eager vs replay (S={tokens.shape[1]}, {steps} steps, "
+        f"capture {capture_s:.3f} s, graph launches per replay "
+        f"{json.dumps(step.launches)}): tokens equal "
+        f"{sum(a == b for a, b in zip(eager, replayed))}/{steps}, largest "
+        f"|logit difference| {worst:.4g}")
+    if eager != replayed:
+        raise AssertionError(f"{model.cfg.name}: replayed tokens {replayed} != "
+                             f"eager {eager}")
+
+
 @torch.inference_mode()
 def profile_serving(model, prompts, decode_steps: int = 8) -> None:
     """Where a request's time goes: one prefill of the longest prompt and
-    ``decode_steps`` decode steps under torch.profiler (each window run once
-    as the profiler's warm-up, then recorded).  Prints wall time, device
-    busy time (kernel time summed) and the device's idle share, and the
-    kernels that take the most device time; a window whose trace fails its
-    checks three times is printed as not measured."""
+    ``decode_steps`` decode steps, eager and as replays of the captured
+    serve step, under torch.profiler (each window run once as the
+    profiler's warm-up, then recorded).  Prints wall time, device busy time
+    (kernel time summed) and the device's idle share, and the kernels that
+    take the most device time; a window whose trace fails its checks three
+    times is printed as not measured."""
+    from repro_torch.launch.steps import build_serve_step
+
     tokens = max(prompts.values(), key=len)[None]
     cache = model.init_cache(1, 2048)
     logits, cache = model.prefill(tokens, cache)
     state = {"tok": logits.argmax(-1)}
+    graph_cache = model.init_cache(1, 2048)
+    step = build_serve_step(model, graph_cache)
+    copy_cache(graph_cache, cache)
+    step.tokens.copy_(state["tok"])
 
     def decode():
         for _ in range(decode_steps):
             logits, _ = model.decode_step(state["tok"], cache)
             state["tok"] = logits.argmax(-1)
 
+    def replay():
+        for _ in range(decode_steps):
+            step()
+
     windows = {"prefill": lambda: model.prefill(tokens, model.init_cache(1, 2048)),
-               "decode": decode}
+               "decode": decode, "decode, captured": replay}
     for phase, window in windows.items():
         try:
             events, wall_ms, clock = checked_profile(window, cpu=True)
@@ -863,6 +931,7 @@ def profile_serving(model, prompts, decode_steps: int = 8) -> None:
             f"profiler on): "
             f"wall_ms={wall_ms / n:.3f} device_busy_ms={busy_ms / n:.3f} "
             f"idle_share={1 - busy_ms / wall_ms:.3f} "
+            f"kernels_per_call={sum(e.count for e in events) / n:g} "
             f"profiler_clock_ratio={clock:.3f} top kernels per call: " +
             json.dumps({e.key[:60]: round(e.self_device_time_total / 1e3 / n, 4)
                         for e in top}))
@@ -1078,11 +1147,51 @@ def time_moe_gmm() -> dict:
     return time_moe_gmm_at(GMM_DECODE_C, 1)
 
 
+SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b")
+PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
+
+
+def phase_profiles() -> None:
+    """The step-time profiles of the three served models on the ``h100``
+    instance, through the port's CLI (the reference's cases: prefill 256,
+    cache 512, batch 1; each kernel call timed with CUDA events, best of
+    the repeats), written to ``PROFILE_OUT`` and reloaded with the port's
+    schema.  Both shares must lie in (0, 1.05]."""
+    from repro_torch.profiles import run as profiles_run
+    from repro_torch.profiles.schema import ProfileTable
+
+    if PROFILE_OUT.exists():
+        PROFILE_OUT.unlink()          # this run's rows only, none merged in
+    rc = profiles_run.main(["--models", *SERVED, "--itype", "h100",
+                            "--device", "cuda", "--out", str(PROFILE_OUT)])
+    if rc:
+        raise AssertionError(f"repro_torch.profiles.run exited {rc}")
+    table = ProfileTable.load(str(PROFILE_OUT))
+    want = sorted(f"{m}|H100" for m in SERVED)
+    if sorted(table.entries) != want:
+        raise AssertionError(f"profile rows {sorted(table.entries)} != {want}")
+    for key, e in sorted(table.entries.items()):
+        log(f"profile row {key}: mfu_prefill={e.mfu_prefill:.6g} "
+            f"mbu_decode={e.mbu_decode:.6g} prefill_wall_ms="
+            f"{1e3 * e.prefill_wall_s:.4f} ({e.prefill_tokens} tokens, "
+            f"{e.prefill_flops:.4g} FLOP) decode_wall_ms="
+            f"{1e3 * e.decode_wall_s:.4f} ({e.decode_cache_tokens} cached, "
+            f"{e.decode_bytes:.4g} B) backend={e.backend} mode={e.mode} "
+            f"torch={e.torch_version} device={e.device!r}")
+        for share in ("mfu_prefill", "mbu_decode"):
+            if not 0 < getattr(e, share) <= 1.05:
+                raise AssertionError(f"{key}: {share} = {getattr(e, share)} "
+                                     "outside (0, 1.05]")
+
+
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
     model, prompts = build_served_model(arch)
     launches = phase_serve(model, prompts)
+    gc.collect()          # the fleet's replicas: their caches and graphs
+    torch.cuda.empty_cache()
+    check_replay(model, prompts)
     if model.cfg.is_moe:
         check_moe_layer(model, prompts)
     compare_prefill_logits(model, prompts)
@@ -1112,10 +1221,9 @@ def main() -> int:
     gmm = time_moe_gmm()
     kernels = [time_flash_attention(), time_flash_decode(), time_selective_scan(),
                gmm]
+    phase_profiles()
     # each path's kernels, counted in that path's own fleet run
-    llama = serve_path("llama3.2-1b")
-    mamba = serve_path("falcon-mamba-7b")
-    qwen = serve_path("qwen3-moe-30b")
+    llama, mamba, qwen = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],
                 "selective_scan": mamba["selective_scan"],

@@ -15,13 +15,14 @@ oracles, kept for parity with it.
 
 The KV cache is preallocated and written in place: the reference's
 ``dynamic_update_slice`` (which returns a new array) becomes a slice
-assignment into the cache tensors, and the returned cache is the same dict.
+assignment (prefill) or an ``index_copy_`` at the device length (decode)
+into the cache tensors, and the returned cache is the same dict.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -30,7 +31,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ops
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm, rmsnorm_spec
+from repro_torch.models.layers import rms_norm, rmsnorm_spec, rope_cos_sin, rotate
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "plain")
@@ -146,6 +147,24 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 
+def decode_slot_and_mask(
+    cache_len: torch.Tensor,           # () int, on the cache's device
+    slots: int,
+    batch: int,
+    ring: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where a decode step writes its token and which slots it reads, from
+    the length on the device (no host sync): the slot index, (1,) int64,
+    ``len`` (``len % slots`` in a sliding-window ring), and the (B, slots)
+    bool mask ``arange(slots) < min(len + 1, slots)``.  A model builds both
+    once per step for all its layers.  A cache that is not a ring must hold
+    fewer than ``slots`` tokens: its owner checks that on the host."""
+    n = cache_len.reshape(1).long()
+    slot = n % slots if ring else n
+    valid = torch.arange(slots, device=n.device) < torch.clamp(n + 1, max=slots)
+    return slot, valid[None].expand(batch, slots)
+
+
 def attention_apply(
     p,
     cfg: ModelConfig,
@@ -154,20 +173,30 @@ def attention_apply(
     positions: torch.Tensor,           # (S,) absolute positions
     mode: str,                         # "full" | "decode"
     layer_cache: Optional[Dict[str, torch.Tensor]] = None,  # (B, slots, Kv, D)
-    cache_len: Optional[int] = None,   # tokens already in the cache
+    cache_len: Union[int, torch.Tensor, None] = None,   # tokens in the cache
     causal: bool = True,
     prefix_len: int = 0,
     impl: str = "kernel",
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    decode_at: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (output (B,S,d_model), the layer cache written in place or
     None).
 
-    ``cache_len`` is a host int, so choosing the cache slot needs no device
-    sync.  Full mode writes K/V at slots [0, S) (prefill fills an empty
-    cache; the reference writes at ``positions[0]``, which prefill sets to
-    0); decode mode writes the new token at slot ``cache_len`` (mod the ring
-    size under a sliding window), and ``positions`` must be
-    ``[cache_len]``."""
+    Full mode writes K/V at slots [0, S) (prefill fills an empty cache; the
+    reference writes at ``positions[0]``, which prefill sets to 0).  Decode
+    mode writes the new token at slot ``cache_len`` (mod the ring size under
+    a sliding window), and ``positions`` must be ``[cache_len]``.
+
+    ``cache_len`` is the length on the device, a () int tensor, as the
+    model keeps it: the slot write is an ``index_copy_`` at a device index
+    and the valid mask is built on the device, so a decode step waits for
+    nothing and can be captured in a CUDA graph; whoever owns the cache
+    checks on the host that it is not full.  A host int is taken too, and
+    then checked here.  ``rope`` (cos, sin from ``rope_cos_sin``) and
+    ``decode_at`` (slot and mask from ``decode_slot_and_mask``) let a model
+    build them once per step for every layer; without them they are built
+    here from ``positions`` and ``cache_len``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
     B, S, d = x.shape
@@ -187,8 +216,10 @@ def attention_apply(
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if rope is None:
+            rope = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
 
     new_cache = None
     if mode == "full":
@@ -218,21 +249,21 @@ def attention_apply(
                 cv[:, :S] = v.to(cv.dtype)
             new_cache = layer_cache
     elif mode == "decode":
-        if layer_cache is None or cache_len is None:
+        if layer_cache is None or (cache_len is None and decode_at is None):
             raise ValueError("decode mode needs layer_cache and cache_len")
         ck, cv = layer_cache["k"], layer_cache["v"]
         slots = ck.shape[1]
-        if cfg.sliding_window is not None:
-            slot = cache_len % slots
-        elif cache_len < slots:
-            slot = cache_len
-        else:
-            raise ValueError(f"cache full: {cache_len} of {slots} slots used")
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        n_filled = min(cache_len + 1, slots)
-        valid = (torch.arange(slots, device=x.device) < n_filled)
-        valid = valid[None].expand(B, slots)
+        if decode_at is None:
+            if isinstance(cache_len, int):
+                if cfg.sliding_window is None and cache_len >= slots:
+                    raise ValueError(
+                        f"cache full: {cache_len} of {slots} slots used")
+                cache_len = torch.tensor(cache_len, device=x.device)
+            decode_at = decode_slot_and_mask(
+                cache_len, slots, B, cfg.sliding_window is not None)
+        slot, valid = decode_at
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
         if impl == "kernel":
             out = ops.flash_decode(q, ck, cv, kv_valid=valid)
         else:

@@ -7,7 +7,7 @@ the same points as the reference.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,25 +38,41 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def rope_cos_sin(
+    positions: torch.Tensor,     # (S,) or (B, S)
+    head_dim: int,
+    theta: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rotation ``apply_rope`` applies at ``positions``: cos and sin of
+    shape (B|1, S, 1, head_dim // 2), fp32.  A model computes them once per
+    step and hands them to every layer."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=positions.device) / half
+    freq = 1.0 / (theta ** exponent)
+    ang = positions[..., None].float() * freq     # (S,half) / (B,S,half)
+    if ang.dim() == 2:
+        ang = ang[None]                            # (1, S, half)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The rotation of ``apply_rope`` by precomputed ``rope_cos_sin``."""
+    if x.dim() != 4:
+        raise ValueError(f"apply_rope expects (B,S,H,D), got {tuple(x.shape)}")
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(
     x: torch.Tensor,             # (B, S, H, D)
     positions: torch.Tensor,     # (S,) or (B, S)
     theta: float,
 ) -> torch.Tensor:
     """Rotary position embedding on the trailing head_dim."""
-    if x.dim() != 4:
-        raise ValueError(f"apply_rope expects (B,S,H,D), got {tuple(x.shape)}")
-    half = x.shape[-1] // 2
-    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = 1.0 / (theta ** exponent)
-    ang = positions[..., None].float() * freq     # (S,half) / (B,S,half)
-    if ang.dim() == 2:
-        ang = ang[None]                            # (1, S, half)
-    cos = torch.cos(ang)[:, :, None, :]            # (B|1, S, 1, half)
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,18 @@ Modes
 ``prefill``      full sequence + KV cache write, last-position logits
 ``decode_step``  one token per sequence against the carried cache
 
-The cache is a dict ``{"len": int, "kv": {"k", "v"}}`` with K/V of shape
+The cache is a dict ``{"len": (), "kv": {"k", "v"}}`` with K/V of shape
 (layers, batch, slots, kv_heads, head_dim), or for the SSM family
-``{"len": int, "ssm_state": {"conv", "ssm"}}`` with fp32 states of shape
+``{"len": (), "ssm_state": {"conv", "ssm"}}`` with fp32 states of shape
 (layers, batch, conv - 1, d_inner) and (layers, batch, d_inner, ssm_state).
-Either is written in place; ``len`` is a host int, so no step waits on the
-device to learn it.
+``len`` is an int32 tensor of shape () on the model's device, as in the
+reference.  All of it is written in place and never replaced: ``prefill``
+sets the length on the device, ``decode_step`` builds its positions, cache
+slot and valid mask from it and advances it with ``add_``, so a decode step
+waits for nothing on the host and a CUDA graph captured on a cache replays
+on whatever the cache holds (``repro_torch.launch.steps``).  The host's
+bookkeeping (is the cache empty, is it full) belongs to the cache's owner,
+who knows the length without asking the device.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.models.layers import (
     mlp_blueprint,
     rms_norm,
     rmsnorm_spec,
+    rope_cos_sin,
     unembed_spec,
 )
 
@@ -150,12 +157,13 @@ class TransformerLM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
         cfg = self.cfg
+        length = torch.zeros((), dtype=torch.int32, device=self.device)
         if cfg.family == "ssm":
             # the states are fp32 whatever the activation dtype, as in the
             # reference; a bf16 conv state written here is exact
             L = cfg.num_layers
             return {
-                "len": 0,
+                "len": length,
                 "ssm_state": {
                     k: torch.zeros((L,) + s, dtype=torch.float32,
                                    device=self.device)
@@ -170,12 +178,29 @@ class TransformerLM(nn.Module):
         shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         return {
-            "len": 0,
+            "len": length,
             "kv": {
                 "k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device),
             },
         }
+
+    @staticmethod
+    def reset_cache(cache: Dict[str, Any]) -> None:
+        """Empty ``cache`` in place for the next prompt: length 0, K/V or
+        states zero (a Mamba prefill starts from the states it finds).  The
+        tensors stay the same ones, so a step captured on them still
+        replays."""
+        cache["len"].zero_()
+        for t in cache.get("kv", cache.get("ssm_state")).values():
+            t.zero_()
+
+    def cache_capacity(self, cache: Dict[str, Any]) -> Optional[int]:
+        """Tokens ``cache`` can hold, or None where it never fills (a
+        sliding-window ring, a recurrent state)."""
+        if "kv" not in cache or self.cfg.sliding_window is not None:
+            return None
+        return cache["kv"]["k"].shape[2]
 
     # ==================================================================
     # Blocks
@@ -187,14 +212,15 @@ class TransformerLM(nn.Module):
             return moe.moe_apply(lp["moe"], self.cfg, h, impl=self.impl)[0]
         return mlp_apply(lp["mlp"], self.cfg, h)
 
-    def _attn_block(self, lp, x, *, positions, mode, layer_kv, cache_len,
-                    prefix_len):
+    def _attn_block(self, lp, x, *, positions, mode, layer_kv, prefix_len,
+                    rope, decode_at):
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attn.attention_apply(
             lp["attn"], cfg, h,
             positions=positions, mode=mode, layer_cache=layer_kv,
-            cache_len=cache_len, prefix_len=prefix_len, impl=self.impl,
+            prefix_len=prefix_len, impl=self.impl, rope=rope,
+            decode_at=decode_at,
         )
         if cfg.parallel_block:
             # command-r: attn and FFN read the SAME normed input, summed
@@ -230,16 +256,25 @@ class TransformerLM(nn.Module):
         return x
 
     def _run_stack(self, x, *, positions, mode, cache, prefix_len):
-        if self.cfg.family == "ssm":
+        cfg = self.cfg
+        if cfg.family == "ssm":
             return self._run_ssm_stack(x, mode=mode, cache=cache)
-        cache_len = None if cache is None else cache["len"]
+        # per-step work, once for all layers: the rotation at these
+        # positions, and in decode the new token's slot and the valid mask
+        rope = (rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+                if cfg.rope else None)
+        decode_at = None
+        if mode == "decode":
+            decode_at = attn.decode_slot_and_mask(
+                cache["len"], cache["kv"]["k"].shape[2], x.shape[0],
+                cfg.sliding_window is not None)
         for i, lp in enumerate(self.layers):
             layer_kv = None
             if cache is not None:
                 layer_kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
             x = self._attn_block(
                 lp, x, positions=positions, mode=mode, layer_kv=layer_kv,
-                cache_len=cache_len, prefix_len=prefix_len,
+                prefix_len=prefix_len, rope=rope, decode_at=decode_at,
             )
         return x
 
@@ -283,10 +318,11 @@ class TransformerLM(nn.Module):
         prefix_embed: Optional[torch.Tensor] = None,
         dtype: torch.dtype = torch.bfloat16,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Process the prompt, fill the (empty) cache in place, return the
-        last-position logits (B, 1, V) and the cache."""
-        if cache["len"] != 0:
-            raise ValueError("prefill needs an empty cache")
+        """Process the prompt, fill the cache in place, return the
+        last-position logits (B, 1, V) and the cache.  The cache must be
+        empty (fresh from ``init_cache`` or emptied by ``reset_cache``):
+        its owner knows that on the host, and asking the device would
+        wait for it."""
         x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._run_stack(
@@ -294,7 +330,7 @@ class TransformerLM(nn.Module):
             prefix_len=prefix_len if self.cfg.prefix_lm else 0,
         )
         x = rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
-        cache["len"] = positions.shape[0]
+        cache["len"].fill_(positions.shape[0])
         return self.logits(x), cache
 
     def decode_step(
@@ -305,13 +341,13 @@ class TransformerLM(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode step: next-token logits (B, 1, V) and the cache,
-        updated in place."""
+        updated in place.  The position is the device length, which the
+        step advances in place at its end; nothing waits for the device."""
         x = embed_tokens(self.embed, tokens, dtype)
-        n = cache["len"]
-        positions = torch.arange(n, n + 1, device=x.device)
+        positions = cache["len"].reshape(1)
         x = self._run_stack(
             x, positions=positions, mode="decode", cache=cache, prefix_len=0,
         )
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        cache["len"] = n + 1
+        cache["len"].add_(1)
         return self.logits(x), cache

@@ -15,8 +15,14 @@ requests are dropped and retried client-side, re-prefilled on a survivor
     python -m repro_torch.serving.live --arch qwen3-moe-30b --smoke --device cpu
 
 The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
-``decode_step``, whatever the model keeps in its cache (KV for attention,
-dense or MoE, conv and SSM states for Mamba-1).
+``reset_cache`` and decode through the serve step
+(``repro_torch.launch.steps``), whatever the model keeps in its cache (KV
+for attention, dense or MoE, conv and SSM states for Mamba-1).  A replica
+owns a fixed set of cache slots, each a cache with its serve step, made
+when the replica is built: on the card each step is captured once there
+as a CUDA graph (capturing writes into its cache, so it cannot wait for a
+request), the graphs share the replica's memory pool, and every decode
+step is a replay.  A request takes a free slot; prefill stays eager.
 """
 
 from __future__ import annotations
@@ -24,62 +30,92 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.steps import ServeStep, build_serve_step
+
+
+@dataclasses.dataclass
+class _Request:
+    req_id: int
+    slot: Tuple[Dict[str, Any], ServeStep]   # the cache and its serve step
+    length: int                              # tokens in the cache (host copy)
+    remaining: int
+    out: List[int]
 
 
 class LiveReplica:
-    """A real prefill + decode engine; one cache per in-flight request."""
+    """A real prefill + decode engine with ``slots`` cache slots: at most
+    that many requests in flight, each in its own cache with its own serve
+    step (captured on the card when the replica is built)."""
 
     def __init__(self, name: str, model, max_len: int = 96,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16, *, slots: int) -> None:
         self.name, self.model = name, model
-        self.max_len = max_len
         self.dtype = dtype
         self.alive = True
-        self.inflight: List[list] = []   # [req_id, cache, tok, remaining, out]
+        self.inflight: List[_Request] = []
         self.prefill_s: List[float] = []
         self.prefill_lens: List[int] = []
         self.decode_s: List[float] = []
+        on_card = model.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if on_card else None
+        stream = torch.cuda.Stream(model.device) if on_card else None
+        self.free: List[Tuple[Dict[str, Any], ServeStep]] = []
+        for _ in range(slots):
+            cache = model.init_cache(1, max_len, dtype=dtype)
+            self.free.append((cache, build_serve_step(
+                model, cache, dtype=dtype, pool=pool, stream=stream)))
 
     @torch.inference_mode()
     def submit(self, req_id: int, prompt: torch.Tensor, out_tokens: int) -> None:
+        if not self.free:
+            raise RuntimeError(f"{self.name}: all {len(self.inflight)} cache "
+                               "slots are in flight")
         t0 = time.perf_counter()
-        cache = self.model.init_cache(1, self.max_len, dtype=self.dtype)
+        cache, step = slot = self.free.pop()
+        self.model.reset_cache(cache)
         logits, cache = self.model.prefill(prompt[None], cache, dtype=self.dtype)
-        tok = logits.argmax(-1)                        # (1, 1)
-        out = [int(tok[0, 0])]                         # waits for the device
+        step.tokens.copy_(logits.argmax(-1))           # (1, 1)
+        out = [int(step.tokens[0, 0])]                 # waits for the device
         self.prefill_s.append(time.perf_counter() - t0)
         self.prefill_lens.append(int(prompt.shape[0]))
-        self.inflight.append([req_id, cache, tok, out_tokens, out])
+        self.inflight.append(_Request(req_id, slot, int(prompt.shape[0]),
+                                      out_tokens, out))
 
     @torch.inference_mode()
     def step(self):
         """One decode step for every in-flight request; returns the
         (req_id, tokens) of those that completed."""
         done, still = [], []
-        for req_id, cache, tok, remaining, out in self.inflight:
+        for r in self.inflight:
+            cache, step = r.slot
+            capacity = self.model.cache_capacity(cache)
+            if capacity is not None and r.length >= capacity:
+                raise ValueError(f"request {r.req_id}: cache full, {r.length} "
+                                 f"of {capacity} slots used")
             t0 = time.perf_counter()
-            logits, cache = self.model.decode_step(tok, cache, dtype=self.dtype)
-            tok = logits.argmax(-1)
-            out.append(int(tok[0, 0]))
+            r.out.append(int(step()[0, 0]))
             self.decode_s.append(time.perf_counter() - t0)
-            remaining -= 1
-            if remaining <= 0:
-                done.append((req_id, out))
+            r.length += 1
+            r.remaining -= 1
+            if r.remaining <= 0:
+                done.append((r.req_id, r.out))
+                self.free.append(r.slot)
             else:
-                still.append([req_id, cache, tok, remaining, out])
+                still.append(r)
         self.inflight = still
         return done
 
     def kill(self) -> List[int]:
         """Preemption: drop in-flight work, return ids for client retry."""
         self.alive = False
-        failed = [item[0] for item in self.inflight]
+        failed = [r.req_id for r in self.inflight]
+        self.free += [r.slot for r in self.inflight]
         self.inflight = []
         return failed
 
@@ -94,6 +130,8 @@ class FleetResult:
     prefill_lens: List[int]              # prompt length of each prefill
     decode_s: List[float]                # host seconds per decode step
     wall_s: float
+    setup_s: float = 0.0                 # building the replicas' cache slots
+    graphs: int = 0                      # of their serve steps, CUDA graphs
 
 
 def serve_fleet(
@@ -109,9 +147,14 @@ def serve_fleet(
 ) -> FleetResult:
     """Serve ``prompts`` (id -> 1-D token tensor on the model's device) on
     ``replicas`` replicas sharing ``model``; replica 0 is preempted after
-    step ``kill_step``."""
-    reps = [LiveReplica(f"replica-{i}", model, max_len, dtype)
+    step ``kill_step``.  Each replica has one cache slot per prompt (a
+    survivor may end up holding every request); building them (and
+    capturing their steps) is set-up, outside ``wall_s``."""
+    t_setup = time.perf_counter()
+    reps = [LiveReplica(f"replica-{i}", model, max_len, dtype,
+                        slots=len(prompts))
             for i in range(replicas)]
+    setup_s = time.perf_counter() - t_setup
     pending = list(prompts)
     completed: Dict[int, List[int]] = {}
     retried: List[int] = []
@@ -143,8 +186,10 @@ def serve_fleet(
     prefill_s = [t for r in reps for t in r.prefill_s]
     prefill_lens = [n for r in reps for n in r.prefill_lens]
     decode_s = [t for r in reps for t in r.decode_s]
+    # every request is done, so every slot is free again
+    graphs = sum(s.graph is not None for r in reps for _, s in r.free)
     return FleetResult(completed, retried, len(prefill_s), len(decode_s),
-                       prefill_s, prefill_lens, decode_s, wall)
+                       prefill_s, prefill_lens, decode_s, wall, setup_s, graphs)
 
 
 def make_prompts(cfg, *, n: int, min_len: int, max_len: int, seed: int,

@@ -435,3 +435,102 @@ def test_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="unit stride"):
         tgmm.launch(x.transpose(1, 2).contiguous().transpose(1, 2),
                     torch.zeros((4, 8, 5), device=card))
+
+
+# ---------------------------------------------------------------------------
+# the serve step captured as a CUDA graph (repro_torch.launch.steps)
+# ---------------------------------------------------------------------------
+
+# one model of each family the port serves, plus the sliding-window ring
+CAPTURE_ARCHS = ["llama3.2-1b", "qwen3-moe-30b", "falcon-mamba-7b",
+                 "h2o-danube3-4b"]
+
+
+def _card_model(arch, card):
+    """``arch`` at d_model 256 (head_dim 64, a width the kernels take; the
+    smoke configs' 32 is not), bf16, random weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    return build_model(get_config(arch).scaled(d_model=256), device=card,
+                       dtype=torch.bfloat16, generator=gen)
+
+
+def _prompt(model, n, card, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n))).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_captured_step_replays_the_eager_tokens(card, arch):
+    """From one prefill, 32 replays pick the tokens of 32 eager steps (the
+    ring of h2o-danube3-4b's 64 slots wraps: 40 + 32 tokens)."""
+    from repro_torch.launch.steps import build_serve_step
+
+    model = _card_model(arch, card)
+    graph_cache = model.init_cache(1, 128)
+    step = build_serve_step(model, graph_cache)
+    assert step.graph is not None and int(graph_cache["len"]) == 0
+    eager_cache = model.init_cache(1, 128)
+    with torch.inference_mode():
+        logits, _ = model.prefill(_prompt(model, 40, card), eager_cache)
+        for key in ("kv", "ssm_state"):
+            for name, t in eager_cache.get(key, {}).items():
+                graph_cache[key][name].copy_(t)
+        graph_cache["len"].copy_(eager_cache["len"])
+        tok = logits.argmax(-1)
+        step.tokens.copy_(tok)
+        for i in range(32):
+            logits, _ = model.decode_step(tok, eager_cache)
+            tok = logits.argmax(-1)
+            assert torch.equal(step(), tok), f"step {i}"
+    assert int(graph_cache["len"]) == int(eager_cache["len"]) == 72
+
+
+@pytest.mark.cuda
+def test_replays_count_the_graphs_launches(card):
+    from repro_torch.launch.steps import build_serve_step
+
+    model = _card_model("qwen3-moe-30b", card)
+    L = model.cfg.num_layers
+    cache = model.init_cache(1, 128)
+    ops.reset_launch_counts()
+    step = build_serve_step(model, cache)
+    # the warmup and the capture leave the counters where they were
+    assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
+    assert step.launches == {"flash_attention": 0, "flash_decode": L,
+                             "selective_scan": 0, "moe_gmm": 3 * L}
+    with torch.inference_mode():
+        logits, _ = model.prefill(_prompt(model, 20, card), cache)
+    step(logits.argmax(-1))
+    step()
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == L
+    assert ops.flash_decode.launches == 2 * L
+    assert ops.moe_gmm.launches == 3 * L + 2 * 3 * L
+
+
+@pytest.mark.cuda
+def test_second_replica_replays_after_the_first_is_dropped(card):
+    import gc
+
+    from repro_torch.serving.live import LiveReplica
+
+    model = _card_model("llama3.2-1b", card)
+    prompt = _prompt(model, 24, card)[0]
+    first = LiveReplica("first", model, max_len=128, slots=2)
+    second = LiveReplica("second", model, max_len=128, slots=2)
+    first.submit(0, prompt, out_tokens=6)
+    want = []
+    while not want:
+        want = first.step()
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = []
+    second.submit(0, prompt, out_tokens=6)
+    while not got:
+        got = second.step()
+    assert got == want and len(got[0][1]) == 7

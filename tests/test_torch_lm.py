@@ -85,7 +85,7 @@ def test_prefill_decode_match_reference_f32(variant):
     for kv in ("k", "v"):
         np.testing.assert_allclose(_np(tcache["kv"][kv]), _np(jcache["kv"][kv]),
                                    atol=1e-5, rtol=1e-5)
-    assert tcache["len"] == int(jcache["len"]) == S + n_pre
+    assert int(tcache["len"]) == int(jcache["len"]) == S + n_pre
 
     jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
     ttok = tlog.argmax(-1)

@@ -356,7 +356,7 @@ def test_prefill_decode_match_reference_f32(arch):
     for kv in ("k", "v"):
         np.testing.assert_allclose(_np(tcache["kv"][kv]), _np(jcache["kv"][kv]),
                                    atol=1e-5, rtol=1e-5)
-    assert tcache["len"] == int(jcache["len"]) == S + STEPS
+    assert int(tcache["len"]) == int(jcache["len"]) == S + STEPS
 
 
 def test_prefill_decode_match_reference_bf16():

@@ -185,7 +185,7 @@ def test_prefill_decode_match_reference_f32(case):
                                   dtype=torch.float32)
     np.testing.assert_allclose(_np(tlog), _np(jlog), atol=1e-4, rtol=1e-4)
     _assert_states(tcache, jcache)
-    assert tcache["len"] == int(jcache["len"]) == S
+    assert int(tcache["len"]) == int(jcache["len"]) == S
 
     jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
     ttok = tlog.argmax(-1)
@@ -197,7 +197,7 @@ def test_prefill_decode_match_reference_f32(case):
         jtok = jnp.argmax(jlog, -1).astype(jnp.int32)
         ttok = tlog.argmax(-1)
     _assert_states(tcache, jcache)
-    assert tcache["len"] == S + STEPS
+    assert int(tcache["len"]) == S + STEPS
 
 
 def test_prefill_decode_match_reference_bf16():
@@ -244,7 +244,8 @@ def test_init_cache_is_fp32_state_per_layer():
     tmodel = t_build(t_smoke(ARCH), device="cpu")
     cfg = tmodel.cfg
     cache = tmodel.init_cache(3, 64, dtype=torch.bfloat16)
-    assert cache["len"] == 0 and set(cache) == {"len", "ssm_state"}
+    assert int(cache["len"]) == 0 and set(cache) == {"len", "ssm_state"}
+    assert cache["len"].shape == () and cache["len"].dtype == torch.int32
     st = cache["ssm_state"]
     assert st["conv"].shape == (2, 3, cfg.ssm_conv - 1, cfg.d_inner)
     assert st["ssm"].shape == (2, 3, cfg.d_inner, cfg.ssm_state)
