@@ -12,29 +12,34 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    reference package's kernel tolerances (attention 2e-2 in bf16, 2e-5 in
    float32; the selective scan 1e-5; the MoE grouped matmul 5e-2 in bf16,
    1e-4 in float32), including the main paths' shapes, flash_decode's
-   masks (an all-masked row, one valid slot in the last tile, a ring) and
-   the grouped matmul with the occupancy ``rows`` (0, 8 and 128 of 128
-   experts; nonzero x past the rows);
+   masks (an all-masked row, one valid slot in the last tile, a ring),
+   both attention kernels at zamba2-7b's head width 112 (H = Kv = 32) in
+   bf16 and float32, and the grouped matmul with the occupancy ``rows``
+   (0, 8 and 128 of 128 experts; nonzero x past the rows);
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
    function (a yardstick the port never calls), and the card's bound;
    flash_attention and flash_decode also at qwen3-moe-30b's shape (H=32,
-   Kv=4, D=128), and moe_gmm with the rows of a real routing of one token
+   Kv=4, D=128) and zamba2-7b's (H=32, Kv=32, D=112), and moe_gmm with the
+   rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
-4. profiles the kernels of the three served models on the ``h100``
+4. profiles the kernels of the four served models on the ``h100``
    instance (``repro_torch.profiles``, the kernels timed with CUDA events),
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
    port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
    must lie in (0, 1.05];
-5. serves three full-width models, one after the other, with seeded random
+5. serves four full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
    the selective scan once per 256-token chunk of every prefill, no kernel
-   in decode) and qwen3-moe-30b (48 layers of GQA attention and 128-expert
+   in decode), qwen3-moe-30b (48 layers of GQA attention and 128-expert
    top-8 MoE: flash_attention, flash_decode, and three moe_gmm launches per
-   layer in prefill and decode).  Each fleet has two replicas and eight
+   layer in prefill and decode) and zamba2-7b (68 Mamba-2 layers, whose SSD
+   has no kernel, and 13 applications of one shared attention block at
+   head width 112: flash_attention 13 times a prefill, flash_decode 13
+   times a decode step).  Each fleet has two replicas and eight
    requests of 128-1024 prompt tokens, least-loaded dispatch, replica 0
    preempted at step 4 and its requests retried on the survivor.  Each
    replica captures one serve step per cache slot as a CUDA graph when it
@@ -45,7 +50,7 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    launched exactly as often as the model's path says.  One request of the
    longest prompt then decodes 32 steps eagerly and 32 by replay from the
    same prefill: the tokens must be equal (the largest logit difference is
-   printed).  For the MoE
+   printed) and a replay must hold one decode step's launches.  For the MoE
    model one full-width MoE layer is held kernel against plain.  Prefill
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
@@ -64,6 +69,7 @@ import json
 import math
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +93,8 @@ PREFILL_S = 1024
 DECODE_S = 2048
 # qwen3-moe-30b attention
 QWEN_H, QWEN_KV, QWEN_D = 32, 4, 128
+# zamba2-7b's shared attention block
+ZAMBA_H, ZAMBA_KV, ZAMBA_D = 32, 32, 112
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -102,6 +110,14 @@ FA_CASES = [
     # the 64-row tiles, with the causal, sliding-window and prefix-LM masks
     *((torch.bfloat16, 1, 32, 4, S, 128, True, window, prefix)
       for S in (1, 63, 65, 975) for window, prefix in ((None, 0), (96, 0), (None, 37))),
+    # zamba2-7b's shared attention (H=Kv=32, D=112: the tile code of 128
+    # with the last 16 columns zero), causal prefill at ragged lengths,
+    # with the sliding-window and prefix-LM masks too, in both dtypes
+    *((dtype, 1, ZAMBA_H, ZAMBA_KV, S, ZAMBA_D, True, window, prefix)
+      for dtype in (torch.bfloat16, torch.float32)
+      for S, window, prefix in ((1, None, 0), (63, None, 0), (65, None, 0),
+                                (975, None, 0), (512, 96, 0), (512, None, 37))),
+    (torch.bfloat16, 2, 8, 2, 192, 112, False, None, 0),     # D=112, GQA, bidirectional
 ]
 
 # flash_decode's tile skipping (tests/test_torch_cuda.py CARD_DECODE_CASES):
@@ -115,6 +131,11 @@ CARD_DECODE_CASES = [
     (2, 32, 8, 1000, 64, "ring"),
     (1, 32, 4, 2048, 128, "600"),
     (1, 32, 4, 2048, 128, "empty"),
+    # zamba2-7b's decode shape (H=Kv=32, D=112) under the same masks
+    (1, 32, 32, 2048, 112, "600"),
+    (2, 32, 32, 2048, 112, "empty beside 600"),
+    (1, 32, 32, 2048, 112, "last"),
+    (2, 32, 32, 1000, 112, "ring"),
 ]
 
 FD_CASES = [
@@ -598,11 +619,16 @@ def expected_launches(model, res) -> dict:
     once per expert product (three when gated), layer and forward pass
     (prefill or decode step); Mamba-1 launches the scan once per layer and
     256-step chunk of every prefill (the last chunk ragged), and nothing in
-    decode."""
+    decode; the hybrid launches the attention kernels once per application
+    of its shared block (one per super-block) and nothing for Mamba-2."""
     cfg = model.cfg
     L = cfg.num_layers
     want = dict.fromkeys(
         ("flash_attention", "flash_decode", "selective_scan", "moe_gmm"), 0)
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.hybrid_blocks * res.prefills
+        want["flash_decode"] = cfg.hybrid_blocks * res.decode_steps
+        return want
     if cfg.family == "ssm":
         chunks = sum(math.ceil(s / model.ssm_chunk) for s in res.prefill_lens)
         want["selective_scan"] = L * chunks
@@ -617,7 +643,7 @@ def expected_launches(model, res) -> dict:
 
 # full-width parameter counts (the reference's blueprint counts)
 FULL_PARAMS = {"llama3.2-1b": 1_235_814_400, "falcon-mamba-7b": 7_272_665_088,
-               "qwen3-moe-30b": 30_532_646_912}
+               "qwen3-moe-30b": 30_532_646_912, "zamba2-7b": 5_622_728_000}
 CARD_BYTES = 80e9
 
 
@@ -845,19 +871,22 @@ def check_moe_layer(model, prompts) -> None:
 
 
 def copy_cache(dst, src) -> None:
-    """Write ``src``'s contents into ``dst``'s tensors (same shapes)."""
+    """Write ``src``'s contents into ``dst``'s tensors (same shapes): the
+    length and every group (KV, SSM states, the hybrid's groups)."""
     dst["len"].copy_(src["len"])
-    for key in ("kv", "ssm_state"):
-        for name, t in src.get(key, {}).items():
-            dst[key][name].copy_(t)
+    for key, group in src.items():
+        if key != "len":
+            for name, t in group.items():
+                dst[key][name].copy_(t)
 
 
 @torch.inference_mode()
 def check_replay(model, prompts, steps: int = 32) -> None:
     """One request of the longest prompt, prefilled once: ``steps`` eager
     decode steps on one copy of the cache and ``steps`` replays of a
-    captured serve step on another.  Any token that differs fails the run;
-    the largest difference in logits is printed."""
+    captured serve step on another.  Any token that differs fails the run,
+    as do graph launches per replay other than one decode step's; the
+    largest difference in logits is printed."""
     from repro_torch.launch.steps import build_serve_step
 
     tokens = max(prompts.values(), key=len)[None]
@@ -885,6 +914,11 @@ def check_replay(model, prompts, steps: int = 32) -> None:
     if eager != replayed:
         raise AssertionError(f"{model.cfg.name}: replayed tokens {replayed} != "
                              f"eager {eager}")
+    per_step = expected_launches(model, types.SimpleNamespace(
+        prefills=0, decode_steps=1, prefill_lens=[]))
+    if step.launches != per_step:
+        raise AssertionError(f"{model.cfg.name}: a replay launches "
+                             f"{step.launches}, want {per_step}")
 
 
 @torch.inference_mode()
@@ -986,8 +1020,9 @@ def time_flash_attention_at(H: int, Kv: int, D: int) -> dict:
 
 def time_flash_attention() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128) is logged beside it."""
+    Kv=4, D=128) and zamba2-7b's (H=Kv=32, D=112) are logged beside it."""
     time_flash_attention_at(QWEN_H, QWEN_KV, QWEN_D)
+    time_flash_attention_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
     return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1040,8 +1075,9 @@ def time_flash_decode_at(H: int, Kv: int, D: int) -> dict:
 
 def time_flash_decode() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128) is logged beside it."""
+    Kv=4, D=128) and zamba2-7b's (H=Kv=32, D=112) are logged beside it."""
     time_flash_decode_at(QWEN_H, QWEN_KV, QWEN_D)
+    time_flash_decode_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
     return time_flash_decode_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1147,12 +1183,12 @@ def time_moe_gmm() -> dict:
     return time_moe_gmm_at(GMM_DECODE_C, 1)
 
 
-SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b")
+SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b")
 PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
 
 
 def phase_profiles() -> None:
-    """The step-time profiles of the three served models on the ``h100``
+    """The step-time profiles of the four served models on the ``h100``
     instance, through the port's CLI (the reference's cases: prefill 256,
     cache 512, batch 1; each kernel call timed with CUDA events, best of
     the repeats), written to ``PROFILE_OUT`` and reloaded with the port's
@@ -1223,7 +1259,7 @@ def main() -> int:
                gmm]
     phase_profiles()
     # each path's kernels, counted in that path's own fleet run
-    llama, mamba, qwen = (serve_path(arch) for arch in SERVED)
+    llama, mamba, qwen, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],
                 "selective_scan": mamba["selective_scan"],

@@ -4,8 +4,15 @@ The reference's parameters are a nested dict with the per-layer leaves
 stacked on a leading layer axis under ``decoder``.  Given that tree as numpy
 arrays, ``params_from_jax`` returns a ``state_dict`` for
 ``repro_torch.models.lm.TransformerLM``: ``decoder/<path>[i]`` becomes
-``layers.<i>.<path>``, top-level leaves keep their names.  Values go through
-float32 (numpy has no bfloat16) and are then cast to ``dtype``.
+``layers.<i>.<path>``, top-level leaves keep their names.  The hybrid
+family's decoder is mapped explicitly: ``prelude/<path>[i]`` becomes
+``prelude.<i>.<path>``, ``blocks/<path>[i][j]`` (stacked twice) becomes
+``blocks.<i>.<j>.<path>``, and ``shared_attn/<path>`` (not stacked) keeps
+its path under ``shared_attn``.  Values go through float32 (numpy has no
+bfloat16) and are then cast to ``dtype``.
+
+A stack whose leaves disagree on their layer axes raises ``ValueError``; a
+leaf that is missing or of the wrong shape is refused by ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+HYBRID_KEYS = {"prelude", "blocks", "shared_attn"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -27,17 +36,42 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def _unstack(leaves: Dict[str, np.ndarray], axes: int, where: str):
+    """Split every leaf along its first ``axes`` axes, which all leaves must
+    share; yields (index tuple, path, slice)."""
+    leads = {tuple(v.shape[:axes]) for v in leaves.values()}
+    if len(leads) > 1 or any(v.ndim <= axes for v in leaves.values()):
+        raise ValueError(f"{where}: leaves disagree on their {axes} stacked "
+                         f"layer axes: {sorted(leads)}")
+    for path, stacked in leaves.items():
+        for idx in np.ndindex(*stacked.shape[:axes]):
+            yield idx, path, stacked[idx]
+
+
+def _decoder(tree: Mapping[str, Any]):
+    """(state-dict prefix, index tuple, path, slice) for every decoder leaf."""
+    if set(tree) != HYBRID_KEYS:
+        for idx, path, leaf in _unstack(_flatten(tree), 1, "decoder"):
+            yield "layers", idx, path, leaf
+        return
+    for name, axes in (("prelude", 1), ("blocks", 2)):
+        for idx, path, leaf in _unstack(_flatten(tree[name]), axes, name):
+            yield name, idx, path, leaf
+    for path, leaf in _flatten(tree["shared_attn"]).items():
+        yield "shared_attn", (), path, leaf
+
+
 def params_from_jax(
     tree: Mapping[str, Any], dtype: torch.dtype = torch.float32
 ) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``TransformerLM`` from the reference's
-    parameter tree (numpy leaves, layer axis stacked)."""
+    parameter tree (numpy leaves, layer axes stacked)."""
     state: Dict[str, torch.Tensor] = {}
     for name, value in tree.items():
         if name == "decoder":
-            for path, stacked in _flatten(value).items():
-                for i, layer in enumerate(stacked):
-                    state[f"layers.{i}.{path}"] = torch.tensor(layer).to(dtype)
+            for prefix, idx, path, leaf in _decoder(value):
+                key = ".".join([prefix, *map(str, idx), path])
+                state[key] = torch.tensor(leaf).to(dtype)
         elif isinstance(value, Mapping):
             raise ValueError(f"unexpected subtree {name!r} outside 'decoder'")
         else:

@@ -55,8 +55,16 @@
 // reference's fp32 tolerance of 2e-5; fp32 attention only carries the
 // fp32 logits check, not the served path.
 //
-// Head dims: 64, 128.  The bf16 kernel needs 16-byte-aligned rows (the
-// wrapper checks the base pointers and strides before the launch).
+// Head dims: 64, 112, 128.  At 112 (zamba2-7b) the bf16 kernel runs the
+// tile code of 128: each row's 14 chunks of 16 bytes are copied from global
+// memory, the two chunks past them are zero in shared memory and never
+// read from global memory, Q.K^T takes only the 7 k16 steps that hold data,
+// P.V keeps the m64n128 product (its last 16 columns are zeros times P and
+// are never stored), and the stores stop at 112.  That keeps the SW128
+// layout the descriptors name, at 1/7 more tensor-core work in P.V and no
+// more bytes from HBM.  The fp32 kernel takes 112 as it is (7 columns a
+// thread).  The bf16 kernel needs 16-byte-aligned rows (the wrapper checks
+// the base pointers and strides before the launch); 224-byte rows are.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,13 +151,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D>
+// D: the tile width (64 or 128); DT <= D: the head width, a multiple of 16.
+template <int D, int DT = D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const Params p) {
   using namespace mma_sm90;
-  constexpr int RC = D / 8;     // 16-byte chunks per row
-  constexpr int KD = D / 16;    // k16 steps of Q.K^T
-  constexpr int ND = D / 8;     // n8 blocks of the output
+  static_assert(DT % 16 == 0 && DT <= D && D - DT < 64, "head width");
+  constexpr int RC = D / 8;     // 16-byte chunks per tile row
+  constexpr int RT = DT / 8;    // chunks per row that hold data
+  constexpr int KD = DT / 16;   // k16 steps of Q.K^T
+  constexpr int ND = D / 8;     // n8 blocks of the output tile
+  constexpr int NT = DT / 8;    // n8 blocks of the output that are stored
   constexpr int NK = BK / 8;    // n8 blocks of the scores
   // 64-row tiles in 64-column SW128 blocks (sw128_index), each 1024-byte
   // aligned: the layout the wgmma descriptors name
@@ -173,12 +185,12 @@ flash_attention_mma(const Params p) {
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  // rows [start, start + 64) of an (S, D) operand into a tile; rows at or
+  // rows [start, start + 64) of an (S, DT) operand into a tile; rows at or
   // past `limit` are zero-filled
   auto load_rows = [&](bf16* dst, const bf16* src, long long ss, int start,
                        int limit) {
-    for (int i = tid; i < 64 * RC; i += MMA_THREADS) {
-      const int r = i / RC, c = i % RC;
+    for (int i = tid; i < 64 * RT; i += MMA_THREADS) {
+      const int r = i / RT, c = i % RT;
       const int s = start + r;
       const bool in = s < limit;
       cp_async16(dst + sw128_index<64>(r, c), src + (in ? s * ss + c * 8 : 0),
@@ -205,6 +217,16 @@ flash_attention_mma(const Params p) {
           kd > 0);
   };
 
+  if constexpr (RT < RC) {
+    // the V columns past DT, zero once for every stage: load_rows never
+    // writes them, and P.V reads them (Q's and K's are never read)
+    for (int i = tid; i < STAGES * 64 * (RC - RT); i += MMA_THREADS) {
+      const int st = i / (64 * (RC - RT)), r = i / (RC - RT) % 64;
+      const int c = RT + i % (RC - RT);
+      *reinterpret_cast<uint4*>(vs + st * BK * D + sw128_index<64>(r, c)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   load_rows(qs, q, p.q_ss, q_start, p.Sq);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
@@ -349,7 +371,7 @@ flash_attention_mma(const Params p) {
       const float denom = fmaxf(l[i], 1e-20f);
       bf16* orow = o + qpos * p.o_ss + t4 * 2;
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
+      for (int j = 0; j < NT; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8) =
             pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
     }
@@ -519,11 +541,11 @@ cudaError_t launch_f32(const Params& p, cudaStream_t s) {
                 static_cast<int>(smem_bytes<D>()), p, s);
 }
 
-template <int D>
+template <int D, int DT = D>
 cudaError_t launch_mma(const Params& p, cudaStream_t s) {
   const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
-  return launch(flash_attention_mma<D>, grid, MMA_THREADS, mma_smem_bytes<D>(),
-                p, s);
+  return launch(flash_attention_mma<D, DT>, grid, MMA_THREADS,
+                mma_smem_bytes<D>(), p, s);
 }
 
 }  // namespace
@@ -550,8 +572,10 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, s);
+  if (dtype == 0 && head_dim == 112) return launch_f32<112>(p, s);
   if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, s);
+  if (dtype == 1 && head_dim == 112) return launch_mma<128, 112>(p, s);
   if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

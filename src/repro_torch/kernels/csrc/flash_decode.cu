@@ -49,9 +49,13 @@
 //   every run, and sets the counter back to 0 for the next launch.  The
 //   ticket is the only atomic: no sum goes through one.
 //
-// Element types: float and bfloat16 (math in fp32).  Head dims: 64, 128.
-// Query heads per kv head: at most MAX_G.  K and V rows must be 16-byte
-// aligned (the wrapper checks).
+// Element types: float and bfloat16 (math in fp32).  Head dims: 64, 112,
+// 128.  At 112 (zamba2-7b) a bf16 row of 14 chunks lies in a shared-memory
+// row of 16 (the swizzle permutes chunks within groups of 8): the last two
+// chunks are neither loaded nor read.  The fp32 path gives each lane the
+// columns lane + 32 j below D, so D need not be a multiple of 32.  Query
+// heads per kv head: at most MAX_G.  K and V rows must be 16-byte aligned
+// (the wrapper checks; 224-byte rows are).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,10 +105,17 @@ struct Params {
   float scale;
 };
 
+// Elements per K/V row in shared memory: D, or for bf16 D rounded up to
+// whole 8-chunk swizzle groups.
+template <typename T, int D>
+__host__ __device__ constexpr int row_pitch() {
+  return std::is_same<T, bf16>::value ? (D + 63) / 64 * 64 : D;
+}
+
 // Dynamic shared memory: the K/V ring, then the tile bitmap and the list.
 template <typename T, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return STAGES * 2 * TILE * D * static_cast<int>(sizeof(T));
+  return STAGES * 2 * TILE * row_pitch<T, D>() * static_cast<int>(sizeof(T));
 }
 
 inline size_t smem_bytes(int ring, int n_tiles) {
@@ -118,6 +129,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   constexpr int CH = D * static_cast<int>(sizeof(T)) / 16;   // chunks per row
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));      // elements per chunk
   constexpr bool BF16 = std::is_same<T, bf16>::value;
+  constexpr int DP = row_pitch<T, D>();                      // shared row pitch
+  constexpr int SW = BF16 ? DP / EPC : 8;                    // swizzled row chunks
+  constexpr int NJ = (D + 31) / 32;                          // fp32: columns per lane
   extern __shared__ __align__(128) unsigned char fd_smem[];
   T* ring = reinterpret_cast<T*>(fd_smem);
   uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, D>());
@@ -215,13 +229,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 
   if (r0 < r1) {
     auto load_tile = [&](int st, int tile) {
-      T* ks = ring + st * 2 * TILE * D;
-      T* vs = ks + TILE * D;
+      T* ks = ring + st * 2 * TILE * DP;
+      T* vs = ks + TILE * DP;
       for (int i = tid; i < TILE * CH; i += THREADS) {
         const int r = i / CH, c = i % CH;
         const int s = tile * TILE + r;
         const bool in = s < p.S;
-        const int dst = BF16 ? swizzle<(BF16 ? CH : 8)>(r, c) : r * D + c * EPC;
+        const int dst = BF16 ? swizzle<SW>(r, c) : r * DP + c * EPC;
         cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
         cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
       }
@@ -231,7 +245,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     // fp32 warp-uniform per row with the columns split over the lanes
     float m_b = NEG_INF, l_b = 0.f;
     float acc_b[BF16 ? D / 8 : 1][4];
-    float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : D / 32];
+    float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : NJ];
 #pragma unroll
     for (int i = 0; i < (BF16 ? D / 8 : 1); ++i)
 #pragma unroll
@@ -241,7 +255,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
       m_f[g] = NEG_INF;
       l_f[g] = 0.f;
 #pragma unroll
-      for (int j = 0; j < (BF16 ? 1 : D / 32); ++j) acc_f[BF16 ? 0 : g][j] = 0.f;
+      for (int j = 0; j < (BF16 ? 1 : NJ); ++j) acc_f[BF16 ? 0 : g][j] = 0.f;
     }
 
     load_tile(0, list[r0]);
@@ -252,8 +266,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
       cp_async_wait<1>();
       __syncthreads();                        // tile i landed
       const int tile = list[r0 + i];
-      const T* ks = ring + (i % STAGES) * 2 * TILE * D;
-      const T* vs = ks + TILE * D;
+      const T* ks = ring + (i % STAGES) * 2 * TILE * DP;
+      const T* vs = ks + TILE * DP;
 
       if constexpr (BF16) {
         // scores of this warp's 16 slots, rows = query heads
@@ -261,7 +275,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t r[4];
-          ldmatrix_x4(r, ks + swizzle<(BF16 ? CH : 8)>(
+          ldmatrix_x4(r, ks + swizzle<SW>(
                                   warp * WARP_KEYS + (lane & 7) + ((lane >> 4) << 3),
                                   kk * 2 + ((lane >> 3) & 1)));
           mma_bf16(c[0], qa[kk], r[0], r[1]);
@@ -301,7 +315,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int db = 0; db < D / 16; ++db) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, vs + swizzle<(BF16 ? CH : 8)>(
+          ldmatrix_x4_trans(r, vs + swizzle<SW>(
                                         warp * WARP_KEYS + (lane & 7) + (((lane >> 3) & 1) << 3),
                                         db * 2 + (lane >> 4)));
           mma_bf16(acc_b[2 * db], a, r[0], r[1]);
@@ -311,12 +325,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         // lane: slot kk of the warp's 16, heads half * 4 .. half * 4 + 3
         const int kk = lane & 15, half = lane >> 4;
         const int key = tile * TILE + warp * WARP_KEYS + kk;
-        const float* kr = reinterpret_cast<const float*>(ks) + (warp * WARP_KEYS + kk) * D;
+        const float* kr = reinterpret_cast<const float*>(ks) + (warp * WARP_KEYS + kk) * DP;
         float s[4];
 #pragma unroll
         for (int i2 = 0; i2 < 4; ++i2) s[i2] = 0.f;
         for (int dd = 0; dd < D; ++dd) {
-          const int d = (dd + kk) & (D - 1);    // rotated: no bank conflict on K
+          // rotated by the slot: no bank conflict on K (kk < 16 <= D)
+          const int d = dd + kk < D ? dd + kk : dd + kk - D;
           const float kv = kr[d];
 #pragma unroll
           for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
@@ -346,7 +361,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
           }
         }
         __syncwarp();
-        const float* vr = reinterpret_cast<const float*>(vs) + warp * WARP_KEYS * D;
+        const float* vr = reinterpret_cast<const float*>(vs) + warp * WARP_KEYS * DP;
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g) {
           if (g < G) {                        // uniform across the warp
@@ -354,11 +369,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
             m_f[g] = rowc[warp][0][g];
             l_f[g] = l_f[g] * corr + rowc[warp][2][g];
 #pragma unroll
-            for (int j = 0; j < D / 32; ++j) {
+            for (int j = 0; j < NJ; ++j) {
+              const int col = lane + 32 * j;
+              if (D % 32 != 0 && col >= D) break;
               float a = acc_f[BF16 ? 0 : g][j] * corr;
 #pragma unroll
               for (int kk2 = 0; kk2 < WARP_KEYS; ++kk2)
-                a = fmaf(ps[warp][g][kk2], vr[kk2 * D + lane + 32 * j], a);
+                a = fmaf(ps[warp][g][kk2], vr[kk2 * DP + col], a);
               acc_f[BF16 ? 0 : g][j] = a;
             }
           }
@@ -396,8 +413,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
             wl[warp][g] = l_f[g];
           }
 #pragma unroll
-          for (int j = 0; j < D / 32; ++j)
-            wacc[(warp * MAX_G + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
+          for (int j = 0; j < NJ; ++j)
+            if (D % 32 == 0 || lane + 32 * j < D)
+              wacc[(warp * MAX_G + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
         }
       }
     }
@@ -566,8 +584,10 @@ extern "C" int flash_decode_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
+  if (dtype == 0 && head_dim == 112) return launch<float, 112>(p, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, s);
+  if (dtype == 1 && head_dim == 112) return launch<bf16, 112>(p, s);
   if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -49,7 +49,7 @@ class ServeStep:
                  pool: Optional[Any] = None,
                  stream: Optional[torch.cuda.Stream] = None) -> None:
         self.model, self.cache, self.dtype = model, cache, dtype
-        batch = next(iter(cache.get("kv", cache.get("ssm_state")).values())).shape[1]
+        batch = model.cache_batch(cache)
         self.tokens = torch.zeros((batch, 1), dtype=torch.long,
                                   device=model.device)
         self.logits: Optional[torch.Tensor] = None

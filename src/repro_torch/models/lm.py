@@ -1,14 +1,20 @@
-"""TransformerLM — the decoder-only model: dense / GQA, MoE and Mamba-1
-(SSM) paths (counterpart of ``repro.models.lm``).
+"""TransformerLM — the decoder-only model: dense / GQA, MoE, Mamba-1 (SSM)
+and zamba2's hybrid (Mamba-2 plus a shared attention block) paths
+(counterpart of ``repro.models.lm``).
 
 The reference stacks per-layer parameters and runs the layer stack as one
 ``lax.scan``; here the stack is a loop over an ``nn.ModuleList`` whose
 entries hold one layer's parameters each, in the reference's shapes
 (``attn.wq`` is (d_model, heads, head_dim), and so on).  An MoE layer holds
 ``moe`` in place of ``mlp``; its expert FFN follows the model's ``impl``
-(the reference's model always takes its einsum path).  The hybrid family is
-not ported yet and raises ``NotImplementedError`` naming the ROADMAP item
-that will.
+(the reference's model always takes its einsum path).
+
+The hybrid model holds ``prelude[i]`` (Mamba-2 layers), ``blocks[i][j]``
+(the Mamba-2 layers of super-block i) and one ``shared_attn``: the
+attention block whose weights exist once and are applied at the head of
+every super-block, each application with its own KV slice (weight sharing
+is not cache sharing).  The reference's per-application LoRA adapters of
+zamba2 are simplified away there, and here too.
 
 Modes
 -----
@@ -20,6 +26,10 @@ The cache is a dict ``{"len": (), "kv": {"k", "v"}}`` with K/V of shape
 (layers, batch, slots, kv_heads, head_dim), or for the SSM family
 ``{"len": (), "ssm_state": {"conv", "ssm"}}`` with fp32 states of shape
 (layers, batch, conv - 1, d_inner) and (layers, batch, d_inner, ssm_state).
+The hybrid cache holds ``prelude_state`` (prelude, batch, ...) when there
+is a prelude, ``block_state`` (blocks, every - 1, batch, ...) with the
+Mamba-2 states (conv over [x, B, C], ssm (heads, head_dim, state)), and
+``attn_kv`` {"k", "v"} (blocks, batch, slots, kv_heads, head_dim).
 ``len`` is an int32 tensor of shape () on the model's device, as in the
 reference.  All of it is written in place and never replaced: ``prefill``
 sets the length on the device, ``decode_step`` builds its positions, cache
@@ -60,11 +70,6 @@ from repro_torch.models.layers import (
     unembed_spec,
 )
 
-_NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1 item 9 (Mamba-2 and the hybrid stack)",
-}
-
-
 def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
     """One decoder layer's parameters (dense / GQA, MoE or Mamba-1)."""
     bp: Dict[str, Any] = {"ln1": rmsnorm_spec(cfg.d_model)}
@@ -81,37 +86,70 @@ def layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
     return bp
 
 
+def mamba2_layer_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    """One Mamba-2 layer of the hybrid stack."""
+    return {"ln1": rmsnorm_spec(cfg.d_model),
+            "mixer": ssm.mamba2_blueprint(cfg)}
+
+
+def shared_attn_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    """zamba2's shared attention block: attention and MLP, pre-norm."""
+    return {
+        "ln1": rmsnorm_spec(cfg.d_model),
+        "attn": attn.attention_blueprint(cfg),
+        "ln2": rmsnorm_spec(cfg.d_model),
+        "mlp": mlp_blueprint(cfg),
+    }
+
+
+def hybrid_blueprints(cfg: ModelConfig) -> Dict[str, Any]:
+    """zamba2: stacked Mamba-2 layers + ONE shared attention block."""
+    m_bp = mamba2_layer_blueprint(cfg)
+    n_pre = cfg.hybrid_prelude
+    return {
+        "prelude": stack_blueprint(m_bp, n_pre) if n_pre else {},
+        "blocks": stack_blueprint(
+            stack_blueprint(m_bp, cfg.hybrid_attn_every - 1),
+            cfg.hybrid_blocks),
+        "shared_attn": shared_attn_blueprint(cfg),
+    }
+
+
 def lm_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's blueprint: per-layer leaves stacked on a leading
-    'layers' axis under ``decoder``."""
+    'layers' axis under ``decoder`` (the hybrid family: ``prelude`` and
+    ``blocks`` stacked, ``shared_attn`` once)."""
     bp: Dict[str, Any] = {"embed": embed_spec(cfg)}
     if not cfg.tie_embeddings:
         bp["unembed"] = unembed_spec(cfg)
     bp["final_norm"] = rmsnorm_spec(cfg.d_model)
-    bp["decoder"] = stack_blueprint(layer_blueprint(cfg), cfg.num_layers)
+    if cfg.family == "hybrid":
+        bp["decoder"] = hybrid_blueprints(cfg)
+    else:
+        bp["decoder"] = stack_blueprint(layer_blueprint(cfg), cfg.num_layers)
     return bp
+
+
+def _param_tree(bp: Dict[str, Any], generator: torch.Generator,
+                dtype: torch.dtype) -> ParamTree:
+    return ParamTree(cast_params(init_params(bp, generator), dtype))
 
 
 class TransformerLM(nn.Module):
     """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix,
-    MoE, Mamba-1)."""
+    MoE, Mamba-1, hybrid Mamba-2 + shared attention)."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         *,
         impl: str = "kernel",          # attention / MoE / scan: kernel | plain
-        ssm_chunk: int = 256,          # Mamba-1 prefill: steps per scan
+        ssm_chunk: int = 256,          # Mamba prefill: steps per chunk
         device: Any = "cuda",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; "
-                f"see {_NOT_PORTED[cfg.family]}"
-            )
         if impl not in attn.IMPLS:
             raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
         dev = resolve_device(device)
@@ -135,11 +173,22 @@ class TransformerLM(nn.Module):
             self.unembed = nn.Parameter(top["unembed"], requires_grad=False)
         else:
             self.unembed = None
-        layer_bp = layer_blueprint(cfg)
-        self.layers = nn.ModuleList(
-            ParamTree(cast_params(init_params(layer_bp, generator), dtype))
-            for _ in range(cfg.num_layers)
-        )
+        if cfg.family == "hybrid":
+            m_bp = mamba2_layer_blueprint(cfg)
+            self.prelude = nn.ModuleList(
+                _param_tree(m_bp, generator, dtype)
+                for _ in range(cfg.hybrid_prelude))
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(_param_tree(m_bp, generator, dtype)
+                              for _ in range(cfg.hybrid_attn_every - 1))
+                for _ in range(cfg.hybrid_blocks))
+            self.shared_attn = _param_tree(shared_attn_blueprint(cfg),
+                                           generator, dtype)
+        else:
+            layer_bp = layer_blueprint(cfg)
+            self.layers = nn.ModuleList(
+                _param_tree(layer_bp, generator, dtype)
+                for _ in range(cfg.num_layers))
 
     def blueprint(self) -> Dict[str, Any]:
         return lm_blueprint(self.cfg)
@@ -158,6 +207,25 @@ class TransformerLM(nn.Module):
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
         cfg = self.cfg
         length = torch.zeros((), dtype=torch.int32, device=self.device)
+        if cfg.family == "hybrid":
+            # fp32 states, as in the reference; KV slots = max_len
+            def states(lead):
+                return {k: torch.zeros(lead + s, dtype=torch.float32,
+                                       device=self.device)
+                        for k, s in ssm.mamba2_state_shapes(cfg, batch).items()}
+
+            n_blk = cfg.hybrid_blocks
+            cache: Dict[str, Any] = {"len": length}
+            if cfg.hybrid_prelude:
+                cache["prelude_state"] = states((cfg.hybrid_prelude,))
+            cache["block_state"] = states((n_blk, cfg.hybrid_attn_every - 1))
+            shape = (n_blk, batch, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["attn_kv"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+            }
+            return cache
         if cfg.family == "ssm":
             # the states are fp32 whatever the activation dtype, as in the
             # reference; a bf16 conv state written here is exact
@@ -187,17 +255,29 @@ class TransformerLM(nn.Module):
 
     @staticmethod
     def reset_cache(cache: Dict[str, Any]) -> None:
-        """Empty ``cache`` in place for the next prompt: length 0, K/V or
+        """Empty ``cache`` in place for the next prompt: length 0, K/V and
         states zero (a Mamba prefill starts from the states it finds).  The
         tensors stay the same ones, so a step captured on them still
         replays."""
         cache["len"].zero_()
-        for t in cache.get("kv", cache.get("ssm_state")).values():
-            t.zero_()
+        for key, group in cache.items():
+            if key != "len":
+                for t in group.values():
+                    t.zero_()
+
+    @staticmethod
+    def cache_batch(cache: Dict[str, Any]) -> int:
+        """The batch ``cache`` was made for."""
+        if "ssm_state" in cache:
+            return cache["ssm_state"]["ssm"].shape[1]
+        return cache.get("kv", cache.get("attn_kv"))["k"].shape[1]
 
     def cache_capacity(self, cache: Dict[str, Any]) -> Optional[int]:
         """Tokens ``cache`` can hold, or None where it never fills (a
-        sliding-window ring, a recurrent state)."""
+        sliding-window ring, a recurrent state).  A hybrid cache fills at
+        its attention slots."""
+        if "attn_kv" in cache:
+            return cache["attn_kv"]["k"].shape[2]
         if "kv" not in cache or self.cfg.sliding_window is not None:
             return None
         return cache["kv"]["k"].shape[2]
@@ -229,45 +309,90 @@ class TransformerLM(nn.Module):
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + self._ffn(lp, h2)
 
-    def _mamba_block(self, lp, x, *, mode, state):
-        h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
+    def _mamba_block(self, lp, x, *, mode, state, version):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if mode == "decode":
-            y, new_state = ssm.mamba1_decode(lp["mixer"], self.cfg, h, state)
-        else:
+            fn = ssm.mamba1_decode if version == 1 else ssm.mamba2_decode
+            y, new_state = fn(lp["mixer"], cfg, h, state)
+        elif version == 1:
             y, new_state = ssm.mamba1_full(
-                lp["mixer"], self.cfg, h, chunk=self.ssm_chunk, state=state,
+                lp["mixer"], cfg, h, chunk=self.ssm_chunk, state=state,
                 impl=self.impl,
             )
+        else:
+            y, new_state = ssm.mamba2_full(
+                lp["mixer"], cfg, h, chunk=self.ssm_chunk, state=state)
         return x + y, new_state
 
+    def _mamba_layer(self, lp, x, *, mode, states, at, version):
+        """One Mamba layer; with cache ``states``, it reads its state at
+        index ``at`` and writes the new one back in place.  Without them it
+        starts from zeros, as the reference's zero states."""
+        state = None if states is None else {k: v[at] for k, v in states.items()}
+        x, new_state = self._mamba_block(lp, x, mode=mode, state=state,
+                                         version=version)
+        if state is not None:
+            for k, v in state.items():
+                v.copy_(new_state[k])
+        return x
+
     def _run_ssm_stack(self, x, *, mode, cache):
-        """Mamba-1 layers; with a cache, each layer reads its state and
-        writes the new one back in place.  Without one every layer starts
-        from zeros, as the reference's zero states."""
+        """Mamba-1 layers."""
         states = None if cache is None else cache["ssm_state"]
         for i, lp in enumerate(self.layers):
-            state = None
-            if states is not None:
-                state = {k: v[i] for k, v in states.items()}
-            x, new_state = self._mamba_block(lp, x, mode=mode, state=state)
-            if state is not None:
-                for k, v in state.items():
-                    v.copy_(new_state[k])
+            x = self._mamba_layer(lp, x, mode=mode, states=states, at=i,
+                                  version=1)
+        return x
+
+    def _step_attention(self, x, positions, mode, cache, kv_key):
+        """Per-step work, once for all attention layers: the rotation at
+        these positions, and in decode the new token's slot and the valid
+        mask, from the device length and the slots of ``cache[kv_key]``."""
+        cfg = self.cfg
+        rope = (rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+                if cfg.rope else None)
+        decode_at = None
+        if mode == "decode":
+            decode_at = attn.decode_slot_and_mask(
+                cache["len"], cache[kv_key]["k"].shape[2], x.shape[0],
+                cfg.sliding_window is not None)
+        return rope, decode_at
+
+    def _run_hybrid_stack(self, x, *, positions, mode, cache, prefix_len):
+        """zamba2: the prelude's Mamba-2 layers, then super-blocks of the
+        shared attention block (its own KV slice each) and a Mamba-2
+        group."""
+        rope, decode_at = self._step_attention(x, positions, mode, cache,
+                                               "attn_kv")
+        pre = blk = None
+        if cache is not None:
+            pre, blk = cache.get("prelude_state"), cache["block_state"]
+        for i, lp in enumerate(self.prelude):
+            x = self._mamba_layer(lp, x, mode=mode, states=pre, at=i,
+                                  version=2)
+        for b, group in enumerate(self.blocks):
+            layer_kv = None
+            if cache is not None:
+                layer_kv = {k: t[b] for k, t in cache["attn_kv"].items()}
+            x = self._attn_block(
+                self.shared_attn, x, positions=positions, mode=mode,
+                layer_kv=layer_kv, prefix_len=prefix_len, rope=rope,
+                decode_at=decode_at,
+            )
+            for j, lp in enumerate(group):
+                x = self._mamba_layer(lp, x, mode=mode, states=blk,
+                                      at=(b, j), version=2)
         return x
 
     def _run_stack(self, x, *, positions, mode, cache, prefix_len):
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._run_ssm_stack(x, mode=mode, cache=cache)
-        # per-step work, once for all layers: the rotation at these
-        # positions, and in decode the new token's slot and the valid mask
-        rope = (rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-                if cfg.rope else None)
-        decode_at = None
-        if mode == "decode":
-            decode_at = attn.decode_slot_and_mask(
-                cache["len"], cache["kv"]["k"].shape[2], x.shape[0],
-                cfg.sliding_window is not None)
+        if cfg.family == "hybrid":
+            return self._run_hybrid_stack(x, positions=positions, mode=mode,
+                                          cache=cache, prefix_len=prefix_len)
+        rope, decode_at = self._step_attention(x, positions, mode, cache, "kv")
         for i, lp in enumerate(self.layers):
             layer_kv = None
             if cache is not None:

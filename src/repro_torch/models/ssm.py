@@ -1,6 +1,8 @@
-"""State-space sequence mixer, Mamba-1 (falcon-mamba) — counterpart of the
-Mamba-1 half of ``repro.models.ssm``.  Mamba-2/SSD (zamba2) comes with the
-hybrid stack.
+"""State-space sequence mixers, Mamba-1 (falcon-mamba) and Mamba-2/SSD
+(zamba2) — counterpart of ``repro.models.ssm``.
+
+Mamba-1
+-------
 
 Full-sequence processing is chunked as in the reference: the SSM state is
 carried across chunks of ``chunk`` steps, and within a chunk the recurrence
@@ -24,6 +26,20 @@ reference has no kernel there, and neither has the port.
 Activation-dtype order is the reference's: the in/x/dt projections, the
 softplus and the conv taps run in the activation dtype and are cast to fp32
 after; y is formed in fp32 and cast back before ``out_proj``.
+
+Mamba-2 / SSD
+-------------
+The chunked SSD form of the reference: within a chunk the outputs are an
+attention-like product with the decay matrix ``exp(segsum(log a))``, the
+carried state adds its decayed contribution, and the state is updated once
+per chunk.  The reference computes all of it in einsums outside any Pallas
+kernel, so the port computes it in fp32 ``torch.einsum``/``matmul`` and
+has no kernel here either.  As for Mamba-1, the last chunk runs at its true
+length where the reference pads it with ``log a = 0``, ``delta = 0`` (and
+zero x, B, C): padded steps decay nothing and add nothing, so the outputs
+and the final state are the same.  Dtype order is the reference's: the
+projections and the conv run in the activation dtype, delta, the states
+and y in fp32, and the gated y is cast back before its ``rms_norm``.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rms_norm, rmsnorm_spec
 
 IMPLS = ("kernel", "plain")
 
@@ -174,4 +191,136 @@ def mamba1_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
     return {
         "conv": (batch, cfg.ssm_conv - 1, cfg.d_inner),
         "ssm": (batch, cfg.d_inner, cfg.ssm_state),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H = cfg.ssm_heads
+    conv_dim = di + 2 * N          # conv over [x, B, C], single group
+    return {
+        # zxbcdt projection: [z(di), x(di), B(N), C(N), dt(H)]
+        "in_proj": ParamSpec((d, 2 * di + 2 * N + H), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), ("conv", "ssm_inner")),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), "zeros"),
+        "dt_bias": ParamSpec((H,), ("heads",), "zeros"),
+        "A_log": ParamSpec((H,), ("heads",), "zeros"),
+        "D": ParamSpec((H,), ("heads",), "ones"),
+        "norm": rmsnorm_spec(di, "ssm_inner"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _segsum(loga: torch.Tensor) -> torch.Tensor:
+    """Stable 'segment sum': out[..., i, j] = sum_{j<t<=i} loga[..., t],
+    -inf for j > i.  loga: (..., Q) -> (..., Q, Q)."""
+    Q = loga.shape[-1]
+    cs = torch.cumsum(loga, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]            # sum_(j, i]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=loga.device).tril()
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def _mamba2_project(p, cfg: ModelConfig, x: torch.Tensor, conv_prev):
+    """The zxbcdt projection and the conv over [x, B, C]; returns z (act
+    dtype), x per head (B, S, H, P), B and C (B, S, N) and delta (B, S, H),
+    fp32, and the new conv state."""
+    Bsz, S, _ = x.shape
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    dt = x.dtype
+    zxbcdt = x @ p["in_proj"].to(dt)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"], conv_prev)
+    xbc = F.silu(xbc)
+    xin, Bc, Cc = torch.split(xbc, [di, N, N], dim=-1)
+    delta = F.softplus(dt_raw.float() + p["dt_bias"].float())   # (B, S, H)
+    xh = xin.reshape(Bsz, S, H, P).float()
+    return z, xh, Bc.float(), Cc.float(), delta, conv_state
+
+
+def _mamba2_out(p, cfg: ModelConfig, y: torch.Tensor, xh: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """y (B, S, H, P) fp32 plus the D skip, gated by silu(z), normed in the
+    activation dtype and projected out."""
+    Bsz, S = y.shape[:2]
+    dt = z.dtype
+    y = y + xh * p["D"].float()[:, None]
+    y = y.reshape(Bsz, S, cfg.d_inner) * F.silu(z.float())
+    y = rms_norm(y.to(dt), p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"].to(dt)
+
+
+def mamba2_full(
+    p: Dict[str, Any],
+    cfg: ModelConfig,
+    x: torch.Tensor,                      # (B, S, d)
+    *,
+    chunk: int = 256,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked SSD (Mamba-2), single B/C group; returns (y, {"conv", "ssm"}
+    final state), the SSM state (B, H, P, N) fp32."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    Bsz, S, _ = x.shape
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_prev = None if state is None else state["conv"]
+    z, xh, Bc, Cc, delta, conv_state = _mamba2_project(p, cfg, x, conv_prev)
+    loga = delta * -torch.exp(p["A_log"].float())         # (B, S, H)
+
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if state is None else state["ssm"].float())
+    y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        lah = loga[:, c0:c1].transpose(1, 2)               # (B, H, Q)
+        xc, bc, cc = xh[:, c0:c1], Bc[:, c0:c1], Cc[:, c0:c1]
+        dc = delta[:, c0:c1]                               # (B, Q, H)
+        # intra-chunk: Y1[i] = sum_{j<=i} C_i.B_j L_ij dt_j x_j
+        L = torch.exp(_segsum(lah))                        # (B, H, Q, Q)
+        M = torch.einsum("bin,bjn->bij", cc, bc)[:, None] * L
+        y_intra = torch.einsum("bhij,bjhp->bihp", M, dc[..., None] * xc)
+        # inter-chunk: the carried state, decayed to each step
+        cum = torch.cumsum(lah, dim=-1)                    # (B, H, Q)
+        cumla = torch.exp(cum)
+        y_inter = (torch.einsum("bin,bhpn->bihp", cc, h)
+                   * cumla.transpose(1, 2)[..., None])
+        y[:, c0:c1] = y_intra + y_inter
+        # state update: h' = a_tot h + sum_j (prod_{t>j} a) dt_j B_j x_j
+        decay = torch.exp(
+            torch.cumsum(lah.flip(-1), dim=-1).flip(-1) - lah)   # (B, H, Q)
+        w = (dc * decay.transpose(1, 2))[..., None] * xc   # (B, Q, H, P)
+        h = (h * cumla[..., -1, None, None]
+             + torch.einsum("bjhp,bjn->bhpn", w, bc))
+    out = _mamba2_out(p, cfg, y, xh, z)
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def mamba2_decode(
+    p: Dict[str, Any],
+    cfg: ModelConfig,
+    x: torch.Tensor,                      # (B, 1, d)
+    state: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step of the SSD recurrence against the carried state."""
+    z, xh, Bc, Cc, delta, conv_state = _mamba2_project(p, cfg, x,
+                                                       state["conv"])
+    d0 = delta[:, 0]                                       # (B, H)
+    a = torch.exp(d0 * -torch.exp(p["A_log"].float()))
+    x0 = xh[:, 0]                                          # (B, H, P)
+    h = (state["ssm"].float() * a[..., None, None]
+         + torch.einsum("bh,bn,bhp->bhpn", d0, Bc[:, 0], x0))
+    y = torch.einsum("bhpn,bn->bhp", h, Cc[:, 0])[:, None]
+    return _mamba2_out(p, cfg, y, xh, z), {"conv": conv_state, "ssm": h}
+
+
+def mamba2_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, tuple]:
+    return {
+        "conv": (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+        "ssm": (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
     }

@@ -13,11 +13,14 @@ requests are dropped and retried client-side, re-prefilled on a survivor
     python -m repro_torch.serving.live --arch falcon-mamba-7b --smoke --device cpu
     python -m repro_torch.serving.live --arch qwen3-moe-30b
     python -m repro_torch.serving.live --arch qwen3-moe-30b --smoke --device cpu
+    python -m repro_torch.serving.live --arch zamba2-7b
+    python -m repro_torch.serving.live --arch zamba2-7b --smoke --device cpu
 
 The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
 ``reset_cache`` and decode through the serve step
 (``repro_torch.launch.steps``), whatever the model keeps in its cache (KV
-for attention, dense or MoE, conv and SSM states for Mamba-1).  A replica
+for attention, dense or MoE, conv and SSM states for Mamba-1, both for
+zamba2's hybrid).  A replica
 owns a fixed set of cache slots, each a cache with its serve step, made
 when the replica is built: on the card each step is captured once there
 as a CUDA graph (capturing writes into its cache, so it cannot wait for a

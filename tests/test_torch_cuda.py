@@ -71,10 +71,20 @@ QWEN_GMM_CASES = [
     (8, 40, 2048, 768, "offset"),
 ]
 
+# zamba2-7b's shared attention (H=Kv=32, D=112), in the layout of
+# ATTN_CASES: ragged lengths around the 64-row tiles, causal, and the
+# sliding-window and prefix-LM masks
+ZAMBA_ATTN_CASES = [
+    *((1, 32, 32, S, S, 112, True, None, 0) for S in (1, 63, 65, 975)),
+    (1, 32, 32, 512, 512, 112, True, 96, 0),
+    (1, 32, 32, 512, 512, 112, True, None, 37),
+]
+
 # (B, H, Kv, S, D, mask) for flash_decode's tile skipping: an all-masked
 # row beside a partial one, one valid slot in the last tile, a ring of live
-# slots wrapping past the end, S off the 64-slot tiles, and qwen3-moe-30b's
-# decode shape (H=32, Kv=4, D=128) with 600 valid slots and with none
+# slots wrapping past the end, S off the 64-slot tiles, qwen3-moe-30b's
+# decode shape (H=32, Kv=4, D=128) with 600 valid slots and with none, and
+# zamba2-7b's (H=Kv=32, D=112) under the same masks
 CARD_DECODE_CASES = [
     (2, 32, 8, 2048, 64, "empty beside 600"),
     (1, 32, 8, 2048, 64, "last"),
@@ -82,6 +92,10 @@ CARD_DECODE_CASES = [
     (2, 32, 8, 1000, 64, "ring"),
     (1, 32, 4, 2048, 128, "600"),
     (1, 32, 4, 2048, 128, "empty"),
+    (1, 32, 32, 2048, 112, "600"),
+    (2, 32, 32, 2048, 112, "empty beside 600"),
+    (1, 32, 32, 2048, 112, "last"),
+    (2, 32, 32, 1000, 112, "ring"),
 ]
 
 # (E, C, D, F, layout of x) for the grouped matmul with rows at qwen3's
@@ -281,6 +295,26 @@ def test_flash_attention_bf16_kernel_at_qwen3_shapes(card, case):
     got = tfa.launch(q, k, v, **kw)
     torch.cuda.synchronize()
     want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ZAMBA_ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_at_zamba2_shapes(card, case, dtype):
+    """Head width 112: the bf16 kernel's tile of 128 with zero columns, the
+    fp32 kernel at 7 columns a thread."""
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(900 + ZAMBA_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = tfa.launch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = tfa.plain(q, k, v, **kw)
+    assert got.shape == (B, Sq, H, D)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -534,3 +568,69 @@ def test_second_replica_replays_after_the_first_is_dropped(card):
     while not got:
         got = second.step()
     assert got == want and len(got[0][1]) == 7
+
+
+# zamba2-7b at 14 layers (2 prelude Mamba-2 layers, 2 super-blocks) and
+# d_model 448, so that its attention heads are 112 wide, as at full width
+def _hybrid_card_model(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    cfg = get_config("zamba2-7b").scaled(num_layers=14, d_model=448)
+    assert cfg.resolved_head_dim == 112 and cfg.hybrid_blocks == 2
+    return build_model(cfg, device=card, dtype=torch.bfloat16, generator=gen)
+
+
+@pytest.mark.cuda
+def test_hybrid_captured_step_replays_the_eager_tokens(card):
+    """From one prefill, 32 replays of the hybrid's captured step pick the
+    tokens of 32 eager steps, and leave every cache group as they do."""
+    from repro_torch.launch.steps import build_serve_step
+
+    model = _hybrid_card_model(card)
+    graph_cache = model.init_cache(1, 128)
+    step = build_serve_step(model, graph_cache)
+    assert step.graph is not None and int(graph_cache["len"]) == 0
+    eager_cache = model.init_cache(1, 128)
+    with torch.inference_mode():
+        logits, _ = model.prefill(_prompt(model, 40, card), eager_cache)
+        for key, group in eager_cache.items():
+            if key == "len":
+                graph_cache[key].copy_(group)
+            else:
+                for name, t in group.items():
+                    graph_cache[key][name].copy_(t)
+        tok = logits.argmax(-1)
+        step.tokens.copy_(tok)
+        for i in range(32):
+            logits, _ = model.decode_step(tok, eager_cache)
+            tok = logits.argmax(-1)
+            assert torch.equal(step(), tok), f"step {i}"
+    torch.cuda.synchronize()
+    assert int(graph_cache["len"]) == int(eager_cache["len"]) == 72
+    for key in ("prelude_state", "block_state", "attn_kv"):
+        for name, t in eager_cache[key].items():
+            assert torch.equal(graph_cache[key][name], t), (key, name)
+
+
+@pytest.mark.cuda
+def test_hybrid_replays_count_one_decode_launch_per_block(card):
+    from repro_torch.launch.steps import build_serve_step
+
+    model = _hybrid_card_model(card)
+    blocks = model.cfg.hybrid_blocks
+    cache = model.init_cache(1, 128)
+    ops.reset_launch_counts()
+    step = build_serve_step(model, cache)
+    assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
+    assert step.launches == {"flash_attention": 0, "flash_decode": blocks,
+                             "selective_scan": 0, "moe_gmm": 0}
+    with torch.inference_mode():
+        logits, _ = model.prefill(_prompt(model, 20, card), cache)
+    step(logits.argmax(-1))
+    step()
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == blocks
+    assert ops.flash_decode.launches == 2 * blocks
+    assert ops.selective_scan.launches == ops.moe_gmm.launches == 0

@@ -142,7 +142,7 @@ def test_impl_plain_matches_impl_kernel_on_cpu():
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-3b", "command-r-35b",
                                   "h2o-danube3-4b", "paligemma-3b",
                                   "falcon-mamba-7b", "phi3.5-moe-42b",
-                                  "qwen3-moe-30b"])
+                                  "qwen3-moe-30b", "zamba2-7b"])
 def test_param_count_matches_reference(arch):
     """Blueprint counts only: nothing is allocated at full width."""
     assert param_count(lm_blueprint(t_config(arch))) == j_param_count(
@@ -161,11 +161,28 @@ def test_qwen3_moe_30b_full_width_count():
     assert param_count(lm_blueprint(t_config("qwen3-moe-30b"))) == 30_532_646_912
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_unported_families_raise(arch):
     assert arch in ARCH_IDS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_build(t_smoke(arch), device="cpu")
+
+
+def test_hybrid_smoke_builds_on_cpu():
+    """The hybrid family is ported: zamba2-7b's smoke config (one
+    super-block, no prelude) and a 14-layer one (two prelude layers, two
+    super-blocks) build on the CPU and prefill to finite logits."""
+    for cfg in (t_smoke("zamba2-7b"),
+                t_config("zamba2-7b").scaled(num_layers=14)):
+        model = t_build(cfg, device="cpu")
+        assert len(model.prelude) == cfg.hybrid_prelude
+        assert len(model.blocks) == cfg.hybrid_blocks >= 1
+        assert model.num_params() == param_count(lm_blueprint(cfg))
+        cache = model.init_cache(1, 16, dtype=torch.float32)
+        logits, _ = model.prefill(torch.arange(5)[None], cache,
+                                  dtype=torch.float32)
+        assert logits.shape == (1, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
 
 
 def test_falcon_mamba_smoke_builds_and_serves_on_cpu():

@@ -5,9 +5,12 @@ the reference does: ``prefill`` sets it, ``decode_step`` builds its
 positions, cache slot and valid mask from it and advances it in place.  At
 smoke widths in float32, 40 greedy decode steps from the reference's
 converted weights pick the reference's tokens, with caches within the
-reference's 2e-5, for llama3.2-1b, qwen3-moe-30b, falcon-mamba-7b and
+reference's 2e-5, for llama3.2-1b, qwen3-moe-30b, falcon-mamba-7b,
 h2o-danube3-4b, whose 64-slot sliding-window ring wraps (32 prompt tokens
-plus 40 steps).  On the CPU the serve step (``repro_torch.launch.steps``)
+plus 40 steps), and zamba2-7b's hybrid at 14 layers (two prelude Mamba-2
+layers, two super-blocks of the shared attention block and five Mamba-2
+layers), whose cache holds Mamba-2 states and one KV slice per
+application of the shared block.  On the CPU the serve step (``repro_torch.launch.steps``)
 runs eagerly and equals ``decode_step`` plus ``argmax`` bit for bit; the
 live replica keeps the length on the host, raises "cache full" from it, and
 reuses its cache slots.  The captured step runs only on the card
@@ -24,8 +27,10 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as j_config  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
+from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -33,7 +38,9 @@ from repro_torch.launch.steps import ServeStep, build_serve_step  # noqa: E402
 from repro_torch.models.registry import build_model as t_build  # noqa: E402
 from repro_torch.serving.live import LiveReplica  # noqa: E402
 
-ARCHS = ["llama3.2-1b", "qwen3-moe-30b", "falcon-mamba-7b", "h2o-danube3-4b"]
+ARCHS = ["llama3.2-1b", "qwen3-moe-30b", "falcon-mamba-7b", "h2o-danube3-4b",
+         "zamba2-7b"]
+HYBRID_LAYERS = 14          # zamba2: 2 prelude layers, 2 super-blocks
 B, S, STEPS, MAX_LEN = 2, 32, 40, 80
 TOL = 2e-5          # the reference's float32 attention / cache tolerance
 
@@ -44,12 +51,19 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
+def _configs(arch):
+    if arch == "zamba2-7b":
+        return (j_config(arch).scaled(num_layers=HYBRID_LAYERS),
+                t_config(arch).scaled(num_layers=HYBRID_LAYERS))
+    return j_smoke(arch), t_smoke(arch)
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
-    jcfg = j_smoke(arch)
+    jcfg, tcfg = _configs(arch)
     jmodel = j_build(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = t_build(t_smoke(arch), device="cpu")
+    tmodel = t_build(tcfg, device="cpu")
     tree = jax.tree_util.tree_map(
         lambda a: np.asarray(a.astype(jnp.float32)), params)
     tmodel.load_state_dict(params_from_jax(tree))
@@ -61,7 +75,9 @@ def _tokens(cfg, n, seed=0):
 
 
 def _leaves(cache):
-    return cache.get("kv", cache.get("ssm_state"))
+    """Every tensor of a cache but the length, by "group/name"."""
+    return {f"{g}/{n}": t for g, group in cache.items() if g != "len"
+            for n, t in group.items()}
 
 
 def _assert_caches(tcache, jcache):
@@ -203,3 +219,27 @@ def test_replica_slot_reuse_gives_fresh_cache_tokens(arch):
             done = rep.step()
         got.update(done)
     assert got == want
+
+
+def test_hybrid_reset_and_capacity():
+    """A hybrid cache: prefill fills every group, ``reset_cache`` empties
+    them in place, and the replica raises "cache full" at the attention
+    slots (the Mamba-2 states never fill)."""
+    tmodel = _pair("zamba2-7b")[3]
+    _, cache = _prefilled(tmodel, "zamba2-7b")
+    assert int(cache["len"]) == 12
+    groups = {k.split("/")[0] for k, t in _leaves(cache).items()
+              if bool(t.abs().sum() > 0)}
+    assert groups == {"prelude_state", "block_state", "attn_kv"}
+    tensors = _leaves(cache)
+    tmodel.reset_cache(cache)
+    assert int(cache["len"]) == 0 and _leaves(cache) == tensors
+    assert all(bool(t.eq(0).all()) for t in tensors.values())
+    prompt = torch.from_numpy(_tokens(tmodel.cfg, 14)[0])
+    rep = LiveReplica("r", tmodel, max_len=16, dtype=torch.float32, slots=1)
+    assert tmodel.cache_capacity(rep.free[0][0]) == 16
+    rep.submit(0, prompt, out_tokens=5)
+    rep.step()
+    rep.step()
+    with pytest.raises(ValueError, match="cache full"):
+        rep.step()
