@@ -14,23 +14,29 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    1e-4 in float32), including the main paths' shapes, flash_decode's
    masks (an all-masked row, one valid slot in the last tile, a ring),
    both attention kernels at zamba2-7b's head width 112 (H = Kv = 32) in
-   bf16 and float32, and the grouped matmul with the occupancy ``rows``
+   bf16 and float32, whisper-medium's attention (H = Kv = 16, D = 64) in
+   both dtypes: flash_attention bidirectional over 1500 encoder frames,
+   cross with 1, 4, 63, 65 and 224 queries against 1500 keys, causal at
+   224, and flash_decode over a 1500-slot cross cache all valid and 600
+   valid, and the grouped matmul with the occupancy ``rows``
    (0, 8 and 128 of 128 experts; nonzero x past the rows);
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
    function (a yardstick the port never calls), and the card's bound;
    flash_attention and flash_decode also at qwen3-moe-30b's shape (H=32,
-   Kv=4, D=128) and zamba2-7b's (H=32, Kv=32, D=112), and moe_gmm with the
+   Kv=4, D=128), zamba2-7b's (H=32, Kv=32, D=112) and whisper-medium's
+   (H=Kv=16, D=64: the encoder's bidirectional S=1500, the cross cache's
+   1500 valid slots), and moe_gmm with the
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
-4. profiles the kernels of the four served models on the ``h100``
+4. profiles the kernels of the five served models on the ``h100``
    instance (``repro_torch.profiles``, the kernels timed with CUDA events),
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
    port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
    must lie in (0, 1.05];
-5. serves four full-width models, one after the other, with seeded random
+5. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
    the selective scan once per 256-token chunk of every prefill, no kernel
@@ -39,8 +45,14 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    layer in prefill and decode) and zamba2-7b (68 Mamba-2 layers, whose SSD
    has no kernel, and 13 applications of one shared attention block at
    head width 112: flash_attention 13 times a prefill, flash_decode 13
-   times a decode step).  Each fleet has two replicas and eight
-   requests of 128-1024 prompt tokens, least-loaded dispatch, replica 0
+   times a decode step) and whisper-medium (24 encoder and 24 decoder
+   layers: flash_attention 72 times a prefill, 24 over the 1500 encoder
+   frames, 24 causal over the prompt and 24 cross; flash_decode 48 times
+   a decode step, 24 over the self cache and 24 over the cross cache).
+   Each fleet has two replicas and eight requests of 128-1024 prompt
+   tokens into 2048 cache slots (whisper-medium: 4-224 prompt tokens into
+   448 slots, each request with 1500 seeded audio frames, carried on its
+   retry), least-loaded dispatch, replica 0
    preempted at step 4 and its requests retried on the survivor.  Each
    replica captures one serve step per cache slot as a CUDA graph when it
    is built, and every decode step replays one (prefill stays eager).  The
@@ -71,6 +83,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -95,6 +108,9 @@ DECODE_S = 2048
 QWEN_H, QWEN_KV, QWEN_D = 32, 4, 128
 # zamba2-7b's shared attention block
 ZAMBA_H, ZAMBA_KV, ZAMBA_D = 32, 32, 112
+# whisper-medium's attention, and its 1500 encoder frames (30 s of audio)
+WHISPER_H, WHISPER_KV, WHISPER_D = 16, 16, 64
+ENC_S = 1500
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -120,6 +136,19 @@ FA_CASES = [
     (torch.bfloat16, 2, 8, 2, 192, 112, False, None, 0),     # D=112, GQA, bidirectional
 ]
 
+# whisper-medium's attention (tests/test_torch_cuda.py WHISPER_ATTN_CASES),
+# (dtype, B, H, Kv, Sq, Skv, D, causal): the encoder's bidirectional walk
+# over 1500 frames (a 28-key last tile), the cross-attention of a decoder
+# prompt of Sq tokens against them (Sq under, at and past one 64-row
+# tile, and the 224-token prompt cap), and the decoder's causal prefill
+WHISPER_FA_CASES = [
+    (dtype, 1, WHISPER_H, WHISPER_KV, Sq, Skv, WHISPER_D, causal)
+    for dtype in (torch.bfloat16, torch.float32)
+    for Sq, Skv, causal in ((ENC_S, ENC_S, False),
+                            *((Sq, ENC_S, False) for Sq in (1, 4, 63, 65, 224)),
+                            (224, 224, True))
+]
+
 # flash_decode's tile skipping (tests/test_torch_cuda.py CARD_DECODE_CASES):
 # (B, H, Kv, S, D, mask) with an all-masked row beside a partial one, one
 # valid slot in the last tile, a ring wrapping past the end, S off the
@@ -138,6 +167,20 @@ CARD_DECODE_CASES = [
     (2, 32, 32, 1000, 112, "ring"),
 ]
 
+# whisper-medium's decode caches (tests/test_torch_cuda.py
+# WHISPER_DECODE_CASES): the cross cache, 1500 slots all valid (24 tiles,
+# none skipped, the last ragged) or 600 valid; and the self cache, 448
+# slots (7 tiles) of which a request of 4-224 prompt tokens and 32 output
+# tokens fills the first 5 to 257 (a 4-token prompt's first step, a
+# mid-range one, a 224-token prompt's last), or only the last slot
+WHISPER_SELF_S = 448
+WHISPER_DECODE_CASES = [
+    *((B, WHISPER_H, WHISPER_KV, ENC_S, WHISPER_D, mask)
+      for B in (1, 2) for mask in (str(ENC_S), "600")),
+    *((1, WHISPER_H, WHISPER_KV, WHISPER_SELF_S, WHISPER_D, mask)
+      for mask in ("5", "212", "257", "last")),
+]
+
 FD_CASES = [
     # (dtype, B, H, Kv, S, D, mask: see make_valid)
     (torch.bfloat16, 1, 32, 8, 2048, 64, "600"),            # main path
@@ -145,7 +188,7 @@ FD_CASES = [
     (torch.bfloat16, 2, 8, 1, 1024, 128, "700,1024"),
     (torch.float32, 2, 32, 8, 2048, 64, "300,1500"),
     (torch.float32, 1, 8, 1, 1024, 128, "700"),
-    *((dtype, *case) for case in CARD_DECODE_CASES
+    *((dtype, *case) for case in CARD_DECODE_CASES + WHISPER_DECODE_CASES
       for dtype in (torch.bfloat16, torch.float32)),
 ]
 
@@ -426,13 +469,18 @@ def attention_pairs(S: int, causal: bool, window, prefix: int) -> int:
 
 
 def check_flash_attention() -> float:
-    """Every FA_CASES case, kernel against plain; returns the largest error."""
+    """Every FA_CASES and WHISPER_FA_CASES case, kernel against plain;
+    returns the largest error."""
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(11)
     worst = 0.0
-    for dtype, B, H, Kv, S, D, causal, window, prefix in FA_CASES:
-        q = randn(rng, (B, S, H, D), dtype)
+    cases = [(dtype, B, H, Kv, S, S, D, causal, window, prefix)
+             for dtype, B, H, Kv, S, D, causal, window, prefix in FA_CASES]
+    cases += [(dtype, B, H, Kv, Sq, Skv, D, causal, None, 0)
+              for dtype, B, H, Kv, Sq, Skv, D, causal in WHISPER_FA_CASES]
+    for dtype, B, H, Kv, Sq, S, D, causal, window, prefix in cases:
+        q = randn(rng, (B, Sq, H, D), dtype)
         k = randn(rng, (B, S, Kv, D), dtype)
         v = randn(rng, (B, S, Kv, D), dtype)
         kw = dict(causal=causal, window=window, prefix_len=prefix)
@@ -442,7 +490,8 @@ def check_flash_attention() -> float:
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[dtype]
         ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-        log(f"flash_attention {str(dtype)[6:]} B={B} H={H} Kv={Kv} S={S} "
+        shape = f"S={S}" if Sq == S else f"Sq={Sq} Skv={S}"
+        log(f"flash_attention {str(dtype)[6:]} B={B} H={H} Kv={Kv} {shape} "
             f"D={D} causal={causal} window={window} prefix={prefix}: "
             f"max_abs_err={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -620,11 +669,18 @@ def expected_launches(model, res) -> dict:
     (prefill or decode step); Mamba-1 launches the scan once per layer and
     256-step chunk of every prefill (the last chunk ragged), and nothing in
     decode; the hybrid launches the attention kernels once per application
-    of its shared block (one per super-block) and nothing for Mamba-2."""
+    of its shared block (one per super-block) and nothing for Mamba-2; the
+    encoder-decoder launches flash_attention once per encoder layer and
+    twice per decoder layer (causal self-attention, cross-attention) in a
+    prefill, and flash_decode twice per decoder layer in a decode step."""
     cfg = model.cfg
     L = cfg.num_layers
     want = dict.fromkeys(
         ("flash_attention", "flash_decode", "selective_scan", "moe_gmm"), 0)
+    if cfg.is_encdec:
+        want["flash_attention"] = (cfg.encoder_layers + 2 * L) * res.prefills
+        want["flash_decode"] = 2 * L * res.decode_steps
+        return want
     if cfg.family == "hybrid":
         want["flash_attention"] = cfg.hybrid_blocks * res.prefills
         want["flash_decode"] = cfg.hybrid_blocks * res.decode_steps
@@ -643,16 +699,46 @@ def expected_launches(model, res) -> dict:
 
 # full-width parameter counts (the reference's blueprint counts)
 FULL_PARAMS = {"llama3.2-1b": 1_235_814_400, "falcon-mamba-7b": 7_272_665_088,
-               "qwen3-moe-30b": 30_532_646_912, "zamba2-7b": 5_622_728_000}
+               "qwen3-moe-30b": 30_532_646_912, "zamba2-7b": 5_622_728_000,
+               "whisper-medium": 758_255_616}
 CARD_BYTES = 80e9
 
+# the fleet's prompt lengths and cache slots per request: (min, max, slots);
+# whisper-medium's prompts stop at its 224-token cap (half of its 448-token
+# decoder context, ``n_text_ctx``), which its cache holds
+FLEET_SHAPES = {"whisper-medium": (4, 224, 448)}
+DEFAULT_FLEET_SHAPE = (128, 1024, 2048)
 
-def build_served_model(arch: str):
+
+class Fleet:
+    """A served model and its requests: prompts (id -> 1-D tokens), for an
+    encoder-decoder model their audio frames (id -> (1, S_enc, d_model)),
+    and the cache slots a request gets."""
+
+    def __init__(self, model, prompts: Dict[int, torch.Tensor],
+                 frames: Optional[Dict[int, torch.Tensor]], max_len: int) -> None:
+        self.model, self.prompts, self.frames = model, prompts, frames
+        self.max_len = max_len
+
+    def longest(self) -> int:
+        return max(self.prompts, key=lambda rid: len(self.prompts[rid]))
+
+    def prefill(self, rid: int, cache, dtype=torch.bfloat16):
+        """``model.prefill`` of request ``rid`` into ``cache`` (its frames
+        first, for an encoder-decoder model)."""
+        tokens = self.prompts[rid][None]
+        inputs = (tokens,) if self.frames is None else (self.frames[rid], tokens)
+        return self.model.prefill(*inputs, cache, dtype=dtype)
+
+
+def build_served_model(arch: str) -> Fleet:
     """Full-width ``arch`` with random bf16 weights (seed 0) on the card,
-    and the fleet's eight prompts of 128-1024 tokens (numpy seed 7)."""
+    and the fleet's eight prompts (numpy seed 7; 128-1024 tokens, or
+    ``FLEET_SHAPES``'), with 1500 frames each for whisper-medium (numpy
+    seed 8)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    from repro_torch.serving.live import make_prompts
+    from repro_torch.serving.live import make_frames, make_prompts
 
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -666,28 +752,36 @@ def build_served_model(arch: str):
     if model.num_params() != FULL_PARAMS[arch]:
         raise AssertionError(f"{arch}: {model.num_params():,} parameters, "
                              f"want {FULL_PARAMS[arch]:,}")
-    prompts = make_prompts(cfg, n=8, min_len=128, max_len=1024, seed=7,
+    lo, hi, slots = FLEET_SHAPES.get(arch, DEFAULT_FLEET_SHAPE)
+    prompts = make_prompts(cfg, n=8, min_len=lo, max_len=hi, seed=7,
                            device="cuda")
-    log("prompt lengths:", [len(p) for p in prompts.values()])
-    return model, prompts
+    frames = (make_frames(cfg, prompts, seed=8, device="cuda")
+              if cfg.is_encdec else None)
+    log("prompt lengths:", [len(p) for p in prompts.values()],
+        f"cache slots per request {slots}" + (
+            f", {cfg.frontend_seq} audio frames each" if frames else ""))
+    return Fleet(model, prompts, frames, slots)
 
 
-def phase_serve(model, prompts) -> dict:
-    """The fleet run of ``model``; returns the kernel launches it made,
+def phase_serve(fleet: Fleet) -> dict:
+    """The fleet run of ``fleet``; returns the kernel launches it made,
     counted from zero just before the run and read just after."""
     from repro_torch.kernels import ops
     from repro_torch.serving.live import serve_fleet
 
+    model, prompts = fleet.model, fleet.prompts
     name = model.cfg.name
     # warm up (cuBLAS handles, allocator) before the measured run
     serve_fleet(model, {0: prompts[0][:64]}, replicas=1, out_tokens=2,
-                max_len=128, kill_step=0, log=lambda s: None)
+                max_len=128, kill_step=0, log=lambda s: None,
+                frames=None if fleet.frames is None else {0: fleet.frames[0]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()
     res = serve_fleet(model, prompts, replicas=2, out_tokens=32,
-                      max_len=2048, kill_step=4, log=log)
+                      max_len=fleet.max_len, kill_step=4, log=log,
+                      frames=fleet.frames)
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
     if sorted(res.completed) != sorted(prompts):
@@ -710,6 +804,7 @@ def phase_serve(model, prompts) -> dict:
         raise AssertionError(f"{name}: peak device memory "
                              f"{torch.cuda.max_memory_allocated():,} B")
     n_tok = sum(len(t) for t in res.completed.values())
+    slot_bytes = cache_bytes(model.init_cache(1, fleet.max_len))
     log(f"{name} served {len(res.completed)}/{len(prompts)} requests, "
         f"{n_tok} tokens, {len(res.retried)} retried after the preemption, in "
         f"{res.wall_s:.3f} s: {n_tok / res.wall_s:.1f} tokens/s, "
@@ -718,7 +813,8 @@ def phase_serve(model, prompts) -> dict:
         f"decode_steps={res.decode_steps} "
         f"mean_decode_step_ms={1e3 * np.mean(res.decode_s):.3f} (captured "
         f"steps replayed), set-up {res.setup_s:.3f} s for {res.graphs} cache "
-        f"slots with captured steps, peak device memory "
+        f"slots with captured steps ({slot_bytes / 1e6:.1f} MB of cache "
+        f"each, {fleet.max_len} slots), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{name} launches on the serving path (want {json.dumps(want)}):",
         json.dumps(launches))
@@ -758,22 +854,23 @@ def routing_differences(got, want, num_experts: int) -> int:
     return n
 
 
-def _prefill_logits(model, tokens, impl, dtype):
-    """Last-position prefill logits (fp32) over the real vocabulary (the
-    padding entries hold the dtype's most negative value) and the routing
-    of each MoE layer."""
+def _prefill_logits(fleet: Fleet, rid: int, impl, dtype):
+    """Last-position prefill logits (fp32) of request ``rid`` over the real
+    vocabulary (the padding entries hold the dtype's most negative value)
+    and the routing of each MoE layer."""
+    model = fleet.model
     model.impl = impl
     try:
         with recorded_routing() as routes:
-            cache = model.init_cache(1, tokens.shape[1], dtype=dtype)
-            logits = model.prefill(tokens, cache, dtype=dtype)[0].float()
+            cache = model.init_cache(1, len(fleet.prompts[rid]), dtype=dtype)
+            logits = fleet.prefill(rid, cache, dtype=dtype)[0].float()
         return logits[..., :model.cfg.vocab_size], routes
     finally:
         model.impl = "kernel"
 
 
 @torch.inference_mode()
-def compare_prefill_logits(model, prompts, n: int = 4) -> None:
+def compare_prefill_logits(fleet: Fleet, n: int = 4) -> None:
     """Prefill logits of the kernel path against the plain path, same
     weights, in float32 and in bf16 activations.
 
@@ -788,14 +885,14 @@ def compare_prefill_logits(model, prompts, n: int = 4) -> None:
     rule is enforced when its paths routed alike, and where they did not
     its result is printed beside the count (``check_moe_layer`` holds the
     kernel itself to the grouped matmul's tolerances)."""
-    cfg = model.cfg
+    cfg = fleet.model.cfg
     top1, flips = [], {"f32": 0, "bf16": 0}
-    for rid in list(prompts)[:n]:
-        tokens = prompts[rid][None]
-        ref32, r_ref32 = _prefill_logits(model, tokens, "plain", torch.float32)
-        got32, r_got32 = _prefill_logits(model, tokens, "kernel", torch.float32)
-        ref16, r_ref16 = _prefill_logits(model, tokens, "plain", torch.bfloat16)
-        got16, r_got16 = _prefill_logits(model, tokens, "kernel", torch.bfloat16)
+    for rid in list(fleet.prompts)[:n]:
+        tokens = fleet.prompts[rid][None]
+        ref32, r_ref32 = _prefill_logits(fleet, rid, "plain", torch.float32)
+        got32, r_got32 = _prefill_logits(fleet, rid, "kernel", torch.float32)
+        ref16, r_ref16 = _prefill_logits(fleet, rid, "plain", torch.bfloat16)
+        got16, r_got16 = _prefill_logits(fleet, rid, "kernel", torch.bfloat16)
         for t in (got32, got16):
             if not torch.isfinite(t).all():
                 raise AssertionError("non-finite prefill logits")
@@ -870,18 +967,31 @@ def check_moe_layer(model, prompts) -> None:
             raise AssertionError("MoE layer: kernel path disagrees with plain")
 
 
+def _cache_tensors(cache):
+    """Every tensor of ``cache``, keyed by its path: the length, each
+    group's tensors (KV, SSM states, the hybrid's groups) and the
+    encoder-decoder's cross K/V and mask."""
+    for key, value in cache.items():
+        if isinstance(value, torch.Tensor):
+            yield key, value
+        else:
+            for name, t in value.items():
+                yield f"{key}.{name}", t
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.nbytes for _, t in _cache_tensors(cache))
+
+
 def copy_cache(dst, src) -> None:
-    """Write ``src``'s contents into ``dst``'s tensors (same shapes): the
-    length and every group (KV, SSM states, the hybrid's groups)."""
-    dst["len"].copy_(src["len"])
-    for key, group in src.items():
-        if key != "len":
-            for name, t in group.items():
-                dst[key][name].copy_(t)
+    """Write ``src``'s contents into ``dst``'s tensors (same shapes)."""
+    targets = dict(_cache_tensors(dst))
+    for path, t in _cache_tensors(src):
+        targets[path].copy_(t)
 
 
 @torch.inference_mode()
-def check_replay(model, prompts, steps: int = 32) -> None:
+def check_replay(fleet: Fleet, steps: int = 32) -> None:
     """One request of the longest prompt, prefilled once: ``steps`` eager
     decode steps on one copy of the cache and ``steps`` replays of a
     captured serve step on another.  Any token that differs fails the run,
@@ -889,13 +999,14 @@ def check_replay(model, prompts, steps: int = 32) -> None:
     largest difference in logits is printed."""
     from repro_torch.launch.steps import build_serve_step
 
-    tokens = max(prompts.values(), key=len)[None]
-    graph_cache = model.init_cache(1, 2048)
+    model, rid = fleet.model, fleet.longest()
+    tokens = fleet.prompts[rid][None]
+    graph_cache = model.init_cache(1, fleet.max_len)
     t0 = time.perf_counter()
     step = build_serve_step(model, graph_cache)   # hands the cache back empty
     capture_s = time.perf_counter() - t0
-    eager_cache = model.init_cache(1, 2048)
-    logits, _ = model.prefill(tokens, eager_cache)
+    eager_cache = model.init_cache(1, fleet.max_len)
+    logits, _ = fleet.prefill(rid, eager_cache)
     copy_cache(graph_cache, eager_cache)
     tok = logits.argmax(-1)
     step.tokens.copy_(tok)
@@ -922,7 +1033,7 @@ def check_replay(model, prompts, steps: int = 32) -> None:
 
 
 @torch.inference_mode()
-def profile_serving(model, prompts, decode_steps: int = 8) -> None:
+def profile_serving(fleet: Fleet, decode_steps: int = 8) -> None:
     """Where a request's time goes: one prefill of the longest prompt and
     ``decode_steps`` decode steps, eager and as replays of the captured
     serve step, under torch.profiler (each window run once as the
@@ -932,11 +1043,12 @@ def profile_serving(model, prompts, decode_steps: int = 8) -> None:
     times is printed as not measured."""
     from repro_torch.launch.steps import build_serve_step
 
-    tokens = max(prompts.values(), key=len)[None]
-    cache = model.init_cache(1, 2048)
-    logits, cache = model.prefill(tokens, cache)
+    model, rid = fleet.model, fleet.longest()
+    tokens = fleet.prompts[rid][None]
+    cache = model.init_cache(1, fleet.max_len)
+    logits, cache = fleet.prefill(rid, cache)
     state = {"tok": logits.argmax(-1)}
-    graph_cache = model.init_cache(1, 2048)
+    graph_cache = model.init_cache(1, fleet.max_len)
     step = build_serve_step(model, graph_cache)
     copy_cache(graph_cache, cache)
     step.tokens.copy_(state["tok"])
@@ -950,7 +1062,8 @@ def profile_serving(model, prompts, decode_steps: int = 8) -> None:
         for _ in range(decode_steps):
             step()
 
-    windows = {"prefill": lambda: model.prefill(tokens, model.init_cache(1, 2048)),
+    windows = {"prefill": lambda: fleet.prefill(
+                   rid, model.init_cache(1, fleet.max_len)),
                "decode": decode, "decode, captured": replay}
     for phase, window in windows.items():
         try:
@@ -976,33 +1089,35 @@ def profile_serving(model, prompts, decode_steps: int = 8) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_flash_attention_at(H: int, Kv: int, D: int) -> dict:
-    """flash_attention, bf16, B=1, S=1024, causal, at H query and Kv kv
-    heads of width D: kernel, plain, SDPA (the library yardstick, never
-    called by the port) and the bound (the larger of the unmasked pairs'
-    products over the bf16 tensor-core peak and the bytes over the HBM
-    rate)."""
+def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
+                            causal: bool = True) -> dict:
+    """flash_attention, bf16, B=1, S tokens (causal or bidirectional), at H
+    query and Kv kv heads of width D: kernel, plain, SDPA (the library
+    yardstick, never called by the port) and the bound (the larger of the
+    unmasked pairs' products over the bf16 tensor-core peak and the bytes
+    over the HBM rate)."""
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(13 + D)
-    B, S = 1, PREFILL_S
+    B = 1
     q = randn(rng, (B, S, H, D), torch.bfloat16)
     k = randn(rng, (B, S, Kv, D), torch.bfloat16)
     v = randn(rng, (B, S, Kv, D), torch.bfloat16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     calls = {
-        "kernel": lambda: fa.launch(q, k, v, causal=True),
-        "plain": lambda: fa.plain(q, k, v, causal=True),
+        "kernel": lambda: fa.launch(q, k, v, causal=causal),
+        "plain": lambda: fa.plain(q, k, v, causal=causal),
         "library": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
     }
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
     queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
-    flops = 4.0 * B * H * D * attention_pairs(S, True, None, 0)
+    flops = 4.0 * B * H * D * attention_pairs(S, causal, None, 0)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"flash_attention timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} causal: "
+    log(f"flash_attention timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
+        f"{'causal' if causal else 'bidirectional'}: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(SDPA) kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} "
         f"({b_by}) achieved {flops / ms / 1e9:.1f} TFLOP/s [device time, "
@@ -1020,25 +1135,29 @@ def time_flash_attention_at(H: int, Kv: int, D: int) -> dict:
 
 def time_flash_attention() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128) and zamba2-7b's (H=Kv=32, D=112) are logged beside it."""
+    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112) and whisper-medium's
+    encoder (H=Kv=16, D=64, bidirectional over 1500 frames) are logged
+    beside it."""
     time_flash_attention_at(QWEN_H, QWEN_KV, QWEN_D)
     time_flash_attention_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
+    time_flash_attention_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=ENC_S,
+                            causal=False)
     return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
-def time_flash_decode_at(H: int, Kv: int, D: int) -> dict:
-    """flash_decode, bf16, B=1, 2048 cache slots of which the first 600 are
-    valid (the fleet's mid-decode occupancy), at H query and Kv kv heads of
-    width D: kernel, plain, SDPA with a bool mask (the library yardstick,
-    never called by the port) and the bound (the larger of the products
-    over the bf16 tensor-core peak and the bytes that must move: q and the
-    output, the mask, and the K/V rows of the valid slots, over the HBM
-    rate)."""
+def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
+                         n_valid: int = 600) -> dict:
+    """flash_decode, bf16, B=1, S cache slots of which the first
+    ``n_valid`` are valid (600 of 2048: the fleet's mid-decode occupancy),
+    at H query and Kv kv heads of width D: kernel, plain, SDPA with a bool
+    mask (the library yardstick, never called by the port) and the bound
+    (the larger of the products over the bf16 tensor-core peak and the
+    bytes that must move: q and the output, the mask, and the K/V rows of
+    the valid slots, over the HBM rate)."""
     from repro_torch.kernels import flash_decode as fd
 
     rng = np.random.default_rng(14 + D)
-    B, S = 1, DECODE_S
-    n_valid = 600
+    B = 1
     q = randn(rng, (B, 1, H, D), torch.bfloat16)
     k = randn(rng, (B, S, Kv, D), torch.bfloat16)
     v = randn(rng, (B, S, Kv, D), torch.bfloat16)
@@ -1075,9 +1194,15 @@ def time_flash_decode_at(H: int, Kv: int, D: int) -> dict:
 
 def time_flash_decode() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128) and zamba2-7b's (H=Kv=32, D=112) are logged beside it."""
+    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112) and whisper-medium's cross
+    cache (H=Kv=16, D=64, 1500 slots, all valid) and self cache (448
+    slots, the first 212 valid) are logged beside it."""
     time_flash_decode_at(QWEN_H, QWEN_KV, QWEN_D)
     time_flash_decode_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
+    time_flash_decode_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=ENC_S,
+                         n_valid=ENC_S)
+    time_flash_decode_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=WHISPER_SELF_S,
+                         n_valid=212)
     return time_flash_decode_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1183,12 +1308,13 @@ def time_moe_gmm() -> dict:
     return time_moe_gmm_at(GMM_DECODE_C, 1)
 
 
-SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b")
+SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b",
+          "whisper-medium")
 PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
 
 
 def phase_profiles() -> None:
-    """The step-time profiles of the four served models on the ``h100``
+    """The step-time profiles of the five served models on the ``h100``
     instance, through the port's CLI (the reference's cases: prefill 256,
     cache 512, batch 1; each kernel call timed with CUDA events, best of
     the repeats), written to ``PROFILE_OUT`` and reloaded with the port's
@@ -1223,17 +1349,17 @@ def phase_profiles() -> None:
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
-    model, prompts = build_served_model(arch)
-    launches = phase_serve(model, prompts)
+    fleet = build_served_model(arch)
+    launches = phase_serve(fleet)
     gc.collect()          # the fleet's replicas: their caches and graphs
     torch.cuda.empty_cache()
-    check_replay(model, prompts)
-    if model.cfg.is_moe:
-        check_moe_layer(model, prompts)
-    compare_prefill_logits(model, prompts)
+    check_replay(fleet)
+    if fleet.model.cfg.is_moe:
+        check_moe_layer(fleet.model, fleet.prompts)
+    compare_prefill_logits(fleet)
     # the profiler runs last: it must not slow the measured serving run
-    profile_serving(model, prompts)
-    del model
+    profile_serving(fleet)
+    del fleet
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1259,7 +1385,7 @@ def main() -> int:
                gmm]
     phase_profiles()
     # each path's kernels, counted in that path's own fleet run
-    llama, mamba, qwen, _ = (serve_path(arch) for arch in SERVED)
+    llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],
                 "selective_scan": mamba["selective_scan"],

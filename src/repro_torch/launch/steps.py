@@ -17,6 +17,12 @@ Graphs of one replica share one memory pool (``pool``) and one capture
 stream, and replay one after another on the caller's stream.  A capture
 that fails raises: nothing falls back to eager on the card.
 
+The step takes any model of the port whose ``decode_step`` keeps to that
+contract, the encoder-decoder ``EncDecLM`` too: its cache's cross K/V and
+cross mask are static state like the self K/V (prefill writes them in
+place), and one replay of whisper-medium's step launches 2 × 24
+flash_decode, each decoder layer's self-attention and cross-attention.
+
 On the CPU the same function runs eagerly: that is the only path a test
 can run here, chosen by the cache's device, as the kernel wrappers choose.
 

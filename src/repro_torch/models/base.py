@@ -7,7 +7,8 @@ leaves.  From it the port derives
   explicit ``torch.Generator``,
 * ``param_count(bp)``             the exact parameter count,
 * ``ParamTree``                   an ``nn.Module`` holding the tensors as
-  parameters, indexed like the reference's nested dicts (``p["wq"]``).
+  parameters, indexed like the reference's nested dicts (``p["wq"]``);
+  ``param_tree(bp, generator, dtype)`` draws one.
 
 Shapes and logical axes are the reference's, so parameters carry over from
 the JAX package one to one (``repro_torch.convert``).  The draws are not the
@@ -160,3 +161,10 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def param_tree(bp: Blueprint, generator: torch.Generator,
+               dtype: torch.dtype) -> ParamTree:
+    """A ``ParamTree`` of ``bp``'s parameters, drawn from ``generator`` and
+    cast to ``dtype``."""
+    return ParamTree(cast_params(init_params(bp, generator), dtype))

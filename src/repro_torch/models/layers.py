@@ -33,6 +33,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight.float()).to(dt)
 
 
+def layernorm_spec(dim: int, axis: str = "embed") -> dict:
+    return {
+        "scale": ParamSpec((dim,), (axis,), "ones"),
+        "bias": ParamSpec((dim,), (axis,), "zeros"),
+    }
+
+
+def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (biased variance, as the
+    reference), cast back to the input's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(),
+                     p["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -51,10 +51,10 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm
 from repro_torch.models.base import (
-    ParamTree,
     cast_params,
     init_params,
     param_count,
+    param_tree,
     stack_blueprint,
 )
 from repro_torch.models.config import ModelConfig
@@ -130,11 +130,6 @@ def lm_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
     return bp
 
 
-def _param_tree(bp: Dict[str, Any], generator: torch.Generator,
-                dtype: torch.dtype) -> ParamTree:
-    return ParamTree(cast_params(init_params(bp, generator), dtype))
-
-
 class TransformerLM(nn.Module):
     """Decoder-only LM over a ModelConfig (dense / GQA / SWA / VLM prefix,
     MoE, Mamba-1, hybrid Mamba-2 + shared attention)."""
@@ -176,18 +171,18 @@ class TransformerLM(nn.Module):
         if cfg.family == "hybrid":
             m_bp = mamba2_layer_blueprint(cfg)
             self.prelude = nn.ModuleList(
-                _param_tree(m_bp, generator, dtype)
+                param_tree(m_bp, generator, dtype)
                 for _ in range(cfg.hybrid_prelude))
             self.blocks = nn.ModuleList(
-                nn.ModuleList(_param_tree(m_bp, generator, dtype)
+                nn.ModuleList(param_tree(m_bp, generator, dtype)
                               for _ in range(cfg.hybrid_attn_every - 1))
                 for _ in range(cfg.hybrid_blocks))
-            self.shared_attn = _param_tree(shared_attn_blueprint(cfg),
-                                           generator, dtype)
+            self.shared_attn = param_tree(shared_attn_blueprint(cfg),
+                                          generator, dtype)
         else:
             layer_bp = layer_blueprint(cfg)
             self.layers = nn.ModuleList(
-                _param_tree(layer_bp, generator, dtype)
+                param_tree(layer_bp, generator, dtype)
                 for _ in range(cfg.num_layers))
 
     def blueprint(self) -> Dict[str, Any]:

@@ -3,22 +3,20 @@
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import TransformerLM
+from repro_torch.models.whisper import EncDecLM
 
 
-def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM:
-    """Instantiate the model for a config.
-
-    kwargs are forwarded to :class:`TransformerLM` (``impl``, ``device``,
-    ``dtype``, ``generator``).  Encoder-decoder configs (Whisper) are not
-    ported yet.
-    """
+def build_model(cfg: ModelConfig, **kwargs: Any) -> Union[TransformerLM, EncDecLM]:
+    """Instantiate the model for a config: :class:`EncDecLM` for an
+    encoder-decoder config (Whisper), :class:`TransformerLM` for every
+    other.  kwargs are forwarded (``impl``, ``device``, ``dtype``,
+    ``generator``, ``ssm_chunk``; an ``EncDecLM`` has no Mamba layers and
+    drops ``ssm_chunk``, as the reference's registry does)."""
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model is not ported yet; see "
-            "ROADMAP Queue 1 item 10 (Whisper EncDecLM)"
-        )
+        kwargs.pop("ssm_chunk", None)
+        return EncDecLM(cfg, **kwargs)
     return TransformerLM(cfg, **kwargs)

@@ -15,12 +15,17 @@ requests are dropped and retried client-side, re-prefilled on a survivor
     python -m repro_torch.serving.live --arch qwen3-moe-30b --smoke --device cpu
     python -m repro_torch.serving.live --arch zamba2-7b
     python -m repro_torch.serving.live --arch zamba2-7b --smoke --device cpu
+    python -m repro_torch.serving.live --arch whisper-medium
+    python -m repro_torch.serving.live --arch whisper-medium --smoke --device cpu
 
 The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
 ``reset_cache`` and decode through the serve step
 (``repro_torch.launch.steps``), whatever the model keeps in its cache (KV
 for attention, dense or MoE, conv and SSM states for Mamba-1, both for
-zamba2's hybrid).  A replica
+zamba2's hybrid, self and cross K/V for Whisper).  A request to an
+encoder-decoder model carries its audio frames (1, S_enc, d_model) beside
+its decoder prompt; the replica hands them to ``prefill``, and a retry
+after the preemption re-prefills with the same frames.  A replica
 owns a fixed set of cache slots, each a cache with its serve step, made
 when the replica is built: on the card each step is captured once there
 as a CUDA graph (capturing writes into its cache, so it cannot wait for a
@@ -33,7 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,14 +80,18 @@ class LiveReplica:
                 model, cache, dtype=dtype, pool=pool, stream=stream)))
 
     @torch.inference_mode()
-    def submit(self, req_id: int, prompt: torch.Tensor, out_tokens: int) -> None:
+    def submit(self, req_id: int, prompt: torch.Tensor, out_tokens: int,
+               frames: Optional[torch.Tensor] = None) -> None:
+        """Prefill ``prompt`` (1-D tokens) into a free cache slot; an
+        encoder-decoder model also takes the request's ``frames``."""
         if not self.free:
             raise RuntimeError(f"{self.name}: all {len(self.inflight)} cache "
                                "slots are in flight")
         t0 = time.perf_counter()
         cache, step = slot = self.free.pop()
         self.model.reset_cache(cache)
-        logits, cache = self.model.prefill(prompt[None], cache, dtype=self.dtype)
+        inputs = (prompt[None],) if frames is None else (frames, prompt[None])
+        logits, cache = self.model.prefill(*inputs, cache, dtype=self.dtype)
         step.tokens.copy_(logits.argmax(-1))           # (1, 1)
         out = [int(step.tokens[0, 0])]                 # waits for the device
         self.prefill_s.append(time.perf_counter() - t0)
@@ -147,12 +156,15 @@ def serve_fleet(
     kill_step: int = 4,
     dtype: torch.dtype = torch.bfloat16,
     log: Callable[[str], None] = print,
+    frames: Optional[Dict[int, torch.Tensor]] = None,
 ) -> FleetResult:
     """Serve ``prompts`` (id -> 1-D token tensor on the model's device) on
     ``replicas`` replicas sharing ``model``; replica 0 is preempted after
-    step ``kill_step``.  Each replica has one cache slot per prompt (a
-    survivor may end up holding every request); building them (and
-    capturing their steps) is set-up, outside ``wall_s``."""
+    step ``kill_step``.  An encoder-decoder model takes each request's
+    ``frames`` too (id -> (1, S_enc, d_model), ``make_frames``).  Each
+    replica has one cache slot per prompt (a survivor may end up holding
+    every request); building them (and capturing their steps) is set-up,
+    outside ``wall_s``."""
     t_setup = time.perf_counter()
     reps = [LiveReplica(f"replica-{i}", model, max_len, dtype,
                         slots=len(prompts))
@@ -172,7 +184,8 @@ def serve_fleet(
         while pending:
             req = pending.pop(0)
             target = min(ready, key=lambda r: len(r.inflight))
-            target.submit(req, prompts[req], out_tokens=out_tokens)
+            target.submit(req, prompts[req], out_tokens=out_tokens,
+                          frames=None if frames is None else frames[req])
             log(f"[lb] request {req} -> {target.name}")
         for r in ready:
             for req_id, out in r.step():
@@ -207,6 +220,17 @@ def make_prompts(cfg, *, n: int, min_len: int, max_len: int, seed: int,
     }
 
 
+def make_frames(cfg, prompts: Dict[int, Any], *, seed: int,
+                device="cuda") -> Dict[int, torch.Tensor]:
+    """Audio frames for each request of ``prompts``: the stub frontend's
+    (1, frontend_seq, d_model) embeddings, unit normal in float32 from a
+    numpy seed (the reference's smoke tests draw theirs unit normal)."""
+    rng = np.random.default_rng(seed)
+    shape = (1, cfg.frontend_seq, cfg.d_model)
+    return {i: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(device) for i in prompts}
+
+
 def main(argv=None) -> None:
     """The run of ``examples/serve_llm.py``: 8 requests of 12 prompt
     tokens, 16 output tokens, replica 0 preempted at step 4; seeded random
@@ -229,7 +253,10 @@ def main(argv=None) -> None:
     model = build_model(cfg, device=device, dtype=dtype, generator=gen)
     prompts = make_prompts(cfg, n=8, min_len=12, max_len=12, seed=7,
                            device=device)
-    res = serve_fleet(model, prompts, replicas=args.replicas, dtype=dtype)
+    frames = (make_frames(cfg, prompts, seed=8, device=device)
+              if cfg.is_encdec else None)
+    res = serve_fleet(model, prompts, replicas=args.replicas, dtype=dtype,
+                      frames=frames)
     n_tok = sum(len(v) for v in res.completed.values())
     print(f"\nserved {len(res.completed)} requests / {n_tok} tokens in "
           f"{res.wall_s:.1f}s on {device} across a preemption "

@@ -80,6 +80,26 @@ ZAMBA_ATTN_CASES = [
     (1, 32, 32, 512, 512, 112, True, None, 37),
 ]
 
+# whisper-medium's attention (H=Kv=16, D=64), in the layout of ATTN_CASES:
+# the encoder's bidirectional walk over 1500 frames (a 28-key last tile),
+# the cross-attention of Sq decoder tokens against them (Sq under, at and
+# past one 64-row tile, and the 224-token prompt cap), the decoder's causal
+# prefill at 224
+WHISPER_ATTN_CASES = [
+    (1, 16, 16, 1500, 1500, 64, False, None, 0),
+    *((1, 16, 16, Sq, 1500, 64, False, None, 0) for Sq in (1, 4, 63, 65, 224)),
+    (1, 16, 16, 224, 224, 64, True, None, 0),
+]
+
+# (B, H, Kv, S, D, mask) for whisper-medium's decode caches: the cross
+# cache, 1500 slots all valid (24 tiles, none skipped, the last ragged) or
+# 600 valid; the self cache, 448 slots (7 tiles) with the first 5, 212 or
+# 257 valid (the served requests' range) or only the last
+WHISPER_DECODE_CASES = [
+    *((B, 16, 16, 1500, 64, mask) for B in (1, 2) for mask in ("1500", "600")),
+    *((1, 16, 16, 448, 64, mask) for mask in ("5", "212", "257", "last")),
+]
+
 # (B, H, Kv, S, D, mask) for flash_decode's tile skipping: an all-masked
 # row beside a partial one, one valid slot in the last tile, a ring of live
 # slots wrapping past the end, S off the 64-slot tiles, qwen3-moe-30b's
@@ -322,6 +342,41 @@ def _scan_inputs(rng, shape, dtype, device):
     a = torch.sigmoid(_randn(rng, shape, torch.float32, device)).to(dtype)
     b = (0.1 * _randn(rng, shape, torch.float32, device)).to(dtype)
     return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WHISPER_ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_at_whisper_shapes(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(900 + WHISPER_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    got = tfa.launch(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tfa.plain(q, k, v, causal=causal)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WHISPER_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_over_whisper_caches(card, case, dtype):
+    B, H, Kv, S, D, mask = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(950 + WHISPER_DECODE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, S, Kv, D), tdt, card)
+    v = _randn(rng, (B, S, Kv, D), tdt, card)
+    valid = decode_mask(B, S, mask, card).bool()
+    for _ in range(2):      # the second launch finds the tickets reset
+        got = tfd.launch(q, k, v, valid)
+        torch.cuda.synchronize()
+        want = tfd.plain(q, k, v, valid)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -634,3 +689,88 @@ def test_hybrid_replays_count_one_decode_launch_per_block(card):
     assert ops.flash_attention.launches == blocks
     assert ops.flash_decode.launches == 2 * blocks
     assert ops.selective_scan.launches == ops.moe_gmm.launches == 0
+
+
+# whisper-medium at d_model 256 (heads of 64, a width the kernels take) and
+# 150 audio frames (a ragged last 64-slot tile): 2 encoder and 2 decoder
+# layers
+def _whisper_card_model(card, impl="kernel"):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    cfg = get_config("whisper-medium").scaled(d_model=256, frontend_seq=150)
+    assert cfg.resolved_head_dim == 64
+    return build_model(cfg, device=card, dtype=torch.bfloat16, generator=gen,
+                       impl=impl)
+
+
+def _frames(model, card, seed=2):
+    rng = np.random.default_rng(seed)
+    cfg = model.cfg
+    return _randn(rng, (1, cfg.frontend_seq, cfg.d_model), torch.float32, card)
+
+
+@pytest.mark.cuda
+def test_whisper_kernel_prefill_matches_plain(card):
+    """Prefill logits and caches through the kernels against the plain
+    versions, in float32 (1e-3) and bfloat16 (no further from the float32
+    plain logits than twice the bfloat16 plain path)."""
+    model = _whisper_card_model(card)
+    frames, tokens = _frames(model, card), _prompt(model, 40, card)
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain"):
+            model.impl = impl
+            for dt in (torch.float32, torch.bfloat16):
+                cache = model.init_cache(1, 64, dtype=dt)
+                ops.reset_launch_counts()
+                logits, _ = model.prefill(frames, tokens, cache, dtype=dt)
+                torch.cuda.synchronize()
+                launched = ops.flash_attention.launches
+                assert launched == (6 if impl == "kernel" else 0), impl
+                out[impl, dt] = (logits[..., :model.cfg.vocab_size].float(), cache)
+    model.impl = "kernel"
+    got32, c_got = out["kernel", torch.float32]
+    want32, c_want = out["plain", torch.float32]
+    torch.testing.assert_close(got32, want32, atol=1e-3, rtol=1e-3)
+    for key in ("cross_k", "cross_v"):
+        torch.testing.assert_close(c_got[key], c_want[key], atol=1e-3, rtol=1e-3)
+    got16 = out["kernel", torch.bfloat16][0]
+    plain16 = out["plain", torch.bfloat16][0]
+    assert (got16 - want32).abs().max() <= 2 * (plain16 - want32).abs().max()
+
+
+@pytest.mark.cuda
+def test_whisper_captured_step_replays_the_eager_tokens(card):
+    """From one prefill, 32 replays pick the tokens of 32 eager steps; a
+    replay launches flash_decode twice per decoder layer (self and cross);
+    the captured step reads the cross K/V a later prefill writes."""
+    from repro_torch.launch.steps import build_serve_step
+
+    model = _whisper_card_model(card)
+    L = model.cfg.num_layers
+    graph_cache = model.init_cache(1, 128)
+    ops.reset_launch_counts()
+    step = build_serve_step(model, graph_cache)
+    assert step.graph is not None and int(graph_cache["len"]) == 0
+    assert step.launches == {"flash_attention": 0, "flash_decode": 2 * L,
+                             "selective_scan": 0, "moe_gmm": 0}
+    eager_cache = model.init_cache(1, 128)
+    with torch.inference_mode():
+        for seed in (2, 3):      # a second request into the same slot
+            frames, prompt = _frames(model, card, seed), _prompt(model, 40, card, seed)
+            model.reset_cache(graph_cache)
+            model.reset_cache(eager_cache)
+            logits, _ = model.prefill(frames, prompt, eager_cache)
+            model.prefill(frames, prompt, graph_cache)
+            tok = logits.argmax(-1)
+            step.tokens.copy_(tok)
+            for i in range(32):
+                logits, _ = model.decode_step(tok, eager_cache)
+                tok = logits.argmax(-1)
+                assert torch.equal(step(), tok), f"request {seed} step {i}"
+            torch.cuda.synchronize()
+            assert int(graph_cache["len"]) == int(eager_cache["len"]) == 72
+            for key in ("cross_k", "cross_v"):
+                assert torch.equal(graph_cache[key], eager_cache[key]), key

@@ -161,11 +161,23 @@ def test_qwen3_moe_30b_full_width_count():
     assert param_count(lm_blueprint(t_config("qwen3-moe-30b"))) == 30_532_646_912
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_unported_families_raise(arch):
-    assert arch in ARCH_IDS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(t_smoke(arch), device="cpu")
+def test_encdec_smoke_builds_on_cpu():
+    """The encoder-decoder family is ported: whisper-medium's smoke config
+    builds an ``EncDecLM`` on the CPU and prefills to finite logits."""
+    from repro_torch.models.whisper import EncDecLM, encdec_blueprint
+
+    cfg = t_smoke("whisper-medium")
+    assert cfg.name.removesuffix("-smoke") in ARCH_IDS
+    model = t_build(cfg, device="cpu")
+    assert isinstance(model, EncDecLM)
+    assert model.num_params() == param_count(encdec_blueprint(cfg))
+    cache = model.init_cache(1, 16, dtype=torch.float32)
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, cfg.frontend_seq, cfg.d_model), dtype=np.float32))
+    logits, _ = model.prefill(frames, torch.arange(5)[None], cache,
+                              dtype=torch.float32)
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
 
 
 def test_hybrid_smoke_builds_on_cpu():
