@@ -31,12 +31,28 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
-4. profiles the kernels of the five served models on the ``h100``
+4. runs the SkyServe scenario engine's data plane over the reference
+   benchmark's 96-cell matrix (``benchmarks/jax_engine.py``: SpotHedge and
+   even_spread on spot trace aws-1, 48 seeds, llama3.2-1b on g5.48xlarge,
+   Poisson at 1 request/s for one hour): the cells are rebuilt from the
+   committed recording (``repro_torch.serving.torchengine.recorded``),
+   phase B runs through ``run_schedules`` on the card in one
+   ``scenario_scan`` launch (the launch counters zeroed just before, read
+   just after), every cell must equal the reference oracle's recorded
+   result (counts exact, costs to 1e-9, availability to 1e-12, latency
+   percentiles and mean to 1e-6, no lane overflowed), the kernel is held
+   against its plain version on the CPU on all 96 lanes (counts, statuses
+   and slots equal, latencies and span timelines within the reference's
+   1e-6, expected equal), the paper's metrics are printed per policy and
+   the kernel is timed (device time, CUDA events; beside it the plain
+   version's host time, phase B's wall time and cells/s, and the kernel
+   on the first 8 lanes);
+5. profiles the kernels of the five served models on the ``h100``
    instance (``repro_torch.profiles``, the kernels timed with CUDA events),
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
    port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
    must lie in (0, 1.05];
-5. serves five full-width models, one after the other, with seeded random
+6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
    the selective scan once per 256-token chunk of every prefill, no kernel
@@ -67,7 +83,7 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
    one prefill plus eight decode steps, eager and replayed, are profiled;
-6. prints a ``kernels`` JSON line (all four kernels), the card line and,
+7. prints a ``kernels`` JSON line (all five kernels), the card line and,
    last, the device JSON line.
 
 Any failure exits non-zero; without CUDA it exits 1 before printing results.
@@ -205,6 +221,14 @@ SCAN_CASES = [
      2048, 16, True),
     ("bf16 inputs", torch.bfloat16, 1, 64, (0, 64), 8192, 16, True),
 ]
+
+# the scenario engine's float outputs (latencies, span timelines): the
+# reference's JAX-vs-oracle tolerance (tests/test_jax_engine.py); kernel
+# and plain version round every operation alike, so they are expected to
+# agree to the bit
+SCENARIO_TOL = 1e-6
+# the NVIDIA H100 SXM data sheet's float64 peak outside the tensor cores
+PEAK_FP64_FLOPS = 34e12
 
 # the reference's grouped-matmul tolerances (test_kernels.py)
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -676,7 +700,8 @@ def expected_launches(model, res) -> dict:
     cfg = model.cfg
     L = cfg.num_layers
     want = dict.fromkeys(
-        ("flash_attention", "flash_decode", "selective_scan", "moe_gmm"), 0)
+        ("flash_attention", "flash_decode", "selective_scan", "moe_gmm",
+         "scenario_scan"), 0)
     if cfg.is_encdec:
         want["flash_attention"] = (cfg.encoder_layers + 2 * L) * res.prefills
         want["flash_decode"] = 2 * L * res.decode_steps
@@ -1308,6 +1333,198 @@ def time_moe_gmm() -> dict:
     return time_moe_gmm_at(GMM_DECODE_C, 1)
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: the scenario engine's data plane over the reference's matrix
+# ---------------------------------------------------------------------------
+
+
+SCENARIO_EXACT = ("status", "rep", "a_ptr", "run_n", "q_cnt", "n_retried",
+                  "overflow")
+SCENARIO_FLOAT = ("e2e", "disp_t", "start_t", "fin_t")
+
+
+def float_diff(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest |got - want|, with equal infinities counted as equal and an
+    infinity against a finite value as an infinite difference."""
+    with np.errstate(invalid="ignore"):       # inf - inf where both agree
+        diff = np.where(got == want, 0.0, np.abs(got - want))
+    return float(diff.max(initial=0.0))
+
+
+def check_recorded_result(res, cell) -> None:
+    """One cell of the matrix against the reference oracle's recorded
+    result: counts exact, costs to 1e-9, availability to 1e-12, latency
+    percentiles and mean to 1e-6."""
+    want, where = cell["result"], f"{cell['policy']} seed {cell['seed']}"
+    if res is None:
+        raise AssertionError(f"{where}: the lane overflowed")
+    for k in ("n_requests", "n_completed", "n_failed", "n_retried_requests",
+              "n_preemptions", "n_launch_failures"):
+        if getattr(res, k) != want[k]:
+            raise AssertionError(f"{where}: {k} {getattr(res, k)} != {want[k]}")
+    lat = {"p50_s": res.pct(50), "p90_s": res.pct(90), "p99_s": res.pct(99),
+           "mean_s": float(res.latencies_s.mean())}
+    for k, tol in (("total_cost", 1e-9), ("spot_cost", 1e-9), ("od_cost", 1e-9),
+                   ("cost_vs_ondemand", 1e-9), ("availability", 1e-12),
+                   *((k, 1e-6) for k in lat)):
+        got = lat[k] if k in lat else getattr(res, k)
+        if not abs(got - want[k]) <= tol:
+            raise AssertionError(f"{where}: {k} {got!r} vs recorded "
+                                 f"{want[k]!r} (tolerance {tol})")
+
+
+def scenario_bytes(scheds, got: dict, key) -> float:
+    """The bytes the data plane must move for this run's data, in the dtypes
+    the kernel reads and writes (float64 times, int32 codes, slots and grid
+    indices, uint8 ready flags), each lane at its own sizes, not the
+    group's padding.  Read once: the tape up to the arrivals (``arr`` of
+    every arrived request and the one that stops the arrivals, ``svc`` of
+    the requests that were started and are still counted, ``rcode`` of
+    those and the ones still queued), the lane's rtt, ready flags, kill
+    events and timeout, and the grid once.  Written once: ``status``,
+    ``e2e`` and, with trace_on, the span timelines and slot of every
+    resolved request, and the per-lane counters.  The wrapper's memsets of
+    the unresolved entries are separate launches and are not counted."""
+    total = 16.0 * key.G                       # ts float64, gs / wins int32
+    per_req = 1 + 8 + (4 * 8 if key.trace_on else 0)
+    for i, c in enumerate(scheds):
+        n_res = int((got["status"][i] > 0).sum())
+        n_run, n_q = int(got["run_n"][i].sum()), int(got["q_cnt"][i].sum())
+        total += 8 * min(int(got["a_ptr"][i]) + 1, key.N)      # arr
+        total += 8 * (n_res + n_run) + 4 * (n_res + n_run + n_q)  # svc, rcode
+        total += (8 * c.n_slots * c.n_regions + key.W * c.n_slots
+                  + 8 * c.n_events + 8)        # rtt, ready, kills, timeout
+        total += per_req * n_res + 17 + 16 * key.R  # outputs
+    return total
+
+
+def phase_scenario() -> dict:
+    """The reference benchmark's 96-cell matrix (benchmarks/jax_engine.py:
+    SpotHedge and even_spread on aws-1, 48 seeds, llama3.2-1b on
+    g5.48xlarge, Poisson 1 request/s for one hour) rebuilt from the
+    committed recording, its data plane run on the card through
+    ``run_schedules`` (one shape group, one ``scenario_scan`` launch), held
+    against the plain version on the CPU on the same 96 lanes and against
+    the reference oracle's recorded results, then timed."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scenario_scan as scn
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.serving.torchengine import recorded
+    from repro_torch.serving.torchengine.kernel import LANE_KEYS
+
+    t0 = time.perf_counter()
+    scheds = recorded.recorded_matrix()
+    cells = recorded.recorded_cells()
+    log(f"scenario matrix: {len(scheds)} cells ({len(set(map(teng.group_key, scheds)))} "
+        f"shape group) rebuilt from the recording in "
+        f"{time.perf_counter() - t0:.3f} s: N={min(c.n for c in scheds)}-"
+        f"{max(c.n for c in scheds)} requests, G={scheds[0].grid.n_points} "
+        f"sub-steps over W={scheds[0].grid.ticks} windows, R="
+        f"{sorted({c.n_slots for c in scheds})} slots, E="
+        f"{sorted({c.n_events for c in scheds})} kill events")
+    key, lanes, grid = teng.pack_group(scheds)
+    kw = dict(Q=key.Q, C=key.C, amax=key.AMAX, lb_rr=key.lb_rr,
+              expire_on=key.expire_on, trace_on=key.trace_on)
+
+    def inputs(device):
+        return ([torch.from_numpy(lanes[k]).to(device) for k in LANE_KEYS]
+                + [torch.from_numpy(a).to(device) for a in grid])
+
+    on_card = inputs("cuda")
+    scn.launch(*on_card, **kw)            # loads the library; not counted
+    torch.cuda.synchronize()
+
+    # the main path: counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    results = teng.run_schedules(scheds, outputs=outs)
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["scenario_scan"] = 1
+    if launches != want_launches:
+        raise AssertionError(f"scenario launches {launches} != {want_launches}")
+    for res, cell in zip(results, cells):
+        check_recorded_result(res, cell)
+    log(f"scenario run_schedules on the card: {len(scheds)} cells in "
+        f"{wall_s:.4f} s wall ({len(scheds) / wall_s:.1f} cells/s; packing, "
+        f"copies and assembly included), launches {json.dumps(launches)}; all "
+        f"{len(scheds)} cells equal the recorded reference results (counts "
+        f"exact, costs 1e-9, availability 1e-12, latency p50/p90/p99/mean "
+        f"1e-6), no lane overflowed")
+
+    # the kernel against its plain version (on the CPU), all 96 lanes
+    got = {k: v.cpu().numpy() for k, v in scn.launch(*on_card, **kw).items()}
+    t0 = time.perf_counter()
+    want = {k: v.numpy() for k, v in scn.plain(*inputs("cpu"), **kw).items()}
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for k in SCENARIO_EXACT:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"scenario_scan {k}: kernel and plain differ "
+                                 f"in {int((got[k] != want[k]).sum())} entries")
+    errs = {k: float_diff(got[k], want[k]) for k in SCENARIO_FLOAT}
+    err = max(errs.values())
+    if not err <= SCENARIO_TOL:
+        raise AssertionError(f"scenario_scan float outputs differ from plain: "
+                             f"{errs} (tolerance {SCENARIO_TOL})")
+    for i, out in enumerate(outs):     # the main path's launch gave the same
+        for k in SCENARIO_EXACT + SCENARIO_FLOAT:
+            if not np.array_equal(out[k], got[k][i]):
+                raise AssertionError(f"scenario lane {i}: {k} of run_schedules "
+                                     "differs from a second launch")
+    log(f"scenario_scan vs plain (CPU), all {len(scheds)} lanes: "
+        f"{', '.join(SCENARIO_EXACT)} equal; max |diff| {json.dumps(errs)} "
+        f"(tolerance {SCENARIO_TOL}); a second launch repeats run_schedules' "
+        f"outputs exactly")
+
+    # the paper's metrics, per policy (means over the policy's 48 seeds)
+    for pol in dict.fromkeys(c.policy_name for c in scheds):
+        rs = [r for r in results if r.policy == pol]
+        stats = {
+            "cost_vs_ondemand": np.mean([r.cost_vs_ondemand for r in rs]),
+            "availability": np.mean([r.availability for r in rs]),
+            "failure_rate": np.mean([r.failure_rate for r in rs]),
+            **{f"p{q}_s": np.mean([r.pct(q) for r in rs]) for q in (50, 90, 99)},
+        }
+        log(f"scenario policy {pol} over {len(rs)} seeds (means): " + " ".join(
+            f"{k}={v:.6g}" for k, v in stats.items()))
+
+    # timing: the kernel's device time beside the walls measured above
+    kernel = lambda: scn.launch(*on_card, **kw)  # noqa: E731
+    ms = device_ms(kernel, iters=5, warmup=1)
+    ev_ms = cuda_ms(kernel, iters=5, warmup=1)
+    # the lanes run side by side, one block each: 8 lanes take about as long
+    # as 96 when a lane's chain of dependent steps is what costs
+    n_lane = len(LANE_KEYS)
+    few = [t[:8] for t in on_card[:n_lane]] + on_card[n_lane:]
+    few_ms = cuda_ms(lambda: scn.launch(*few, **kw), iters=5, warmup=1)
+    nbytes = scenario_bytes(scheds, got, key)
+    # float64 work the data asks for: a finish time (4 operations) per start
+    # and a latency and its deadline test (3) per resolved request
+    n_done = int((got["status"] > 0).sum())
+    flops = 7.0 * n_done
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP64_FLOPS)
+    log(f"scenario_scan timing, {len(scheds)} lanes x {key.G} sub-steps "
+        f"(N={key.N}, R={key.R}, Q={key.Q}, C={key.C}, trace_on={key.trace_on}): "
+        f"kernel_ms={ms:.4f} [device time, torch.profiler] kernel_ms={ev_ms:.4f} "
+        f"[CUDA events, one launch at a time] plain_ms={plain_ms:.1f} [the plain "
+        f"version on the CPU, host clock] library_ms=null (no PyTorch call "
+        f"computes it) bound_ms={b_ms:.6f} ({b_by}: {nbytes / 1e6:.3f} MB the "
+        f"data needs read and written, over the HBM rate; loose: the work is a recurrence of {key.G} "
+        f"dependent steps a lane); per sub-step {1e3 * ms / key.G:.3f} us; "
+        f"the first 8 lanes alone {few_ms:.4f} ms [CUDA events]; phase B wall "
+        f"{1e3 * wall_s:.2f} ms")
+    return {
+        "name": "scenario_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scenario_scan.cu",
+        "replaces": "src/repro/serving/jaxengine/kernel.py:112",
+        "launches": launches["scenario_scan"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b",
           "whisper-medium")
 PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
@@ -1383,6 +1600,8 @@ def main() -> int:
     gmm = time_moe_gmm()
     kernels = [time_flash_attention(), time_flash_decode(), time_selective_scan(),
                gmm]
+    # the scenario engine's own path: checked, counted and timed in its phase
+    scenario = phase_scenario()
     phase_profiles()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
@@ -1393,6 +1612,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = errors[k["name"]]
+    kernels.append(scenario)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

@@ -1,5 +1,7 @@
 """The port's instance types: its own copy of ``InstanceType`` (the dataclass
-of ``repro.cluster.catalog``) and the one instance it runs on, an H100.
+of ``repro.cluster.catalog``), the one instance it runs on, an H100, and
+``g5.48xlarge``, the reference's paper instance that its scenario matrix
+prices requests on.
 
 The reference's catalog has no H100 and resolves an accelerator's HBM rate
 from a table by name.  The port keeps no such table: every instance type it
@@ -63,7 +65,23 @@ H100 = InstanceType(
     hbm_bytes_per_s=3.35e12,
 )
 
-INSTANCE_TYPES: Dict[str, InstanceType] = {H100.name: H100}
+# The paper's g5.48xlarge (8 x A10G; on-demand 16.3 $/h, spot 4.9 $/h,
+# quoted in the paper), with every value of the reference's catalog entry
+# given here: its HBM rate is the reference's A10G figure, 0.6e12 B/s.
+G5_48XLARGE = InstanceType(
+    name="g5.48xlarge",
+    cloud="aws",
+    accelerator="A10G",
+    accel_count=8,
+    od_price=16.3,
+    spot_ratio=4.9 / 16.3,
+    hbm_gib_per_accel=24.0,
+    peak_bf16_tflops=70.0,
+    hbm_bytes_per_s=0.6e12,
+)
+
+INSTANCE_TYPES: Dict[str, InstanceType] = {
+    t.name: t for t in (H100, G5_48XLARGE)}
 
 
 def instance_type(name: str) -> InstanceType:
@@ -76,4 +94,4 @@ def instance_type(name: str) -> InstanceType:
                        f"{sorted(INSTANCE_TYPES)}") from None
 
 
-__all__ = ["H100", "INSTANCE_TYPES", "InstanceType", "instance_type"]
+__all__ = ["G5_48XLARGE", "H100", "INSTANCE_TYPES", "InstanceType", "instance_type"]

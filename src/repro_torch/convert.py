@@ -1,4 +1,4 @@
-"""Carry parameters over from the JAX package.
+"""Carry parameters, and scenario schedules, over from the JAX package.
 
 The reference's parameters are a nested dict with the per-layer leaves
 stacked on a leading layer axis under ``decoder``.  Given that tree as numpy
@@ -20,14 +20,25 @@ Any other subtree raises ``ValueError``.  Values go through float32 (numpy
 has no bfloat16) and are then cast to ``dtype``.  A stack whose leaves
 disagree on their layer axes raises ``ValueError``; a leaf that is missing
 or of the wrong shape is refused by ``load_state_dict``.
+
+``schedule_from_arrays`` is the same carrying-over for the scenario engine:
+the fields of a reference ``CellSchedule`` (recorded by its control plane)
+become the port's ``CellSchedule``, whose data plane replays them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.serving.torchengine.schedule import (
+    BaseMetrics,
+    CellSchedule,
+    SubStepGrid,
+)
 
 HYBRID_KEYS = {"prelude", "blocks", "shared_attn"}
 NORM_KEYS = {"enc_norm", "dec_norm"}       # EncDecLM's LayerNorm subtrees
@@ -99,3 +110,44 @@ def params_from_jax(
             key = ".".join([prefix, *map(str, idx), path])
             state[key] = torch.tensor(leaf).to(dtype)
     return state
+
+
+def schedule_from_arrays(fields: Mapping[str, Any]) -> CellSchedule:
+    """The port's ``CellSchedule`` from the fields of the reference's, as
+    numpy arrays and plain values: ``fields["grid"]`` holds the fields of
+    its ``SubStepGrid`` and ``fields["base"]`` those of its ``SimResult``
+    (only the ``BaseMetrics`` ones are read).  Arrays are copied into the
+    dtypes the data plane takes; a missing field raises ``KeyError``."""
+    g = fields["grid"]
+    grid = SubStepGrid(
+        ts=np.array(g["ts"], dtype=np.float64),
+        win_of=np.array(g["win_of"], dtype=np.int64),
+        win_first=np.array(g["win_first"], dtype=np.int64),
+        ticks=int(g["ticks"]),
+        dt=float(g["dt"]),
+        sub_step_s=float(g["sub_step_s"]),
+    )
+    b = fields["base"]
+    base = BaseMetrics(**{f.name: (int if f.type == "int" else float)(b[f.name])
+                          for f in dataclasses.fields(BaseMetrics)})
+    return CellSchedule(
+        policy_name=str(fields["policy_name"]),
+        trace_name=str(fields["trace_name"]),
+        workload_name=str(fields["workload_name"]),
+        arr=np.array(fields["arr"], dtype=np.float64),
+        svc=np.array(fields["svc"], dtype=np.float64),
+        rcode=np.array(fields["rcode"], dtype=np.int64),
+        n_regions=int(fields["n_regions"]),
+        timeout_s=float(fields["timeout_s"]),
+        concurrency=int(fields["concurrency"]),
+        lb_kind=str(fields["lb_kind"]),
+        grid=grid,
+        ready_mask=np.array(fields["ready_mask"], dtype=bool),
+        rtt=np.array(fields["rtt"], dtype=np.float64),
+        kill_slot=np.array(fields["kill_slot"], dtype=np.int64),
+        kill_g=np.array(fields["kill_g"], dtype=np.int64),
+        post_slots=np.array(fields["post_slots"], dtype=np.int64),
+        base=base,
+        n_slots=int(fields["n_slots"]),
+        trace_on=bool(fields["trace_on"]),
+    )

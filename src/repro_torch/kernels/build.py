@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "flash_decode", "selective_scan", "moe_gmm")
+KERNELS = ("flash_attention", "flash_decode", "selective_scan", "moe_gmm",
+           "scenario_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,7 +1,8 @@
 """Kernel wrappers: attention in the model layout, the selective scan in the
 reference's (B, Q, C, N) layout, the MoE grouped matmul in its (E, C, D)
 layout and the expert FFN built on it (counterpart of
-``repro.kernels.ops``).
+``repro.kernels.ops``), and the scenario engine's data plane over a shape
+group's lanes.
 
 Each wrapper decides by the device of the tensors it is given, in plain
 Python, before anything runs: a CPU tensor goes to the kernel's plain PyTorch
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import scenario_scan as _scn
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.models.layers import activation
 
@@ -142,7 +144,27 @@ def moe_ffn(
     return gmm(h, wo, rows)
 
 
-KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan, moe_gmm)
+def scenario_scan(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout,
+                  ts, gs, wins, *, Q: int, C: int, amax: int, lb_rr: bool,
+                  expire_on: bool, trace_on: bool):
+    """Every lane of a shape group over the whole sub-step grid (the
+    layout and outputs of ``kernels.scenario_scan``); one launch a group."""
+    args = (arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
+            wins)
+    kw = dict(Q=Q, C=C, amax=amax, lb_rr=lb_rr, expire_on=expire_on,
+              trace_on=trace_on)
+    if _on_cpu(*args):
+        return _scn.plain(*args, **kw)
+    out = _scn.launch(*args, **kw)
+    scenario_scan.launches += 1
+    return out
+
+
+scenario_scan.launches = 0
+
+
+KERNEL_WRAPPERS = (flash_attention, flash_decode, selective_scan, moe_gmm,
+                   scenario_scan)
 
 
 def reset_launch_counts() -> None:

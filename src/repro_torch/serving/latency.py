@@ -1,0 +1,81 @@
+"""The roofline request latency model: the port's own copy of
+``LatencyModel`` from ``repro.serving.latency``.
+
+    prefill_s(P)      = 2·N·P FLOPs / (accels × peak_flops × MFU_prefill)
+    decode_s_per_tok  = weight bytes / (accels × HBM_bw) / MBU_decode
+    service_s(req)    = prefill + out_tokens × decode + overhead
+
+Prefill is compute-bound, decode is bound by the weights read per token.
+The constants are the reference's (MFU 0.45, MBU 0.70, 0.05 s overhead),
+so a request's service time here is the reference's to the bit.  The
+profiled variant (efficiencies measured by ``repro_torch.profiles``) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.cluster.catalog import InstanceType
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["LatencyModel"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencyModel:
+    cfg: ModelConfig
+    itype: InstanceType
+    n_params: float
+    mfu_prefill: float = 0.45
+    mbu_decode: float = 0.70
+    overhead_s: float = 0.05        # tokenize/detokenize/HTTP
+
+    @classmethod
+    def for_model(cls, cfg: ModelConfig, itype: InstanceType,
+                  n_params: float = 0.0) -> "LatencyModel":
+        n = n_params or float(cfg.approx_params())
+        return cls(cfg=cfg, itype=itype, n_params=n)
+
+    @property
+    def _active_params(self) -> float:
+        cfg = self.cfg
+        if not cfg.is_moe:
+            return self.n_params
+        expert = (
+            cfg.num_layers * cfg.num_experts
+            * (3 if cfg.mlp_gated else 2) * cfg.d_model * cfg.expert_d_ff
+        )
+        return self.n_params - expert * (
+            1.0 - cfg.experts_per_token / cfg.num_experts
+        )
+
+    @property
+    def flops_per_s(self) -> float:
+        return (
+            self.itype.accel_count
+            * self.itype.peak_bf16_tflops * 1e12
+            * self.mfu_prefill
+        )
+
+    @property
+    def hbm_bytes_per_s(self) -> float:
+        return (
+            self.itype.accel_count
+            * self.itype.hbm_bytes_per_s
+            * self.mbu_decode
+        )
+
+    def prefill_s(self, prompt_tokens: int) -> float:
+        return 2.0 * self._active_params * prompt_tokens / self.flops_per_s
+
+    def decode_s_per_token(self) -> float:
+        weight_bytes = 2.0 * self._active_params     # bf16
+        return weight_bytes / self.hbm_bytes_per_s
+
+    def service_s(self, prompt_tokens: int, output_tokens: int) -> float:
+        return (
+            self.overhead_s
+            + self.prefill_s(prompt_tokens)
+            + output_tokens * self.decode_s_per_token()
+        )

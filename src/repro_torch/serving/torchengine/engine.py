@@ -1,0 +1,172 @@
+"""Phase B over many cells: group, pad, launch, assemble.
+
+Own copies of ``run_schedules``, ``assemble_result`` and ``_empty_result``
+from ``repro.serving.jaxengine.engine``.  Cells that share
+``(grid.signature, concurrency, lb_kind, timeout_s > 0, trace_on)`` form
+one shape group, are padded to the group's largest tape, slot count, kill
+count and region count (a padded arrival is +inf and never arrives, a
+padded slot is never ready, a padded kill event lies past the horizon) and
+run as one launch of ``scenario_scan``.  A lane whose queue pool
+overflowed comes back as ``None``: the reference reruns it on its NumPy
+oracle, which the port does not have, so the caller sees ``None``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.serving.result import ServingResult
+from repro_torch.serving.torchengine.kernel import KernelKey, run_group
+from repro_torch.serving.torchengine.schedule import CellSchedule
+
+__all__ = ["DEFAULT_QUEUE_CAPACITY", "assemble_result", "group_key", "pack_group",
+           "run_schedules"]
+
+#: per-replica queue pool size (static shape); overflow => None
+DEFAULT_QUEUE_CAPACITY = 256
+
+
+def _result(sched: CellSchedule, **counts) -> ServingResult:
+    base = sched.base
+    return ServingResult(
+        policy=sched.policy_name,
+        trace=sched.trace_name,
+        workload=sched.workload_name,
+        total_cost=base.total_cost,
+        spot_cost=base.spot_cost,
+        od_cost=base.od_cost,
+        cost_vs_ondemand=base.cost_vs_ondemand,
+        availability=base.availability,
+        n_preemptions=base.n_preemptions,
+        n_launch_failures=base.n_launch_failures,
+        **counts,
+    )
+
+
+def assemble_result(sched: CellSchedule, out: Dict) -> ServingResult:
+    """A cell's ``ServingResult`` from its lane's kernel outputs."""
+    n = sched.n
+    status = np.asarray(out["status"][:n])
+    e2e = np.asarray(out["e2e"][:n])
+    n_req = int(out["a_ptr"])
+    comp = status == 1
+    # drain: arrived but unresolved (pending / in flight / queued, and work
+    # on slots killed past the horizon) fails, as in the oracle
+    n_failed = int((status == 2).sum()) + int((status[:n_req] == 0).sum())
+    n_retried = int(out["n_retried"])
+    for s in sched.post_slots:
+        # a kill after the last control tick: the oracle re-pends the slot's
+        # work before the drain, and the scan never saw the event, so the
+        # slot's final occupancy is exactly what the oracle re-pended
+        n_retried += int(out["run_n"][s]) + int(out["q_cnt"][s])
+    return _result(sched, n_requests=n_req, n_completed=int(comp.sum()),
+                   n_failed=n_failed, latencies_s=e2e[comp],
+                   n_retried_requests=n_retried)
+
+
+def _empty_result(sched: CellSchedule) -> ServingResult:
+    """No control ticks, an empty tape or no replica: nothing to scan, every
+    arrival fails at the drain."""
+    n_req = (
+        int(np.searchsorted(sched.arr, sched.grid.ts[-1], side="right"))
+        if sched.grid.n_points and sched.n
+        else 0
+    )
+    return _result(sched, n_requests=n_req, n_completed=0, n_failed=n_req,
+                   latencies_s=np.empty(0), n_retried_requests=0)
+
+
+def pack_group(
+    cells: Sequence[CellSchedule], queue_capacity: int = DEFAULT_QUEUE_CAPACITY
+) -> Tuple[KernelKey, Dict[str, np.ndarray], Tuple[np.ndarray, ...]]:
+    """One shape group's launch inputs: its ``KernelKey``, the lanes padded
+    to the group's largest tape, slot count, kill count and region count,
+    and the shared grid arrays ``(ts, gs, wins)``.  The cells must share
+    ``group_key``."""
+    if len({group_key(c) for c in cells}) != 1:
+        raise ValueError("the cells do not form one shape group")
+    g = cells[0].grid
+    N = max(c.n for c in cells)
+    R = max(c.n_slots for c in cells)
+    E = max(c.n_events for c in cells)
+    NREG = max(c.n_regions for c in cells)
+    L = len(cells)
+    lanes = {
+        "arr": np.full((L, N), np.inf),
+        "svc": np.ones((L, N)),
+        "rcode": np.zeros((L, N), dtype=np.int64),
+        "rtt": np.zeros((L, R, NREG)),
+        "ready": np.zeros((L, g.ticks, R), dtype=bool),
+        "kill_slot": np.zeros((L, max(E, 1)), dtype=np.int64),
+        "kill_g": np.full((L, max(E, 1)), g.n_points, dtype=np.int64),
+        "timeout": np.zeros(L),
+    }
+    amax = 1
+    for li, c in enumerate(cells):
+        lanes["arr"][li, : c.n] = c.arr
+        lanes["svc"][li, : c.n] = c.svc
+        lanes["rcode"][li, : c.n] = c.rcode
+        lanes["rtt"][li, : c.n_slots, : c.n_regions] = c.rtt
+        lanes["ready"][li, :, : c.n_slots] = c.ready_mask
+        lanes["kill_slot"][li, : c.n_events] = c.kill_slot
+        lanes["kill_g"][li, : c.n_events] = c.kill_g
+        lanes["timeout"][li] = c.timeout_s
+        # the exact per-sub-step arrival bound (an overflow cause)
+        counts = np.diff(np.searchsorted(c.arr, g.ts, side="right"), prepend=0)
+        if counts.size:
+            amax = max(amax, int(counts.max()))
+    _, C, lb_kind, expire_on, trace_on = group_key(cells[0])
+    key = KernelKey(
+        G=g.n_points, W=g.ticks, N=N, R=R, Q=queue_capacity, C=C, NREG=NREG,
+        E=E, AMAX=amax, lb_rr=(lb_kind == "rr"),
+        expire_on=expire_on, trace_on=trace_on,
+    )
+    return key, lanes, (g.ts, np.arange(g.n_points, dtype=np.int64), g.win_of)
+
+
+def group_key(sc: CellSchedule) -> tuple:
+    """Cells with equal keys share one launch."""
+    return (sc.grid.signature, sc.concurrency, sc.lb_kind, sc.timeout_s > 0,
+            sc.trace_on)
+
+
+def run_schedules(
+    scheds: Sequence[CellSchedule],
+    *,
+    queue_capacity: int = DEFAULT_QUEUE_CAPACITY,
+    outputs: Optional[List[Optional[dict]]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> List[Optional[ServingResult]]:
+    """Phase B over many cells, one launch per shape group, on CUDA unless
+    ``device="cpu"`` (the plain version).  Results align with ``scheds``;
+    ``None`` marks a lane whose queue pool overflowed.  Pass a list as
+    ``outputs`` to also receive each lane's raw outputs (``None`` for
+    overflowed and empty lanes)."""
+    dev = resolve_device(device)
+    results: List[Optional[ServingResult]] = [None] * len(scheds)
+    if outputs is not None:
+        del outputs[:]
+        outputs.extend([None] * len(scheds))
+    groups: Dict[tuple, List[int]] = {}
+    for idx, sc in enumerate(scheds):
+        if sc.grid.n_points == 0 or sc.n == 0 or sc.n_slots == 0:
+            results[idx] = _empty_result(sc)
+            continue
+        groups.setdefault(group_key(sc), []).append(idx)
+
+    for idxs in groups.values():
+        cells = [scheds[i] for i in idxs]
+        key, lanes, grid = pack_group(cells, queue_capacity)
+        out = run_group(key, lanes, *grid, device=dev)
+        for li, i in enumerate(idxs):
+            if bool(out["overflow"][li]):
+                continue
+            lane_out = {k: v[li] for k, v in out.items()}
+            results[i] = assemble_result(cells[li], lane_out)
+            if outputs is not None:
+                outputs[i] = lane_out
+    return results

@@ -590,7 +590,8 @@ def test_replays_count_the_graphs_launches(card):
     # the warmup and the capture leave the counters where they were
     assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
     assert step.launches == {"flash_attention": 0, "flash_decode": L,
-                             "selective_scan": 0, "moe_gmm": 3 * L}
+                             "selective_scan": 0, "moe_gmm": 3 * L,
+                             "scenario_scan": 0}
     with torch.inference_mode():
         logits, _ = model.prefill(_prompt(model, 20, card), cache)
     step(logits.argmax(-1))
@@ -680,7 +681,8 @@ def test_hybrid_replays_count_one_decode_launch_per_block(card):
     step = build_serve_step(model, cache)
     assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
     assert step.launches == {"flash_attention": 0, "flash_decode": blocks,
-                             "selective_scan": 0, "moe_gmm": 0}
+                             "selective_scan": 0, "moe_gmm": 0,
+                             "scenario_scan": 0}
     with torch.inference_mode():
         logits, _ = model.prefill(_prompt(model, 20, card), cache)
     step(logits.argmax(-1))
@@ -755,7 +757,8 @@ def test_whisper_captured_step_replays_the_eager_tokens(card):
     step = build_serve_step(model, graph_cache)
     assert step.graph is not None and int(graph_cache["len"]) == 0
     assert step.launches == {"flash_attention": 0, "flash_decode": 2 * L,
-                             "selective_scan": 0, "moe_gmm": 0}
+                             "selective_scan": 0, "moe_gmm": 0,
+                             "scenario_scan": 0}
     eager_cache = model.init_cache(1, 128)
     with torch.inference_mode():
         for seed in (2, 3):      # a second request into the same slot
@@ -774,3 +777,162 @@ def test_whisper_captured_step_replays_the_eager_tokens(card):
             assert int(graph_cache["len"]) == int(eager_cache["len"]) == 72
             for key in ("cross_k", "cross_v"):
                 assert torch.equal(graph_cache[key], eager_cache[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the scenario engine's data plane (scenario_scan)
+# ---------------------------------------------------------------------------
+
+SCENARIO_EXACT = ("status", "a_ptr", "run_n", "q_cnt", "n_retried", "overflow")
+SCENARIO_FLOAT = ("e2e",)
+SCENARIO_TRACE = (("rep",), ("disp_t", "start_t", "fin_t"))
+
+# (id, lb_rr, expire_on, trace_on, concurrency, service scale (s), queue
+# capacity, amax below the real maximum): one regime per branch the kernel
+# takes; every regime has kill events, within the horizon and past it
+SCENARIO_REGIMES = [
+    ("least_loaded_traced", False, True, True, 2, 2.0, 256, False),
+    ("round_robin", True, True, False, 2, 1.0, 256, False),
+    ("round_robin_traced", True, True, True, 3, 2.0, 256, False),
+    ("no_expiry_sweep", False, False, True, 2, 1.0, 256, False),
+    ("saturated_expiry", False, True, True, 1, 8.0, 256, False),
+    ("queue_overflow", False, True, False, 1, 8.0, 4, False),
+    ("arrival_overflow", True, True, False, 2, 1.0, 256, True),
+]
+
+
+def scenario_lanes(seed: int, *, L: int = 6, W: int = 40, R: int = 6,
+                   NREG: int = 2, E: int = 4, N: int = 600,
+                   svc_scale: float = 1.0):
+    """Seeded lanes of a shape group, numpy, on a grid of W 15 s windows of
+    1 s sub-steps: ragged tapes (+inf padded) of about one arrival a second,
+    service times of 0.05 s plus an exponential of ``svc_scale`` seconds,
+    RTTs of two values (ties for the least-loaded tie-break), each slot
+    ready over a window range, E kill events per lane (some past the
+    horizon) and a 30 s timeout."""
+    from repro_torch.serving.torchengine.schedule import build_grid
+
+    rng = np.random.default_rng(seed)
+    grid = build_grid(W * 15.0, 15.0, 1.0)
+    G = grid.n_points
+    lanes = {
+        "arr": np.full((L, N), np.inf), "svc": np.ones((L, N)),
+        "rcode": np.zeros((L, N), np.int64), "rtt": np.zeros((L, R, NREG)),
+        "ready": np.zeros((L, W, R), bool),
+        "kill_slot": np.zeros((L, E), np.int64),
+        "kill_g": np.full((L, E), G, np.int64), "timeout": np.full(L, 30.0),
+    }
+    win = np.arange(W)[:, None]
+    for li in range(L):
+        n = N - int(rng.integers(0, N // 4))
+        lanes["arr"][li, :n] = np.sort(rng.uniform(0.0, 0.9 * G, n))
+        lanes["svc"][li, :n] = 0.05 + rng.exponential(svc_scale, n)
+        lanes["rcode"][li, :n] = rng.integers(0, NREG, n)
+        lanes["rtt"][li] = rng.choice([0.002, 0.07], (R, NREG))
+        start = rng.integers(0, W // 4, R)
+        stop = rng.integers(W // 2, W + 1, R)
+        lanes["ready"][li] = (win >= start) & (win < stop)
+        wk = np.sort(rng.integers(1, W + 3, E))     # W and past: post-horizon
+        lanes["kill_slot"][li] = rng.integers(0, R, E)
+        lanes["kill_g"][li] = np.where(wk < W, grid.win_first[np.minimum(wk, W - 1)], G)
+    return lanes, (grid.ts, np.arange(G, dtype=np.int64), grid.win_of)
+
+
+def scenario_args(lanes, grid, device):
+    from repro_torch.serving.torchengine.kernel import LANE_KEYS
+
+    return ([torch.from_numpy(lanes[k]).to(device) for k in LANE_KEYS]
+            + [torch.from_numpy(a).to(device) for a in grid])
+
+
+def assert_scenario_equal(got, want, trace_on: bool):
+    """Kernel outputs against the plain version's: the overflow flags
+    equal, and on every lane that did not overflow the counts and statuses
+    equal and the floats within the reference's 1e-6 (expected equal)."""
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    assert set(got) == set(want)
+    keep = ~want["overflow"]
+    np.testing.assert_array_equal(got["overflow"], want["overflow"])
+    exact, floats = SCENARIO_EXACT, SCENARIO_FLOAT
+    if trace_on:
+        exact, floats = exact + SCENARIO_TRACE[0], floats + SCENARIO_TRACE[1]
+    for k in exact:
+        np.testing.assert_array_equal(got[k][keep], want[k][keep], err_msg=k)
+    for k in floats:
+        g, w = got[k][keep], want[k][keep]
+        with np.errstate(invalid="ignore"):     # inf - inf: equal, below
+            close = np.abs(g - w) <= 1e-6
+        assert np.all((g == w) | close), k
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", SCENARIO_REGIMES, ids=[r[0] for r in SCENARIO_REGIMES])
+def test_scenario_scan_kernel_matches_plain(card, regime):
+    from repro_torch.kernels import scenario_scan as tscn
+
+    _, lb_rr, expire_on, trace_on, C, svc_scale, Q, low_amax = regime
+    lanes, grid = scenario_lanes(3 + C, svc_scale=svc_scale)
+    counts = np.diff(np.searchsorted(lanes["arr"][0], grid[0], side="right"),
+                     prepend=0)
+    amax = int(counts.max()) - 1 if low_amax else 64
+    kw = dict(Q=Q, C=C, amax=amax, lb_rr=lb_rr, expire_on=expire_on,
+              trace_on=trace_on)
+    want = tscn.plain(*scenario_args(lanes, grid, "cpu"), **kw)
+    before = ops.scenario_scan.launches
+    got = ops.scenario_scan(*scenario_args(lanes, grid, card), **kw)
+    torch.cuda.synchronize()
+    assert ops.scenario_scan.launches == before + 1
+    keep = assert_scenario_equal(got, want, trace_on)
+    if regime[0].endswith("overflow"):
+        assert not keep.all()
+    else:
+        assert keep.all()
+        assert (want["n_retried"] > 0).any()              # kills re-pended work
+        assert (want["status"] == 2).any() or (want["status"] == 0).any()
+
+
+@pytest.mark.cuda
+def test_scenario_matrix_on_card_matches_the_recording(card):
+    """The first 4 seeds of both policies of the reference benchmark's
+    matrix: one launch on the card, each cell equal to the reference
+    oracle's recorded result, and every lane's outputs equal to the plain
+    version's."""
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.serving.torchengine import recorded
+
+    scheds = recorded.recorded_matrix(n_seeds=4)
+    cells = recorded.recorded_cells(n_seeds=4)
+    ops.reset_launch_counts()
+    outs = []
+    got = teng.run_schedules(scheds, outputs=outs)
+    assert ops.scenario_scan.launches == 1
+    for res, cell in zip(got, cells):
+        want = cell["result"]
+        for k in ("n_requests", "n_completed", "n_failed", "n_retried_requests"):
+            assert getattr(res, k) == want[k], k
+        assert res.availability == pytest.approx(want["availability"], abs=1e-12)
+        assert res.total_cost == pytest.approx(want["total_cost"], abs=1e-9)
+        for q in (50, 90, 99):
+            assert res.pct(q) == pytest.approx(want[f"p{q}_s"], abs=1e-6)
+    plain_outs = []
+    teng.run_schedules(scheds, outputs=plain_outs, device="cpu")
+    for out, ref in zip(outs, plain_outs):
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_scenario_scan_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import scenario_scan as tscn
+
+    lanes, grid = scenario_lanes(1, L=2)
+    args = scenario_args(lanes, grid, card)
+    kw = dict(Q=256, C=2, amax=8, lb_rr=False, expire_on=True, trace_on=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tscn.launch(*args, **{**kw, "Q": 4096})
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tscn.launch(*args[:-1], args[-1].cpu(), **kw)
+    with pytest.raises(ValueError, match="svc"):
+        tscn.launch(args[0], args[1][:, :-1], *args[2:], **kw)

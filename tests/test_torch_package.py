@@ -135,3 +135,48 @@ def test_chip_smoke_refuses_without_cuda(no_cuda):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the scenario engine
+# ---------------------------------------------------------------------------
+
+SCENARIO_MODULES = (
+    "repro_torch.serving.torchengine.engine",
+    "repro_torch.serving.torchengine.kernel",
+    "repro_torch.serving.torchengine.recorded",
+    "repro_torch.serving.torchengine.schedule",
+    "repro_torch.workloads.arrivals",
+    "repro_torch.serving.latency",
+    "repro_torch.serving.result",
+    "repro_torch.kernels.scenario_scan",
+)
+
+
+def test_scenario_engine_modules_fall_under_the_import_rule():
+    """The scenario engine's modules are among those the two import tests
+    above walk and scan."""
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(SCENARIO_MODULES) <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in SCENARIO_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+
+
+def test_scenario_engine_defaults_to_cuda(no_cuda):
+    from repro_torch.serving.torchengine import engine, recorded
+    from repro_torch.serving.torchengine.kernel import run_group
+
+    scheds = recorded.recorded_matrix(n_seeds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.run_schedules(scheds)
+    key, lanes, grid = engine.pack_group(scheds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_group(key, lanes, *grid)
+    with pytest.raises(ValueError, match="unsupported device"):
+        run_group(key, lanes, *grid, device="meta")

@@ -475,4 +475,5 @@ def test_whisper_card_cases_are_checked_by_chip_smoke():
     want = smoke.expected_launches(model, types.SimpleNamespace(
         prefills=3, decode_steps=5, prefill_lens=[4, 100, 224]))
     assert want == {"flash_attention": 72 * 3, "flash_decode": 48 * 5,
-                    "selective_scan": 0, "moe_gmm": 0}
+                    "selective_scan": 0, "moe_gmm": 0,
+                    "scenario_scan": 0}
