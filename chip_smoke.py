@@ -95,6 +95,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import sys
 import time
 import types
@@ -473,6 +474,29 @@ def phase_card_and_build() -> None:
                 entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas[{name}] {entry}: {line.strip()}")
+
+
+def ptxas_resources(name: str) -> str:
+    """Each entry function's registers and spill bytes as ``nvcc -Xptxas
+    -v`` logged them when kernel ``name`` was built, the function named by
+    its bool template arguments ("not in the build log" where this process
+    loaded a library built earlier)."""
+    from repro_torch.kernels import build
+
+    path = build.log_path(name)
+    found, entry, spills = [], "", "?"
+    for line in (path.read_text().splitlines() if path.exists() else ()):
+        if "Compiling entry function" in line:
+            flags = re.findall(r"Lb([01])E", line)
+            entry = f"{name}<{', '.join('true' if b == '1' else 'false' for b in flags)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.append(f"{entry}: {m.group(1)} registers, spill stores/loads "
+                         f"{spills} B")
+    return "; ".join(found) or "not in the build log"
 
 
 def attention_pairs(S: int, causal: bool, window, prefix: int) -> int:
@@ -1505,6 +1529,8 @@ def phase_scenario() -> dict:
     n_done = int((got["status"] > 0).sum())
     flops = 7.0 * n_done
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP64_FLOPS)
+    smem, pend_cap, tape_cap = scn.smem_plan(key.R, key.C, key.Q, key.NREG,
+                                             key.trace_on)
     log(f"scenario_scan timing, {len(scheds)} lanes x {key.G} sub-steps "
         f"(N={key.N}, R={key.R}, Q={key.Q}, C={key.C}, trace_on={key.trace_on}): "
         f"kernel_ms={ms:.4f} [device time, torch.profiler] kernel_ms={ev_ms:.4f} "
@@ -1514,7 +1540,9 @@ def phase_scenario() -> dict:
         f"data needs read and written, over the HBM rate; loose: the work is a recurrence of {key.G} "
         f"dependent steps a lane); per sub-step {1e3 * ms / key.G:.3f} us; "
         f"the first 8 lanes alone {few_ms:.4f} ms [CUDA events]; phase B wall "
-        f"{1e3 * wall_s:.2f} ms")
+        f"{1e3 * wall_s:.2f} ms; resources: one warp and {smem} bytes of shared "
+        f"memory a block (pending ring share {pend_cap}, tape window "
+        f"{tape_cap}), ptxas: {ptxas_resources('scenario_scan')}")
     return {
         "name": "scenario_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scenario_scan.cu",

@@ -1,6 +1,7 @@
 """The scenario engine's data plane: the CUDA kernel
 ``csrc/scenario_scan.cu`` (one warp per lane walking the whole sub-step
-grid) and its plain PyTorch version ``plain``.
+grid, its state in shared memory, each replica slot worked by the thread
+that owns it) and its plain PyTorch version ``plain``.
 
 Counterpart of the reference's ``_build_kernel`` / ``lane`` in
 ``repro.serving.jaxengine.kernel``: one lane is one cell of a scenario
@@ -39,9 +40,9 @@ Every float is computed one operation at a time (eager PyTorch fuses
 nothing), in the oracle's order: ``t + svc * (1.0 + 0.15 * n)``,
 ``(fin - arr) + rtt``, ``t - arr > timeout``, ``arr - rtt``.
 
-Overflow (a queue pool with no free cell, or more than ``amax`` arrivals in
-one sub-step) sets the lane's flag, and the lane's outputs are then
-meaningless: the caller discards it.
+Overflow (a push into a slot that already holds ``Q`` queued requests, or
+more than ``amax`` arrivals in one sub-step) sets the lane's flag, and the
+lane's outputs are then meaningless: the caller discards it.
 
 ``repro_torch.kernels.ops.scenario_scan`` picks between the two by the
 device of its inputs and counts the kernel's launches.
@@ -50,7 +51,7 @@ device of its inputs and counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -58,6 +59,12 @@ from repro_torch.kernels import build
 
 #: shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
+#: entries of the pending ring and of the tape window that a lane keeps in
+#: shared memory (powers of two), and the least they shrink to when a
+#: lane's state leaves less room: the ring spills to device memory past its
+#: share, the window streams the tape in 4 chunks of at least 32 entries
+PEND_CAP, TAPE_CAP = 2048, 1024
+MIN_PEND_CAP, MIN_TAPE_CAP = 32, 128
 
 _BIG = torch.iinfo(torch.int64).max
 _INF = float("inf")
@@ -75,13 +82,34 @@ def _kernel_fn():
     return _fn
 
 
-def smem_bytes(R: int, C: int, Q: int, trace_on: bool) -> int:
-    """Shared memory of one lane's block: the running table [R, C], the
-    queue pools [R, Q] and the per-slot counters (``csrc`` computes the
-    same)."""
-    doubles = R * C + R * Q + R + (2 * R * C + R * Q if trace_on else 0)
-    ints = R * C + 2 * R * Q + 2 * R
-    return 8 * doubles + 4 * ints + R * Q + 2 * R
+def smem_bytes(R: int, C: int, Q: int, NREG: int, trace_on: bool,
+               pend_cap: int, tape_cap: int) -> int:
+    """Shared memory of one lane's block (``csrc`` ``carve`` counts the
+    same): the counters of the slots past the first 32 (40 bytes each; a
+    thread keeps its first slot's in registers), the queue rings [R, Q]
+    (request, age and, with ``trace_on``, the dispatch time), the running
+    rows [R, C] (finish, arrival, RTT, request; with ``trace_on`` dispatch
+    and start), the window's ready list [R], the RTT table and the
+    least-loaded ranks [NREG, R], the pending ring's ``pend_cap`` entries
+    and the tape window's ``tape_cap`` (arrival, service time, region)."""
+    doubles = (R * Q * (2 if trace_on else 1) + R * C * (5 if trace_on else 3)
+               + NREG * R + 2 * tape_cap)
+    ints = R * Q + R * C + R + NREG * R + pend_cap + tape_cap
+    return 40 * max(R - 32, 0) + 8 * doubles + 4 * ints
+
+
+def smem_plan(R: int, C: int, Q: int, NREG: int,
+              trace_on: bool) -> Tuple[int, int, int]:
+    """``(bytes, pend_cap, tape_cap)`` of one lane's block: ``PEND_CAP`` and
+    ``TAPE_CAP``, both halved until the block fits in ``MAX_SMEM_BYTES`` or
+    both are at their minimums (the launch then refuses the shape)."""
+    pend, tape = PEND_CAP, TAPE_CAP
+    while True:
+        nbytes = smem_bytes(R, C, Q, NREG, trace_on, pend, tape)
+        if nbytes <= MAX_SMEM_BYTES or (pend, tape) == (MIN_PEND_CAP,
+                                                          MIN_TAPE_CAP):
+            return nbytes, pend, tape
+        pend, tape = max(pend // 2, MIN_PEND_CAP), max(tape // 2, MIN_TAPE_CAP)
 
 
 def _lanes(mask: torch.Tensor) -> torch.Tensor:
@@ -372,8 +400,8 @@ def launch(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
            trace_on: bool) -> Dict[str, torch.Tensor]:
     """Launch the kernel on the current stream (one block per lane).
     Raises on inputs the kernel does not take and on a refused launch.  A
-    lane that overflows stops where it overflowed: only its ``overflow``
-    flag is meaningful, as in the reference."""
+    lane that overflows stops at the end of that sub-step: only its
+    ``overflow`` flag is meaningful, as in the reference."""
     if arr.dim() != 2:
         raise ValueError(f"arr must be [L, N], got {tuple(arr.shape)}")
     L, N = arr.shape
@@ -396,14 +424,15 @@ def launch(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
     dev = arr.device
     if any(t.device != dev for t in tensors) or dev.type != "cuda":
         raise ValueError("every input must lie on one CUDA device")
-    if max(N, R, NREG, W, E, G, Q, C) >= 2 ** 31 or L > 2 ** 31 - 1:
+    NP = 1 << (N - 1).bit_length()     # the pending rings' spill length
+    if max(NP, R, NREG, W, E, G, Q, C) >= 2 ** 31 or L > 2 ** 31 - 1:
         raise ValueError("a dimension exceeds the kernel's 32-bit indices")
     if min(L, N, R, NREG, W, G, Q, C) < 1:
         raise ValueError("every dimension but E must be at least 1")
-    smem = smem_bytes(R, C, Q, trace_on)
+    smem, pend_cap, tape_cap = smem_plan(R, C, Q, NREG, trace_on)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"R={R}, C={C}, Q={Q} need {smem} bytes of shared "
-                         f"memory a lane; a block has {MAX_SMEM_BYTES}")
+        raise ValueError(f"R={R}, C={C}, Q={Q}, NREG={NREG} need {smem} bytes "
+                         f"of shared memory a lane; a block has {MAX_SMEM_BYTES}")
     f64, i32 = torch.float64, torch.int32
     ins = [arr.to(f64).contiguous(), svc.to(f64).contiguous(),
            rcode.to(i32).contiguous(), rtt.to(f64).contiguous(),
@@ -424,13 +453,13 @@ def launch(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
         for k in ("disp_t", "start_t", "fin_t"):
             out[k] = torch.full((L, N), float("-inf"), dtype=f64, device=dev)
         out["rep"] = torch.full((L, N), -1, dtype=torch.int64, device=dev)
-    pend = torch.empty((L, N), dtype=i32, device=dev)      # pending rings
+    pend = torch.empty((L, NP), dtype=i32, device=dev)     # rings' spill
     names = ("status", "e2e", "a_ptr", "run_n", "q_cnt", "n_retried",
              "overflow", "disp_t", "start_t", "fin_t", "rep")
     ptrs = [t.data_ptr() for t in ins] + [pend.data_ptr()] + [
         out[k].data_ptr() if k in out else None for k in names]
     dims = [L, N, R, NREG, W, E, G, Q, C, max(amax, 1), int(lb_rr),
-            int(expire_on), int(trace_on)]
+            int(expire_on), int(trace_on), pend_cap, tape_cap, smem, NP]
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     dim_arr = (ctypes.c_longlong * len(dims))(*dims)
     with torch.cuda.device(dev):

@@ -788,8 +788,16 @@ SCENARIO_FLOAT = ("e2e",)
 SCENARIO_TRACE = (("rep",), ("disp_t", "start_t", "fin_t"))
 
 # (id, lb_rr, expire_on, trace_on, concurrency, service scale (s), queue
-# capacity, amax below the real maximum): one regime per branch the kernel
-# takes; every regime has kill events, within the horizon and past it
+# capacity, amax below the real maximum[, shape of the lanes]): one regime
+# per branch the kernel takes; every regime has kill events, within the
+# horizon and past it.  The regimes with a shape reach what the kernel keeps
+# off its common path: a tape 20x its shared-memory window with a pending
+# backlog past the ring's shared-memory share (it spills to device memory,
+# and a drained backlog reads tape entries older than the window); more
+# slots than a warp has threads (a thread owns two); kills re-pending deep
+# queues whose requests lie further behind the arrivals than the window
+# reaches; and queue rings that compact (RTTs 25 s apart make the expiry
+# sweep punch holes in the middle of a ring).
 SCENARIO_REGIMES = [
     ("least_loaded_traced", False, True, True, 2, 2.0, 256, False),
     ("round_robin", True, True, False, 2, 1.0, 256, False),
@@ -798,18 +806,30 @@ SCENARIO_REGIMES = [
     ("saturated_expiry", False, True, True, 1, 8.0, 256, False),
     ("queue_overflow", False, True, False, 1, 8.0, 4, False),
     ("arrival_overflow", True, True, False, 2, 1.0, 256, True),
+    ("long_tape_spilled_backlog", False, True, True, 8, 0.05, 256, False,
+     dict(L=4, N=20_000, W=240, R=8, dark=(60, 100))),
+    ("slots_beyond_a_warp", False, True, True, 2, 2.0, 256, False,
+     dict(R=40, N=3000, E=12)),
+    ("slots_beyond_a_warp_round_robin", True, True, False, 2, 2.0, 256, False,
+     dict(R=40, N=3000, E=12)),
+    ("kills_re_pend_deep_queues", False, True, False, 1, 8.0, 2048, False,
+     dict(N=2000, E=12, timeout=1e4)),
+    ("queue_rings_compact", False, True, True, 1, 8.0, 28, False,
+     dict(rtt_values=(0.002, 25.0))),
 ]
 
 
 def scenario_lanes(seed: int, *, L: int = 6, W: int = 40, R: int = 6,
                    NREG: int = 2, E: int = 4, N: int = 600,
-                   svc_scale: float = 1.0):
+                   svc_scale: float = 1.0, timeout: float = 30.0,
+                   rtt_values=(0.002, 0.07), dark=None):
     """Seeded lanes of a shape group, numpy, on a grid of W 15 s windows of
-    1 s sub-steps: ragged tapes (+inf padded) of about one arrival a second,
-    service times of 0.05 s plus an exponential of ``svc_scale`` seconds,
-    RTTs of two values (ties for the least-loaded tie-break), each slot
-    ready over a window range, E kill events per lane (some past the
-    horizon) and a 30 s timeout."""
+    1 s sub-steps: ragged tapes (+inf padded) of about N / (0.9 G) arrivals
+    a second (one at the defaults), service times of 0.05 s plus an
+    exponential of ``svc_scale`` seconds, RTTs of two values (ties for the
+    least-loaded tie-break), each slot ready over a window range, E kill
+    events per lane (some past the horizon) and a ``timeout`` in seconds;
+    no slot is ready in the windows of the range ``dark``."""
     from repro_torch.serving.torchengine.schedule import build_grid
 
     rng = np.random.default_rng(seed)
@@ -820,7 +840,7 @@ def scenario_lanes(seed: int, *, L: int = 6, W: int = 40, R: int = 6,
         "rcode": np.zeros((L, N), np.int64), "rtt": np.zeros((L, R, NREG)),
         "ready": np.zeros((L, W, R), bool),
         "kill_slot": np.zeros((L, E), np.int64),
-        "kill_g": np.full((L, E), G, np.int64), "timeout": np.full(L, 30.0),
+        "kill_g": np.full((L, E), G, np.int64), "timeout": np.full(L, timeout),
     }
     win = np.arange(W)[:, None]
     for li in range(L):
@@ -828,10 +848,12 @@ def scenario_lanes(seed: int, *, L: int = 6, W: int = 40, R: int = 6,
         lanes["arr"][li, :n] = np.sort(rng.uniform(0.0, 0.9 * G, n))
         lanes["svc"][li, :n] = 0.05 + rng.exponential(svc_scale, n)
         lanes["rcode"][li, :n] = rng.integers(0, NREG, n)
-        lanes["rtt"][li] = rng.choice([0.002, 0.07], (R, NREG))
+        lanes["rtt"][li] = rng.choice(list(rtt_values), (R, NREG))
         start = rng.integers(0, W // 4, R)
         stop = rng.integers(W // 2, W + 1, R)
         lanes["ready"][li] = (win >= start) & (win < stop)
+        if dark is not None:
+            lanes["ready"][li, dark[0]:dark[1]] = False
         wk = np.sort(rng.integers(1, W + 3, E))     # W and past: post-horizon
         lanes["kill_slot"][li] = rng.integers(0, R, E)
         lanes["kill_g"][li] = np.where(wk < W, grid.win_first[np.minimum(wk, W - 1)], G)
@@ -872,11 +894,12 @@ def assert_scenario_equal(got, want, trace_on: bool):
 def test_scenario_scan_kernel_matches_plain(card, regime):
     from repro_torch.kernels import scenario_scan as tscn
 
-    _, lb_rr, expire_on, trace_on, C, svc_scale, Q, low_amax = regime
-    lanes, grid = scenario_lanes(3 + C, svc_scale=svc_scale)
-    counts = np.diff(np.searchsorted(lanes["arr"][0], grid[0], side="right"),
-                     prepend=0)
-    amax = int(counts.max()) - 1 if low_amax else 64
+    _, lb_rr, expire_on, trace_on, C, svc_scale, Q, low_amax = regime[:8]
+    shape = regime[8] if len(regime) > 8 else {}
+    lanes, grid = scenario_lanes(3 + C, svc_scale=svc_scale, **shape)
+    counts = np.diff([np.searchsorted(a, grid[0], side="right")
+                      for a in lanes["arr"]], prepend=0, axis=1)
+    amax = int(counts[0].max()) - 1 if low_amax else max(64, int(counts.max()))
     kw = dict(Q=Q, C=C, amax=amax, lb_rr=lb_rr, expire_on=expire_on,
               trace_on=trace_on)
     want = tscn.plain(*scenario_args(lanes, grid, "cpu"), **kw)

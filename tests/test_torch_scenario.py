@@ -480,6 +480,89 @@ def test_quick_matrix_through_the_plain_version():
     assert got[0].cost_vs_ondemand > got[4].cost_vs_ondemand
 
 
+def _pool_layout_bytes(R: int, C: int, Q: int, trace_on: bool) -> int:
+    """Shared memory of a lane in the kernel's earlier layout, whose queue
+    was a pool of Q cells a slot scanned whole on every push and pop (age,
+    request, sequence number, valid flag; dispatch time with trace_on) and
+    whose tape and pending ring lived in device memory."""
+    doubles = R * C + R * Q + R + (2 * R * C + R * Q if trace_on else 0)
+    ints = R * C + 2 * R * Q + 2 * R
+    return 8 * doubles + 4 * ints + R * Q + 2 * R
+
+
+@pytest.mark.parametrize("trace_on", [False, True])
+def test_scenario_smem_plan_at_the_matrix_shape(trace_on):
+    """The reference benchmark's matrix (R=10, C=4, Q=256, NREG=9) keeps the
+    whole pending ring share and tape window; ``smem_bytes`` is the sum of
+    its arrays, each array's bytes growing with its own dimension."""
+    from repro_torch.kernels import scenario_scan as tscn
+
+    nbytes, pend, tape = tscn.smem_plan(10, 4, 256, 9, trace_on)
+    assert (pend, tape) == (tscn.PEND_CAP, tscn.TAPE_CAP)
+    assert nbytes == tscn.smem_bytes(10, 4, 256, 9, trace_on, pend, tape)
+    assert nbytes == (82_752 if trace_on else 61_632)
+    base = tscn.smem_bytes(10, 4, 256, 9, trace_on, pend, tape)
+    per_cell = 20 if trace_on else 12          # request, age (, dispatch)
+    per_run = 44 if trace_on else 28           # finish, arrival, RTT, request
+    for dim, step in (("Q", 10 * per_cell), ("C", 10 * per_run),
+                      ("NREG", 10 * 12), ("pend", 4), ("tape", 20)):
+        grown = dict(R=10, C=4, Q=256, NREG=9, pend=pend, tape=tape)
+        grown[dim] += 1
+        assert tscn.smem_bytes(grown["R"], grown["C"], grown["Q"], grown["NREG"],
+                               trace_on, grown["pend"], grown["tape"]) == base + step
+    # a slot: its queue ring, running row, ready-list entry and RTT and rank
+    # per region; past the first 32 also its 40 bytes of counters (a
+    # thread keeps its first slot's in registers)
+    per_slot = 256 * per_cell + 4 * per_run + 4 + 9 * 12
+    size = lambda R: tscn.smem_bytes(R, 4, 256, 9, trace_on, pend, tape)  # noqa: E731
+    assert size(32) - size(31) == per_slot
+    assert size(33) - size(32) == per_slot + 40
+
+
+def test_scenario_smem_plan_shrinks_the_ring_and_window_then_refuses():
+    """A lane state that leaves little room halves the pending ring's share
+    and the tape window (powers of two, down to 32 and 128 entries); what
+    does not fit even then is over the limit, and the launch refuses it."""
+    from repro_torch.kernels import scenario_scan as tscn
+
+    plans = [tscn.smem_plan(10, 4, Q, 9, True) for Q in (256, 900, 1000, 1100, 1200)]
+    caps = [(p, t) for _, p, t in plans]
+    assert caps[0] == (2048, 1024)
+    assert caps == sorted(caps, reverse=True) and len(set(caps)) > 2
+    for nbytes, pend, tape in plans[:-1]:
+        assert nbytes <= tscn.MAX_SMEM_BYTES
+        assert pend & (pend - 1) == 0 and tape & (tape - 1) == 0
+        assert pend >= tscn.MIN_PEND_CAP and tape >= tscn.MIN_TAPE_CAP
+    nbytes, pend, tape = plans[-1]
+    assert nbytes > tscn.MAX_SMEM_BYTES
+    assert (pend, tape) == (tscn.MIN_PEND_CAP, tscn.MIN_TAPE_CAP)
+
+
+def test_scenario_smem_plan_takes_what_the_pool_layout_took():
+    """Every slot count, concurrency, queue capacity and region count whose
+    lane fit the pool layout fits the ring layout too, wherever the queue
+    holds at least 4 C + 2 NREG + 8 cells (the matrix: 256 >= 42): a queue
+    cell takes 5 bytes less, which pays for the running rows' arrival and
+    RTT, the RTT and rank tables and the tape window.  The tape's length is
+    not a dimension of either: it streams."""
+    from repro_torch.kernels import scenario_scan as tscn
+
+    n = 0
+    for R in range(1, 257, 3):
+        for C in (1, 2, 4, 8, 16, 32, 64):
+            for Q in (16, 64, 100, 128, 256, 512, 1024, 4096):
+                for NREG in (1, 2, 9, 16, 32):
+                    if Q < 4 * C + 2 * NREG + 8:
+                        continue
+                    for trace_on in (False, True):
+                        if _pool_layout_bytes(R, C, Q, trace_on) > tscn.MAX_SMEM_BYTES:
+                            continue
+                        n += 1
+                        nbytes = tscn.smem_plan(R, C, Q, NREG, trace_on)[0]
+                        assert nbytes <= tscn.MAX_SMEM_BYTES, (R, C, Q, NREG, trace_on)
+    assert n > 5000
+
+
 if __name__ == "__main__":
     if sys.argv[1:] != ["--write"]:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_scenario.py --write")
