@@ -31,14 +31,17 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
-4. runs the SkyServe scenario engine's data plane over the reference
-   benchmark's 96-cell matrix (``benchmarks/jax_engine.py``: SpotHedge and
-   even_spread on spot trace aws-1, 48 seeds, llama3.2-1b on g5.48xlarge,
-   Poisson at 1 request/s for one hour): the cells are rebuilt from the
-   committed recording (``repro_torch.serving.torchengine.recorded``),
-   phase B runs through ``run_schedules`` on the card in one
-   ``scenario_scan`` launch (the launch counters zeroed just before, read
-   just after), every cell must equal the reference oracle's recorded
+4. runs the SkyServe scenario engine over the reference benchmark's 96-cell
+   matrix (``benchmarks/jax_engine.py``: SpotHedge and even_spread on spot
+   trace aws-1, 48 seeds, llama3.2-1b on g5.48xlarge, Poisson at 1
+   request/s for one hour): the port builds the cells from the recorded
+   spec alone (``repro_torch.serving.torchengine.recorded.spec_matrix``),
+   runs their control plane (phase A: its own cluster simulator, policies
+   and autoscaler) on the host, times it and holds every cell's plane
+   field for field against the reference's recorded plane; phase B runs
+   through ``run_cells`` on the card in one ``scenario_scan`` launch (the
+   launch counters zeroed just before, read just after), every cell must
+   equal the reference oracle's recorded
    result (counts exact, costs to 1e-9, availability to 1e-12, latency
    percentiles and mean to 1e-6, no lane overflowed), the kernel is held
    against its plain version on the CPU on all 96 lanes (counts, statuses
@@ -46,7 +49,11 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    1e-6, expected equal), the paper's metrics are printed per policy and
    the kernel is timed (device time, CUDA events; beside it the plain
    version's host time, phase B's wall time and cells/s, and the kernel
-   on the first 8 lanes);
+   on the first 8 lanes); the port's oracle (``VectorizedServingEngine``)
+   runs the quick matrix's 8 cells on the host, timed, each equal to the
+   recorded result; and one ``run_cells`` call on the card at a queue pool
+   of one cell a slot overflows lanes (none is a failure), each rerun on
+   the oracle and equal to the oracle's result field for field;
 5. profiles the kernels of the five served models on the ``h100``
    instance (``repro_torch.profiles``, the kernels timed with CUDA events),
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
@@ -92,6 +99,7 @@ Any failure exits non-zero; without CUDA it exits 1 before printing results.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1422,26 +1430,91 @@ def scenario_bytes(scheds, got: dict, key) -> float:
     return total
 
 
+def check_oracle_and_fallback(oracle_results) -> None:
+    """One ``run_cells`` call on the card at the smallest queue pool the
+    kernel takes (one cell a slot), where the quick matrix's lanes
+    overflow: every overflowed lane must come back as the oracle's result,
+    to the bit."""
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.serving.torchengine import recorded
+
+    cells = recorded.spec_matrix(n_seeds=4)
+    t0 = time.perf_counter()
+    results = teng.run_cells([c.engine for c in cells],
+                             [c.duration_s for c in cells], queue_capacity=1)
+    wall_s = time.perf_counter() - t0
+    fell = [c.engine.fell_back for c in cells]
+    if not any(fell):
+        raise AssertionError("scenario fallback: no lane overflowed a pool of 1")
+    for cell, res, want, f in zip(cells, results, oracle_results, fell):
+        if not f:
+            continue
+        for fld in dataclasses.fields(want):
+            a, b = getattr(res, fld.name), getattr(want, fld.name)
+            same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b)
+            if not same:
+                raise AssertionError(f"scenario fallback {cell.labels}: "
+                                     f"{fld.name} {a!r} != oracle {b!r}")
+    log(f"scenario fallback on the card: run_cells over the quick matrix's "
+        f"{len(cells)} cells at a queue pool of 1: {sum(fell)} of {len(cells)} "
+        f"lanes overflowed and were rerun on the port's oracle, each equal to "
+        f"the oracle's result field for field; {wall_s:.4f} s wall (one "
+        f"scenario_scan launch and {sum(fell)} oracle runs)")
+
+
 def phase_scenario() -> dict:
     """The reference benchmark's 96-cell matrix (benchmarks/jax_engine.py:
     SpotHedge and even_spread on aws-1, 48 seeds, llama3.2-1b on
-    g5.48xlarge, Poisson 1 request/s for one hour) rebuilt from the
-    committed recording, its data plane run on the card through
-    ``run_schedules`` (one shape group, one ``scenario_scan`` launch), held
-    against the plain version on the CPU on the same 96 lanes and against
-    the reference oracle's recorded results, then timed."""
+    g5.48xlarge, Poisson 1 request/s for one hour) built by the port from
+    the recorded spec alone, its control plane (phase A) run on the host
+    by the port and held against the reference's recorded planes, its data
+    plane run on the card through ``run_cells`` (one shape group, one
+    ``scenario_scan`` launch), held against the plain version on the CPU on
+    the same 96 lanes and against the reference oracle's recorded results,
+    then timed.  The port's oracle then runs the quick matrix's 8 cells, and
+    one ``run_cells`` call overflows lanes and reruns them on it."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import scenario_scan as scn
+    from repro_torch.serving.engine import VectorizedServingEngine
     from repro_torch.serving.torchengine import engine as teng
     from repro_torch.serving.torchengine import recorded
     from repro_torch.serving.torchengine.kernel import LANE_KEYS
 
+    # phase A on the host: the port's own cluster simulator, policies and
+    # autoscaler, each cell's plane against the reference's recording
     t0 = time.perf_counter()
-    scheds = recorded.recorded_matrix()
+    matrix = recorded.spec_matrix()
+    build_s = time.perf_counter() - t0
     cells = recorded.recorded_cells()
+    planes = recorded.recorded_planes()
+    per_cell = []
+    t0 = time.perf_counter()
+    for c in matrix:
+        t1 = time.perf_counter()
+        c.engine.record_schedule(c.duration_s)
+        per_cell.append(time.perf_counter() - t1)
+    phase_a_s = time.perf_counter() - t0
+    scheds = [c.engine.schedule for c in matrix]
+    for c, cell, sched in zip(matrix, cells, scheds):
+        if (c.labels["policy"], c.labels["seed"]) != (cell["policy"], cell["seed"]):
+            raise AssertionError(f"scenario cell {c.labels} is not the recording's "
+                                 f"{cell['policy']} seed {cell['seed']}")
+        plane = recorded.plane_of(sched)
+        want = planes[c.labels["policy"]]
+        bad = [k for k in want if plane.get(k) != want[k]]
+        if bad or set(plane) != set(want):
+            raise AssertionError(f"scenario phase A {c.labels}: plane fields {bad} "
+                                 "differ from the reference's recording")
+    log(f"scenario phase A on the host (the port's cluster simulator, policies "
+        f"and autoscaler): {len(matrix)} cells built from the recorded spec in "
+        f"{build_s:.4f} s, their control planes recorded in {phase_a_s:.4f} s "
+        f"wall (per cell: mean {1e3 * np.mean(per_cell):.3f} ms, min "
+        f"{1e3 * min(per_cell):.3f} ms, max {1e3 * max(per_cell):.3f} ms); every "
+        f"cell's plane equals the reference's recorded plane of its policy, "
+        f"field for field")
     log(f"scenario matrix: {len(scheds)} cells ({len(set(map(teng.group_key, scheds)))} "
-        f"shape group) rebuilt from the recording in "
-        f"{time.perf_counter() - t0:.3f} s: N={min(c.n for c in scheds)}-"
+        f"shape group): N={min(c.n for c in scheds)}-"
         f"{max(c.n for c in scheds)} requests, G={scheds[0].grid.n_points} "
         f"sub-steps over W={scheds[0].grid.ticks} windows, R="
         f"{sorted({c.n_slots for c in scheds})} slots, E="
@@ -1462,16 +1535,19 @@ def phase_scenario() -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     outs = []
-    results = teng.run_schedules(scheds, outputs=outs)
+    results = teng.run_cells([c.engine for c in matrix],
+                             [c.duration_s for c in matrix], outputs=outs)
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     want_launches = dict.fromkeys(launches, 0)
     want_launches["scenario_scan"] = 1
     if launches != want_launches:
         raise AssertionError(f"scenario launches {launches} != {want_launches}")
+    if any(c.engine.fell_back for c in matrix):
+        raise AssertionError("scenario: a lane of the matrix overflowed")
     for res, cell in zip(results, cells):
         check_recorded_result(res, cell)
-    log(f"scenario run_schedules on the card: {len(scheds)} cells in "
+    log(f"scenario run_cells on the card: {len(scheds)} cells in "
         f"{wall_s:.4f} s wall ({len(scheds) / wall_s:.1f} cells/s; packing, "
         f"copies and assembly included), launches {json.dumps(launches)}; all "
         f"{len(scheds)} cells equal the recorded reference results (counts "
@@ -1495,11 +1571,11 @@ def phase_scenario() -> dict:
     for i, out in enumerate(outs):     # the main path's launch gave the same
         for k in SCENARIO_EXACT + SCENARIO_FLOAT:
             if not np.array_equal(out[k], got[k][i]):
-                raise AssertionError(f"scenario lane {i}: {k} of run_schedules "
+                raise AssertionError(f"scenario lane {i}: {k} of run_cells "
                                      "differs from a second launch")
     log(f"scenario_scan vs plain (CPU), all {len(scheds)} lanes: "
         f"{', '.join(SCENARIO_EXACT)} equal; max |diff| {json.dumps(errs)} "
-        f"(tolerance {SCENARIO_TOL}); a second launch repeats run_schedules' "
+        f"(tolerance {SCENARIO_TOL}); a second launch repeats run_cells' "
         f"outputs exactly")
 
     # the paper's metrics, per policy (means over the policy's 48 seeds)
@@ -1543,6 +1619,20 @@ def phase_scenario() -> dict:
         f"{1e3 * wall_s:.2f} ms; resources: one warp and {smem} bytes of shared "
         f"memory a block (pending ring share {pend_cap}, tape window "
         f"{tape_cap}), ptxas: {ptxas_resources('scenario_scan')}")
+
+    # the port's oracle on the host, the quick matrix's 8 cells
+    quick = recorded.spec_matrix(n_seeds=4)
+    quick_cells = recorded.recorded_cells(n_seeds=4)
+    t0 = time.perf_counter()
+    oracle = [VectorizedServingEngine.run(c.engine, c.duration_s) for c in quick]
+    oracle_s = time.perf_counter() - t0
+    for res, cell in zip(oracle, quick_cells):
+        check_recorded_result(res, cell)
+    log(f"scenario oracle on the host (the port's VectorizedServingEngine): "
+        f"{len(quick)} cells of the quick matrix in {oracle_s:.4f} s wall "
+        f"({1e3 * oracle_s / len(quick):.3f} ms a cell), each equal to the "
+        f"reference oracle's recorded result")
+    check_oracle_and_fallback(oracle)
     return {
         "name": "scenario_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scenario_scan.cu",

@@ -1,4 +1,6 @@
-"""PyTorch / CUDA port of the SkyServe model data plane for NVIDIA Hopper.
+"""PyTorch / CUDA port of SkyServe for NVIDIA Hopper: the model data plane,
+the scenario engine, and the control plane it runs on (the spot traces, the
+cluster simulator, SpotHedge and its baselines, the autoscalers).
 
 A sibling of the JAX package ``repro``, which stays the reference.  This
 package imports ``torch`` and numpy only: never ``jax`` and nothing from

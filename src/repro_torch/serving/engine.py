@@ -1,0 +1,576 @@
+"""The vectorized serving engine's request model: the port's own copy of
+``VectorizedServingEngine`` (``repro.serving.engine``), the NumPy oracle the
+scenario engine's data plane is held against and falls back to.
+
+It runs the §5.1 serving methodology over a cluster simulator: the control
+plane (``ClusterSimulator``: trace, policy, autoscaler) calls ``_tick`` once
+a control window, and the window walks its sub-step grid, where requests
+arrive, are routed to ready replicas by the least-loaded ``(load, rtt, id)``
+rule or round-robin, queue, start (a start is priced at its service time
+times ``1 + 0.15 x`` the requests already running), finish or time out, and
+go back to pending when their replica dies.  State is arrays and plain
+lists:
+
+* the request tape is compiled once into float64 arrays (arrivals, roofline
+  service times, client-region codes);
+* arrivals come in batches by ``searchsorted`` over the arrival array;
+* timeout expiry over a deep pending backlog is a vectorised mask;
+* each replica keeps its RTT per client-region code from its creation;
+* completions sit in one min-heap of finish times, so a sub-step visits
+  only the replicas with a finish due or new work, and sub-steps where
+  nothing can happen are skipped.
+
+Every decision is the reference's: the same grid points (the same float
+accumulation), the same arrival batches to the autoscaler, the same picks,
+the same failures at the same instants.
+
+Not in the port yet: the token-level replica model
+(``replica_model="token"``) and KV migration, which raise ``ValueError``;
+the balancer classes (the balancer is named, ``lb="ll"`` or ``lb="rr"``);
+request spans, window samples and the metrics registry (observability).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from repro_torch.cluster.catalog import Catalog, default_catalog, region_rtt_ms
+from repro_torch.cluster.instance import Instance
+from repro_torch.cluster.simulator import ClusterSimulator, SimConfig
+from repro_torch.cluster.traces import SpotTrace
+from repro_torch.core.autoscaler import Autoscaler, ConstantTarget
+from repro_torch.core.policy import Policy
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.latency import LatencyModel
+from repro_torch.serving.result import ServingResult
+from repro_torch.serving.torchengine.schedule import tape_arrays
+from repro_torch.workloads.arrivals import Request
+
+__all__ = ["LB_KINDS", "VectorizedServingEngine"]
+
+_INF = float("inf")
+# below this size a plain Python scan beats numpy call overhead
+_VEC_MIN = 24
+
+#: the balancers the engine simulates: least-loaded and round-robin
+LB_KINDS = ("ll", "rr")
+
+
+class _Rep:
+    """A replica slot: plain fields, no FSM object, no probes."""
+
+    __slots__ = ("inst", "slot", "rid", "dead", "rtt",
+                 "running", "queue", "qage", "qmin")
+
+    def __init__(self, inst: Instance, slot: int,
+                 rtt: List[float]) -> None:
+        self.inst = inst
+        self.slot = slot
+        self.rid = inst.id
+        self.dead = False
+        self.rtt = rtt                       # client-region code -> seconds
+        self.running: List[Tuple[float, int]] = []   # (finish_s, req index)
+        self.queue: List[int] = []                   # req indices, FIFO
+        # parallel *effective* ages: arrival - client RTT, so the shared
+        # `t - age > timeout` expiry predicate is RTT-inclusive, matching
+        # the deadline applied to completed responses
+        self.qage: List[float] = []
+        self.qmin = _INF                     # lower bound on queued eff. ages
+
+    @property
+    def load(self) -> int:
+        return len(self.running) + len(self.queue)
+
+
+class VectorizedServingEngine:
+    """One cell's serving run: the cluster simulator plus the request
+    model, on the host."""
+
+    def __init__(
+        self,
+        trace: SpotTrace,
+        policy: Policy,
+        requests: Sequence[Request],
+        cfg: ModelConfig,
+        *,
+        itype: str = "p3.2xlarge",
+        catalog: Optional[Catalog] = None,
+        autoscaler: Optional[Autoscaler] = None,
+        lb: str = "ll",
+        sim_config: Optional[SimConfig] = None,
+        timeout_s: float = 100.0,
+        sub_step_s: float = 1.0,
+        workload_name: str = "workload",
+        concurrency: Optional[int] = None,
+        concurrency_cap: int = 16,
+        latency_model: Optional[LatencyModel] = None,
+        replica_model: str = "request",
+        migration: Optional[object] = None,
+    ) -> None:
+        if replica_model != "request":
+            raise ValueError(
+                f"replica_model {replica_model!r}: the port has the request "
+                "model only; the token-level model is not ported yet"
+            )
+        if migration is not None:
+            raise ValueError("KV migration needs the token-level replica "
+                             "model, which is not ported yet")
+        if lb not in LB_KINDS:
+            raise ValueError(f"lb must be one of {list(LB_KINDS)} "
+                             f"(least-loaded, round-robin), got {lb!r}")
+        self.catalog = catalog or default_catalog()
+        self.cfg = cfg
+        self.itype = self.catalog.instance_type(itype)
+        self.latency_model = (
+            latency_model
+            if latency_model is not None
+            else LatencyModel.for_model(cfg, self.itype)
+        )
+        self.timeout_s = timeout_s
+        self.sub_step_s = sub_step_s
+        self.workload_name = workload_name
+        self.concurrency = concurrency or min(
+            self.latency_model.max_concurrency(), concurrency_cap
+        )
+        self._lb_kind = lb
+        self._rr_cursor = 0
+        self._n_retried = 0
+
+        # ---- compile the request tape into arrays ---------------------
+        # (stable-sorted by arrival; service times bit-identical to the
+        # per-request computation; client regions as small int codes, each
+        # replica precomputing its RTT per code on creation)
+        self.requests = sorted(requests, key=lambda r: r.arrival_s)
+        self._n = len(self.requests)
+        self._arr, self._svc, self._rcode, self._client_regions = tape_arrays(
+            self.requests, self.latency_model)
+        # Python-list mirrors for scalar access: list indexing and float
+        # arithmetic beat numpy scalar indexing in the per-request loops,
+        # and .tolist() round-trips exactly
+        self._arr_l: List[float] = self._arr.tolist()
+        self._svc_l: List[float] = self._svc.tolist()
+        self._rcode_l: List[int] = self._rcode.tolist()
+
+        # ---- mutable serving state ------------------------------------
+        self._ptr = 0                        # next arrival index
+        self._pending: List[int] = []        # request indices, FIFO
+        self._pmin = _INF                    # min arrival over pending
+        self._qn = 0                         # total queued entries
+        self._qmin = _INF                    # min arrival over queued
+        self._heap: List[Tuple[float, int]] = []   # (finish_s, slot)
+        self._reps: List[_Rep] = []          # insertion order
+        self._live: List[_Rep] = []          # non-dead, insertion order
+        self._live_dirty = False
+        self._by_id: Dict[int, _Rep] = {}
+        self._obs: List[Tuple[float, int]] = []   # autoscaler batch
+        self._touched: Set[int] = set()      # slots enqueued at this point
+        self._due: Set[int] = set()          # slots with finishes due
+        # per-control-window LB state (the ready set is constant in a window)
+        self._ready_slots: List[int] = []
+        self._ready_reps: List[_Rep] = []
+        self._pos: Dict[int, int] = {}       # slot -> index in ready lists
+        self._loads: List[int] = []
+        self._ids: List[int] = []
+        self._cols: Dict[int, List[float]] = {}   # rcode -> rtt column
+
+        self.latencies: List[float] = []
+        self.failed = 0
+        self.completed = 0
+
+        if sim_config is None:
+            cfg_sim = SimConfig(itype=itype, control_interval_s=15.0)
+        else:
+            cfg_sim = dataclasses.replace(sim_config, itype=itype)
+        self.cluster = ClusterSimulator(
+            trace,
+            policy,
+            catalog=self.catalog,
+            autoscaler=autoscaler or ConstantTarget(4),
+            config=cfg_sim,
+            tick_hook=self._tick,
+        )
+        self.cluster.add_preempt_listener(self._on_dead)
+        self.cluster.add_terminate_listener(self._on_dead)
+        self._observe_batch = self.cluster.autoscaler.observe_batch
+        self._searchsorted = self._arr.searchsorted
+
+    # ------------------------------------------------------------------
+    # replica lifecycle
+    # ------------------------------------------------------------------
+    def _new_rep(self, inst: Instance) -> _Rep:
+        rtt = [
+            region_rtt_ms(creg, inst.region) / 1e3
+            for creg in self._client_regions
+        ]
+        rep = _Rep(inst, len(self._reps), rtt)
+        self._reps.append(rep)
+        self._live.append(rep)
+        self._by_id[inst.id] = rep
+        return rep
+
+    def _kill(self, rep: _Rep) -> None:
+        """Preemption/termination: in-flight then queued back to pending."""
+        if rep.dead:
+            return
+        rep.dead = True
+        self._live_dirty = True
+        arr = self._arr_l
+        pending = self._pending
+        pmin = self._pmin
+        for _, i in rep.running:
+            pending.append(i)
+            if arr[i] < pmin:
+                pmin = arr[i]
+        for i in rep.queue:
+            pending.append(i)
+            if arr[i] < pmin:
+                pmin = arr[i]
+        self._pmin = pmin
+        self._n_retried += len(rep.running) + len(rep.queue)
+        self._qn -= len(rep.queue)
+        rep.running = []
+        rep.queue = []
+        rep.qage = []
+        rep.qmin = _INF
+
+    def _on_dead(self, inst: Instance, now: float) -> None:
+        rep = self._by_id.get(inst.id)
+        if rep is not None:
+            self._kill(rep)
+
+    def _sync(self) -> None:
+        """Reconcile the replica set with the cluster's active instances.
+
+        Instance state only changes at control ticks, so one reconciliation
+        per window is exact.  The window-constant LB state (ready order,
+        loads, rtt columns) is rebuilt here.
+        """
+        for inst in self.cluster.instances:
+            rep = self._by_id.get(inst.id)
+            if rep is None:
+                if inst.is_active():
+                    self._new_rep(inst)
+            elif not inst.is_active():
+                self._kill(rep)
+        if self._live_dirty:
+            self._live = [r for r in self._live if not r.dead]
+            self._live_dirty = False
+        ready = [r for r in self._live if r.inst.is_ready()]
+        self._ready_reps = ready
+        self._ready_slots = [r.slot for r in ready]
+        self._pos = {r.slot: j for j, r in enumerate(ready)}
+        self._loads = [r.load for r in ready]
+        self._ids = [r.rid for r in ready]
+        self._cols = {}
+
+    # ------------------------------------------------------------------
+    # sub-step loop
+    # ------------------------------------------------------------------
+    def _active(self, t: float) -> bool:
+        """Could anything at all happen at grid point ``t``?
+
+        Conservative: a false positive costs one no-op pass, never
+        correctness.
+        """
+        if self._ptr < self._n and self._arr_l[self._ptr] <= t:
+            return True
+        if self._heap and self._heap[0][0] <= t:
+            return True
+        if self._pending:
+            if self._ready_slots:
+                return True
+            if t - self._pmin > self.timeout_s:
+                return True
+        if self._qn and t - self._qmin > self.timeout_s:
+            return True
+        return False
+
+    def _tick(self, now: float, cluster: ClusterSimulator) -> None:
+        self._sync()
+        dt = cluster.config.control_interval_s
+        t = now
+        end = now + dt
+        # the per-window float accumulation of every engine, so grid points,
+        # arrival batches and timeout instants match bit for bit
+        while t < end:
+            if self._active(t):
+                self._process(t)
+            t += self.sub_step_s
+        # flush arrival observations before the cluster reads target():
+        # equal to per-sub-step observe() calls (eviction is idempotent)
+        if self._obs:
+            self._observe_batch(self._obs)
+            self._obs.clear()
+
+    def _process(self, t: float) -> None:
+        # 1) arrivals
+        ptr = self._ptr
+        if ptr < self._n and self._arr_l[ptr] <= t:
+            new_ptr = int(self._searchsorted(t, side="right"))
+            self._pending.extend(range(ptr, new_ptr))
+            m = self._arr_l[ptr]
+            if m < self._pmin:
+                self._pmin = m
+            self._ptr = new_ptr
+            self._obs.append((t, new_ptr - ptr))
+        # 2) slots with completions due, from the finish-time heap.  Found
+        #    BEFORE dispatch so the dispatch fast path knows which replicas
+        #    may not start work until their completions are processed.
+        due = self._due
+        due.clear()
+        heap = self._heap
+        reps = self._reps
+        while heap and heap[0][0] <= t:
+            _, s = heapq.heappop(heap)
+            if not reps[s].dead:
+                due.add(s)
+        # 3) dispatch (fills self._touched with slots that got new queued
+        #    work; a replica with free capacity, an empty queue and no due
+        #    completion starts the request at once, which equals
+        #    queue-then-start within the same sub-step)
+        touched = self._touched
+        touched.clear()
+        if self._pending:
+            self._dispatch(t, due)
+        # 4) step the affected replicas.  Untouched slots cannot change,
+        #    except by queue expiry, which is wall-clock driven and handled
+        #    by the guarded full pass (per-replica qmin bounds skip replicas
+        #    that cannot hold an expired entry).
+        if self._qn and self.timeout_s > 0 \
+                and t - self._qmin > self.timeout_s:
+            self._step(t, self._ready_slots, due, expire=True)
+            qmin_g = _INF
+            for r in self._ready_reps:
+                if r.qmin < qmin_g:
+                    qmin_g = r.qmin
+            self._qmin = qmin_g
+        elif due:
+            slots = sorted(due | touched) if touched else sorted(due)
+            self._step(t, slots, due, expire=False)
+        elif touched:
+            self._step(t, sorted(touched), due, expire=False)
+        if self._qn == 0:
+            self._qmin = _INF
+
+    # ------------------------------------------------------------------
+    def _expire_pending(self, t: float) -> None:
+        """No ready replica: age out pending requests past their timeout."""
+        pending = self._pending
+        arr = self._arr_l
+        timeout = self.timeout_s
+        if len(pending) >= _VEC_MIN:
+            arr_v = self._arr
+            pa = np.fromiter(pending, dtype=np.int64, count=len(pending))
+            keep = (t - arr_v[pa]) <= timeout
+            n_keep = int(keep.sum())
+            if n_keep != len(pending):
+                self.failed += len(pending) - n_keep
+                pa = pa[keep]
+                self._pending = pa.tolist()
+                self._pmin = float(arr_v[pa].min()) if n_keep else _INF
+            return
+        kept: List[int] = []
+        pmin = _INF
+        for i in pending:
+            if t - arr[i] > timeout:
+                self.failed += 1
+            else:
+                kept.append(i)
+                if arr[i] < pmin:
+                    pmin = arr[i]
+        self._pending = kept
+        self._pmin = pmin
+
+    def _dispatch(self, t: float, due: Set[int]) -> None:
+        ready = self._ready_slots
+        if not ready:
+            self._expire_pending(t)
+            return
+        pending = self._pending
+        arr = self._arr_l
+        timeout = self.timeout_s
+        reps = self._reps
+        touched = self._touched
+        svc = self._svc_l
+        rcode = self._rcode_l
+        heap = self._heap
+        conc = self.concurrency
+        loads = self._loads
+        nready = len(ready)
+        qn = 0
+        qmin = self._qmin
+        # pmin bounds every pending arrival from below, so when even the
+        # oldest request is within the timeout the per-request check is
+        # skipped
+        check_to = t - self._pmin > timeout
+        rr = self._lb_kind == "rr"
+        if rr:
+            cur = self._rr_cursor
+        else:
+            # least-loaded waterfill: assign each request in turn to the
+            # argmin of (load, rtt, id)
+            ready_reps = self._ready_reps
+            ids = self._ids
+            cols = self._cols
+            rng = range(1, nready)
+        for i in pending:
+            if check_to and t - arr[i] > timeout:
+                self.failed += 1
+                continue
+            rc = rcode[i]
+            if rr:
+                best = cur % nready
+                cur += 1
+                rep = reps[ready[best]]
+            else:
+                col = cols.get(rc)
+                if col is None:
+                    col = cols[rc] = [r.rtt[rc] for r in ready_reps]
+                best, bl, br, bi = 0, loads[0], col[0], ids[0]
+                for j in rng:
+                    lj = loads[j]
+                    if lj > bl:
+                        continue
+                    if lj < bl or col[j] < br or (
+                        col[j] == br and ids[j] < bi
+                    ):
+                        best, bl, br, bi = j, lj, col[j], ids[j]
+                rep = ready_reps[best]
+            # round-robin routing ignores loads, but _step's bookkeeping
+            # decrements them, so both balancers keep the counts honest
+            loads[best] += 1
+            s = rep.slot
+            run = rep.running
+            if not rep.queue and len(run) < conc and s not in due:
+                # immediate start == queue-then-start this sub-step
+                finish = t + svc[i] * (1.0 + 0.15 * len(run))
+                run.append((finish, i))
+                heapq.heappush(heap, (finish, s))
+                continue
+            a = arr[i] - rep.rtt[rc]
+            rep.queue.append(i)
+            rep.qage.append(a)
+            touched.add(s)
+            qn += 1
+            if a < qmin:
+                qmin = a
+            if a < rep.qmin:
+                rep.qmin = a
+        if rr:
+            self._rr_cursor = cur
+        self._qn += qn
+        self._qmin = qmin
+        # with ready replicas, every non-expired request was routed
+        self._pending = []
+        self._pmin = _INF
+
+    # ------------------------------------------------------------------
+    def _step(self, t: float, slots: Sequence[int], due: Set[int],
+              expire: bool) -> None:
+        arr = self._arr_l
+        svc = self._svc_l
+        rcode = self._rcode_l
+        timeout = self.timeout_s
+        conc = self.concurrency
+        heap = self._heap
+        reps = self._reps
+        loads = self._loads
+        pos = self._pos
+        for s in slots:
+            rep = reps[s]
+            run = rep.running
+            # completions (in start order)
+            if s in due:
+                still: List[Tuple[float, int]] = []
+                n_done = 0
+                for f, i in run:
+                    if f <= t:
+                        e2e = (f - arr[i]) + rep.rtt[rcode[i]]
+                        if e2e <= timeout:
+                            self.latencies.append(e2e)
+                            self.completed += 1
+                        else:
+                            self.failed += 1
+                        n_done += 1
+                    else:
+                        still.append((f, i))
+                rep.running = run = still
+                loads[pos[s]] -= n_done
+            # queue expiry (client hung up past its timeout).  Expired
+            # entries are almost always a FIFO prefix, so pop from the
+            # front; the post-pop min detects the rare mid-queue stragglers
+            # (retried requests carry their original arrival time).
+            q = rep.queue
+            if expire and q and t - rep.qmin > timeout:
+                ages = rep.qage
+                nq = len(q)
+                k = 0
+                while k < nq and t - ages[k] > timeout:
+                    k += 1
+                if k:
+                    del q[:k]
+                    del ages[:k]
+                    self.failed += k
+                    self._qn -= k
+                    loads[pos[s]] -= k
+                if ages:
+                    qmin = min(ages)
+                    if t - qmin > timeout:
+                        kept: List[int] = []
+                        kept_a: List[float] = []
+                        for i, a in zip(q, ages):
+                            if t - a <= timeout:
+                                kept.append(i)
+                                kept_a.append(a)
+                        n_exp = len(q) - len(kept)
+                        rep.queue = q = kept
+                        rep.qage = ages = kept_a
+                        self.failed += n_exp
+                        self._qn -= n_exp
+                        loads[pos[s]] -= n_exp
+                        qmin = min(ages) if ages else _INF
+                    rep.qmin = qmin
+                else:
+                    rep.qmin = _INF
+            # starts: pull queued work into free slots
+            if q and len(run) < conc:
+                j = 0
+                nq = len(q)
+                while j < nq and len(run) < conc:
+                    i = q[j]
+                    j += 1
+                    finish = t + svc[i] * (1.0 + 0.15 * len(run))
+                    run.append((finish, i))
+                    heapq.heappush(heap, (finish, s))
+                del q[:j]
+                del rep.qage[:j]
+                self._qn -= j
+
+    # ------------------------------------------------------------------
+    def run(self, duration_s: Optional[float] = None) -> ServingResult:
+        base = self.cluster.run(duration_s)
+        # drain: anything still pending/in-flight past the horizon fails
+        self.failed += len(self._pending)
+        for rep in self._reps:
+            self.failed += rep.load
+        return ServingResult(
+            policy=self.cluster.policy.name,
+            trace=self.cluster.trace.name,
+            workload=self.workload_name,
+            n_requests=self._ptr,
+            n_completed=self.completed,
+            n_failed=self.failed,
+            latencies_s=np.asarray(self.latencies),
+            total_cost=base.total_cost,
+            spot_cost=base.spot_cost,
+            od_cost=base.od_cost,
+            cost_vs_ondemand=base.cost_vs_ondemand,
+            availability=base.availability,
+            n_preemptions=base.n_preemptions,
+            n_launch_failures=base.n_launch_failures,
+            n_retried_requests=self._n_retried,
+        )

@@ -7,7 +7,9 @@
 
 Prefill is compute-bound, decode is bound by the weights read per token.
 The constants are the reference's (MFU 0.45, MBU 0.70, 0.05 s overhead),
-so a request's service time here is the reference's to the bit.  The
+so a request's service time here is the reference's to the bit, and so is
+the concurrency a replica's leftover HBM holds (``max_concurrency``), the
+serving engine's default.  The
 profiled variant (efficiencies measured by ``repro_torch.profiles``) is not
 ported yet.
 """
@@ -79,3 +81,32 @@ class LatencyModel:
             + self.prefill_s(prompt_tokens)
             + output_tokens * self.decode_s_per_token()
         )
+
+    def kv_bytes_per_token(self) -> float:
+        """K+V bf16 bytes one cached token occupies (0: no KV cache)."""
+        cfg = self.cfg
+        if cfg.num_kv_heads and cfg.resolved_head_dim:
+            return float(
+                2 * cfg.num_layers * cfg.num_kv_heads
+                * cfg.resolved_head_dim * 2
+            )
+        return 0.0
+
+    def free_kv_hbm_bytes(self) -> float:
+        """HBM left for KV cache: 90% usable minus bf16 weights, floored
+        at 5%."""
+        hbm = (
+            self.itype.accel_count * self.itype.hbm_gib_per_accel * 2**30
+        )
+        weights = 2.0 * self.n_params
+        return max(hbm * 0.9 - weights, hbm * 0.05)
+
+    def max_concurrency(self, max_ctx: int = 4096) -> int:
+        """Requests servable concurrently from leftover HBM (KV budget).
+        Attention-free archs are compute-limited instead (use 32)."""
+        cfg = self.cfg
+        kv_tok = self.kv_bytes_per_token()
+        if kv_tok:
+            slots = min(max_ctx, cfg.sliding_window or max_ctx)
+            return max(1, int(self.free_kv_hbm_bytes() / (kv_tok * slots)))
+        return 32

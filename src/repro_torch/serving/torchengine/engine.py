@@ -1,33 +1,165 @@
-"""Phase B over many cells: group, pad, launch, assemble.
+"""The two-phase scenario engine: phase A on the host, phase B on the card.
 
-Own copies of ``run_schedules``, ``assemble_result`` and ``_empty_result``
-from ``repro.serving.jaxengine.engine``.  Cells that share
+Own copies of ``JaxServingEngine``, ``run_cells``, ``run_schedules``,
+``assemble_result`` and ``_empty_result`` from
+``repro.serving.jaxengine.engine``.
+
+``TorchServingEngine`` is the port's ``VectorizedServingEngine`` (the
+NumPy oracle, ``repro_torch.serving.engine``) with its tick and kill hooks
+overridden: its ``record_schedule`` runs the real control plane once
+(phase A: cluster simulator, policy, autoscaler; exact costs, preemptions,
+launch failures and draws by construction) and records what the data plane
+needs as a ``CellSchedule``.
+
+``run_schedules`` is phase B over many cells.  Cells that share
 ``(grid.signature, concurrency, lb_kind, timeout_s > 0, trace_on)`` form
 one shape group, are padded to the group's largest tape, slot count, kill
 count and region count (a padded arrival is +inf and never arrives, a
 padded slot is never ready, a padded kill event lies past the horizon) and
 run as one launch of ``scenario_scan``.  A lane whose queue pool
-overflowed comes back as ``None``: the reference reruns it on its NumPy
-oracle, which the port does not have, so the caller sees ``None``.
+overflowed comes back as ``None``.
+
+``run_cells`` runs a matrix end to end: phase A per cell, one
+``run_schedules`` call, and every lane that came back ``None`` rerun on
+the oracle from the cell's pristine control-plane state, as the reference
+does, so the pool size never changes a result.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.serving.engine import VectorizedServingEngine, _Rep
 from repro_torch.serving.result import ServingResult
 from repro_torch.serving.torchengine.kernel import KernelKey, run_group
-from repro_torch.serving.torchengine.schedule import CellSchedule
+from repro_torch.serving.torchengine.schedule import (
+    BaseMetrics,
+    CellSchedule,
+    ScheduleRecorder,
+    build_grid,
+)
 
-__all__ = ["DEFAULT_QUEUE_CAPACITY", "assemble_result", "group_key", "pack_group",
-           "run_schedules"]
+__all__ = ["DEFAULT_QUEUE_CAPACITY", "TorchServingEngine", "assemble_result",
+           "group_key", "pack_group", "run_cells", "run_schedules"]
 
-#: per-replica queue pool size (static shape); overflow => None
+#: per-replica queue pool size (static shape); overflow => oracle rerun
 DEFAULT_QUEUE_CAPACITY = 256
+
+
+class TorchServingEngine(VectorizedServingEngine):
+    """The two-phase engine behind the ``VectorizedServingEngine`` API.
+
+    ``trace_on`` asks phase B to carry span timelines (dispatch, start,
+    finish and slot of every resolved request); the reference sets it when
+    its observability recorder samples request spans."""
+
+    def __init__(self, trace, policy, requests, cfg, *, trace_on: bool = False,
+                 **kw) -> None:
+        # pristine control-plane state for the overflow fallback (phase A
+        # consumes the policy's and the autoscaler's state)
+        self._pristine = {
+            "trace": trace,
+            "policy": copy.deepcopy(policy),
+            "requests": requests,
+            "cfg": cfg,
+            "kw": {k: (copy.deepcopy(v) if k == "autoscaler" else v)
+                   for k, v in kw.items()},
+        }
+        super().__init__(trace, policy, requests, cfg, **kw)
+        self.trace_on = bool(trace_on)
+        self._rec: Optional[ScheduleRecorder] = None
+        self.schedule: Optional[CellSchedule] = None
+        #: set by ``run_cells`` when the lane overflowed and the oracle ran
+        self.fell_back = False
+
+    # -- phase-A hooks ------------------------------------------------
+    def _tick(self, now, cluster) -> None:
+        rec = self._rec
+        if rec is None:
+            super()._tick(now, cluster)
+            return
+        self._sync()
+        k = rec.record_tick(self._ready_slots)
+        obs = rec.obs_for(k)
+        if obs:
+            self._observe_batch(list(obs))
+
+    def _kill(self, rep: _Rep) -> None:
+        rec = self._rec
+        if rec is None:
+            super()._kill(rep)
+            return
+        if rep.dead:
+            return
+        rep.dead = True
+        self._live_dirty = True
+        rec.record_kill(rep.slot)
+
+    # -- phase A ------------------------------------------------------
+    def record_schedule(self, duration_s: Optional[float] = None
+                        ) -> CellSchedule:
+        """Run the control plane once; return the phase-B payload (with
+        span timelines if the engine's ``trace_on`` is set and the tape is
+        not empty).  Consumes this engine (the cluster has run); callable
+        once."""
+        if self._rec is not None or self.schedule is not None:
+            raise RuntimeError("record_schedule runs once per engine")
+        dt = self.cluster.config.control_interval_s
+        dur = float(duration_s or self.cluster.trace.duration_s)
+        grid = build_grid(dur, dt, self.sub_step_s)
+        self._rec = ScheduleRecorder(grid, self._arr)
+        base = self.cluster.run(duration_s)
+        ready, rtt, kill_slot, kill_g, post = self._rec.control_arrays(
+            len(self._reps),
+            [r.rtt for r in self._reps],
+            len(self._client_regions),
+        )
+        self._rec = None
+        self.schedule = CellSchedule(
+            policy_name=self.cluster.policy.name,
+            trace_name=self.cluster.trace.name,
+            workload_name=self.workload_name,
+            arr=self._arr,
+            svc=self._svc,
+            rcode=self._rcode,
+            n_regions=max(len(self._client_regions), 1),
+            timeout_s=self.timeout_s,
+            concurrency=self.concurrency,
+            lb_kind=self._lb_kind,
+            grid=grid,
+            ready_mask=ready,
+            rtt=rtt,
+            kill_slot=kill_slot,
+            kill_g=kill_g,
+            post_slots=post,
+            base=BaseMetrics(**{f.name: getattr(base, f.name)
+                                for f in dataclasses.fields(BaseMetrics)}),
+            n_slots=len(self._reps),
+            trace_on=self.trace_on and self._n > 0,
+        )
+        return self.schedule
+
+    def _fallback_run(self, duration_s: Optional[float]) -> ServingResult:
+        """Oracle rerun from pristine control-plane state (overflow)."""
+        p = self._pristine
+        kw = {k: (copy.deepcopy(v) if k == "autoscaler" else v)
+              for k, v in p["kw"].items()}
+        eng = VectorizedServingEngine(
+            p["trace"], copy.deepcopy(p["policy"]), p["requests"], p["cfg"],
+            **kw,
+        )
+        return eng.run(duration_s)
+
+    # -- public API ---------------------------------------------------
+    def run(self, duration_s: Optional[float] = None, *,
+            device: Union[str, torch.device, None] = None) -> ServingResult:
+        return run_cells([self], [duration_s], device=device)[0]
 
 
 def _result(sched: CellSchedule, **counts) -> ServingResult:
@@ -169,4 +301,33 @@ def run_schedules(
             results[i] = assemble_result(cells[li], lane_out)
             if outputs is not None:
                 outputs[i] = lane_out
+    return results
+
+
+def run_cells(
+    engines: Sequence[TorchServingEngine],
+    durations: Optional[Sequence[Optional[float]]] = None,
+    *,
+    queue_capacity: int = DEFAULT_QUEUE_CAPACITY,
+    outputs: Optional[List[Optional[dict]]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> List[ServingResult]:
+    """Run a batch of cells end to end: phase A per cell on the host (a
+    cell whose schedule is already recorded keeps it), one
+    ``run_schedules`` call (one launch per shape group, on CUDA unless
+    ``device="cpu"``), and an oracle rerun for every lane whose queue pool
+    overflowed (its engine's ``fell_back`` is set).  Results align with
+    ``engines``; ``outputs`` receives each lane's raw outputs as in
+    ``run_schedules`` (``None`` for the rerun lanes)."""
+    if durations is None:
+        durations = [None] * len(engines)
+    scheds = [eng.schedule if eng.schedule is not None
+              else eng.record_schedule(dur)
+              for eng, dur in zip(engines, durations)]
+    results = run_schedules(scheds, queue_capacity=queue_capacity,
+                            outputs=outputs, device=device)
+    for i, res in enumerate(results):
+        if res is None:     # queue pool overflow -> oracle rerun
+            engines[i].fell_back = True
+            results[i] = engines[i]._fallback_run(durations[i])
     return results

@@ -1,8 +1,9 @@
-"""The reference benchmark's scenario matrix, rebuilt from a committed
-recording.
+"""The reference benchmark's scenario matrix: its spec, and a recording of
+the reference's control planes and oracle results that holds the port's
+own to account.
 
-``recorded_matrix.json`` beside this file holds what the port cannot make
-itself yet, recorded from the reference (``repro``) on the CPU:
+``recorded_matrix.json`` beside this file was recorded from the reference
+(``repro``) on the CPU:
 
 * ``spec``: the scenario spec of ``benchmarks/jax_engine.py``
   (``_spec(48, 1.0)``): llama3.2-1b on g5.48xlarge, spot trace ``aws-1``,
@@ -19,16 +20,22 @@ itself yet, recorded from the reference (``repro``) on the CPU:
   (``VectorizedServingEngine``): counts, latency percentiles and mean,
   costs and availability.
 
-``recorded_matrix`` rebuilds the cells' ``CellSchedule``s from it and the
-port's own copies of the traffic generator and the latency model: each
-seed's Poisson tape is the reference's to the bit.  The recording is made
-and checked against the reference by ``tests/test_torch_scenario.py``
+The main path builds the matrix from the spec alone: ``spec_matrix``
+expands the sweep and builds every cell's ``TorchServingEngine`` through
+the port's own builder, and ``run_cells`` runs the port's own phase A.
+The recording is the witness it is held against: ``recorded_planes`` are
+the reference's planes (``plane_of`` puts a port schedule in their form)
+and ``recorded_cells`` the reference oracle's results.  ``recorded_matrix``
+still rebuilds the cells' ``CellSchedule``s from the recorded planes and
+the port's own tapes, for the tests.  The recording is made and checked
+against the reference by ``tests/test_torch_scenario.py``
 (``build_recording``; ``python tests/test_torch_scenario.py --write``
 writes it anew).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -37,6 +44,7 @@ import numpy as np
 
 from repro_torch.cluster.catalog import instance_type
 from repro_torch.configs import get_config
+from repro_torch.experiments.suite import Cell, build_cells
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.torchengine.schedule import (
     BaseMetrics,
@@ -47,7 +55,8 @@ from repro_torch.serving.torchengine.schedule import (
 )
 from repro_torch.workloads.arrivals import make_workload
 
-__all__ = ["RECORDING", "load_recording", "recorded_cells", "recorded_matrix"]
+__all__ = ["RECORDING", "load_recording", "plane_of", "recorded_cells",
+           "recorded_matrix", "recorded_planes", "spec_matrix"]
 
 RECORDING = Path(__file__).resolve().with_name("recorded_matrix.json")
 
@@ -121,3 +130,39 @@ def recorded_matrix(n_seeds: int = 48) -> List[CellSchedule]:
     }
     return [_plane_schedule(rec["planes"][p], grid, tapes[s])
             for p in spec["sweep"]["policies"] for s in seeds]
+
+
+def recorded_planes() -> Dict[str, Dict]:
+    """The reference's control plane of each policy, by policy name."""
+    return load_recording()["planes"]
+
+
+def plane_of(s: CellSchedule) -> Dict:
+    """A schedule's control plane in the recording's form (JSON types)."""
+    return {
+        "policy_name": s.policy_name,
+        "trace_name": s.trace_name,
+        "workload_name": s.workload_name,
+        "timeout_s": float(s.timeout_s),
+        "concurrency": int(s.concurrency),
+        "lb_kind": s.lb_kind,
+        "trace_on": bool(s.trace_on),
+        "n_slots": int(s.n_slots),
+        "n_regions": int(s.n_regions),
+        "ready_rows": [np.flatnonzero(row).tolist() for row in s.ready_mask],
+        "rtt": s.rtt.tolist(),
+        "kill_slot": s.kill_slot.tolist(),
+        "kill_g": s.kill_g.tolist(),
+        "post_slots": s.post_slots.tolist(),
+        "base": {f.name: (int if f.type == "int" else float)(
+            getattr(s.base, f.name)) for f in dataclasses.fields(BaseMetrics)},
+    }
+
+
+def spec_matrix(n_seeds: int = 48) -> List[Cell]:
+    """The matrix's cells for the first ``n_seeds`` seeds of the recorded
+    spec (96 at 48, the quick matrix's 8 at 4), policy by policy, built by
+    the port's own builder from the spec alone; ``run_cells`` runs them."""
+    spec = load_recording()["spec"]
+    sweep = dict(spec["sweep"], seeds=spec["sweep"]["seeds"][:n_seeds])
+    return build_cells(dict(spec, sweep=sweep))

@@ -1,16 +1,27 @@
 """The scenario engine's phase-B input: the sub-step grid, one cell's
 schedule, and the request tape as arrays.
 
-Own copies of ``SubStepGrid``, ``build_grid`` and ``CellSchedule`` from
-``repro.serving.jaxengine.schedule``.  A ``CellSchedule`` is what the
-control plane (phase A: cluster simulator, policy, autoscaler) leaves for
-the data plane: the request tape, the serving knobs, the ready roster of
-every control window, each replica slot's RTT row and the kill events.  The
-port does not run the control plane yet; it takes schedules recorded by
-the reference (``repro_torch.convert.schedule_from_arrays``, or the
-committed recording of ``recorded.py``), as a model takes its weights.
-The reference's ``base: SimResult`` becomes ``BaseMetrics``, the few
-control-plane numbers a serving result carries.
+Own copies of ``SubStepGrid``, ``build_grid``, ``CellSchedule`` and
+``ScheduleRecorder`` from ``repro.serving.jaxengine.schedule``.  A
+``CellSchedule`` is what the control plane (phase A: cluster simulator,
+policy, autoscaler) leaves for the data plane: the request tape, the
+serving knobs, the ready roster of every control window, each replica
+slot's RTT row and the kill events.  ``ScheduleRecorder`` collects them
+while the port's phase A runs (``engine.TorchServingEngine``); a schedule
+the reference recorded comes over through
+``repro_torch.convert.schedule_from_arrays``.  The reference's
+``base: SimResult`` becomes ``BaseMetrics``, the few control-plane numbers
+a serving result carries.
+
+The control plane never observes the data plane (the autoscaler sees only
+arrival batches, a function of the tape and the grid), which is what lets
+phase A run once on the host and record everything phase B needs:
+
+* per control window, the roster of ready replica slots;
+* per slot, its RTT row (client-region code -> seconds);
+* kill events as ``(window, slot)`` in order: a preemption at tick ``k``
+  lands before the tick hook (window ``k``), a policy termination after it
+  (window ``k + 1``), so phase B re-pends work at the oracle's instant.
 """
 
 from __future__ import annotations
@@ -23,8 +34,8 @@ import numpy as np
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.workloads.arrivals import Request
 
-__all__ = ["BaseMetrics", "CellSchedule", "SubStepGrid", "build_grid",
-           "tape_arrays"]
+__all__ = ["BaseMetrics", "CellSchedule", "ScheduleRecorder", "SubStepGrid",
+           "build_grid", "tape_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +136,72 @@ class CellSchedule:
     @property
     def n_events(self) -> int:
         return int(self.kill_slot.shape[0])
+
+
+class ScheduleRecorder:
+    """Recording state driven by ``TorchServingEngine``'s tick/kill hooks."""
+
+    def __init__(self, grid: SubStepGrid, arr: np.ndarray) -> None:
+        self.grid = grid
+        # arrival observations per window: the oracle appends one
+        # ``(t, n_new)`` per sub-step that consumed new arrivals
+        ends = np.searchsorted(arr, grid.ts, side="right")
+        counts = np.diff(ends, prepend=0)
+        self._obs_by_win: List[List[Tuple[float, int]]] = [
+            [] for _ in range(grid.ticks)
+        ]
+        for j in np.flatnonzero(counts):
+            self._obs_by_win[int(grid.win_of[j])].append(
+                (float(grid.ts[j]), int(counts[j]))
+            )
+        self.ready_rows: List[List[int]] = []
+        self.kills: List[Tuple[int, int]] = []   # (window, slot), in order
+        self.win = 0          # next window index
+        self.kill_win = 0     # window a kill occurring *now* belongs to
+
+    def obs_for(self, k: int) -> Sequence[Tuple[float, int]]:
+        return self._obs_by_win[k]
+
+    def record_tick(self, ready_slots: Sequence[int]) -> int:
+        """Called from the tick hook *after* sync; returns this window."""
+        k = self.win
+        self.win = k + 1
+        self.ready_rows.append(list(ready_slots))
+        # anything dying between this hook and the next (policy
+        # terminations of this tick, preemptions of the next) is
+        # processed by the data plane at the start of window k+1
+        self.kill_win = k + 1
+        return k
+
+    def record_kill(self, slot: int) -> None:
+        self.kills.append((self.kill_win, slot))
+
+    def control_arrays(
+        self, n_slots: int, rtt_rows: Sequence[Sequence[float]],
+        n_regions: int,
+    ):
+        """Densify the recording into phase-B arrays: ``(ready_mask, rtt,
+        kill_slot, kill_g, post_slots)``."""
+        g = self.grid
+        ready = np.zeros((max(g.ticks, 1), max(n_slots, 1)), dtype=bool)
+        for k, row in enumerate(self.ready_rows):
+            for s in row:
+                ready[k, s] = True
+        rtt = np.zeros((max(n_slots, 1), max(n_regions, 1)))
+        for s, row in enumerate(rtt_rows):
+            rtt[s, : len(row)] = row
+        kill_slot = np.asarray([s for _, s in self.kills], dtype=np.int64)
+        kill_g = np.asarray(
+            [
+                int(g.win_first[w]) if w < g.ticks else g.n_points
+                for w, _ in self.kills
+            ],
+            dtype=np.int64,
+        )
+        post = np.asarray(
+            [s for w, s in self.kills if w >= g.ticks], dtype=np.int64
+        )
+        return ready, rtt, kill_slot, kill_g, post
 
 
 def tape_arrays(

@@ -133,8 +133,9 @@ def test_h100_instance_type_carries_the_published_peaks():
     assert _names(InstanceType) == _names(JInstanceType)
     with pytest.raises(ValueError, match="hbm_bytes_per_s"):
         InstanceType("x", "gcp", "H9000", 1, 1.0, 0.3)
+    # an instance type the port does not declare names the ones it has
     with pytest.raises(KeyError, match="h100"):
-        instance_type("v5e-8")
+        instance_type("v9x-1024")
 
 
 # ---------------------------------------------------------------------------

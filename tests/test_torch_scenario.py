@@ -5,7 +5,9 @@ Each regime runs one scenario through the reference's NumPy oracle
 control plane records the cell's schedule (``JaxServingEngine.
 record_schedule``, phase A), ``repro_torch.convert.schedule_from_arrays``
 carries it over, and the port's ``run_schedules(device="cpu")`` replays the
-data plane through the plain version of the ``scenario_scan`` kernel.  The
+data plane through the plain version of the ``scenario_scan`` kernel.  A
+regime whose lane overflows the default queue pool runs through the port's
+own ``run_cells`` instead, which reruns the lane on the port's oracle.  The
 assertions are those of ``tests/test_jax_engine.py``: exact counts, cost to
 1e-9, availability to 1e-12, sorted latencies to 1e-6.
 
@@ -49,8 +51,11 @@ from repro.serving.latency import LatencyModel as JLatencyModel  # noqa: E402
 from repro.serving.load_balancer import RoundRobinBalancer  # noqa: E402
 from repro.workloads import make_workload as j_make_workload  # noqa: E402
 from repro_torch.cluster.catalog import G5_48XLARGE  # noqa: E402
+from repro_torch.cluster.traces import synth_correlated_trace as t_synth_trace  # noqa: E402
 from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.convert import schedule_from_arrays  # noqa: E402
+from repro_torch.core import autoscaler as tauto  # noqa: E402
+from repro_torch.core.policy import make_policy as t_make_policy  # noqa: E402
 from repro_torch.serving.latency import LatencyModel as TLatencyModel  # noqa: E402
 from repro_torch.serving.torchengine import engine as teng  # noqa: E402
 from repro_torch.serving.torchengine import recorded  # noqa: E402
@@ -60,6 +65,7 @@ from repro_torch.serving.torchengine.schedule import (  # noqa: E402
     tape_arrays,
 )
 from repro_torch.workloads import make_workload as t_make_workload  # noqa: E402
+from repro_torch.workloads.arrivals import Request as TRequest  # noqa: E402
 
 CFG = j_config("llama3.2-1b")
 
@@ -69,11 +75,11 @@ CFG = j_config("llama3.2-1b")
 # ---------------------------------------------------------------------------
 
 
-def _mini_trace(steps, seed):
+def _mini_trace(steps, seed, synth=synth_correlated_trace):
     zones = ["us-west-2a", "us-west-2b", "us-east-2a"]
     zmap = {z: z[:-1] for z in zones}
-    return synth_correlated_trace(zones, zmap, steps=steps, dt=60.0,
-                                  seed=seed, max_capacity=4, name="mini")
+    return synth(zones, zmap, steps=steps, dt=60.0, seed=seed,
+                 max_capacity=4, name="mini")
 
 
 def _port_schedule(sched):
@@ -109,6 +115,36 @@ def _cell(policy, workload, *, hours=1.0, seed=3, rate=0.8, autoscaler=None,
     return oracle, _port_schedule(engines[1].record_schedule(duration))
 
 
+def _port_cell(policy, workload, *, hours=1.0, seed=3, rate=0.8,
+               autoscaler=None, lb_cls=None, timeout_s=60.0, concurrency=2,
+               client_regions=None):
+    """(oracle result, the port's own engine, duration) of one scenario:
+    the port builds the same trace, policy and autoscaler itself, and the
+    reference's requests are carried over as the port's."""
+    rate_key = "rate_per_s" if workload == "poisson" else "base_rate_per_s"
+    wargs = {rate_key: rate, "seed": seed}
+    if client_regions is not None:
+        wargs["client_regions"] = client_regions
+    reqs = j_make_workload(workload, **wargs).generate(hours * 3600.0)
+    steps = int(hours * 60) + 60
+    kwargs = dict(itype="g5.48xlarge", timeout_s=timeout_s,
+                  concurrency=concurrency, workload_name=workload)
+    oracle = VectorizedServingEngine(
+        _mini_trace(steps, seed), make_policy(policy), reqs, CFG,
+        autoscaler=autoscaler() if autoscaler else ConstantTarget(3),
+        **({"lb": lb_cls()} if lb_cls is not None else {}), **kwargs)
+    port = teng.TorchServingEngine(
+        _mini_trace(steps, seed, t_synth_trace), t_make_policy(policy),
+        [TRequest(r.arrival_s, r.prompt_tokens, r.output_tokens, r.id,
+                  r.client_region) for r in reqs],
+        t_config("llama3.2-1b"),
+        autoscaler=(_load_autoscaler(tauto) if autoscaler
+                    else tauto.ConstantTarget(3)),
+        lb="rr" if lb_cls is RoundRobinBalancer else "ll", **kwargs)
+    duration = hours * 3600.0 + 600.0
+    return oracle.run(duration), port, duration
+
+
 def _assert_equivalent(vector, port):
     assert port.n_requests == vector.n_requests
     assert port.n_completed == vector.n_completed
@@ -125,17 +161,18 @@ def _assert_equivalent(vector, port):
         np.testing.assert_allclose(lat_p, lat_v, atol=1e-6, rtol=0)
 
 
-def _load_autoscaler():
-    return LoadAutoscaler(0.8, min_replicas=1, max_replicas=6,
-                          initial_target=2, upscale_delay_s=60.0,
-                          downscale_delay_s=300.0)
+def _load_autoscaler(mod=None):
+    cls = LoadAutoscaler if mod is None else mod.LoadAutoscaler
+    return cls(0.8, min_replicas=1, max_replicas=6, initial_target=2,
+               upscale_delay_s=60.0, downscale_delay_s=300.0)
 
 
 # ---------------------------------------------------------------------------
 # the data plane against the oracle, regime by regime
 # ---------------------------------------------------------------------------
 
-# (id, _cell arguments, queue capacity, what must show)
+# (id, _cell arguments, queue capacity (None: the default pool, through
+# run_cells), what must show)
 REGIMES = [
     # spot churn + preemption re-pends through the least-loaded balancer
     ("spothedge_poisson_ll", dict(policy="spothedge", workload="poisson"),
@@ -146,11 +183,11 @@ REGIMES = [
                                   lb_cls=RoundRobinBalancer), 256, "completed"),
     # autoscaler launches and terminations: kill events on both window
     # edges.  The diurnal spike queues more than 256 requests on one slot,
-    # so this lane takes a pool of 512 (at 256 it overflows, the case
-    # test_queue_overflow_returns_none covers)
+    # so the lane overflows the default pool and run_cells reruns it on the
+    # port's oracle
     ("aws_spot_maf_load_autoscaler",
      dict(policy="aws_spot", workload="maf", autoscaler=_load_autoscaler),
-     512, "completed"),
+     None, "completed"),
     # overload: deep queues, RTT-inclusive expiry, re-pended stragglers
     ("saturated_queues_and_expiry",
      dict(policy="spothedge", workload="poisson", rate=6.0, concurrency=1,
@@ -166,15 +203,21 @@ REGIMES = [
 @pytest.mark.parametrize("args,capacity,shows",
                          [r[1:] for r in REGIMES], ids=[r[0] for r in REGIMES])
 def test_data_plane_matches_oracle(args, capacity, shows):
-    oracle, sched = _cell(**args)
+    if capacity is None:
+        oracle, eng, duration = _port_cell(**args)
+        got = teng.run_cells([eng], [duration], device="cpu")
+        assert eng.fell_back                       # the lane overflowed
+    else:
+        oracle, sched = _cell(**args)
+        got = teng.run_schedules([sched], queue_capacity=capacity,
+                                 device="cpu")
     assert getattr(oracle, f"n_{shows}") > 0      # the regime must bite
-    got = teng.run_schedules([sched], queue_capacity=capacity, device="cpu")
     _assert_equivalent(oracle, got[0])
 
 
 def test_queue_overflow_returns_none():
-    """A pool too small for the queue: the lane comes back ``None`` (the
-    reference reruns it on its oracle; the port has none)."""
+    """A pool too small for the queue: ``run_schedules`` gives the lane back
+    as ``None`` (``run_cells`` reruns it on the oracle)."""
     _, sched = _cell("spothedge", "poisson", rate=6.0, concurrency=1,
                      timeout_s=30.0, hours=0.25)
     outs = []
@@ -300,27 +343,6 @@ def test_schedule_from_arrays_carries_every_field():
 # ---------------------------------------------------------------------------
 
 
-def _plane(s) -> dict:
-    return {
-        "policy_name": s.policy_name,
-        "trace_name": s.trace_name,
-        "workload_name": s.workload_name,
-        "timeout_s": float(s.timeout_s),
-        "concurrency": int(s.concurrency),
-        "lb_kind": s.lb_kind,
-        "trace_on": bool(s.trace_on),
-        "n_slots": int(s.n_slots),
-        "n_regions": int(s.n_regions),
-        "ready_rows": [np.flatnonzero(row).tolist() for row in s.ready_mask],
-        "rtt": s.rtt.tolist(),
-        "kill_slot": s.kill_slot.tolist(),
-        "kill_g": s.kill_g.tolist(),
-        "post_slots": s.post_slots.tolist(),
-        "base": {f.name: (int if f.type == "int" else float)(
-            getattr(s.base, f.name)) for f in dataclasses.fields(BaseMetrics)},
-    }
-
-
 def _result_record(r) -> dict:
     lat = r.latencies_s
     return {
@@ -368,7 +390,7 @@ def build_recording(oracle: bool = True) -> dict:
     planes, cells = {}, []
     grid = None
     for labels, sched in _reference_schedules():
-        plane = _plane(sched)
+        plane = recorded.plane_of(sched)
         pol = labels["policy"]
         if planes.setdefault(pol, plane) != plane:
             raise AssertionError(f"{pol}: seed {labels['seed']} has another "
