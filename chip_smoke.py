@@ -59,6 +59,25 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
    port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
    must lie in (0, 1.05];
+5b. drives SkyServe's front door (``phase_service``), each part with the
+   launch counts zeroed just before and read just after, phase B on the
+   card, and no lane overflowed into an oracle rerun in any part:
+   ``Service`` runs the golden specs of ``tests/test_golden.py``
+   (SpotHedge, even_spread, on-demand only) under ``sim.engine: jax``,
+   each equal to the golden constants (counts exact, abs 1e-6) in one
+   ``scenario_scan`` launch; the README's quickstart service (command-r-35b,
+   Arena at 2/s, 4 h; no ``sim.engine``, so ``Service``'s default) on the
+   card and on the host engine, equal (counts exact, cost 1e-9,
+   availability 1e-12, latencies 1e-6); a llama3.2-1b
+   service on the ``h100`` instance priced by the ``ProfiledLatencyModel``
+   of step 5's own row (no roofline fallback warning, the row's shares and
+   provenance checked), and the same tape priced by the roofline, each
+   equal to the host engine with no oracle rerun, their metrics printed
+   side by side; ``ScenarioSuite.run`` over ``examples/sweep.yaml``'s grid
+   with a workloads axis (12 cells, one launch per shape group), every cell
+   equal to the host engine's; and the serve CLI's ``--status`` and
+   ``--sweep`` in-process, exit 0.  Its ``scenario_scan`` launches are
+   printed by part, apart from the matrix's count on the kernels line;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -1383,26 +1402,43 @@ def float_diff(got: np.ndarray, want: np.ndarray) -> float:
     return float(diff.max(initial=0.0))
 
 
+#: a result's fields held against another's: counts exact, costs to 1e-9,
+#: availability to 1e-12, latency percentiles and mean to 1e-6
+RESULT_COUNTS = ("n_requests", "n_completed", "n_failed", "n_retried_requests",
+                 "n_preemptions", "n_launch_failures")
+RESULT_TOL = {"total_cost": 1e-9, "spot_cost": 1e-9, "od_cost": 1e-9,
+              "cost_vs_ondemand": 1e-9, "availability": 1e-12,
+              "p50_s": 1e-6, "p90_s": 1e-6, "p99_s": 1e-6, "mean_s": 1e-6}
+
+
+def result_fields(res) -> dict:
+    """The fields of a ``ServingResult`` that ``check_result`` compares."""
+    return {**{k: getattr(res, k) for k in RESULT_COUNTS},
+            **{k: getattr(res, k) for k in ("total_cost", "spot_cost",
+                                            "od_cost", "cost_vs_ondemand",
+                                            "availability")},
+            "mean_s": float(res.latencies_s.mean()),
+            **{f"p{q}_s": res.pct(q) for q in (50, 90, 99)}}
+
+
+def check_result(where: str, got: dict, want: dict) -> None:
+    """``got`` against ``want`` on ``want``'s keys, at ``RESULT_TOL`` (counts
+    exact); NaN equals NaN (no completions in both)."""
+    for k, w in want.items():
+        tol = RESULT_TOL.get(k, 0)
+        g = got[k]
+        if not (g == w or (w != w and g != g) or abs(g - w) <= tol):
+            raise AssertionError(f"{where}: {k} {g!r} vs {w!r} "
+                                 f"(tolerance {tol})")
+
+
 def check_recorded_result(res, cell) -> None:
     """One cell of the matrix against the reference oracle's recorded
-    result: counts exact, costs to 1e-9, availability to 1e-12, latency
-    percentiles and mean to 1e-6."""
-    want, where = cell["result"], f"{cell['policy']} seed {cell['seed']}"
+    result, at ``RESULT_TOL``."""
+    where = f"{cell['policy']} seed {cell['seed']}"
     if res is None:
         raise AssertionError(f"{where}: the lane overflowed")
-    for k in ("n_requests", "n_completed", "n_failed", "n_retried_requests",
-              "n_preemptions", "n_launch_failures"):
-        if getattr(res, k) != want[k]:
-            raise AssertionError(f"{where}: {k} {getattr(res, k)} != {want[k]}")
-    lat = {"p50_s": res.pct(50), "p90_s": res.pct(90), "p99_s": res.pct(99),
-           "mean_s": float(res.latencies_s.mean())}
-    for k, tol in (("total_cost", 1e-9), ("spot_cost", 1e-9), ("od_cost", 1e-9),
-                   ("cost_vs_ondemand", 1e-9), ("availability", 1e-12),
-                   *((k, 1e-6) for k in lat)):
-        got = lat[k] if k in lat else getattr(res, k)
-        if not abs(got - want[k]) <= tol:
-            raise AssertionError(f"{where}: {k} {got!r} vs recorded "
-                                 f"{want[k]!r} (tolerance {tol})")
+    check_result(f"{where} vs recorded", result_fields(res), cell["result"])
 
 
 def scenario_bytes(scheds, got: dict, key) -> float:
@@ -1681,6 +1717,304 @@ def phase_profiles() -> None:
                                      "outside (0, 1.05]")
 
 
+# ---------------------------------------------------------------------------
+# The front door: Service, ScenarioSuite and the serve CLI, phase B on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py's constants (aws-1 at 2 h, Poisson 0.5/s seed 17,
+# constant N_Tar=3, g5.48xlarge, concurrency 2, timeout 60 s), held to its
+# abs 1e-6 with counts exact; copied because this script imports no repro
+GOLDEN = {
+    "spothedge": dict(n_requests=3571, n_completed=3501, n_failed=70,
+                      n_preemptions=1, n_launch_failures=0,
+                      total_cost=50.733135, p50_s=0.703607, p99_s=1.692754,
+                      availability=0.972917),
+    "even_spread": dict(n_requests=3571, n_completed=3501, n_failed=70,
+                        n_preemptions=1, n_launch_failures=12,
+                        total_cost=28.109217, p50_s=0.703671, p99_s=1.692754,
+                        availability=0.920833),
+    "ondemand_only": dict(n_requests=3571, n_completed=3501, n_failed=70,
+                          n_preemptions=0, n_launch_failures=0,
+                          total_cost=92.910000, p50_s=0.703671,
+                          p99_s=1.692754, availability=0.972917),
+}
+
+
+def golden_spec(policy: str) -> dict:
+    return {
+        "name": f"golden-{policy}", "model": "llama3.2-1b", "trace": "aws-1",
+        "resources": {"instance_type": "g5.48xlarge"},
+        "replica_policy": {"name": policy},
+        "autoscaler": {"kind": "constant", "target": 3},
+        "workload": {"kind": "poisson", "rate_per_s": 0.5, "seed": 17},
+        "sim": {"duration_hours": 2.0, "timeout_s": 60.0, "concurrency": 2,
+                "drain_s": 300.0, "seed": 0, "engine": "jax"},
+    }
+
+
+# README.md's quickstart service: command-r-35b on g5.48xlarge, aws-3 in
+# three regions, SpotHedge with N_Extra 2, the load autoscaler, Arena at 2/s;
+# it names no sim.engine, so Service's default (phase B on the card) runs it
+QUICKSTART = {
+    "name": "chatbot", "model": "command-r-35b", "trace": "aws-3",
+    "resources": {"instance_type": "g5.48xlarge",
+                  "any_of": [{"region": "us-east-1"}, {"region": "us-east-2"},
+                             {"region": "us-west-2"}]},
+    "replica_policy": {"name": "spothedge", "overprovision": 2,
+                       "dynamic_fallback": True},
+    "autoscaler": {"kind": "load", "target": 4, "qps_per_replica": 0.8},
+    "workload": {"kind": "arena", "rate_per_s": 2.0},
+    "sim": {"duration_hours": 4.0},
+}
+
+# llama3.2-1b on the H100 instance, priced by this run's profile row: Arena
+# at 0.1 requests/s, about 0.2 of the profile-priced capacity of 3 replicas
+# at concurrency 4, so the queues stay inside the 256-cell pool
+H100_SERVICE = {
+    "name": "llama-h100", "model": "llama3.2-1b", "trace": "gcp-1",
+    "resources": {"instance_type": "h100",
+                  "any_of": [{"region": "us-central1"}, {"region": "us-west1"}]},
+    "replica_policy": {"name": "spothedge"},
+    "autoscaler": {"kind": "constant", "target": 3},
+    "workload": {"kind": "arena", "rate_per_s": 0.1, "seed": 11},
+    "latency": {"source": "profile", "profile": str(PROFILE_OUT)},
+    "sim": {"duration_hours": 2.0, "timeout_s": 100.0, "concurrency": 4,
+            "engine": "jax"},
+}
+
+# examples/sweep.yaml's grid (2 policies x aws-1 / gcp-1) with a workloads
+# axis: 12 cells
+SWEEP = {
+    "name": "sweep-demo", "model": "llama3.2-1b", "trace": "aws-1",
+    "resources": {"instance_type": "g5.48xlarge"},
+    "autoscaler": {"kind": "constant", "target": 3},
+    "workload": {"kind": "poisson", "rate_per_s": 0.6, "seed": 3},
+    "sim": {"duration_hours": 2.0, "timeout_s": 60.0, "concurrency": 2,
+            "drain_s": 300.0, "engine": "jax"},
+    "sweep": {"policies": ["spothedge", "even_spread"],
+              "traces": ["aws-1", "gcp-1"],
+              "workloads": ["poisson", "arena", "maf"]},
+}
+
+
+def counted(fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after: (its result, the counts, host wall seconds)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}, wall
+
+
+def check_scan_launches(where: str, launches: dict, n: int) -> None:
+    want = dict.fromkeys(launches, 0)
+    want["scenario_scan"] = n
+    if launches != want:
+        raise AssertionError(f"{where}: launches {launches} != {want}")
+
+
+def metrics_line(res) -> str:
+    return (f"p50/p90/p99 {res.pct(50):.6g}/{res.pct(90):.6g}/"
+            f"{res.pct(99):.6g} s, failure rate {res.failure_rate:.6g}, "
+            f"availability {res.availability:.6g}, cost vs on-demand "
+            f"{res.cost_vs_ondemand:.6g} (${res.total_cost:.6g})")
+
+
+def on_card(spec: dict, where: str):
+    """One service through ``Service`` with its defaults, so phase B on the
+    card, counted: one ``scenario_scan`` launch, and the lane must not have
+    overflowed into an oracle rerun.  Returns the ``Service`` (run), its
+    launches and its wall."""
+    from repro_torch.service import Service
+
+    svc = Service(spec)
+    _, launches, wall = counted(svc.run)
+    check_scan_launches(where, launches, 1)
+    if svc.status()["oracle_rerun"]:
+        raise AssertionError(f"{where}: the lane overflowed and was rerun "
+                             "on the oracle")
+    return svc, launches, wall
+
+
+def on_card_and_host(spec: dict, where: str):
+    """``on_card``, then the same service on the host engine; the two must
+    be equal at ``RESULT_TOL``.  Returns the card's ``Service`` (run), the
+    host result, the card's launches and both walls."""
+    from repro_torch.service import Service
+
+    svc, launches, wall = on_card(spec, where)
+    t0 = time.perf_counter()
+    host = Service(spec, engine="vector").run()
+    host_s = time.perf_counter() - t0
+    check_result(f"{where}, card vs host", result_fields(svc.result),
+                 result_fields(host))
+    return svc, host, launches["scenario_scan"], (wall, host_s)
+
+
+def serve_in_process(argv) -> tuple:
+    """``repro_torch.launch.serve.main(argv)`` with the launch counts zeroed
+    and read around it, its standard output captured and logged: (exit
+    code, launches, wall, output)."""
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, launches, wall = counted(lambda: serve.main(argv))
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"service CLI | {line}")
+    return rc, launches, wall, out
+
+
+def phase_service() -> dict:
+    """SkyServe's front door on the port, through the entry points a user
+    calls: ``Service`` (the golden specs, the README's quickstart, a
+    llama3.2-1b service on the H100 priced by this run's profile row),
+    ``ScenarioSuite`` over a 12-cell sweep and the serve CLI in-process,
+    each with phase B on the card (counted), each held against the host
+    engine or the golden constants.  Returns the launches by part."""
+    import warnings
+
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.profiles.schema import ProfileTable
+    from repro_torch.serving.latency import ProfiledLatencyModel
+    from repro_torch.service import Service
+
+    parts = {}
+    # (a) the golden constants with phase B on the card
+    for policy, want in GOLDEN.items():
+        svc, launches, wall = on_card(golden_spec(policy), f"golden {policy}")
+        res = svc.result
+        got = result_fields(res)
+        for k, w in want.items():
+            if abs(got[k] - w) > (0 if isinstance(w, int) else 1e-6):
+                raise AssertionError(f"golden {policy}: {k} {got[k]!r} vs "
+                                     f"{w!r} (abs 1e-6, counts exact)")
+        parts[f"golden {policy}"] = launches["scenario_scan"]
+        log(f"service golden {policy} (sim.engine jax, phase B on the card): "
+            f"{wall:.4f} s wall, launches {json.dumps(launches)}, no oracle "
+            f"rerun; equal to tests/test_golden.py "
+            f"(counts exact, abs 1e-6): {metrics_line(res)}")
+
+    # (b) the README's quickstart, card against host on one tape
+    svc, host, parts["quickstart"], (wall, host_s) = on_card_and_host(
+        QUICKSTART, "quickstart")
+    res, st = svc.result, svc.status()
+    log(f"service quickstart (command-r-35b, aws-3 in 3 regions, Arena 2/s, "
+        f"4 h; {st['n_requests']} requests, {len(st['zones'])} zones): card "
+        f"{wall:.4f} s wall, host engine {host_s:.4f} s; equal (counts exact, "
+        f"cost 1e-9, availability 1e-12, latencies 1e-6); no oracle rerun")
+    log(f"service quickstart card: {res.summary()}")
+    log(f"service quickstart host: {host.summary()}")
+
+    # (c) the card prices its own fleet with this run's profile row
+    row = ProfileTable.load(str(PROFILE_OUT)).lookup("llama3.2-1b", "H100")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # no roofline fallback
+        lm = Service(H100_SERVICE).resolve().simulator.latency_model
+    if not isinstance(lm, ProfiledLatencyModel):
+        raise AssertionError(f"h100 service priced by {type(lm).__name__}")
+    prov = (lm.mfu_prefill, lm.mbu_decode, lm.profile_path,
+            lm.profile_backend, lm.profile_mode)
+    if prov != (row.mfu_prefill, row.mbu_decode, str(PROFILE_OUT), row.backend,
+                row.mode) or row.backend != "cuda" or row.mode != "compiled":
+        raise AssertionError(f"h100 service priced by {prov}, not this run's "
+                             f"row {row}")
+    priced, service_s = {}, {}
+    for source in ("profile", "roofline"):
+        spec = dict(H100_SERVICE, latency={**H100_SERVICE["latency"],
+                                           "source": source})
+        svc, host, parts[f"h100 {source}"], (wall, host_s) = on_card_and_host(
+            spec, f"h100 {source}")
+        res, st = svc.result, svc.status()
+        priced[source] = res
+        # the mean time the latency model prices a request of the tape at
+        lm, tape = svc.resolve().simulator.latency_model, svc.resolve().requests
+        service_s[source] = float(np.mean([
+            lm.service_s(r.prompt_tokens, r.output_tokens) for r in tape]))
+        log(f"service h100 {source}-priced (llama3.2-1b, gcp-1 us-central1 + "
+            f"us-west1, SpotHedge x3, Arena 0.1/s seed 11, 2 h; "
+            f"{st['n_requests']} requests): card {wall:.4f} s wall, host "
+            f"engine {host_s:.4f} s, equal, no oracle rerun; {metrics_line(res)}")
+    mean = {k: float(r.latencies_s.mean()) for k, r in priced.items()}
+    log(f"service h100 pricing side by side (simulated seconds; cost with the "
+        f"catalog's H100 spot_ratio 0.33, an ASSUMPTION: Table 1 has no H100): "
+        f"profile row mfu_prefill={row.mfu_prefill:.6g} mbu_decode="
+        f"{row.mbu_decode:.6g}; mean service time {service_s['profile']:.6g} s "
+        f"vs roofline {service_s['roofline']:.6g} s "
+        f"({service_s['profile'] / service_s['roofline']:.4g}x); mean latency "
+        f"{mean['profile']:.6g} s vs {mean['roofline']:.6g} s "
+        f"({mean['profile'] / mean['roofline']:.4g}x); "
+        + "; ".join(f"{k}: {metrics_line(r)}" for k, r in priced.items()))
+
+    # (d) the sweep through ScenarioSuite, then the CLI in-process
+    report, launches, wall = counted(lambda: ScenarioSuite.from_spec(SWEEP).run())
+    check_scan_launches("sweep", launches, report.shape_groups)
+    t0 = time.perf_counter()
+    host = ScenarioSuite.from_spec(SWEEP).run(engine="vector")
+    host_s = time.perf_counter() - t0
+    if len(report.cells) != 12:
+        raise AssertionError(f"sweep: {len(report.cells)} cells, not 12")
+    if report.oracle_reruns:
+        raise AssertionError(f"sweep: lanes rerun on the oracle "
+                             f"{report.oracle_reruns}")
+    for a, b in zip(report.cells, host.cells):
+        if a.labels != b.labels:
+            raise AssertionError(f"sweep: cell {a.labels} vs {b.labels}")
+        # the fields a CellResult carries of those check_result compares
+        keys = [k for k in (*RESULT_COUNTS, *RESULT_TOL) if hasattr(b, k)]
+        check_result(f"sweep {a.cell_id}", {k: getattr(a, k) for k in keys},
+                     {k: getattr(b, k) for k in keys})
+    parts["sweep"] = launches["scenario_scan"]
+    log(f"service sweep (ScenarioSuite.run, 12 cells, sim.engine jax): "
+        f"{wall:.4f} s wall, {report.shape_groups} shape group(s), launches "
+        f"{json.dumps(launches)} ({launches['scenario_scan'] / report.shape_groups:g}"
+        f" a group), lanes rerun on the oracle {report.oracle_reruns}; host "
+        f"engine {host_s:.4f} s; every cell equal to the host engine's")
+    for line in report.summary().splitlines():
+        log(f"service sweep | {line}")
+    out_dir = PROFILE_OUT.parent.parent / "service"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    one, grid = out_dir / "golden.json", out_dir / "sweep.json"
+    one.write_text(json.dumps(golden_spec("spothedge")))
+    grid.write_text(json.dumps(SWEEP))
+    for name, argv, n in (("--status", ["--spec", str(one), "--status"], 1),
+                          ("--sweep", ["--spec", str(grid), "--sweep"],
+                           report.shape_groups)):
+        rc, launches, wall, out = serve_in_process(argv)
+        if rc != 0:
+            raise AssertionError(f"repro_torch.launch.serve {name} exited {rc}")
+        check_scan_launches(f"serve {name}", launches, n)
+        if name == "--status":
+            status = json.loads(out[out.index("\n{") + 1:])
+            reruns = [name] if status["oracle_rerun"] else []
+            if status["n_completed"] != GOLDEN["spothedge"]["n_completed"]:
+                raise AssertionError(f"serve --status: {status}")
+        else:   # the report the CLI saved, where its last line says
+            saved = json.loads(Path(out.rsplit("report: ", 1)[1].strip())
+                               .read_text())
+            reruns = saved["oracle_reruns"]
+            if (saved["n_cells"], saved["shape_groups"]) != (12, n):
+                raise AssertionError(f"serve --sweep: {saved['n_cells']} "
+                                     f"cells, {saved['shape_groups']} groups")
+        if reruns:
+            raise AssertionError(f"serve {name}: lanes rerun on the oracle "
+                                 f"{reruns}")
+        parts[f"cli {name}"] = launches["scenario_scan"]
+        log(f"service CLI repro_torch.launch.serve {' '.join(argv)}: exit 0, "
+            f"{wall:.4f} s wall, launches {json.dumps(launches)}, no oracle "
+            f"rerun")
+    log(f"service scenario_scan launches by part (apart from the matrix "
+        f"row's count on the kernels line): {json.dumps(parts)}")
+    return parts
+
+
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
@@ -1721,6 +2055,7 @@ def main() -> int:
     # the scenario engine's own path: checked, counted and timed in its phase
     scenario = phase_scenario()
     phase_profiles()
+    phase_service()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],

@@ -1,77 +1,297 @@
-"""Expand a spec's sweep into scenario-engine cells: the port's own copy of
-the grid expansion of ``repro.experiments.suite`` (``ScenarioSuite.
-from_spec``), the path the reference's benchmark matrix takes.
+"""ScenarioSuite, expand a spec's grid and run every cell: the port's own
+copy of ``repro.experiments.suite``.
 
-``expand_sweep`` crosses ``policies x traces x seeds`` (an empty axis falls
-back to the base spec's value; a seed overrides ``workload.seed``) in the
-reference's order, policy-major.  ``build_cells`` builds every cell's
-``TorchServingEngine`` through ``service.builder.build_cell``; cells of one
-workload seed share one request tape, as the reference's cells do.  Run
-them with ``repro_torch.serving.torchengine.engine.run_cells``.
+``ScenarioSuite.from_spec`` crosses the sweep's ``policies x traces x
+workloads x seeds`` in the reference's order, with its labels, cell names
+and shared-tape keys: cells with equal workload, seed and arrival horizon
+replay one request tape.  ``run`` takes the serve CLI's engine rule: by
+default (``engine="jax"``) the cells run as one matrix, every cell built
+and its control plane replayed on the host (phase A), then every data
+plane through ``run_cells``, one ``scenario_scan`` launch per shape group
+on the card, an overflowed lane rerun on the oracle; ``engine="vector"``
+runs them one by one on the host engine.
+
+The reference's process fan-out (``workers``) is not ported and is
+refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
-from typing import Any, Dict, List, Mapping, Tuple, Union
+import itertools
+import time
+from typing import (
+    Any, Dict, Hashable, List, Mapping, Optional, Sequence, Tuple, Union,
+)
 
-from repro_torch.serving.torchengine.engine import TorchServingEngine
-from repro_torch.service.builder import build_cell, build_requests
-from repro_torch.service.spec import ServiceSpec, SweepSpec, spec_from_dict
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.cluster.traces import SpotTrace
+from repro_torch.experiments.report import CellResult, ScenarioReport
+from repro_torch.serving.torchengine.engine import TorchServingEngine, run_cells
+from repro_torch.service.builder import (
+    ENTRY_ENGINE,
+    build_requests,
+    build_service,
+    with_engine,
+)
+from repro_torch.service.loader import load_spec
+from repro_torch.service.spec import ServiceSpec, SpecError, SweepSpec
 from repro_torch.workloads.arrivals import Request
 
-__all__ = ["Cell", "build_cells", "expand_sweep"]
+__all__ = ["Cell", "Scenario", "ScenarioSuite"]
+
+# label axes may not shadow metric fields: CellResult.to_dict flattens
+# labels and metrics into one record
+_RESERVED_LABELS = frozenset(
+    f.name for f in dataclasses.fields(CellResult) if f.name != "labels")
+
+
+@dataclasses.dataclass
+class Scenario:
+    """One cell of a matrix: labels and a single-run spec.  ``trace``
+    optionally overrides the spec's named trace; scenarios sharing a
+    ``tape_key`` replay one request tape."""
+
+    labels: Dict[str, Any]
+    spec: ServiceSpec
+    trace: Optional[SpotTrace] = None
+    tape_key: Optional[Hashable] = None
+
+    def __post_init__(self) -> None:
+        if self.spec.sweep is not None:
+            raise SpecError("a Scenario wraps a single-run spec; expand the "
+                            "sweep with ScenarioSuite.from_spec first")
+        clash = set(self.labels) & _RESERVED_LABELS
+        if clash:
+            raise SpecError(f"scenario label axes {sorted(clash)} collide "
+                            "with CellResult metric fields; pick different "
+                            "axis names")
 
 
 @dataclasses.dataclass
 class Cell:
-    """One cell of a matrix: its labels, single-run spec and engine."""
+    """A scenario built on the two-phase engine, ready for ``run_cells``."""
 
     labels: Dict[str, Any]
     spec: ServiceSpec
     engine: TorchServingEngine
+    build_s: float = 0.0
 
     @property
     def duration_s(self) -> float:
         return self.spec.sim.duration_s
 
 
-def _as_spec(spec: Union[ServiceSpec, Mapping[str, Any]]) -> ServiceSpec:
-    return spec if isinstance(spec, ServiceSpec) else spec_from_dict(spec)
+def _canonical_args(value: Any, path: str = "workload.args") -> Hashable:
+    """A hashable, order-insensitive form of a workload-args value for the
+    tape key; only JSON-like values are accepted, so the key is stable."""
+    if value is None or isinstance(value, str):
+        return value
+    if isinstance(value, bool):
+        # True == 1 under equality, but they must not share a tape
+        return ("__bool__", value)
+    if isinstance(value, (int, float)):
+        return value
+    if isinstance(value, (list, tuple)):
+        return tuple(_canonical_args(v, f"{path}[{k}]")
+                     for k, v in enumerate(value))
+    if isinstance(value, Mapping):
+        items = []
+        for k in sorted(value, key=str):
+            if not isinstance(k, str):
+                raise SpecError(f"{path}: mapping key {k!r} is not a string; "
+                                "tape keys require string-keyed mappings")
+            items.append((k, _canonical_args(value[k], f"{path}.{k}")))
+        return tuple(items)
+    raise SpecError(f"{path}: cannot canonicalize {type(value).__name__} "
+                    f"value {value!r} for the shared-tape key; workload args "
+                    "must be JSON-like")
 
 
-def expand_sweep(spec: Union[ServiceSpec, Mapping[str, Any]]
-                 ) -> List[Tuple[Dict[str, Any], ServiceSpec]]:
-    """The grid's cells as ``(labels, single-run spec)``, in the
-    reference's order."""
-    base = _as_spec(spec)
-    sweep = base.sweep or SweepSpec()
-    out = []
-    for pol in sweep.policies or (base.replica_policy,):
-        for tr in sweep.traces or (base.trace,):
-            for seed in sweep.seeds or (None,):
-                wl = (base.workload if seed is None
-                      else dataclasses.replace(base.workload, seed=seed))
-                cell = dataclasses.replace(
-                    base,
-                    name=f"{base.name}-{pol.name}-{tr}-{wl.kind}-s{wl.seed}",
-                    replica_policy=pol, trace=tr, workload=wl, sweep=None)
-                out.append(({"policy": pol.name, "trace": tr,
-                             "workload": wl.kind, "seed": wl.seed}, cell))
+def _workload_tape_key(spec: ServiceSpec) -> Tuple:
+    """Tapes are equal iff workload spec and arrival horizon are equal."""
+    w = spec.workload
+    return (w.kind, w.rate_per_s, w.seed, _canonical_args(dict(w.args)),
+            spec.sim.duration_s - spec.sim.drain_s)
+
+
+def _disambiguate(names: List[str],
+                  knobs: List[List[Tuple[str, Any]]]) -> List[str]:
+    """Axis labels: the bare name when unique, name[knob=...] or name#k
+    when several grid entries share it."""
+    counts: Dict[str, int] = {}
+    for n in names:
+        counts[n] = counts.get(n, 0) + 1
+    seen: Dict[str, int] = {}
+    out: List[str] = []
+    for n, kv in zip(names, knobs):
+        if counts[n] == 1:
+            out.append(n)
+            continue
+        k = seen[n] = seen.get(n, 0) + 1
+        detail = ",".join(f"{key}={v}" for key, v in kv)
+        out.append(f"{n}[{detail}]" if detail else f"{n}#{k}")
+    if len(set(out)) != len(out):       # identical knob sets: index them
+        out = [lab if out.count(lab) == 1 else f"{lab}#{i}"
+               for i, lab in enumerate(out)]
     return out
 
 
-def build_cells(spec: Union[ServiceSpec, Mapping[str, Any]]) -> List[Cell]:
-    """Every cell of the spec's grid, built and ready to run."""
-    tapes: Dict[Tuple, List[Request]] = {}
-    cells = []
-    for labels, cell in expand_sweep(spec):
-        w = cell.workload
-        key = (w.rate_per_s, w.seed, json.dumps(dict(w.args), sort_keys=True),
-               cell.sim.duration_s - cell.sim.drain_s)
-        if key not in tapes:
-            tapes[key] = build_requests(cell)
-        cells.append(Cell(labels, cell,
-                          build_cell(cell, requests=tapes[key])))
-    return cells
+class ScenarioSuite:
+    """A batch of scenarios sharing one execution path."""
+
+    def __init__(self, scenarios: Sequence[Scenario],
+                 name: str = "suite") -> None:
+        self.scenarios: List[Scenario] = list(scenarios)
+        self.name = name
+        if not self.scenarios:
+            raise SpecError("ScenarioSuite needs at least one scenario")
+        # shared tapes by (tape_key, workload fingerprint)
+        self._tapes: Dict[Hashable, List[Request]] = {}
+
+    def __len__(self) -> int:
+        return len(self.scenarios)
+
+    @classmethod
+    def from_spec(cls, spec: Union[ServiceSpec, Mapping[str, Any], str],
+                  name: Optional[str] = None) -> "ScenarioSuite":
+        """Expand a spec's ``sweep`` grid (missing axes fall back to the
+        base spec's single value)."""
+        base = load_spec(spec)
+        sweep = base.sweep or SweepSpec()
+        policies = sweep.policies or (base.replica_policy,)
+        traces = sweep.traces or (base.trace,)
+        workloads = sweep.workloads or (base.workload,)
+        # no seeds axis: every workload keeps its own seed
+        seeds: Tuple[Optional[int], ...] = sweep.seeds or (None,)
+        policy_labels = _disambiguate(
+            [p.name for p in policies],
+            [sorted(p.policy_kwargs().items()) for p in policies])
+        workload_labels = _disambiguate(
+            [w.kind for w in workloads],
+            [[("rate_per_s", w.rate_per_s), ("seed", w.seed),
+              *sorted(w.args.items())] for w in workloads])
+        scenarios: List[Scenario] = []
+        for (pol, plabel), tr, (wl, wlabel), seed in itertools.product(
+                zip(policies, policy_labels), traces,
+                zip(workloads, workload_labels), seeds):
+            wl_seeded = wl if seed is None else dataclasses.replace(wl,
+                                                                    seed=seed)
+            cell_spec = dataclasses.replace(
+                base,
+                name=f"{base.name}-{plabel}-{tr}-{wlabel}-s{wl_seeded.seed}",
+                replica_policy=pol, trace=tr, workload=wl_seeded, sweep=None)
+            scenarios.append(Scenario(
+                labels={"policy": plabel, "trace": tr, "workload": wlabel,
+                        "seed": wl_seeded.seed},
+                spec=cell_spec, tape_key=_workload_tape_key(cell_spec)))
+        return cls(scenarios, name=name or base.name)
+
+    # ------------------------------------------------------------------
+    def _tape(self, sc: Scenario) -> Optional[List[Request]]:
+        """The scenario's shared tape (``None``: it makes its own)."""
+        if sc.tape_key is None:
+            return None
+        # the workload fingerprint keeps two scenarios that reuse a key
+        # with different workloads from sharing a tape
+        key = (sc.tape_key, _workload_tape_key(sc.spec))
+        if key not in self._tapes:
+            self._tapes[key] = build_requests(sc.spec)
+        return self._tapes[key]
+
+    def cells(self) -> List[Cell]:
+        """Every scenario built on the two-phase engine (``sim.engine:
+        jax``), shared tapes shared; run them with ``run_cells``."""
+        out = []
+        for sc in self.scenarios:
+            spec = with_engine(sc.spec, "jax")
+            requests = self._tape(sc)
+            t0 = time.perf_counter()
+            resolved = build_service(spec, trace=sc.trace, requests=requests)
+            out.append(Cell(sc.labels, spec, resolved.simulator,
+                            time.perf_counter() - t0))
+        return out
+
+    def run(
+        self,
+        *,
+        engine: Optional[str] = ENTRY_ENGINE,
+        workers: Optional[Union[int, str]] = None,
+        save_to: Optional[str] = None,
+        progress: bool = False,
+        device: Union[str, torch.device, None] = None,
+    ) -> ScenarioReport:
+        """Run every scenario; returns the report.
+
+        ``engine`` overrides every cell's ``sim.engine``, as the serve
+        CLI's ``--engine`` does: ``jax`` by default, ``vector`` for the host
+        engine (which refuses a ``device`` other than the CPU), ``None``
+        for each cell's own.  Under ``jax`` (given, or every cell's) the
+        suite runs as one matrix through ``run_cells``; ``device`` is phase
+        B's (default CUDA), and the report counts the shape groups (one
+        launch each) and names the lanes rerun on the oracle.  Otherwise
+        cells run one by one.  ``save_to`` writes the JSON artifact into
+        that directory."""
+        if workers not in (None, 1):
+            raise SpecError(f"workers={workers!r}: the suite's process "
+                            "fan-out is not ported yet; run serially "
+                            "(workers=None)")
+        t0 = time.perf_counter()
+        use_jax = engine == "jax" or (engine is None and all(
+            sc.spec.sim.engine == "jax" for sc in self.scenarios))
+        groups: Optional[int] = None
+        reruns: List[str] = []
+        if use_jax:
+            cells, groups, reruns = self._run_matrix(progress, device)
+        else:
+            cells = []
+            for sc in self.scenarios:
+                spec = with_engine(sc.spec, engine)
+                requests = self._tape(sc)
+                t1 = time.perf_counter()
+                resolved = build_service(spec, trace=sc.trace,
+                                         requests=requests)
+                result = resolved.run(device=device)
+                cells.append(CellResult.from_result(
+                    sc.labels, result, time.perf_counter() - t1))
+                if progress:
+                    print(f"[suite {self.name}] {cells[-1].cell_id} done "
+                          f"({len(cells)}/{len(self.scenarios)})", flush=True)
+        report = ScenarioReport(
+            suite=self.name, engine=engine or self._engine_label(), workers=1,
+            cells=cells, wall_s=time.perf_counter() - t0,
+            shape_groups=groups, oracle_reruns=reruns)
+        if save_to is not None:
+            report.save(save_to)
+        return report
+
+    def _run_matrix(self, progress: bool, device
+                    ) -> Tuple[List[CellResult], int, List[str]]:
+        """The matrix path: build every cell, replay every control plane,
+        then every data plane in one ``run_cells`` call."""
+        dev = resolve_device(device)        # before phase A, not after
+        cells = self.cells()
+        t0 = time.perf_counter()
+        groups: List[List[int]] = []
+        results = run_cells([c.engine for c in cells],
+                            [c.duration_s for c in cells], groups=groups,
+                            device=dev)
+        # the batch is one program: its wall clock is shared evenly
+        share = (time.perf_counter() - t0) / len(cells)
+        out: List[CellResult] = []
+        for cell, result in zip(cells, results):
+            out.append(CellResult.from_result(cell.labels, result,
+                                              cell.build_s + share))
+            if progress:
+                rerun = " (lane overflowed: rerun on the oracle)" \
+                    if cell.engine.fell_back else ""
+                print(f"[suite {self.name}] {out[-1].cell_id} done "
+                      f"({len(out)}/{len(cells)}){rerun}", flush=True)
+        reruns = [r.cell_id for r, c in zip(out, cells) if c.engine.fell_back]
+        return out, len(groups), reruns
+
+    def _engine_label(self) -> str:
+        engines = {sc.spec.sim.engine for sc in self.scenarios}
+        return engines.pop() if len(engines) == 1 else "mixed"

@@ -1,2 +1,3 @@
-"""Launch-side steps of the port (counterpart of ``repro.launch``): so far
-the serve step, captured as a CUDA graph on the card (``steps``)."""
+"""Launch-side entry points of the port (counterpart of ``repro.launch``):
+the serve step, captured as a CUDA graph on the card (``steps``), and the
+service CLI (``serve``)."""

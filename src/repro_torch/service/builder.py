@@ -1,39 +1,86 @@
-"""Compile a ``ServiceSpec`` into a runnable scenario-engine cell: the port's
-own copy of the part of ``repro.service.builder`` (``build_service``,
-``build_requests``, ``resolve_zones``) that a scenario matrix uses.
+"""Compile a ``ServiceSpec`` into a runnable service: the port's own copy
+of ``repro.service.builder``.
 
-``build_cell`` assembles trace x catalog x policy x autoscaler x balancer x
-request tape into one ``TorchServingEngine``, as ``build_service`` does
-with ``sim.engine: jax``: the same zones, the same policy knobs, the same
-autoscaler, the same tape, the same ``SimConfig``.  A prepared trace or a
+``build_service`` assembles trace x catalog x policy x autoscaler x
+balancer x request tape x latency model into one engine, picked by
+``sim.engine``: ``vector`` is the port's host engine (the oracle,
+``VectorizedServingEngine``), ``jax`` the two-phase ``TorchServingEngine``
+whose data plane runs on the card.  A prepared trace, a catalog or a
 shared request tape may be passed in.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence, Union
+
+import torch
 
 from repro_torch.cluster.catalog import Catalog, default_catalog
 from repro_torch.cluster.simulator import SimConfig
 from repro_torch.cluster.traces import SpotTrace, load_trace
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.core.autoscaler import Autoscaler, ConstantTarget, LoadAutoscaler
 from repro_torch.core.policy import Policy, policy_class
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.engine import VectorizedServingEngine
+from repro_torch.serving.latency import make_latency_model
+from repro_torch.serving.result import ServingResult
 from repro_torch.serving.torchengine.engine import TorchServingEngine
-from repro_torch.service.spec import LB_NAMES, ServiceSpec, SpecError
+from repro_torch.service.spec import LB_NAMES, ResourceSpec, ServiceSpec, SpecError
 from repro_torch.workloads.arrivals import Request, make_workload
 
-__all__ = ["build_cell", "build_requests", "resolve_zones"]
+__all__ = ["ENTRY_ENGINE", "ResolvedService", "build_requests",
+           "build_service", "check_host_device", "resolve_zones",
+           "with_engine"]
+
+#: the engine of the port's entry points (``Service``, ``ScenarioSuite.run``,
+#: the serve CLI) unless the caller names another: phase B on the card
+ENTRY_ENGINE = "jax"
 
 
-def resolve_zones(trace: SpotTrace, catalog: Catalog) -> List[str]:
-    """The zones of ``trace`` the catalog knows (a trace file may carry
-    zones outside the default universe); none is a spec error."""
-    known = {z.name for z in catalog.zones}
-    out = [z for z in trace.zones if z in known]
+def with_engine(spec: ServiceSpec, engine: Optional[str]) -> ServiceSpec:
+    """``spec`` with ``sim.engine`` set to ``engine`` (``None``: as it is).
+    ``vector`` is the host engine, ``jax`` phase B on a device; the spec's
+    own checks refuse any other name."""
+    if engine is None or spec.sim.engine == engine:
+        return spec
+    return dataclasses.replace(
+        spec, sim=dataclasses.replace(spec.sim, engine=engine)
+    ).refuse_unported()
+
+
+def check_host_device(spec: ServiceSpec,
+                      device: Union[str, torch.device, None]) -> None:
+    """The host engine runs on the host: a device other than the CPU is
+    refused, never ignored."""
+    if (spec.sim.engine != "jax" and device is not None
+            and torch.device(device).type != "cpu"):
+        raise ValueError(
+            f"device={str(device)!r} with sim.engine {spec.sim.engine!r}: "
+            "the host engine runs on the CPU; use engine 'jax' for phase B "
+            f"on {device}")
+
+
+def resolve_zones(resources: ResourceSpec, trace: SpotTrace,
+                  catalog: Catalog) -> List[str]:
+    """The zones of ``trace`` that pass the ``any_of`` / ``exclude_zones``
+    filter.  Zones the catalog does not know are skipped (a trace file may
+    carry zones outside the default universe); none left is a spec
+    error."""
+    out: List[str] = []
+    for name in trace.zones:
+        try:
+            z = catalog.zone(name)
+        except KeyError:
+            continue
+        if resources.allows(z.cloud, z.region, z.name):
+            out.append(name)
     if not out:
-        raise SpecError(f"no zone of trace {trace.name!r} is in the catalog "
-                        f"(trace zones: {list(trace.zones)})")
+        raise SpecError(
+            f"resources filter matches no zone of trace {trace.name!r} "
+            f"(trace zones: {list(trace.zones)}); loosen any_of / "
+            "exclude_zones")
     return out
 
 
@@ -67,37 +114,72 @@ def _build_autoscaler(spec: ServiceSpec) -> Autoscaler:
 
 
 def build_requests(spec: ServiceSpec) -> List[Request]:
-    """The spec's request tape, arrivals over ``[0, duration - drain)``."""
+    """The spec's request tape, arrivals over ``[0, duration - drain)``;
+    empty for ``workload: none``.  The spec's rate is Poisson's
+    ``rate_per_s`` and Arena's / MAF's ``base_rate_per_s``."""
     w = spec.workload
+    if w.kind == "none":
+        return []
     kw = dict(w.args)
     kw["seed"] = w.seed
-    kw.setdefault("rate_per_s", w.rate_per_s)
+    kw.setdefault("rate_per_s" if w.kind == "poisson" else "base_rate_per_s",
+                  w.rate_per_s)
     horizon = spec.sim.duration_s - spec.sim.drain_s
     if horizon <= 0:
         raise SpecError(
-            f"sim.duration_hours ({spec.sim.duration_s:g}s) must exceed "
-            f"sim.drain_s ({spec.sim.drain_s:g}s) to leave room for arrivals")
-    return make_workload(w.kind, **kw).generate(horizon)
+            f"sim.duration_hours ({spec.sim.duration_hours:g}h = "
+            f"{spec.sim.duration_s:g}s) must exceed sim.drain_s "
+            f"({spec.sim.drain_s:g}s) to leave room for arrivals")
+    try:
+        workload = make_workload(w.kind, **kw)
+    except (TypeError, ValueError) as e:
+        raise SpecError(f"workload {w.kind!r} rejected its args "
+                        f"{sorted(w.args)}: {e}") from e
+    return workload.generate(horizon)
 
 
-def build_cell(
+Engine = Union[VectorizedServingEngine, TorchServingEngine]
+
+
+@dataclasses.dataclass
+class ResolvedService:
+    """Everything ``build_service`` wired together, inspectable."""
+
+    spec: ServiceSpec
+    trace: SpotTrace
+    catalog: Catalog
+    model_config: ModelConfig
+    zones: List[str]
+    policy: Policy
+    autoscaler: Autoscaler
+    load_balancer: str            # the engine's balancer: "ll" | "rr"
+    requests: List[Request]
+    simulator: Engine             # per spec.sim.engine
+
+    def run(self, duration_s: Optional[float] = None, *,
+            device: Union[str, torch.device, None] = None) -> ServingResult:
+        """Run the engine over ``duration_s`` (default the spec's horizon);
+        ``device`` is phase B's under ``sim.engine: jax`` (default CUDA);
+        the host engine takes none but the CPU."""
+        check_host_device(self.spec, device)
+        dur = self.spec.sim.duration_s if duration_s is None else duration_s
+        if isinstance(self.simulator, TorchServingEngine):
+            return self.simulator.run(dur, device=device)
+        return self.simulator.run(dur)
+
+
+def build_service(
     spec: ServiceSpec,
     *,
     trace: Optional[SpotTrace] = None,
     catalog: Optional[Catalog] = None,
     requests: Optional[Sequence[Request]] = None,
-) -> TorchServingEngine:
-    """One single-run spec -> a fresh ``TorchServingEngine``; run it over
-    ``spec.sim.duration_s``."""
-    if spec.sweep is not None:
-        raise SpecError("build_cell takes a single-run spec; expand the "
-                        "sweep with repro_torch.experiments.expand_sweep")
-    if spec.model not in ARCH_IDS:
-        raise SpecError(f"unknown model {spec.model!r}; available: "
-                        f"{list(ARCH_IDS)}")
+) -> ResolvedService:
+    """Spec -> resolved, runnable service (a fresh engine each call)."""
+    spec.refuse_unported()
     catalog = catalog or default_catalog()
     try:
-        catalog.instance_type(spec.resources.instance_type)
+        itype = catalog.instance_type(spec.resources.instance_type)
     except KeyError:
         raise SpecError(
             f"unknown resources.instance_type "
@@ -108,29 +190,62 @@ def build_cell(
             trace = load_trace(spec.trace)
         except (KeyError, OSError) as e:
             raise SpecError(f"trace {spec.trace!r}: {e}") from e
-    zones = resolve_zones(trace, catalog)
+    zones = resolve_zones(spec.resources, trace, catalog)
     if tuple(zones) != tuple(trace.zones):
         trace = trace.slice_zones(zones)
     sim = spec.sim
-    return TorchServingEngine(
+    if sim.preemption_warning_s is not None:
+        # a copy: named traces are cached for the process
+        trace = dataclasses.replace(
+            trace, preemption_warning_s=sim.preemption_warning_s)
+    policy = _build_policy(spec)
+    autoscaler = _build_autoscaler(spec)
+    lb = LB_NAMES[spec.load_balancer]
+    reqs = list(requests) if requests is not None else build_requests(spec)
+    # with no request path there is nothing to do between control ticks:
+    # step the request loop at the control cadence
+    sub_step = (max(sim.sub_step_s, sim.control_interval_s)
+                if spec.workload.kind == "none" and requests is None
+                else sim.sub_step_s)
+    try:
+        cfg = get_config(spec.model)
+    except KeyError as e:
+        raise SpecError(f"model: {e.args[0]}") from None
+    latency_model = make_latency_model(
+        cfg, itype, model_id=spec.model, source=spec.latency.source,
+        profile=spec.latency.profile)
+    kw = {}
+    if sim.engine == "jax":
+        engine_cls = TorchServingEngine
+        kw["trace_on"] = spec.observability.spans_on
+    else:
+        engine_cls = VectorizedServingEngine
+    simulator = engine_cls(
         trace,
-        _build_policy(spec),
-        list(requests) if requests is not None else build_requests(spec),
-        get_config(spec.model),
+        policy,
+        reqs,
+        cfg,
         itype=spec.resources.instance_type,
         catalog=catalog,
-        autoscaler=_build_autoscaler(spec),
-        lb=LB_NAMES[spec.load_balancer],
+        autoscaler=autoscaler,
+        lb=lb,
         sim_config=SimConfig(
             itype=spec.resources.instance_type,
             cold_start_s=sim.cold_start_s,
             control_interval_s=sim.control_interval_s,
             warning_enabled=sim.warning_enabled,
             seed=sim.seed,
+            record_series=sim.record_series,
         ),
         timeout_s=sim.timeout_s,
-        sub_step_s=sim.sub_step_s,
+        sub_step_s=sub_step,
         workload_name=spec.workload.kind,
         concurrency=sim.concurrency,
-        trace_on=spec.observability.trace_sample > 0.0,
+        concurrency_cap=spec.serving.concurrency_cap,
+        latency_model=latency_model,
+        **kw,
     )
+    return ResolvedService(
+        spec=spec, trace=trace, catalog=catalog, model_config=cfg,
+        zones=zones, policy=policy, autoscaler=autoscaler, load_balancer=lb,
+        requests=reqs, simulator=simulator)

@@ -1,0 +1,144 @@
+"""The user-facing facade, a declared service to run and inspect: the
+port's own copy of ``repro.service.service``.
+
+    from repro_torch.service import Service
+
+    svc = Service.from_json("service.json")
+    result = svc.run()                  # ServingResult
+    print(result.summary())
+    print(svc.status())
+
+``run()`` compiles the spec through ``build_service``, a fresh engine per
+run.  The engine is the ``Service``'s ``engine`` argument, as the serve
+CLI's ``--engine`` is: ``jax`` by default, whatever the spec's
+``sim.engine`` says, so the data plane (phase B) runs on the card unless
+the caller passes ``device="cpu"``; without CUDA the default raises
+before phase A starts.  ``engine="vector"`` asks for the host engine (and
+refuses a device other than the CPU); ``engine=None`` keeps the spec's
+own ``sim.engine``.  The reference's artifact export (observability
+detail ``full``) is not ported, and the spec refuses that detail.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.cluster.catalog import Catalog
+from repro_torch.cluster.traces import SpotTrace
+from repro_torch.serving.result import ServingResult
+from repro_torch.serving.torchengine.engine import TorchServingEngine
+from repro_torch.service.builder import (
+    ENTRY_ENGINE,
+    ResolvedService,
+    build_service,
+    check_host_device,
+    with_engine,
+)
+from repro_torch.service.loader import load_spec, spec_from_json, spec_from_yaml
+from repro_torch.service.spec import ServiceSpec
+from repro_torch.workloads.arrivals import Request
+
+__all__ = ["Service"]
+
+
+class Service:
+    """One declared service: spec in, ``ServingResult`` out."""
+
+    def __init__(
+        self,
+        spec: Union[ServiceSpec, Mapping[str, Any], str],
+        *,
+        trace: Optional[SpotTrace] = None,
+        catalog: Optional[Catalog] = None,
+        requests: Optional[Sequence[Request]] = None,
+        engine: Optional[str] = ENTRY_ENGINE,
+    ) -> None:
+        self.spec = with_engine(load_spec(spec), engine)
+        self._trace_override = trace
+        self._catalog_override = catalog
+        self._requests_override = requests
+        self._resolved: Optional[ResolvedService] = None
+        self._resolved_unused = False   # resolved but not yet run
+        self.result: Optional[ServingResult] = None
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any], **overrides: Any) -> "Service":
+        return cls(dict(d), **overrides)
+
+    @classmethod
+    def from_yaml(cls, path_or_text: str, **overrides: Any) -> "Service":
+        return cls(spec_from_yaml(path_or_text), **overrides)
+
+    @classmethod
+    def from_json(cls, path_or_text: str, **overrides: Any) -> "Service":
+        return cls(spec_from_json(path_or_text), **overrides)
+
+    def resolve(self) -> ResolvedService:
+        """Compile the spec (a fresh policy, autoscaler and engine)."""
+        self._resolved = build_service(
+            self.spec,
+            trace=self._trace_override,
+            catalog=self._catalog_override,
+            requests=self._requests_override,
+        )
+        self._resolved_unused = True
+        return self._resolved
+
+    def run(self, duration_s: Optional[float] = None, *,
+            device: Union[str, torch.device, None] = None) -> ServingResult:
+        """Run the service over its horizon.  ``device`` is phase B's under
+        engine ``jax`` (default CUDA), and must be the CPU or ``None`` under
+        ``vector``; a pending ``resolve()`` is reused, else a new engine is
+        built (engines are single-shot)."""
+        # the device is checked before phase A, not after it
+        check_host_device(self.spec, device)
+        dev = resolve_device(device) if self.spec.sim.engine == "jax" else None
+        if self._resolved is not None and self._resolved_unused:
+            resolved = self._resolved
+        else:
+            resolved = self.resolve()
+        self._resolved_unused = False
+        self.result = resolved.run(duration_s, device=dev)
+        return self.result
+
+    def status(self) -> Dict[str, Any]:
+        """Resolved state (and metrics after a run), JSON-friendly."""
+        resolved = self._resolved
+        out: Dict[str, Any] = {
+            "name": self.spec.name,
+            "model": self.spec.model,
+            "trace": self.spec.trace,
+            "policy": self.spec.replica_policy.name,
+            "instance_type": self.spec.resources.instance_type,
+            "state": "declared",
+        }
+        if resolved is not None:
+            cluster = resolved.simulator.cluster
+            out.update(
+                state="resolved",
+                zones=list(resolved.zones),
+                n_requests=len(resolved.requests),
+                duration_hours=self.spec.sim.duration_hours,
+                n_events=len(cluster.events),
+                n_preemptions=cluster.n_preemptions,
+                n_launch_failures=cluster.n_launch_failures,
+            )
+        if self.result is not None:
+            r = self.result
+            out.update(
+                state="finished",
+                availability=r.availability,
+                cost_vs_ondemand=r.cost_vs_ondemand,
+                total_cost=r.total_cost,
+                failure_rate=r.failure_rate,
+                n_completed=r.n_completed,
+                p50_s=r.pct(50),
+                p99_s=r.pct(99),
+            )
+            if isinstance(resolved.simulator, TorchServingEngine):
+                # the lane's queue pool overflowed and the oracle reran it
+                out["oracle_rerun"] = resolved.simulator.fell_back
+        return out

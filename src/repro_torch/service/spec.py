@@ -1,53 +1,126 @@
-"""The service spec, as far as the port reads it: its own copy of the part
-of ``repro.service.spec`` / ``repro.service.loader`` that a scenario matrix
-uses.
+"""The declarative service spec: the port's own copy of
+``repro.service.spec``.
 
-``spec_from_dict`` turns a spec dict into a ``ServiceSpec`` of frozen
-sections whose defaults are the reference's dataclass defaults.  It reads:
+A ``ServiceSpec`` names the model, the spot trace, the ``any_of``
+resource filter, the replica policy and its knobs, the autoscaler, the
+request workload, the latency source and the simulation horizon.  Every
+section is a frozen dataclass with the reference's fields, defaults,
+checks and ``to_dict``, so a spec the port accepts serialises to the
+reference's dict and loads in either package.
 
-* ``name``, ``model``, ``trace``, ``load_balancer`` (``least_loaded`` or
-  ``round_robin``);
-* ``resources.instance_type``;
-* ``replica_policy``: ``name``, ``overprovision``, ``dynamic_fallback``,
-  ``min_ondemand``, ``args``;
-* ``autoscaler`` of kind ``constant`` or ``load``;
-* ``workload`` of kind ``poisson`` (``rate_per_s``, ``seed``, and
-  ``args.client_regions``);
-* ``sim``: ``duration_hours``, ``timeout_s``, ``concurrency``, ``drain_s``,
-  ``control_interval_s``, ``sub_step_s``, ``cold_start_s``, ``seed``,
-  ``warning_enabled``;
-* ``observability.trace_sample``;
-* ``sweep``: ``policies``, ``traces``, ``seeds``.
+What the port cannot run as the reference does is refused by name
+(``SpecError``, a ``ValueError``), never ignored: ``ServiceSpec.unported``
+lists it, and ``refuse_unported`` / ``validate`` raise on it.  That is the
+``forecast`` and ``migration`` sections, the token-level model
+(``sim.replica_model: token`` and the ``serving`` section's token knobs),
+observability at detail ``full`` and its ``slo_burn`` monitor, the
+``legacy`` engine, the sweep axes ``forecasters``, ``replica_models`` and
+``migration``, and the policies ``omniscient`` and ``risk_spothedge``.
 
-Anything else (another key, kind or value) raises ``SpecError``, a
-``ValueError``, naming it: the port refuses what it would not run as the
-reference does.
+``sim.engine`` takes the reference's names: ``vector`` is the host engine
+(the port's oracle, ``repro_torch.serving.engine``), ``jax`` the batched
+array engine (``TorchServingEngine``, phase B on the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+from repro_torch.serving.latency import LATENCY_SOURCES
 
 __all__ = [
-    "AutoscalerSpec", "ObservabilitySpec", "ReplicaPolicySpec",
-    "ResourceSpec", "ServiceSpec", "SimSpec", "SpecError", "SweepSpec",
-    "WorkloadSpec", "spec_from_dict",
+    "AutoscalerSpec", "LatencySpec", "ObservabilitySpec", "PlacementFilter",
+    "ReplicaPolicySpec", "ResourceSpec", "SLOBurnSpec", "SLOSpec",
+    "ServiceSpec", "ServingSpec", "SimSpec", "SpecError", "SweepSpec",
+    "WorkloadSpec",
 ]
 
 
 class SpecError(ValueError):
-    """A spec the port cannot run, with the offending field named."""
+    """A malformed spec, or one the port cannot run; the message names the
+    field."""
 
 
-def _require(ok: bool, msg: str) -> None:
-    if not ok:
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
         raise SpecError(msg)
+
+
+def _clean(d: Dict[str, Any]) -> Dict[str, Any]:
+    """Drop ``None`` values so to_dict output stays minimal and re-loadable."""
+    return {k: v for k, v in d.items() if v is not None}
+
+
+# ---------------------------------------------------------------------------
+# resources (Listing 1: resources + any_of)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementFilter:
+    """One ``any_of`` entry: a zone matches if every set field matches."""
+
+    cloud: Optional[str] = None
+    region: Optional[str] = None
+    zone: Optional[str] = None
+
+    def matches(self, cloud: str, region: str, zone: str) -> bool:
+        return (
+            (self.cloud is None or self.cloud == cloud)
+            and (self.region is None or self.region == region)
+            and (self.zone is None or self.zone == zone)
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return _clean(dataclasses.asdict(self))
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "PlacementFilter":
+        unknown = set(d) - {"cloud", "region", "zone"}
+        _require(not unknown, f"any_of entry has unknown keys "
+                 f"{sorted(unknown)}; allowed: cloud, region, zone")
+        return PlacementFilter(cloud=d.get("cloud"), region=d.get("region"),
+                               zone=d.get("zone"))
 
 
 @dataclasses.dataclass(frozen=True)
 class ResourceSpec:
+    """What to run on, and where placement is allowed (``any_of=None``:
+    every zone of the trace)."""
+
     instance_type: str = "p3.2xlarge"
+    any_of: Optional[Tuple[PlacementFilter, ...]] = None
+    exclude_zones: Tuple[str, ...] = ()
+
+    def __post_init__(self) -> None:
+        _require(bool(self.instance_type),
+                 "resources.instance_type must be a non-empty string")
+        if self.any_of is not None:
+            _require(len(self.any_of) > 0,
+                     "resources.any_of is empty — it would match no zones; "
+                     "omit the field to allow every zone of the trace, or "
+                     "add at least one {cloud|region|zone} filter")
+
+    def allows(self, cloud: str, region: str, zone: str) -> bool:
+        if zone in self.exclude_zones:
+            return False
+        if self.any_of is None:
+            return True
+        return any(f.matches(cloud, region, zone) for f in self.any_of)
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"instance_type": self.instance_type}
+        if self.any_of is not None:
+            out["any_of"] = [f.to_dict() for f in self.any_of]
+        if self.exclude_zones:
+            out["exclude_zones"] = list(self.exclude_zones)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# replica policy, autoscaler, workload, latency
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +135,13 @@ class ReplicaPolicySpec:
     min_ondemand: Optional[int] = None
     args: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
+    def __post_init__(self) -> None:
+        _require(bool(self.name), "replica_policy.name must be set")
+        for name in ("overprovision", "min_ondemand"):
+            v = getattr(self, name)
+            _require(v is None or v >= 0,
+                     f"replica_policy.{name} must be >= 0, got {v}")
+
     def policy_kwargs(self) -> Dict[str, Any]:
         """Constructor kwargs for ``make_policy`` (set fields only)."""
         kw: Dict[str, Any] = dict(self.args)
@@ -72,6 +152,14 @@ class ReplicaPolicySpec:
         if self.min_ondemand is not None:
             kw["min_ondemand"] = self.min_ondemand
         return kw
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = _clean({"name": self.name, "overprovision": self.overprovision,
+                      "dynamic_fallback": self.dynamic_fallback,
+                      "min_ondemand": self.min_ondemand})
+        if self.args:
+            out["args"] = dict(self.args)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,30 +192,181 @@ class AutoscalerSpec:
         if self.kind == "load":
             _require(self.min_replicas <= self.target <= self.max_replicas,
                      f"autoscaler.target (initial N_Tar) must lie within "
-                     f"[{self.min_replicas}, {self.max_replicas}] for "
-                     f"kind='load', got {self.target}")
+                     f"[min_replicas, max_replicas] = [{self.min_replicas}, "
+                     f"{self.max_replicas}] for kind='load', got {self.target}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+WORKLOAD_KINDS = ("poisson", "arena", "maf", "none")
 
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
+    """Request arrivals; ``kind="none"`` runs the control plane alone (no
+    request path: availability and cost only)."""
+
     kind: str = "poisson"
     rate_per_s: float = 0.5
     seed: int = 0
     args: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        _require(self.kind == "poisson",
-                 f"workload.kind {self.kind!r}: the port has 'poisson' only")
+        _require(self.kind in WORKLOAD_KINDS,
+                 f"workload.kind must be one of {list(WORKLOAD_KINDS)}, got "
+                 f"{self.kind!r}")
         _require(self.rate_per_s > 0, f"workload.rate_per_s must be "
                  f"positive, got {self.rate_per_s}")
-        extra = set(self.args) - {"client_regions"}
-        _require(not extra, f"workload.args has keys {sorted(extra)} the "
-                 "port does not read; allowed: ['client_regions']")
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"kind": self.kind, "rate_per_s": self.rate_per_s,
+                               "seed": self.seed}
+        if self.args:
+            out["args"] = dict(self.args)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencySpec:
+    """Where replica service times come from: ``roofline`` (the analytic
+    model) or ``profile`` (a step-time table of ``repro_torch.profiles`` at
+    ``profile``, a file or a directory; default ``artifacts/profiles/``)."""
+
+    source: str = "roofline"
+    profile: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        _require(self.source in LATENCY_SOURCES,
+                 f"latency.source must be one of {list(LATENCY_SOURCES)}, "
+                 f"got {self.source!r}")
+        _require(self.profile is None or bool(self.profile),
+                 "latency.profile must be a non-empty path when set")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return _clean({"source": self.source, "profile": self.profile})
+
+
+# ---------------------------------------------------------------------------
+# serving and observability: carried for to_dict, their unported values
+# refused by ServiceSpec.unported
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOSpec:
+    """The token-level model's TTFT / TPOT targets."""
+
+    ttft_s: float = 10.0
+    tpot_s: float = 0.2
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingSpec:
+    """Replica data-plane knobs.  ``concurrency_cap`` bounds the request
+    model's model-derived concurrency (when ``sim.concurrency`` is null);
+    the other fields configure the token-level model."""
+
+    slo: SLOSpec = dataclasses.field(default_factory=SLOSpec)
+    concurrency_cap: int = 16
+    prefill_chunk_tokens: int = 512
+    max_batch: Optional[int] = None
+    kv_budget_tokens: Optional[int] = None
+    iter_overhead_s: float = 0.0
+    goodput_window_s: float = 60.0
+
+    def __post_init__(self) -> None:
+        _require(self.concurrency_cap >= 1, f"serving.concurrency_cap must "
+                 f"be >= 1, got {self.concurrency_cap}")
+
+    def token_knobs(self) -> List[str]:
+        """The token-level fields set away from their defaults."""
+        default = ServingSpec()
+        return [f.name for f in dataclasses.fields(self)
+                if f.name != "concurrency_cap"
+                and getattr(self, f.name) != getattr(default, f.name)]
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "slo": self.slo.to_dict(),
+            "concurrency_cap": self.concurrency_cap,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "iter_overhead_s": self.iter_overhead_s,
+            "goodput_window_s": self.goodput_window_s,
+        }
+        if self.max_batch is not None:
+            out["max_batch"] = self.max_batch
+        if self.kv_budget_tokens is not None:
+            out["kv_budget_tokens"] = self.kv_budget_tokens
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOBurnSpec:
+    """The reference's burn-rate monitor knobs (detail ``full`` only)."""
+
+    target: float = 0.99
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+    fast_threshold: float = 14.4
+    slow_threshold: float = 6.0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+DETAIL_LEVELS = ("off", "decisions", "full")
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservabilitySpec:
+    """What the run records.  The port records no events; it reads
+    ``detail`` and ``trace_sample`` only to decide whether phase B carries
+    span timelines (``detail`` not ``off`` and ``trace_sample > 0``, as
+    the reference's span sampler).  ``out_dir``, ``jsonl``,
+    ``chrome_trace`` and ``window_s`` act at detail ``full`` only."""
+
+    detail: str = "decisions"
+    out_dir: str = "artifacts/obs"
+    jsonl: bool = True
+    chrome_trace: bool = True
+    window_s: float = 60.0
+    trace_sample: float = 0.01
+    slo_burn: SLOBurnSpec = dataclasses.field(default_factory=SLOBurnSpec)
+
+    def __post_init__(self) -> None:
+        _require(self.detail in DETAIL_LEVELS, f"observability.detail must "
+                 f"be one of {list(DETAIL_LEVELS)}, got {self.detail!r}")
+        _require(bool(self.out_dir),
+                 "observability.out_dir must be a non-empty path")
+        _require(self.window_s > 0, f"observability.window_s must be "
+                 f"positive, got {self.window_s}")
+        _require(0.0 <= self.trace_sample <= 1.0, f"observability."
+                 f"trace_sample must be in [0, 1], got {self.trace_sample}")
+
+    @property
+    def spans_on(self) -> bool:
+        return self.detail != "off" and self.trace_sample > 0.0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# simulation fabric and the sweep
+# ---------------------------------------------------------------------------
+
+
+ENGINE_NAMES = ("vector", "legacy", "jax")
+REPLICA_MODELS = ("request", "token")
 
 
 @dataclasses.dataclass(frozen=True)
 class SimSpec:
-    """Horizon, cold start, control cadence and SLO of one run."""
+    """Horizon, cold start, control cadence, SLO and engine of one run."""
 
     duration_hours: float = 4.0
     cold_start_s: float = 183.0
@@ -137,9 +376,20 @@ class SimSpec:
     concurrency: Optional[int] = 4
     drain_s: float = 600.0        # no arrivals this long before the horizon
     warning_enabled: bool = True
+    # the cloud's advance-warning lead (s) for this run's trace; None keeps
+    # the catalog's per-cloud default
+    preemption_warning_s: Optional[float] = None
     seed: int = 0
+    record_series: bool = True
+    engine: str = "vector"
+    replica_model: str = "request"
 
     def __post_init__(self) -> None:
+        _require(self.engine in ENGINE_NAMES, f"sim.engine must be one of "
+                 f"{list(ENGINE_NAMES)}, got {self.engine!r}")
+        _require(self.replica_model in REPLICA_MODELS, f"sim.replica_model "
+                 f"must be one of {list(REPLICA_MODELS)}, got "
+                 f"{self.replica_model!r}")
         for name in ("duration_hours", "control_interval_s", "timeout_s",
                      "sub_step_s"):
             v = getattr(self, name)
@@ -149,48 +399,85 @@ class SimSpec:
             _require(v >= 0, f"sim.{name} must be >= 0, got {v}")
         _require(self.concurrency is None or self.concurrency > 0,
                  f"sim.concurrency must be positive, got {self.concurrency}")
+        _require(self.preemption_warning_s is None
+                 or self.preemption_warning_s >= 0,
+                 f"sim.preemption_warning_s must be >= 0, got "
+                 f"{self.preemption_warning_s}")
 
     @property
     def duration_s(self) -> float:
         return self.duration_hours * 3600.0
 
-
-@dataclasses.dataclass(frozen=True)
-class ObservabilitySpec:
-    #: share of requests whose spans are sampled; > 0 asks phase B for span
-    #: timelines
-    trace_sample: float = 0.01
-
-    def __post_init__(self) -> None:
-        _require(0.0 <= self.trace_sample <= 1.0,
-                 f"observability.trace_sample must lie in [0, 1], got "
-                 f"{self.trace_sample}")
+    def to_dict(self) -> Dict[str, Any]:
+        # keeps an explicit None (concurrency: null is model-derived)
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
-    """A scenario grid ``policies x traces x seeds``; an empty axis falls
-    back to the base spec's single value, and a seed overrides
-    ``workload.seed``."""
+    """A scenario grid ``policies x traces x workloads x seeds``; an empty
+    axis falls back to the base spec's single value, and a seed overrides
+    ``workload.seed``.  The reference's ``forecasters``, ``replica_models``
+    and ``migration`` axes are kept as given and refused by
+    ``ServiceSpec.unported``."""
 
     policies: Tuple[ReplicaPolicySpec, ...] = ()
     traces: Tuple[str, ...] = ()
+    workloads: Tuple[WorkloadSpec, ...] = ()
     seeds: Tuple[int, ...] = ()
+    forecasters: Tuple[Any, ...] = ()
+    replica_models: Tuple[Any, ...] = ()
+    migration: Tuple[Any, ...] = ()
 
     def __post_init__(self) -> None:
-        names = [p.name for p in self.policies]
-        _require(len(set(names)) == len(names),
-                 f"sweep.policies names a policy twice: {names}")
+        for tr in self.traces:
+            _require(bool(tr), "sweep.traces entries must be non-empty strings")
         for s in self.seeds:
             _require(isinstance(s, int) and not isinstance(s, bool),
                      f"sweep.seeds entries must be ints, got {s!r}")
 
+    @property
+    def size(self) -> int:
+        """Number of scenarios the grid expands to (axes default to 1)."""
+        n = 1
+        for axis in (self.policies, self.traces, self.workloads, self.seeds,
+                     self.forecasters, self.replica_models, self.migration):
+            n *= max(len(axis), 1)
+        return n
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        if self.policies:
+            out["policies"] = [p.to_dict() for p in self.policies]
+        if self.traces:
+            out["traces"] = list(self.traces)
+        if self.workloads:
+            out["workloads"] = [w.to_dict() for w in self.workloads]
+        if self.seeds:
+            out["seeds"] = list(self.seeds)
+        for axis in ("forecasters", "replica_models", "migration"):
+            if getattr(self, axis):
+                out[axis] = list(getattr(self, axis))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the service spec
+# ---------------------------------------------------------------------------
+
 
 LB_NAMES = {"least_loaded": "ll", "round_robin": "rr"}
+
+#: the reference's policies the port does not have yet
+POLICIES_NOT_PORTED = ("omniscient", "risk_spothedge")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServiceSpec:
+    """The complete declarative description of one service run.
+    ``forecast`` and ``migration`` hold the reference's sections as given;
+    the port refuses both."""
+
     name: str = "service"
     model: str = "llama3.2-1b"
     trace: str = "aws-3"
@@ -200,73 +487,120 @@ class ServiceSpec:
     autoscaler: AutoscalerSpec = dataclasses.field(
         default_factory=AutoscalerSpec)
     workload: WorkloadSpec = dataclasses.field(default_factory=WorkloadSpec)
+    latency: LatencySpec = dataclasses.field(default_factory=LatencySpec)
+    forecast: Optional[Mapping[str, Any]] = None
+    serving: ServingSpec = dataclasses.field(default_factory=ServingSpec)
     observability: ObservabilitySpec = dataclasses.field(
         default_factory=ObservabilitySpec)
+    migration: Optional[Mapping[str, Any]] = None
     sim: SimSpec = dataclasses.field(default_factory=SimSpec)
     load_balancer: str = "least_loaded"
     sweep: Optional[SweepSpec] = None
 
     def __post_init__(self) -> None:
-        _require(self.load_balancer in LB_NAMES,
-                 f"load_balancer must be one of {sorted(LB_NAMES)}, got "
-                 f"{self.load_balancer!r}")
+        for name in ("name", "model", "trace"):
+            _require(bool(getattr(self, name)), f"service.{name} must be set")
+        _require(self.load_balancer in LB_NAMES, f"service.load_balancer "
+                 f"must be one of {list(LB_NAMES)}, got {self.load_balancer!r}")
 
+    def unported(self) -> List[str]:
+        """What in this spec the port cannot run as the reference does, by
+        field name (empty: it runs)."""
+        out = []
+        if self.forecast is not None:
+            out.append("forecast (the forecasters and risk-aware policies)")
+        if self.migration is not None:
+            out.append("migration (grace-period KV migration)")
+        if self.sim.replica_model != "request":
+            out.append(f"sim.replica_model {self.sim.replica_model!r} (or "
+                       "serving.replica_model: the token-level replica "
+                       "model)")
+        knobs = self.serving.token_knobs()
+        if knobs:
+            out.append(f"serving.{', serving.'.join(knobs)} (token-level "
+                       "model knobs)")
+        if self.sim.engine == "legacy":
+            out.append("sim.engine 'legacy' (the per-request "
+                       "ServingSimulator)")
+        if self.observability.detail == "full":
+            out.append("observability.detail 'full' (event windows and "
+                       "artifact export)")
+        if self.observability.slo_burn != SLOBurnSpec():
+            out.append("observability.slo_burn (the SLO burn-rate monitor)")
+        policies = [self.replica_policy.name] + [
+            p.name for p in (self.sweep.policies if self.sweep else ())]
+        for name in dict.fromkeys(policies):
+            if name in POLICIES_NOT_PORTED:
+                out.append(f"replica_policy {name!r}")
+        if self.sweep is not None:
+            for axis in ("forecasters", "replica_models", "migration"):
+                if getattr(self.sweep, axis):
+                    out.append(f"sweep.{axis}")
+        return out
 
-def _section(d: Mapping[str, Any], key: str, cls, where: str = "") -> Any:
-    """The dataclass ``cls`` from ``d[key]``, its keys checked."""
-    sub = d.get(key, {})
-    where = where or key
-    if not isinstance(sub, Mapping):
-        raise SpecError(f"{where} must be a mapping, got {type(sub).__name__}")
-    allowed = {f.name for f in dataclasses.fields(cls)}
-    unknown = set(sub) - allowed
-    _require(not unknown, f"{where} has keys {sorted(unknown)} the port does "
-             f"not read; allowed: {sorted(allowed)}")
-    return cls(**sub)
+    def refuse_unported(self) -> "ServiceSpec":
+        gaps = self.unported()
+        _require(not gaps, "not ported yet, so the port refuses this spec: "
+                 + "; ".join(gaps))
+        return self
 
+    def validate(self) -> "ServiceSpec":
+        """Refuse what the port cannot run, then check the fields against
+        the port's registries (policies, models, instance types, named
+        traces).  Returns self."""
+        from repro_torch.cluster.catalog import default_catalog
+        from repro_torch.cluster.traces import TraceLibrary
+        from repro_torch.configs import ARCH_IDS
+        from repro_torch.core.policy import registered_policies
 
-def _sweep_policy(entry: Any) -> ReplicaPolicySpec:
-    if isinstance(entry, str):
-        return ReplicaPolicySpec(name=entry)
-    if isinstance(entry, Mapping):
-        return _section({"p": entry}, "p", ReplicaPolicySpec,
-                        "sweep.policies entry")
-    raise SpecError(f"sweep.policies entries must be policy names or "
-                    f"mappings, got {entry!r}")
+        self.refuse_unported()
+        policies = registered_policies()
+        _require(self.replica_policy.name in policies,
+                 f"unknown replica_policy.name {self.replica_policy.name!r}; "
+                 f"registered policies: {policies}")
+        names = TraceLibrary().names()
+        if self.sweep is not None:
+            for p in self.sweep.policies:
+                _require(p.name in policies, f"unknown sweep policy "
+                         f"{p.name!r}; registered policies: {policies}")
+            for tr in self.sweep.traces:
+                _require(tr in names or tr.endswith((".json", ".npz")),
+                         f"unknown sweep trace {tr!r}; named datasets: "
+                         f"{names} (or pass a .json/.npz trace file path)")
+        _require(self.model in ARCH_IDS,
+                 f"unknown model {self.model!r}; available: {list(ARCH_IDS)}")
+        catalog = default_catalog()
+        try:
+            catalog.instance_type(self.resources.instance_type)
+        except KeyError:
+            raise SpecError(
+                f"unknown resources.instance_type "
+                f"{self.resources.instance_type!r}; catalog has "
+                f"{sorted(t.name for t in catalog.instance_types)}") from None
+        _require(self.trace in names or self.trace.endswith((".json", ".npz")),
+                 f"unknown trace {self.trace!r}; named datasets: {names} (or "
+                 "pass a .json/.npz trace file path)")
+        return self
 
-
-def spec_from_dict(d: Mapping[str, Any]) -> ServiceSpec:
-    """A ``ServiceSpec`` from a spec dict (the top-level ``service:``
-    wrapper is optional)."""
-    if not isinstance(d, Mapping):
-        raise SpecError(f"service spec must be a mapping, got "
-                        f"{type(d).__name__}")
-    if isinstance(d.get("service"), Mapping):
-        d = d["service"]
-    top = ("name", "model", "trace", "load_balancer")
-    sections = {"resources": ResourceSpec, "replica_policy": ReplicaPolicySpec,
-                "autoscaler": AutoscalerSpec, "workload": WorkloadSpec,
-                "observability": ObservabilitySpec, "sim": SimSpec}
-    unknown = set(d) - set(top) - set(sections) - {"sweep"}
-    _require(not unknown, f"service spec has keys {sorted(unknown)} the port "
-             f"does not read; allowed: "
-             f"{sorted((*top, *sections, 'sweep'))}")
-    try:
-        kw: Dict[str, Any] = {k: d[k] for k in top if k in d}
-        for key, cls in sections.items():
-            kw[key] = _section(d, key, cls)
-        if d.get("sweep") is not None:
-            sw = d["sweep"]
-            _require(isinstance(sw, Mapping), "sweep must be a mapping")
-            unknown = set(sw) - {"policies", "traces", "seeds"}
-            _require(not unknown, f"sweep has keys {sorted(unknown)} the "
-                     "port does not read; allowed: ['policies', 'seeds', "
-                     "'traces']")
-            kw["sweep"] = SweepSpec(
-                policies=tuple(_sweep_policy(e) for e in sw.get("policies", ())),
-                traces=tuple(sw.get("traces", ())),
-                seeds=tuple(sw.get("seeds", ())),
-            )
-        return ServiceSpec(**kw)
-    except TypeError as e:
-        raise SpecError(f"malformed service spec: {e}") from e
+    def to_dict(self) -> Dict[str, Any]:
+        out = {
+            "name": self.name,
+            "model": self.model,
+            "trace": self.trace,
+            "resources": self.resources.to_dict(),
+            "replica_policy": self.replica_policy.to_dict(),
+            "autoscaler": self.autoscaler.to_dict(),
+            "workload": self.workload.to_dict(),
+            "latency": self.latency.to_dict(),
+            "serving": self.serving.to_dict(),
+            "observability": self.observability.to_dict(),
+            "sim": self.sim.to_dict(),
+            "load_balancer": self.load_balancer,
+        }
+        if self.forecast is not None:
+            out["forecast"] = dict(self.forecast)
+        if self.migration is not None:
+            out["migration"] = dict(self.migration)
+        if self.sweep is not None:
+            out["sweep"] = self.sweep.to_dict()
+        return out

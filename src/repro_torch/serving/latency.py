@@ -1,5 +1,5 @@
-"""The roofline request latency model: the port's own copy of
-``LatencyModel`` from ``repro.serving.latency``.
+"""Request latency models, roofline and profiled: the port's own copy of
+``repro.serving.latency``.
 
     prefill_s(P)      = 2·N·P FLOPs / (accels × peak_flops × MFU_prefill)
     decode_s_per_tok  = weight bytes / (accels × HBM_bw) / MBU_decode
@@ -9,19 +9,32 @@ Prefill is compute-bound, decode is bound by the weights read per token.
 The constants are the reference's (MFU 0.45, MBU 0.70, 0.05 s overhead),
 so a request's service time here is the reference's to the bit, and so is
 the concurrency a replica's leftover HBM holds (``max_concurrency``), the
-serving engine's default.  The
-profiled variant (efficiencies measured by ``repro_torch.profiles``) is not
-ported yet.
+serving engine's default.
+
+``ProfiledLatencyModel`` keeps that structure and takes ``mfu_prefill`` /
+``mbu_decode`` from a step-time table of ``repro_torch.profiles``, with
+the table's path, backend and mode as provenance.  ``make_latency_model``
+picks one of the two from a spec's ``latency:`` section; when no profile
+row matches it warns and returns the roofline, as the reference does (the
+reference also counts that on its obs registry, which is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Optional
 
 from repro_torch.cluster.catalog import InstanceType
 from repro_torch.models.config import ModelConfig
+from repro_torch.profiles.schema import (
+    DEFAULT_PROFILE_DIR,
+    ProfileEntry,
+    load_profiles,
+)
 
-__all__ = ["LatencyModel"]
+__all__ = ["LATENCY_SOURCES", "LatencyModel", "ProfiledLatencyModel",
+           "make_latency_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +123,68 @@ class LatencyModel:
             slots = min(max_ctx, cfg.sliding_window or max_ctx)
             return max(1, int(self.free_kv_hbm_bytes() / (kv_tok * slots)))
         return 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ProfiledLatencyModel(LatencyModel):
+    """Roofline latency with kernel-measured MFU/MBU, and which table
+    measured them, where and how."""
+
+    profile_path: str = ""
+    profile_backend: str = ""       # "cuda" | "cpu": where the row was measured
+    profile_mode: str = ""          # "compiled" | "eager"
+
+    @classmethod
+    def from_entry(cls, cfg: ModelConfig, itype: InstanceType,
+                   entry: ProfileEntry, *, path: str = "",
+                   n_params: float = 0.0) -> "ProfiledLatencyModel":
+        n = n_params or float(cfg.approx_params())
+        return cls(
+            cfg=cfg,
+            itype=itype,
+            n_params=n,
+            mfu_prefill=entry.mfu_prefill,
+            mbu_decode=entry.mbu_decode,
+            profile_path=path,
+            profile_backend=entry.backend,
+            profile_mode=entry.mode,
+        )
+
+
+LATENCY_SOURCES = ("roofline", "profile")
+
+
+def make_latency_model(
+    cfg: ModelConfig,
+    itype: InstanceType,
+    *,
+    model_id: str,
+    source: str = "roofline",
+    profile: Optional[str] = None,
+) -> LatencyModel:
+    """The latency model a spec's ``latency:`` section asks for.
+
+    ``source="roofline"`` is the analytic model.  ``source="profile"``
+    loads the table(s) at ``profile`` (a JSON file or a directory of them,
+    default ``artifacts/profiles/``) and looks up ``(model_id,
+    itype.accelerator)``; with no table or no matching row it warns and
+    returns the roofline."""
+    if source not in LATENCY_SOURCES:
+        raise ValueError(
+            f"latency source must be one of {list(LATENCY_SOURCES)}, "
+            f"got {source!r}"
+        )
+    if source == "roofline":
+        return LatencyModel.for_model(cfg, itype)
+    path = profile or DEFAULT_PROFILE_DIR
+    entry = load_profiles(path, missing_ok=True).lookup(
+        model_id, itype.accelerator)
+    if entry is None:
+        warnings.warn(
+            f"latency source 'profile': no profile entry for "
+            f"({model_id!r}, {itype.accelerator!r}) under {path!r}; "
+            "falling back to the analytic roofline model",
+            stacklevel=2,
+        )
+        return LatencyModel.for_model(cfg, itype)
+    return ProfiledLatencyModel.from_entry(cfg, itype, entry, path=str(path))

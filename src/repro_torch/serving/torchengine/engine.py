@@ -271,26 +271,30 @@ def run_schedules(
     *,
     queue_capacity: int = DEFAULT_QUEUE_CAPACITY,
     outputs: Optional[List[Optional[dict]]] = None,
+    groups: Optional[List[List[int]]] = None,
     device: Union[str, torch.device, None] = None,
 ) -> List[Optional[ServingResult]]:
     """Phase B over many cells, one launch per shape group, on CUDA unless
     ``device="cpu"`` (the plain version).  Results align with ``scheds``;
     ``None`` marks a lane whose queue pool overflowed.  Pass a list as
     ``outputs`` to also receive each lane's raw outputs (``None`` for
-    overflowed and empty lanes)."""
+    overflowed and empty lanes), and one as ``groups`` to receive the
+    indices of the cells each launch took."""
     dev = resolve_device(device)
     results: List[Optional[ServingResult]] = [None] * len(scheds)
     if outputs is not None:
         del outputs[:]
         outputs.extend([None] * len(scheds))
-    groups: Dict[tuple, List[int]] = {}
+    by_key: Dict[tuple, List[int]] = {}
     for idx, sc in enumerate(scheds):
         if sc.grid.n_points == 0 or sc.n == 0 or sc.n_slots == 0:
             results[idx] = _empty_result(sc)
             continue
-        groups.setdefault(group_key(sc), []).append(idx)
+        by_key.setdefault(group_key(sc), []).append(idx)
+    if groups is not None:
+        groups[:] = by_key.values()
 
-    for idxs in groups.values():
+    for idxs in by_key.values():
         cells = [scheds[i] for i in idxs]
         key, lanes, grid = pack_group(cells, queue_capacity)
         out = run_group(key, lanes, *grid, device=dev)
@@ -310,6 +314,7 @@ def run_cells(
     *,
     queue_capacity: int = DEFAULT_QUEUE_CAPACITY,
     outputs: Optional[List[Optional[dict]]] = None,
+    groups: Optional[List[List[int]]] = None,
     device: Union[str, torch.device, None] = None,
 ) -> List[ServingResult]:
     """Run a batch of cells end to end: phase A per cell on the host (a
@@ -317,15 +322,16 @@ def run_cells(
     ``run_schedules`` call (one launch per shape group, on CUDA unless
     ``device="cpu"``), and an oracle rerun for every lane whose queue pool
     overflowed (its engine's ``fell_back`` is set).  Results align with
-    ``engines``; ``outputs`` receives each lane's raw outputs as in
-    ``run_schedules`` (``None`` for the rerun lanes)."""
+    ``engines``; ``outputs`` and ``groups`` receive each lane's raw outputs
+    and each launch's cells as in ``run_schedules`` (``None`` for the
+    rerun lanes' outputs)."""
     if durations is None:
         durations = [None] * len(engines)
     scheds = [eng.schedule if eng.schedule is not None
               else eng.record_schedule(dur)
               for eng, dur in zip(engines, durations)]
     results = run_schedules(scheds, queue_capacity=queue_capacity,
-                            outputs=outputs, device=device)
+                            outputs=outputs, groups=groups, device=device)
     for i, res in enumerate(results):
         if res is None:     # queue pool overflow -> oracle rerun
             engines[i].fell_back = True

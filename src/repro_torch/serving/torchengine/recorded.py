@@ -44,7 +44,7 @@ import numpy as np
 
 from repro_torch.cluster.catalog import instance_type
 from repro_torch.configs import get_config
-from repro_torch.experiments.suite import Cell, build_cells
+from repro_torch.experiments.suite import Cell, ScenarioSuite
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.torchengine.schedule import (
     BaseMetrics,
@@ -165,4 +165,4 @@ def spec_matrix(n_seeds: int = 48) -> List[Cell]:
     the port's own builder from the spec alone; ``run_cells`` runs them."""
     spec = load_recording()["spec"]
     sweep = dict(spec["sweep"], seeds=spec["sweep"]["seeds"][:n_seeds])
-    return build_cells(dict(spec, sweep=sweep))
+    return ScenarioSuite.from_spec(dict(spec, sweep=sweep)).cells()

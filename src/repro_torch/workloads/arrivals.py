@@ -1,16 +1,23 @@
-"""Request arrival processes: the port's own copy of ``Request``,
-``Workload`` and ``PoissonWorkload`` from ``repro.workloads.arrivals``.
+"""Request arrival processes: the port's own copy of
+``repro.workloads.arrivals``.
+
+* ``PoissonWorkload`` — homogeneous Poisson arrivals.
+* ``ArenaWorkload``   — Chatbot-Arena-like bursty traffic: a
+  Markov-modulated Poisson process (quiet / normal / burst regimes) with
+  occasional spike minutes.
+* ``MAFWorkload``     — Azure-Functions-like diurnal traffic with
+  invocation spikes and shorter outputs.
 
 The draws are the reference's, in the reference's order, from numpy's
 ``default_rng(seed)``: a tape made here from a seed is the reference's tape
-to the bit (arrival times, token lengths and client regions).  The bursty
-Arena and diurnal MAF workloads are not ported yet.
+to the bit (arrival times, token lengths and client regions).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -135,11 +142,135 @@ class PoissonWorkload(Workload):
         ])
 
 
-_WORKLOADS = {"poisson": PoissonWorkload}
+class ArenaWorkload(Workload):
+    """Markov-modulated Poisson: bursty Chatbot-Arena-like traffic.
+
+    Three regimes (quiet / normal / burst) with mean rates ``base_rate *
+    REGIME_MULT`` and exponential sojourn times; within a regime, Poisson
+    arrivals minute by minute, a minute a spike with ``spike_prob``."""
+
+    name = "arena"
+
+    REGIME_MULT = (0.4, 1.0, 2.0)
+    REGIME_MEAN_S = (1800.0, 3600.0, 900.0)
+    TRANSITION = np.array(
+        [
+            [0.0, 0.9, 0.1],
+            [0.4, 0.0, 0.6],
+            [0.1, 0.9, 0.0],
+        ]
+    )
+
+    def __init__(self, base_rate_per_s: float = 0.3, seed: int = 0,
+                 spike_prob: float = 0.002, spike_mult: float = 12.0,
+                 client_regions: Optional[ClientRegions] = None) -> None:
+        super().__init__(seed, client_regions=client_regions)
+        self.base_rate = float(base_rate_per_s)
+        self.spike_prob = float(spike_prob)
+        self.spike_mult = float(spike_mult)
+
+    def generate(self, duration_s: float) -> List[Request]:
+        rng = np.random.default_rng(self.seed)
+        t, regime = 0.0, 1
+        out: List[Request] = []
+        while t < duration_s:
+            sojourn = rng.exponential(self.REGIME_MEAN_S[regime])
+            end = min(t + sojourn, duration_s)
+            rate = self.base_rate * self.REGIME_MULT[regime]
+            seg = t
+            while seg < end:
+                seg_end = min(seg + 60.0, end)
+                r = rate * (
+                    self.spike_mult if rng.random() < self.spike_prob else 1.0
+                )
+                n = rng.poisson(r * (seg_end - seg))
+                times = rng.uniform(seg, seg_end, n)
+                p, o = self._sample_lengths(rng, n)
+                out.extend(
+                    Request(arrival_s=float(tt), prompt_tokens=int(pi),
+                            output_tokens=int(oi))
+                    for tt, pi, oi in zip(times, p, o)
+                )
+                seg = seg_end
+            regime = int(rng.choice(3, p=self.TRANSITION[regime]))
+            t = end
+        out.sort(key=lambda r: r.arrival_s)
+        return self._assign_regions(out)
+
+
+class MAFWorkload(Workload):
+    """Azure-Functions-like diurnal workload with invocation spikes."""
+
+    name = "maf"
+
+    def __init__(self, base_rate_per_s: float = 0.25, seed: int = 0,
+                 diurnal_depth: float = 0.8,
+                 spike_prob_per_min: float = 0.004,
+                 spike_mult: float = 20.0,
+                 client_regions: Optional[ClientRegions] = None) -> None:
+        super().__init__(seed, client_regions=client_regions)
+        self.base_rate = float(base_rate_per_s)
+        self.depth = float(diurnal_depth)
+        self.spike_prob = float(spike_prob_per_min)
+        self.spike_mult = float(spike_mult)
+
+    def _rate(self, t: float) -> float:
+        phase = 2.0 * math.pi * (t % 86400.0) / 86400.0
+        return self.base_rate * (
+            1.0 - self.depth * 0.5 * (1.0 + math.cos(phase))
+            + self.depth
+        )
+
+    def generate(self, duration_s: float) -> List[Request]:
+        rng = np.random.default_rng(self.seed)
+        out: List[Request] = []
+        t = 0.0
+        while t < duration_s:
+            end = min(t + 60.0, duration_s)
+            r = self._rate(t)
+            if rng.random() < self.spike_prob:
+                r *= self.spike_mult
+            n = rng.poisson(r * (end - t))
+            times = rng.uniform(t, end, n)
+            # serverless-style shorter outputs
+            p, o = self._sample_lengths(rng, n, out_mu=4.2)
+            out.extend(
+                Request(arrival_s=float(tt), prompt_tokens=int(pi),
+                        output_tokens=int(oi))
+                for tt, pi, oi in zip(times, p, o)
+            )
+            t = end
+        out.sort(key=lambda r: r.arrival_s)
+        return self._assign_regions(out)
+
+
+_WORKLOADS = {
+    "poisson": PoissonWorkload,
+    "arena": ArenaWorkload,
+    "maf": MAFWorkload,
+}
 
 
 def make_workload(name: str, **kwargs) -> Workload:
     if name not in _WORKLOADS:
-        raise KeyError(f"unknown workload {name!r}; the port has "
-                       f"{sorted(_WORKLOADS)}")
+        raise KeyError(f"unknown workload {name!r}; have {sorted(_WORKLOADS)}")
     return _WORKLOADS[name](**kwargs)
+
+
+def interarrival_stats(requests: List[Request]) -> dict:
+    """Gap statistics of a tape (the reference's Fig. 11 summary)."""
+    if len(requests) < 2:
+        return {"n": len(requests)}
+    times = np.array([r.arrival_s for r in requests])
+    gaps = np.diff(times)
+    return {
+        "n": len(requests),
+        "mean_gap_s": float(gaps.mean()),
+        "p50_gap_s": float(np.percentile(gaps, 50)),
+        "p99_gap_s": float(np.percentile(gaps, 99)),
+        "cv": float(gaps.std() / max(gaps.mean(), 1e-9)),
+        "peak_to_mean": float(
+            np.histogram(times, bins=max(int(times[-1] // 60), 1))[0].max()
+            / max(len(requests) / max(times[-1] / 60.0, 1e-9), 1e-9)
+        ),
+    }

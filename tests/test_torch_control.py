@@ -53,13 +53,13 @@ from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.core import autoscaler as tauto  # noqa: E402
 from repro_torch.core.policy import make_policy as t_make_policy  # noqa: E402
 from repro_torch.core.policy import registered_policies as t_registered  # noqa: E402
-from repro_torch.experiments import expand_sweep  # noqa: E402
+from repro_torch.experiments import ScenarioSuite  # noqa: E402
 from repro_torch.serving.engine import VectorizedServingEngine as TVector  # noqa: E402
 from repro_torch.serving.torchengine import engine as teng  # noqa: E402
 from repro_torch.serving.torchengine import recorded  # noqa: E402
 from repro_torch.serving.torchengine.schedule import BaseMetrics  # noqa: E402
 from repro_torch.service import spec as tspec  # noqa: E402
-from repro_torch.service.builder import build_cell  # noqa: E402
+from repro_torch.service.builder import build_service  # noqa: E402
 from repro_torch.workloads.arrivals import Request  # noqa: E402
 
 POLICIES = ["spothedge", "even_spread", "round_robin", "static_mixture",
@@ -448,42 +448,50 @@ def test_quick_matrix_from_the_spec():
 
 
 def test_expand_sweep_is_the_references():
-    """The grid's order, labels and cell names follow ``ScenarioSuite``."""
-    from repro.experiments.suite import ScenarioSuite
+    """The grid's order, labels, cell names and tape keys are the
+    reference ``ScenarioSuite``'s."""
+    from repro.experiments.suite import ScenarioSuite as JScenarioSuite
 
     spec = bench_spec(3, 1.0)
     spec["sweep"]["traces"] = ["aws-1", "gcp-1"]
-    want = ScenarioSuite.from_spec(spec).scenarios
-    got = expand_sweep(spec)
-    assert [lb for lb, _ in got] == [sc.labels for sc in want]
-    assert [s.name for _, s in got] == [sc.spec.name for sc in want]
-    assert [s.workload.seed for _, s in got] == [sc.spec.workload.seed
-                                                 for sc in want]
+    want = JScenarioSuite.from_spec(spec).scenarios
+    got = ScenarioSuite.from_spec(spec).scenarios
+    assert [sc.labels for sc in got] == [sc.labels for sc in want]
+    assert [sc.spec.name for sc in got] == [sc.spec.name for sc in want]
+    assert [sc.spec.workload.seed for sc in got] == [sc.spec.workload.seed
+                                                     for sc in want]
+    assert [sc.tape_key for sc in got] == [sc.tape_key for sc in want]
 
 
 def test_build_cell_slices_the_zones_the_catalog_knows():
     trace = ttr.SpotTrace(zones=("us-west-2a", "mars-1a", "us-west-2b"),
                           cap=np.full((120, 3), 2), dt=60.0, name="odd")
-    spec = tspec.spec_from_dict({"trace": "odd", "sim": {"duration_hours": 1.0}})
-    eng = build_cell(spec, trace=trace)
+    # built directly: the loader checks the trace name against the library
+    spec = tspec.ServiceSpec(trace="odd", sim=tspec.SimSpec(duration_hours=1.0,
+                                                            engine="jax"))
+    eng = build_service(spec, trace=trace).simulator
+    assert isinstance(eng, teng.TorchServingEngine)
     assert eng.cluster.zone_names == ["us-west-2a", "us-west-2b"]
     assert eng.cluster.trace.zones == ("us-west-2a", "us-west-2b")
 
 
 BAD_SPECS = [
-    ("unknown top-level key", {"latency": {"source": "profile"}}, "latency"),
-    ("unknown sim key", {"sim": {"engine": "jax"}}, "engine"),
-    ("arena workload", {"workload": {"kind": "arena"}}, "arena"),
+    ("unknown top-level key", {"telemetry": {"source": "profile"}},
+     "telemetry"),
+    ("unknown sim key", {"sim": {"engines": "jax"}}, "engines"),
+    ("arena workload", {"workload": {"kind": "arena",
+                                     "args": {"diurnal_depth": 0.5}}},
+     "diurnal_depth"),
     ("workload arg", {"workload": {"args": {"burst": 2}}}, "burst"),
     ("autoscaler kind", {"autoscaler": {"kind": "predictive"}}, "predictive"),
     ("balancer", {"load_balancer": "power_of_two"}, "power_of_two"),
-    ("sweep axis", {"sweep": {"workloads": ["maf"]}}, "workloads"),
+    ("sweep axis", {"sweep": {"forecasters": ["markov"]}}, "forecasters"),
     ("policy not ported", {"replica_policy": {"name": "omniscient"}},
      "not ported yet"),
     ("unknown policy", {"sweep": {"policies": ["nope"]}}, "nope"),
     ("policy knob", {"replica_policy": {"name": "even_spread",
                                         "overprovision": 2}}, "knobs"),
-    ("resources filter", {"resources": {"any_of": [{"cloud": "aws"}]}},
+    ("resources filter", {"resources": {"any_of": [{"cloud": "gcp"}]}},
      "any_of"),
     ("negative timeout", {"sim": {"timeout_s": -1.0}}, "timeout_s"),
     ("unknown model", {"model": "gpt-9"}, "gpt-9"),
@@ -497,8 +505,8 @@ def test_unsupported_spec_raises(extra, match):
     if "sweep" not in extra:
         spec.pop("sweep")
     with pytest.raises(ValueError, match=match):
-        for _, cell in expand_sweep(spec):
-            build_cell(cell)
+        for sc in ScenarioSuite.from_spec(spec).scenarios:
+            build_service(sc.spec)
 
 
 SECTIONS = [

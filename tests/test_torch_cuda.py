@@ -959,3 +959,70 @@ def test_scenario_scan_refuses_what_it_does_not_take(card):
         tscn.launch(*args[:-1], args[-1].cpu(), **kw)
     with pytest.raises(ValueError, match="svc"):
         tscn.launch(args[0], args[1][:, :-1], *args[2:], **kw)
+
+
+# ---------------------------------------------------------------------------
+# the front door: Service and ScenarioSuite with phase B on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py's spothedge constants (this file imports no JAX)
+GOLDEN_SPOTHEDGE = dict(n_requests=3571, n_completed=3501, n_failed=70,
+                        n_preemptions=1, n_launch_failures=0,
+                        total_cost=50.733135, p50_s=0.703607,
+                        p99_s=1.692754, availability=0.972917)
+
+
+def golden_spec(engine: str) -> dict:
+    return {
+        "name": "golden-spothedge", "model": "llama3.2-1b", "trace": "aws-1",
+        "resources": {"instance_type": "g5.48xlarge"},
+        "replica_policy": {"name": "spothedge"},
+        "autoscaler": {"kind": "constant", "target": 3},
+        "workload": {"kind": "poisson", "rate_per_s": 0.5, "seed": 17},
+        "sim": {"duration_hours": 2.0, "timeout_s": 60.0, "concurrency": 2,
+                "drain_s": 300.0, "seed": 0, "engine": engine},
+    }
+
+
+@pytest.mark.cuda
+def test_service_golden_on_card(card):
+    from repro_torch.service import Service
+
+    svc = Service(golden_spec("jax"))
+    ops.reset_launch_counts()
+    res = svc.run()
+    assert ops.scenario_scan.launches == 1
+    assert svc.status()["oracle_rerun"] is False
+    want = GOLDEN_SPOTHEDGE
+    for k in ("n_requests", "n_completed", "n_failed", "n_preemptions",
+              "n_launch_failures"):
+        assert getattr(res, k) == want[k], k
+    assert res.total_cost == pytest.approx(want["total_cost"], abs=1e-6)
+    assert res.pct(50) == pytest.approx(want["p50_s"], abs=1e-6)
+    assert res.pct(99) == pytest.approx(want["p99_s"], abs=1e-6)
+    assert res.availability == pytest.approx(want["availability"], abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_arena_sweep_on_card_equals_the_host_engine(card):
+    from repro_torch.experiments import ScenarioSuite
+
+    spec = dict(golden_spec("jax"),
+                workload={"kind": "arena", "rate_per_s": 0.8, "seed": 5},
+                sweep={"policies": ["spothedge", "even_spread"],
+                       "traces": ["aws-1", "gcp-1"]})
+    spec["sim"] = dict(spec["sim"], duration_hours=1.0)
+    suite = ScenarioSuite.from_spec(spec)
+    ops.reset_launch_counts()
+    got = suite.run()
+    assert ops.scenario_scan.launches == got.shape_groups == 1
+    want = ScenarioSuite.from_spec(spec).run(engine="vector")
+    for a, b in zip(got.cells, want.cells):
+        assert a.labels == b.labels
+        for k in ("n_requests", "n_completed", "n_failed", "n_preemptions",
+                  "n_launch_failures"):
+            assert getattr(a, k) == getattr(b, k), k
+        for k in ("total_cost", "cost_vs_ondemand", "availability"):
+            assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-9), k
+        for k in ("mean_s", "p50_s", "p90_s", "p99_s"):
+            assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-6), k

@@ -3,6 +3,7 @@ imports neither JAX nor the reference package, and its entry points run on
 CUDA unless the caller asks for the CPU."""
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -180,3 +181,117 @@ def test_scenario_engine_defaults_to_cuda(no_cuda):
         run_group(key, lanes, *grid)
     with pytest.raises(ValueError, match="unsupported device"):
         run_group(key, lanes, *grid, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the front door: Service, the loader, the suite, the CLI
+# ---------------------------------------------------------------------------
+
+FRONT_DOOR_MODULES = (
+    "repro_torch.service.spec",
+    "repro_torch.service.loader",
+    "repro_torch.service.builder",
+    "repro_torch.service.service",
+    "repro_torch.experiments.report",
+    "repro_torch.experiments.suite",
+    "repro_torch.launch.serve",
+)
+
+
+def test_front_door_modules_fall_under_the_import_rule():
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(FRONT_DOOR_MODULES) <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in FRONT_DOOR_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+
+
+_JAX_SPEC = {
+    "model": "llama3.2-1b", "trace": "aws-1",
+    "resources": {"instance_type": "g5.48xlarge"},
+    "autoscaler": {"kind": "constant", "target": 3},
+    "sim": {"duration_hours": 1.0, "engine": "jax"},
+}
+
+
+def test_front_door_defaults_to_cuda(no_cuda):
+    """``sim.engine: jax`` runs phase B on the card: with no CUDA the
+    defaults raise before phase A, never run on the CPU."""
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.service import Service
+
+    svc = Service(_JAX_SPEC)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        svc.run()
+    assert svc.result is None and svc.status()["state"] == "declared"
+    suite = ScenarioSuite.from_spec(
+        dict(_JAX_SPEC, sweep={"policies": ["spothedge", "even_spread"]}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        suite.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        suite.run(engine="jax")
+
+
+# README.md's quickstart service: no sim.engine, so the reference's default
+# (vector) stands in the spec
+_QUICKSTART = {
+    "name": "chatbot", "model": "command-r-35b", "trace": "aws-3",
+    "resources": {"instance_type": "g5.48xlarge",
+                  "any_of": [{"region": "us-east-1"}, {"region": "us-east-2"},
+                             {"region": "us-west-2"}]},
+    "replica_policy": {"name": "spothedge", "overprovision": 2,
+                       "dynamic_fallback": True},
+    "autoscaler": {"kind": "load", "target": 4, "qps_per_replica": 0.8},
+    "workload": {"kind": "arena", "rate_per_s": 2.0},
+    "sim": {"duration_hours": 1.0},
+}
+
+
+def test_front_door_defaults_to_cuda_whatever_the_spec_says(no_cuda):
+    """A spec that names no engine (or ``vector``) still runs phase B on the
+    card through the port's entry points: with no CUDA they raise, and the
+    host engine is an explicit request that takes no device but the CPU."""
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.service import Service
+
+    for spec in (_QUICKSTART,
+                 dict(_QUICKSTART, sim={"duration_hours": 1.0,
+                                        "engine": "vector"})):
+        svc = Service(spec)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            svc.run()
+        assert svc.result is None
+        suite = ScenarioSuite.from_spec(
+            dict(spec, sweep={"traces": ["aws-1", "aws-3"]}))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            suite.run()
+    with pytest.raises(ValueError, match="host engine"):
+        Service(_QUICKSTART, engine="vector").run(device="cuda")
+    with pytest.raises(ValueError, match="host engine"):
+        ScenarioSuite.from_spec(_QUICKSTART).run(engine="vector",
+                                                 device="cuda")
+
+
+def test_serve_cli_defaults_to_cuda(no_cuda, tmp_path):
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([])
+    spec = tmp_path / "s.json"
+    spec.write_text(json.dumps(dict(_JAX_SPEC, sweep={"seeds": [0, 1]})))
+    for extra in ([], ["--sweep"], ["--status"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--spec", str(spec), *extra])
+    host = tmp_path / "h.json"
+    host.write_text(json.dumps(_QUICKSTART))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--spec", str(host)])
+    with pytest.raises(SystemExit) as e:    # the host engine takes no card
+        serve.main(["--spec", str(host), "--engine", "vector",
+                    "--device", "cuda"])
+    assert e.value.code == 2
