@@ -78,6 +78,31 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    equal to the host engine's; and the serve CLI's ``--status`` and
    ``--sweep`` in-process, exit 0.  Its ``scenario_scan`` launches are
    printed by part, apart from the matrix's count on the kernels line;
+5c. drives token-level serving, KV migration and the legacy engine
+   (``phase_token``), each part counted as in 5b: (a) the reference's token
+   matrix uncut (``benchmarks/token_engine.py``: command-r-35b on
+   g5.48xlarge, aws-1 and aws-3 at 2 h, Arena 2/s seed 11, 4 replicas,
+   spothedge and ondemand_only x request and token) through
+   ``ScenarioSuite.run``: the 4 request lanes in ``scenario_scan`` launches
+   on the card, one a shape group, the 4 token cells on the host engine,
+   no oracle rerun; then the same cells through ``run_cells`` (each
+   launch's cells printed) and on the host engine, every cell equal
+   (counts exact, cost 1e-9, availability 1e-12, latencies and the TTFT /
+   TPOT arrays 1e-6, goodput and SLO attainment 1e-9) and its metrics
+   printed; (b) the migration matrix (``benchmarks/migration.py``: aws-1
+   and aws-3 at 2 h, Arena 4/s seed 11, int8, drain_threshold_s 2.0, off
+   and on; cut to spothedge and without its forecast section, which wait
+   for the forecast port), each cell equal to the host and the legacy
+   engine's, the migration counters and the off -> on deltas printed; (c)
+   a llama3.2-1b token service on the ``h100`` instance priced by step 5's
+   own profile row (no roofline fallback warning) and by the roofline,
+   each equal to the host engine, their TTFT / TPOT / goodput and the
+   ``TokenEngineConfig`` each resolves to side by side; (e) the serve CLI's
+   ``--replica-model token --status`` and ``--engine legacy
+   --replica-model token --status`` in-process, exit 0.  Part (d) runs in
+   step 6: the K and V bytes a cached token takes in the llama3.2-1b and
+   qwen3-moe-30b caches on the card must equal
+   ``TokenEngineConfig.kv_bytes_per_token`` (32,768 and 98,304 B);
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -1421,11 +1446,12 @@ def result_fields(res) -> dict:
             **{f"p{q}_s": res.pct(q) for q in (50, 90, 99)}}
 
 
-def check_result(where: str, got: dict, want: dict) -> None:
-    """``got`` against ``want`` on ``want``'s keys, at ``RESULT_TOL`` (counts
-    exact); NaN equals NaN (no completions in both)."""
+def check_result(where: str, got: dict, want: dict, tols=None) -> None:
+    """``got`` against ``want`` on ``want``'s keys, at ``tols`` (default
+    ``RESULT_TOL``; counts exact); NaN equals NaN (no completions in both)."""
+    tols = RESULT_TOL if tols is None else tols
     for k, w in want.items():
-        tol = RESULT_TOL.get(k, 0)
+        tol = tols.get(k, 0)
         g = got[k]
         if not (g == w or (w != w and g != g) or abs(g - w) <= tol):
             raise AssertionError(f"{where}: {k} {g!r} vs {w!r} "
@@ -1682,6 +1708,8 @@ def phase_scenario() -> dict:
 SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b",
           "whisper-medium")
 PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
+# the fleets whose KV cache the token model's bytes are held against
+KV_CHECKED = ("llama3.2-1b", "qwen3-moe-30b")
 
 
 def phase_profiles() -> None:
@@ -2015,11 +2043,326 @@ def phase_service() -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# Token-level serving, KV migration and the legacy engine
+# ---------------------------------------------------------------------------
+
+# benchmarks/token_engine.py's matrix, uncut: command-r-35b on g5.48xlarge,
+# aws-1 and aws-3 at 2 h, Arena 2/s seed 11, a constant 4 replicas,
+# {spothedge, ondemand_only} x {request, token}; copied because this script
+# imports no repro (benchmarks/ does)
+TOKEN_MATRIX = {
+    "name": "token-engine", "model": "command-r-35b", "trace": "aws-1",
+    "resources": {"instance_type": "g5.48xlarge"},
+    "autoscaler": {"kind": "constant", "target": 4},
+    "workload": {"kind": "arena", "rate_per_s": 2.0, "seed": 11},
+    "serving": {"slo": {"ttft_s": 10.0, "tpot_s": 0.2}},
+    "sim": {"duration_hours": 2.0, "control_interval_s": 15.0,
+            "timeout_s": 100.0, "concurrency": 4, "drain_s": 300.0},
+    "sweep": {"policies": ["spothedge", "ondemand_only"],
+              "traces": ["aws-1", "aws-3"],
+              "replica_models": ["request", "token"]},
+}
+
+# benchmarks/migration.py's matrix (aws-1 and aws-3 at 2 h, Arena 4/s seed
+# 11, int8, drain_threshold_s 2.0, migration off and on), cut to spothedge
+# and without its forecast section: risk_spothedge and the Markov
+# forecaster wait for the forecast port
+MIGRATION_CUT = ("policies cut to spothedge (risk_spothedge waits for the "
+                 "forecast port) and no forecast section")
+MIGRATION_MATRIX = {
+    "name": "migration", "model": "command-r-35b", "trace": "aws-1",
+    "resources": {"instance_type": "g5.48xlarge"},
+    "autoscaler": {"kind": "constant", "target": 4},
+    "workload": {"kind": "arena", "rate_per_s": 4.0, "seed": 11},
+    "serving": {"replica_model": "token",
+                "slo": {"ttft_s": 10.0, "tpot_s": 0.2}},
+    "migration": {"enabled": False, "compression": "int8",
+                  "drain_threshold_s": 2.0},
+    "sim": {"duration_hours": 2.0, "control_interval_s": 15.0,
+            "timeout_s": 100.0, "concurrency": 4, "drain_s": 300.0},
+    "sweep": {"policies": ["spothedge"], "traces": ["aws-1", "aws-3"],
+              "migration": [False, True]},
+}
+
+#: a token cell's fields held against the host engine's, beside RESULT_TOL:
+#: the TTFT / TPOT percentiles to 1e-6, goodput and SLO attainment to 1e-9
+TOKEN_TOL = {**RESULT_TOL, "ttft_p50_s": 1e-6, "ttft_p99_s": 1e-6,
+             "tpot_p50_s": 1e-6, "tpot_p99_s": 1e-6, "goodput_rps": 1e-9,
+             "slo_attainment": 1e-9}
+CELL_KEYS = (*RESULT_COUNTS, "total_cost", "cost_vs_ondemand", "availability",
+             "mean_s", "p50_s", "p90_s", "p99_s", "ttft_p50_s", "ttft_p99_s",
+             "tpot_p50_s", "tpot_p99_s", "goodput_rps", "slo_attainment",
+             "n_drained_seqs", "n_migrated_seqs", "migrated_kv_tokens",
+             "saved_prefill_tokens", "lost_kv_tokens")
+
+
+def check_cells(where: str, got, want) -> None:
+    """Two reports' cells, label for label, at ``TOKEN_TOL``."""
+    if len(got.cells) != len(want.cells):
+        raise AssertionError(f"{where}: {len(got.cells)} cells vs "
+                             f"{len(want.cells)}")
+    for a, b in zip(got.cells, want.cells):
+        if a.labels != b.labels:
+            raise AssertionError(f"{where}: cell {a.labels} vs {b.labels}")
+        check_result(f"{where} {a.cell_id}",
+                     {k: getattr(a, k) for k in CELL_KEYS},
+                     {k: getattr(b, k) for k in CELL_KEYS}, TOKEN_TOL)
+
+
+def check_arrays(where: str, got, want) -> None:
+    """Two ``ServingResult``s: ``result_fields`` at ``RESULT_TOL``, the sorted
+    latencies and the sorted TTFT / TPOT arrays to 1e-6, the token counts
+    exact, goodput and SLO attainment to 1e-9."""
+    check_result(where, result_fields(got), result_fields(want))
+    pairs = [("latencies", got.latencies_s, want.latencies_s)]
+    if (got.token is None) != (want.token is None):
+        raise AssertionError(f"{where}: token stats on one side only")
+    if want.token is not None:
+        pairs += [(k, getattr(got.token, k), getattr(want.token, k))
+                  for k in ("ttft_s", "tpot_s")]
+        check_result(f"{where} token", dataclasses.asdict(got.token),
+                     {k: v for k, v in dataclasses.asdict(want.token).items()
+                      if not isinstance(v, (np.ndarray, list))},
+                     {"goodput_rps": 1e-9, "slo_attainment": 1e-9,
+                      "migration_transfer_s": 1e-9, "recompute_saved_s": 1e-9})
+    for name, a, b in pairs:
+        if a.shape != b.shape or float_diff(np.sort(a), np.sort(b)) > 1e-6:
+            raise AssertionError(f"{where}: {name} differ (shapes {a.shape} "
+                                 f"{b.shape})")
+
+
+def token_line(c) -> str:
+    return (f"p50 {c.p50_s:.6f} s, p99 {c.p99_s:.6f} s, TTFT p50 / p99 "
+            f"{c.ttft_p50_s:.6f} / {c.ttft_p99_s:.6f} s, TPOT p50 "
+            f"{c.tpot_p50_s:.6f} s, goodput {c.goodput_rps:.6f} requests/s, "
+            f"SLO attainment {c.slo_attainment:.6f}, lost KV tokens "
+            f"{c.lost_kv_tokens}")
+
+
+def phase_token() -> dict:
+    """Token-level serving, KV migration and the legacy engine on the port,
+    through the entry points a user calls: (a) the token matrix through
+    ``ScenarioSuite.run`` (the request lanes in ``scenario_scan`` launches on
+    the card, the token cells on the host engine, no oracle rerun), every
+    cell against the host engine, then the same cells through ``run_cells``
+    with their arrays held against the host engine's; (b) the migration
+    matrix against the host and the legacy engine; (c) a llama3.2-1b token
+    service on the H100 priced by phase 5's profile row and by the
+    roofline; (e) the serve CLI's token runs in-process.  Part (d), the KV
+    bytes of the card's caches, runs in the fleet phase.  Returns the
+    ``scenario_scan`` launches by part."""
+    import warnings
+
+    from repro_torch.experiments import CellResult, ScenarioSuite
+    from repro_torch.profiles.schema import ProfileTable
+    from repro_torch.serving.engine import VectorizedServingEngine
+    from repro_torch.serving.latency import ProfiledLatencyModel
+    from repro_torch.serving.token.config import TokenEngineConfig
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.service import Service
+
+    card = card_line()
+    parts = {}
+    # (a) the token matrix through ScenarioSuite.run, phase B on the card
+    report, launches, wall = counted(
+        lambda: ScenarioSuite.from_spec(TOKEN_MATRIX).run(engine="jax"))
+    check_scan_launches("token matrix", launches, report.shape_groups)
+    token_ids = [c.cell_id for c in report.cells
+                 if c.labels["replica_model"] == "token"]
+    if report.oracle_reruns:
+        raise AssertionError(f"token matrix: lanes rerun on the oracle "
+                             f"{report.oracle_reruns}")
+    if len(report.cells) != 8 or report.host_token_cells != token_ids \
+            or len(token_ids) != 4:
+        raise AssertionError(f"token matrix: {len(report.cells)} cells, token "
+                             f"cells on the host {report.host_token_cells}")
+    parts["token matrix"] = launches["scenario_scan"]
+    suite_wall, suite_launches = wall, launches
+    # the same cells through run_cells, for each launch's cells and every
+    # array, and on the host engine
+    cells = ScenarioSuite.from_spec(TOKEN_MATRIX).cells()
+    groups, outs = [], []
+    results, launches, wall = counted(lambda: teng.run_cells(
+        [c.engine for c in cells], [c.duration_s for c in cells],
+        groups=groups, outputs=outs))
+    check_scan_launches("token matrix run_cells", launches, len(groups))
+    parts["token matrix run_cells"] = launches["scenario_scan"]
+    t0 = time.perf_counter()
+    hosts = [VectorizedServingEngine.run(h.engine, h.duration_s)
+             for h in ScenarioSuite.from_spec(TOKEN_MATRIX).cells()]
+    host_s = time.perf_counter() - t0
+    for cell, res, host, out, c in zip(cells, results, hosts, outs,
+                                       report.cells):
+        token = cell.spec.sim.replica_model == "token"
+        if cell.engine.fell_back or cell.engine.ran_on_host != token \
+                or (out is None) != token or cell.labels != c.labels:
+            raise AssertionError(f"token matrix run_cells {cell.labels}: "
+                                 f"fell back {cell.engine.fell_back}, on the "
+                                 f"host {cell.engine.ran_on_host}")
+        check_arrays(f"token matrix run_cells {cell.labels}", res, host)
+        want = CellResult.from_result(cell.labels, host, 0.0)
+        check_result(f"token matrix {c.cell_id}",
+                     {k: getattr(c, k) for k in CELL_KEYS},
+                     {k: getattr(want, k) for k in CELL_KEYS}, TOKEN_TOL)
+    log(f"token matrix [{card}] (benchmarks/token_engine.py uncut: "
+        f"command-r-35b on g5.48xlarge, aws-1 + aws-3, 2 h, Arena 2/s seed "
+        f"11, 4 replicas, spothedge + ondemand_only x request + token; "
+        f"ScenarioSuite.run engine jax): {suite_wall:.4f} s wall, "
+        f"{report.shape_groups} shape group(s), launches "
+        f"{json.dumps(suite_launches)}, lanes rerun on the oracle "
+        f"{report.oracle_reruns}, {len(report.host_token_cells)} token cells "
+        f"on the host engine; every cell equal to the host engine's (counts "
+        f"exact, cost 1e-9, availability 1e-12, latency and TTFT / TPOT "
+        f"percentiles 1e-6, goodput and SLO attainment 1e-9)")
+    for c in report.cells:
+        if c.labels["replica_model"] == "token":
+            log(f"token matrix [{card}] {c.cell_id}: {token_line(c)}, "
+                f"{c.wall_s:.4f} s wall (its share)")
+        else:
+            log(f"token matrix [{card}] {c.cell_id}: p50 {c.p50_s:.6f} s, "
+                f"p99 {c.p99_s:.6f} s, failure rate {c.failure_rate:.6f}, "
+                f"{c.wall_s:.4f} s wall (its share)")
+    names = ["/".join(str(v) for v in c.labels.values()) for c in cells]
+    for k, g in enumerate(groups):
+        log(f"token matrix [{card}] shape group {k}: one scenario_scan launch "
+            f"over the request lanes {[names[i] for i in g]}")
+    log(f"token matrix [{card}] run_cells: {wall:.4f} s wall, launches "
+        f"{json.dumps(launches)}, no lane rerun, the token cells on the host "
+        f"engine; host engine {host_s:.4f} s for the 8 cells; the request "
+        f"lanes' latencies and the token cells' TTFT / TPOT arrays equal to "
+        f"the host engine's (1e-6)")
+
+    # (b) the migration matrix: off and on, against the host and legacy
+    report, launches, wall = counted(
+        lambda: ScenarioSuite.from_spec(MIGRATION_MATRIX).run(engine="jax"))
+    check_scan_launches("migration matrix", launches, 0)
+    if report.oracle_reruns or len(report.host_token_cells) != 4:
+        raise AssertionError(f"migration matrix: {report.oracle_reruns}, "
+                             f"{report.host_token_cells}")
+    walls = {"jax": wall}
+    for engine in ("vector", "legacy"):
+        t0 = time.perf_counter()
+        other = ScenarioSuite.from_spec(MIGRATION_MATRIX).run(engine=engine)
+        walls[engine] = time.perf_counter() - t0
+        check_cells(f"migration matrix vs {engine}", report, other)
+    parts["migration matrix"] = launches["scenario_scan"]
+    log(f"migration matrix [{card}] (benchmarks/migration.py: command-r-35b "
+        f"on g5.48xlarge, aws-1 + aws-3, 2 h, Arena 4/s seed 11, int8, "
+        f"drain_threshold_s 2.0, off / on; {MIGRATION_CUT}): walls "
+        f"{json.dumps({k: round(v, 4) for k, v in walls.items()})} s, "
+        f"launches {json.dumps(launches)}; every cell equal to the host and "
+        f"the legacy engine's")
+    for tr in ("aws-1", "aws-3"):
+        off, on = (report.select(trace=tr, migration=m)[0]
+                   for m in ("off", "on"))
+        log(f"migration matrix [{card}] {tr}: off {token_line(off)}; on "
+            f"{token_line(on)}; migrated sequences {on.n_migrated_seqs}, "
+            f"drained {on.n_drained_seqs}, migrated KV tokens "
+            f"{on.migrated_kv_tokens}, saved prefill tokens "
+            f"{on.saved_prefill_tokens}, lost KV tokens {off.lost_kv_tokens} "
+            f"-> {on.lost_kv_tokens}, TTFT p99 delta "
+            f"{on.ttft_p99_s - off.ttft_p99_s:+.6f} s, goodput delta "
+            f"{on.goodput_rps - off.goodput_rps:+.6f} requests/s")
+
+    # (c) a token service on the H100, priced by phase 5's row and the
+    # roofline, each against the host engine
+    token_service = dict(H100_SERVICE, serving={"replica_model": "token"})
+    row = ProfileTable.load(str(PROFILE_OUT)).lookup("llama3.2-1b", "H100")
+    priced, resolved = {}, {}
+    for source in ("profile", "roofline"):
+        spec = dict(token_service, latency={**H100_SERVICE["latency"],
+                                            "source": source})
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # no roofline fallback
+            svc = Service(spec)
+            res, launches, wall = counted(svc.run)
+        check_scan_launches(f"h100 token {source}", launches, 0)
+        st = svc.status()
+        if not st["token_on_host"] or st["oracle_rerun"]:
+            raise AssertionError(f"h100 token {source}: status {st}")
+        lm = svc.resolve().simulator.latency_model
+        if (source == "profile") != isinstance(lm, ProfiledLatencyModel):
+            raise AssertionError(f"h100 token {source}: priced by "
+                                 f"{type(lm).__name__}")
+        if source == "profile" and (lm.mfu_prefill, lm.mbu_decode) != (
+                row.mfu_prefill, row.mbu_decode):
+            raise AssertionError("h100 token profile: not this run's row")
+        t0 = time.perf_counter()
+        host = Service(spec, engine="vector").run()
+        host_s = time.perf_counter() - t0
+        check_arrays(f"h100 token {source}", res, host)
+        priced[source], resolved[source] = res, TokenEngineConfig.from_latency(lm)
+        parts[f"h100 token {source}"] = launches["scenario_scan"]
+        log(f"token h100 [{card}] {source}-priced (llama3.2-1b, gcp-1, "
+            f"SpotHedge x3, Arena 0.1/s seed 11, 2 h, replica_model token): "
+            f"{wall:.4f} s wall on the host engine (a token cell has no phase "
+            f"B), host engine alone {host_s:.4f} s, equal; {res.summary()}")
+    log(f"token h100 pricing side by side [{card}] (simulated seconds): "
+        + "; ".join(
+            f"{k}: TTFT p50 {r.token.ttft_pct(50):.6f} s, TPOT p50 "
+            f"{r.token.tpot_pct(50):.6f} s, goodput "
+            f"{r.token.goodput_rps:.6f} requests/s, TokenEngineConfig "
+            f"weight_read_s {resolved[k].weight_read_s:.6g}, "
+            f"prefill_s_per_token {resolved[k].prefill_s_per_token:.6g}, "
+            f"kv_budget_tokens {resolved[k].kv_budget_tokens}"
+            for k, r in priced.items()))
+
+    # (e) the serve CLI's token runs, in-process
+    out_dir = PROFILE_OUT.parent.parent / "service"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    one = out_dir / "golden.json"
+    one.write_text(json.dumps(golden_spec("spothedge")))
+    for argv in (["--spec", str(one), "--replica-model", "token", "--status"],
+                 ["--spec", str(one), "--engine", "legacy", "--replica-model",
+                  "token", "--status"]):
+        rc, launches, wall, out = serve_in_process(argv)
+        if rc != 0:
+            raise AssertionError(f"serve {' '.join(argv)} exited {rc}")
+        check_scan_launches(f"serve {' '.join(argv)}", launches, 0)
+        if "ttft_p50=" not in out:
+            raise AssertionError(f"serve {' '.join(argv)}: no token summary")
+        parts[f"cli {' '.join(argv[2:])}"] = launches["scenario_scan"]
+        log(f"token CLI [{card}] repro_torch.launch.serve {' '.join(argv)}: "
+            f"exit 0, {wall:.4f} s wall, launches {json.dumps(launches)}")
+    log(f"token scenario_scan launches by part [{card}]: {json.dumps(parts)}")
+    return parts
+
+
+def check_kv_bytes(fleet: Fleet) -> None:
+    """The KV bytes a cached token takes in the card's cache (K and V only,
+    not ``len``), against what the token model assumes,
+    ``TokenEngineConfig.kv_bytes_per_token``: what migration ships and what
+    the KV budget divides by."""
+    from repro_torch.cluster.catalog import H100
+    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.token.config import TokenEngineConfig
+
+    cfg = fleet.model.cfg
+    cache = fleet.model.init_cache(1, fleet.max_len)
+    kv = cache["kv"]
+    per_token = (kv["k"].nbytes + kv["v"].nbytes) / kv["k"].shape[2]
+    want = TokenEngineConfig.from_latency(
+        LatencyModel.for_model(cfg, H100)).kv_bytes_per_token
+    del cache, kv
+    if per_token != want:
+        raise AssertionError(f"{cfg.name}: the card's cache holds {per_token} "
+                             f"B a token, the token model assumes {want}")
+    log(f"token KV bytes [{card_line()}] {cfg.name}: the card's K + V cache "
+        f"(K and V x {cfg.num_layers} layers x {cfg.num_kv_heads} KV heads "
+        f"x head_dim {cfg.resolved_head_dim} x 2 B of bf16, {fleet.max_len} "
+        f"slots) holds "
+        f"{per_token:,.0f} B a cached token = TokenEngineConfig."
+        f"kv_bytes_per_token {want:,.0f} B")
+
+
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
     fleet = build_served_model(arch)
     launches = phase_serve(fleet)
+    if arch in KV_CHECKED:
+        check_kv_bytes(fleet)
     gc.collect()          # the fleet's replicas: their caches and graphs
     torch.cuda.empty_cache()
     check_replay(fleet)
@@ -2056,6 +2399,7 @@ def main() -> int:
     scenario = phase_scenario()
     phase_profiles()
     phase_service()
+    phase_token()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],

@@ -1,6 +1,8 @@
 """Scenario reports, per-cell metrics and JSON artifacts: the port's own
-copy of ``repro.experiments.report``, request-model fields only (the
-token-level, migration and observability fields wait for those ports).
+copy of ``repro.experiments.report``, with the token model's and
+migration's fields of a token cell (``None``, and left out of the
+artifact, for a request cell); the observability fields wait for the
+``obs`` port.
 
 Artifact schema (``schema: 1``), as the reference's::
 
@@ -27,6 +29,10 @@ __all__ = ["CellResult", "SCHEMA_VERSION", "ScenarioReport"]
 SCHEMA_VERSION = 1
 
 
+def _finite(v: float) -> Optional[float]:
+    return float(v) if np.isfinite(v) else None
+
+
 @dataclasses.dataclass
 class CellResult:
     """One scenario's labels and headline metrics."""
@@ -46,11 +52,26 @@ class CellResult:
     n_preemptions: int
     n_launch_failures: int
     wall_s: float
+    # token-level metrics: token cells only
+    ttft_p50_s: Optional[float] = None
+    ttft_p99_s: Optional[float] = None
+    tpot_p50_s: Optional[float] = None
+    tpot_p99_s: Optional[float] = None
+    goodput_rps: Optional[float] = None
+    slo_attainment: Optional[float] = None
+    # grace-period migration: token cells only, zero with migration off
+    n_drained_seqs: Optional[int] = None
+    n_migrated_seqs: Optional[int] = None
+    migrated_kv_tokens: Optional[int] = None
+    saved_prefill_tokens: Optional[int] = None
+    n_retried_requests: Optional[int] = None
+    lost_kv_tokens: Optional[int] = None
 
     @staticmethod
     def from_result(labels: Mapping[str, Any], res: ServingResult,
                     wall_s: float) -> "CellResult":
         lat = res.latencies_s
+        tok = res.token
         return CellResult(
             labels=dict(labels),
             n_requests=res.n_requests,
@@ -67,6 +88,20 @@ class CellResult:
             n_preemptions=res.n_preemptions,
             n_launch_failures=res.n_launch_failures,
             wall_s=wall_s,
+            # a token cell with no completion has NaN percentiles: None, so
+            # the JSON artifact stays strict
+            ttft_p50_s=_finite(tok.ttft_pct(50)) if tok else None,
+            ttft_p99_s=_finite(tok.ttft_pct(99)) if tok else None,
+            tpot_p50_s=_finite(tok.tpot_pct(50)) if tok else None,
+            tpot_p99_s=_finite(tok.tpot_pct(99)) if tok else None,
+            goodput_rps=tok.goodput_rps if tok else None,
+            slo_attainment=tok.slo_attainment if tok else None,
+            n_drained_seqs=tok.n_drained_seqs if tok else None,
+            n_migrated_seqs=tok.n_migrated_seqs if tok else None,
+            migrated_kv_tokens=tok.migrated_kv_tokens if tok else None,
+            saved_prefill_tokens=tok.saved_prefill_tokens if tok else None,
+            n_retried_requests=res.n_retried_requests if tok else None,
+            lost_kv_tokens=res.lost_kv_tokens if tok else None,
         )
 
     @property
@@ -79,6 +114,8 @@ class CellResult:
             if f.name == "labels":
                 continue
             v = getattr(self, f.name)
+            if v is None:
+                continue
             if round_to is not None and isinstance(v, float) and np.isfinite(v):
                 v = round(v, round_to)
             out[f.name] = v
@@ -95,9 +132,11 @@ class ScenarioReport:
     cells: List[CellResult]
     wall_s: float
     # the matrix path's (engine jax) phase-B shape groups, one launch each,
-    # and the cells whose lane overflowed and was rerun on the oracle
+    # the cells whose lane overflowed and was rerun on the oracle, and the
+    # token cells, which have no phase B and ran on the host engine
     shape_groups: Optional[int] = None
     oracle_reruns: List[str] = dataclasses.field(default_factory=list)
+    host_token_cells: List[str] = dataclasses.field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.cells)
@@ -120,6 +159,7 @@ class ScenarioReport:
         if self.shape_groups is not None:
             out["shape_groups"] = self.shape_groups
             out["oracle_reruns"] = list(self.oracle_reruns)
+            out["host_token_cells"] = list(self.host_token_cells)
         return out
 
     def save(self, directory: str = os.path.join("artifacts", "bench"),
@@ -143,5 +183,7 @@ class ScenarioReport:
         if self.shape_groups is not None:
             lines.append(f"  phase B: {self.shape_groups} shape group(s); "
                          f"{len(self.oracle_reruns)} lane(s) rerun on the "
-                         f"oracle {self.oracle_reruns}")
+                         f"oracle {self.oracle_reruns}; "
+                         f"{len(self.host_token_cells)} token cell(s) on the "
+                         f"host engine")
         return "\n".join(lines)

@@ -2,14 +2,17 @@
 copy of ``repro.experiments.suite``.
 
 ``ScenarioSuite.from_spec`` crosses the sweep's ``policies x traces x
-workloads x seeds`` in the reference's order, with its labels, cell names
-and shared-tape keys: cells with equal workload, seed and arrival horizon
-replay one request tape.  ``run`` takes the serve CLI's engine rule: by
-default (``engine="jax"``) the cells run as one matrix, every cell built
-and its control plane replayed on the host (phase A), then every data
-plane through ``run_cells``, one ``scenario_scan`` launch per shape group
-on the card, an overflowed lane rerun on the oracle; ``engine="vector"``
-runs them one by one on the host engine.
+workloads x seeds x replica_models x migration`` in the reference's order,
+with its labels, cell names and shared-tape keys: cells with equal
+workload, seed and arrival horizon replay one request tape.  A migration
+axis collapses to one unlabelled cell for a request-model cell, which has
+no KV to migrate.  ``run`` takes the serve CLI's engine rule: by default
+(``engine="jax"``) the cells run as one matrix, every cell built and its
+control plane replayed on the host (phase A), then every request-model
+data plane through ``run_cells``, one ``scenario_scan`` launch per shape
+group on the card, an overflowed lane rerun on the oracle, and every
+token-model cell on the host engine beside them; ``engine="vector"`` or
+``"legacy"`` runs them one by one on that host engine.
 
 The reference's process fan-out (``workers``) is not ported and is
 refused.
@@ -37,7 +40,12 @@ from repro_torch.service.builder import (
     with_engine,
 )
 from repro_torch.service.loader import load_spec
-from repro_torch.service.spec import ServiceSpec, SpecError, SweepSpec
+from repro_torch.service.spec import (
+    MigrationSpec,
+    ServiceSpec,
+    SpecError,
+    SweepSpec,
+)
 from repro_torch.workloads.arrivals import Request
 
 __all__ = ["Cell", "Scenario", "ScenarioSuite"]
@@ -166,6 +174,12 @@ class ScenarioSuite:
         workloads = sweep.workloads or (base.workload,)
         # no seeds axis: every workload keeps its own seed
         seeds: Tuple[Optional[int], ...] = sweep.seeds or (None,)
+        # no replica_models / migration axis: every cell keeps the base
+        # spec's value and no label column is emitted
+        replica_models: Tuple[Optional[str], ...] = (sweep.replica_models
+                                                     or (None,))
+        migrations: Tuple[Union[bool, MigrationSpec, None], ...] = (
+            sweep.migration or (None,))
         policy_labels = _disambiguate(
             [p.name for p in policies],
             [sorted(p.policy_kwargs().items()) for p in policies])
@@ -174,19 +188,51 @@ class ScenarioSuite:
             [[("rate_per_s", w.rate_per_s), ("seed", w.seed),
               *sorted(w.args.items())] for w in workloads])
         scenarios: List[Scenario] = []
-        for (pol, plabel), tr, (wl, wlabel), seed in itertools.product(
+        for (pol, plabel), tr, (wl, wlabel), seed, rm, mg in itertools.product(
                 zip(policies, policy_labels), traces,
-                zip(workloads, workload_labels), seeds):
+                zip(workloads, workload_labels), seeds, replica_models,
+                migrations):
+            cell_rm = rm if rm is not None else base.sim.replica_model
+            if mg is not None and cell_rm != "token":
+                # a request-model cell has no KV to migrate: one
+                # unlabelled cell stands for the whole migration axis
+                if mg != migrations[0]:
+                    continue
+                mg = None
             wl_seeded = wl if seed is None else dataclasses.replace(wl,
                                                                     seed=seed)
+            sim = base.sim
+            if rm is not None and sim.replica_model != rm:
+                sim = dataclasses.replace(sim, replica_model=rm)
+            migration = base.migration
+            mig_label: Optional[str] = None
+            if mg is not None:
+                migration = (dataclasses.replace(base.migration
+                                                 or MigrationSpec(), enabled=mg)
+                             if isinstance(mg, bool) else mg)
+                mig_label = "on" if migration.enabled else "off"
+            if (migration is not None and migration.enabled
+                    and cell_rm != "token"):
+                # the base section enabled on a request-model cell of a
+                # mixed sweep: the token cells keep it, this one drops it
+                migration = None
             cell_spec = dataclasses.replace(
                 base,
-                name=f"{base.name}-{plabel}-{tr}-{wlabel}-s{wl_seeded.seed}",
-                replica_policy=pol, trace=tr, workload=wl_seeded, sweep=None)
+                name=(f"{base.name}-{plabel}-{tr}-{wlabel}-s{wl_seeded.seed}"
+                      + (f"-{rm}" if rm is not None else "")
+                      + (f"-mig_{mig_label}" if mig_label is not None
+                         else "")),
+                replica_policy=pol, trace=tr, workload=wl_seeded,
+                migration=migration, sim=sim, sweep=None)
+            labels = {"policy": plabel, "trace": tr, "workload": wlabel,
+                      "seed": wl_seeded.seed}
+            if rm is not None:
+                labels["replica_model"] = rm
+            if mig_label is not None:
+                labels["migration"] = mig_label
             scenarios.append(Scenario(
-                labels={"policy": plabel, "trace": tr, "workload": wlabel,
-                        "seed": wl_seeded.seed},
-                spec=cell_spec, tape_key=_workload_tape_key(cell_spec)))
+                labels=labels, spec=cell_spec,
+                tape_key=_workload_tape_key(cell_spec)))
         return cls(scenarios, name=name or base.name)
 
     # ------------------------------------------------------------------
@@ -226,14 +272,15 @@ class ScenarioSuite:
         """Run every scenario; returns the report.
 
         ``engine`` overrides every cell's ``sim.engine``, as the serve
-        CLI's ``--engine`` does: ``jax`` by default, ``vector`` for the host
-        engine (which refuses a ``device`` other than the CPU), ``None``
-        for each cell's own.  Under ``jax`` (given, or every cell's) the
-        suite runs as one matrix through ``run_cells``; ``device`` is phase
-        B's (default CUDA), and the report counts the shape groups (one
-        launch each) and names the lanes rerun on the oracle.  Otherwise
-        cells run one by one.  ``save_to`` writes the JSON artifact into
-        that directory."""
+        CLI's ``--engine`` does: ``jax`` by default, ``vector`` or
+        ``legacy`` for a host engine (which refuses a ``device`` other than
+        the CPU), ``None`` for each cell's own.  Under ``jax`` (given, or
+        every cell's) the suite runs as one matrix through ``run_cells``;
+        ``device`` is phase B's (default CUDA), and the report counts the
+        shape groups (one launch each) and names the lanes rerun on the
+        oracle and the token cells run on the host engine.  Otherwise cells
+        run one by one.  ``save_to`` writes the JSON artifact into that
+        directory."""
         if workers not in (None, 1):
             raise SpecError(f"workers={workers!r}: the suite's process "
                             "fan-out is not ported yet; run serially "
@@ -243,8 +290,10 @@ class ScenarioSuite:
             sc.spec.sim.engine == "jax" for sc in self.scenarios))
         groups: Optional[int] = None
         reruns: List[str] = []
+        on_host: List[str] = []
         if use_jax:
-            cells, groups, reruns = self._run_matrix(progress, device)
+            cells, groups, reruns, on_host = self._run_matrix(progress,
+                                                              device)
         else:
             cells = []
             for sc in self.scenarios:
@@ -262,15 +311,17 @@ class ScenarioSuite:
         report = ScenarioReport(
             suite=self.name, engine=engine or self._engine_label(), workers=1,
             cells=cells, wall_s=time.perf_counter() - t0,
-            shape_groups=groups, oracle_reruns=reruns)
+            shape_groups=groups, oracle_reruns=reruns,
+            host_token_cells=on_host)
         if save_to is not None:
             report.save(save_to)
         return report
 
     def _run_matrix(self, progress: bool, device
-                    ) -> Tuple[List[CellResult], int, List[str]]:
+                    ) -> Tuple[List[CellResult], int, List[str], List[str]]:
         """The matrix path: build every cell, replay every control plane,
-        then every data plane in one ``run_cells`` call."""
+        then every data plane in one ``run_cells`` call (a token cell on
+        the host engine)."""
         dev = resolve_device(device)        # before phase A, not after
         cells = self.cells()
         t0 = time.perf_counter()
@@ -290,7 +341,9 @@ class ScenarioSuite:
                 print(f"[suite {self.name}] {out[-1].cell_id} done "
                       f"({len(out)}/{len(cells)}){rerun}", flush=True)
         reruns = [r.cell_id for r, c in zip(out, cells) if c.engine.fell_back]
-        return out, len(groups), reruns
+        on_host = [r.cell_id for r, c in zip(out, cells)
+                   if c.engine.ran_on_host]
+        return out, len(groups), reruns, on_host
 
     def _engine_label(self) -> str:
         engines = {sc.spec.sim.engine for sc in self.scenarios}

@@ -13,11 +13,13 @@
 Every run is a ``ServiceSpec``; the flags build one.  ``--engine`` picks
 the engine, whatever the spec's ``sim.engine`` says, and defaults to
 ``jax``: the data plane runs on the card (``--device``, default ``cuda``)
-unless the caller asks for the host engine (``--engine vector``, which
-takes no ``--device`` but ``cpu``) or for ``--device cpu``, the kernel's
-plain version.  Without CUDA the default exits non-zero before anything
-runs.  A malformed or unported spec exits 2 with one ``error: ...``
-line.
+unless the caller asks for a host engine (``--engine vector``, or
+``legacy`` for the per-request ``ServingSimulator``; neither takes a
+``--device`` but ``cpu``) or for ``--device cpu``, the kernel's plain
+version.  ``--replica-model token`` runs the continuous-batching model (on
+the host engine under ``jax`` too, as in the reference).  Without CUDA the
+default exits non-zero before anything runs.  A malformed or unported spec
+exits 2 with one ``error: ...`` line.
 """
 
 from __future__ import annotations
@@ -101,25 +103,26 @@ def main(argv=None) -> int:
     ap.add_argument("--workers", default=None, metavar="N|auto",
                     help="the reference's process fan-out; not ported, "
                     "refused unless 1")
-    ap.add_argument("--engine", default="jax", choices=["vector", "jax"],
+    ap.add_argument("--engine", default="jax",
+                    choices=["vector", "legacy", "jax"],
                     help="the engine for this run, over the spec's "
                     "sim.engine: jax (default) runs the data plane on "
-                    "--device, vector on the host")
+                    "--device, vector and legacy on the host")
     ap.add_argument("--replica-model", default=None,
                     choices=["request", "token"],
-                    help="override sim.replica_model (token is not ported "
-                    "yet and is refused)")
+                    help="override sim.replica_model for this run (token = "
+                    "continuous batching with TTFT / TPOT / goodput)")
     ap.add_argument("--device", default=None,
                     help="phase B's device under --engine jax (default "
-                    "cuda; cpu runs the kernel's plain version); --engine "
-                    "vector takes only cpu")
+                    "cuda; cpu runs the kernel's plain version); the host "
+                    "engines take only cpu")
     args = ap.parse_args(argv)
 
     if args.engine == "jax":
         resolve_device(args.device)       # no CUDA: fail before any work
     elif args.device not in (None, "cpu"):
-        ap.error(f"--device {args.device} needs --engine jax: the vector "
-                 "engine runs on the host")
+        ap.error(f"--device {args.device} needs --engine jax: the "
+                 f"{args.engine} engine runs on the host")
     try:
         spec = load_spec(args.spec if args.spec else spec_from_args(args))
         if args.replica_model and args.replica_model != spec.sim.replica_model:

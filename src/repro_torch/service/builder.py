@@ -4,9 +4,13 @@ of ``repro.service.builder``.
 ``build_service`` assembles trace x catalog x policy x autoscaler x
 balancer x request tape x latency model into one engine, picked by
 ``sim.engine``: ``vector`` is the port's host engine (the oracle,
-``VectorizedServingEngine``), ``jax`` the two-phase ``TorchServingEngine``
-whose data plane runs on the card.  A prepared trace, a catalog or a
-shared request tape may be passed in.
+``VectorizedServingEngine``), ``legacy`` the per-request
+``ServingSimulator``, ``jax`` the two-phase ``TorchServingEngine`` whose
+data plane runs on the card (a token-model cell runs on the host engine).
+``sim.replica_model: token`` gets the ``serving:`` section's
+``TokenSchedulerConfig``, and the ``migration:`` section attaches to token
+cells only.  A prepared trace, a catalog or a shared request tape may be
+passed in.
 """
 
 from __future__ import annotations
@@ -25,9 +29,16 @@ from repro_torch.core.policy import Policy, policy_class
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import VectorizedServingEngine
 from repro_torch.serving.latency import make_latency_model
+from repro_torch.serving.load_balancer import (
+    LeastLoadedBalancer,
+    LoadBalancer,
+    RoundRobinBalancer,
+)
 from repro_torch.serving.result import ServingResult
+from repro_torch.serving.sim import ServingSimulator
+from repro_torch.serving.token.config import TokenSchedulerConfig
 from repro_torch.serving.torchengine.engine import TorchServingEngine
-from repro_torch.service.spec import LB_NAMES, ResourceSpec, ServiceSpec, SpecError
+from repro_torch.service.spec import ResourceSpec, ServiceSpec, SpecError
 from repro_torch.workloads.arrivals import Request, make_workload
 
 __all__ = ["ENTRY_ENGINE", "ResolvedService", "build_requests",
@@ -41,8 +52,8 @@ ENTRY_ENGINE = "jax"
 
 def with_engine(spec: ServiceSpec, engine: Optional[str]) -> ServiceSpec:
     """``spec`` with ``sim.engine`` set to ``engine`` (``None``: as it is).
-    ``vector`` is the host engine, ``jax`` phase B on a device; the spec's
-    own checks refuse any other name."""
+    ``vector`` and ``legacy`` are host engines, ``jax`` phase B on a device;
+    the spec's own checks refuse any other name."""
     if engine is None or spec.sim.engine == engine:
         return spec
     return dataclasses.replace(
@@ -113,6 +124,12 @@ def _build_autoscaler(spec: ServiceSpec) -> Autoscaler:
     )
 
 
+def _build_lb(spec: ServiceSpec) -> LoadBalancer:
+    if spec.load_balancer == "round_robin":
+        return RoundRobinBalancer()
+    return LeastLoadedBalancer()
+
+
 def build_requests(spec: ServiceSpec) -> List[Request]:
     """The spec's request tape, arrivals over ``[0, duration - drain)``;
     empty for ``workload: none``.  The spec's rate is Poisson's
@@ -138,7 +155,7 @@ def build_requests(spec: ServiceSpec) -> List[Request]:
     return workload.generate(horizon)
 
 
-Engine = Union[VectorizedServingEngine, TorchServingEngine]
+Engine = Union[VectorizedServingEngine, ServingSimulator, TorchServingEngine]
 
 
 @dataclasses.dataclass
@@ -152,7 +169,7 @@ class ResolvedService:
     zones: List[str]
     policy: Policy
     autoscaler: Autoscaler
-    load_balancer: str            # the engine's balancer: "ll" | "rr"
+    load_balancer: LoadBalancer
     requests: List[Request]
     simulator: Engine             # per spec.sim.engine
 
@@ -200,7 +217,7 @@ def build_service(
             trace, preemption_warning_s=sim.preemption_warning_s)
     policy = _build_policy(spec)
     autoscaler = _build_autoscaler(spec)
-    lb = LB_NAMES[spec.load_balancer]
+    lb = _build_lb(spec)
     reqs = list(requests) if requests is not None else build_requests(spec)
     # with no request path there is nothing to do between control ticks:
     # step the request loop at the control cadence
@@ -218,8 +235,12 @@ def build_service(
     if sim.engine == "jax":
         engine_cls = TorchServingEngine
         kw["trace_on"] = spec.observability.spans_on
+    elif sim.engine == "legacy":
+        engine_cls = ServingSimulator
     else:
         engine_cls = VectorizedServingEngine
+    token = sim.replica_model == "token"
+    serving = spec.serving
     simulator = engine_cls(
         trace,
         policy,
@@ -243,6 +264,18 @@ def build_service(
         concurrency=sim.concurrency,
         concurrency_cap=spec.serving.concurrency_cap,
         latency_model=latency_model,
+        replica_model=sim.replica_model,
+        token_scheduler=TokenSchedulerConfig(
+            slo_ttft_s=serving.slo.ttft_s,
+            slo_tpot_s=serving.slo.tpot_s,
+            prefill_chunk_tokens=serving.prefill_chunk_tokens,
+            max_batch=serving.max_batch,
+            kv_budget_tokens=serving.kv_budget_tokens,
+            iter_overhead_s=serving.iter_overhead_s,
+            goodput_window_s=serving.goodput_window_s,
+        ) if token else None,
+        # a request-model cell of a mixed sweep has no KV to migrate
+        migration=spec.migration if token else None,
         **kw,
     )
     return ResolvedService(

@@ -2,8 +2,9 @@
 copy of ``repro.service.loader``.
 
 The loader is strict: unknown keys, wrong section types and out-of-range
-values raise ``SpecError`` naming the field, and so does every section,
-value or axis the port cannot run yet (``ServiceSpec.unported``).  The
+values raise ``SpecError`` naming the field (a ``migration:`` section's own
+checks included), and so does every section, value or axis the port cannot
+run yet (``ServiceSpec.unported``).  The
 top-level ``service:`` wrapper is optional.  YAML needs PyYAML, an
 optional import; without it, JSON files and dicts still load.
 """
@@ -17,6 +18,7 @@ from typing import Any, Mapping
 from repro_torch.service.spec import (
     AutoscalerSpec,
     LatencySpec,
+    MigrationSpec,
     ObservabilitySpec,
     PlacementFilter,
     ReplicaPolicySpec,
@@ -110,6 +112,28 @@ def _sweep_entry(entry: Any, cls, name_field: str, where: str):
                     f"{entry!r}")
 
 
+def _migration_from_dict(d: Mapping[str, Any], where: str) -> MigrationSpec:
+    """A ``MigrationSpec``; its own ``ValueError``s (a bad compression mode,
+    a negative threshold) become ``SpecError``s naming the section."""
+    kw = _pick(d, MigrationSpec, where)
+    try:
+        return MigrationSpec(**kw)
+    except SpecError:
+        raise
+    except ValueError as e:
+        raise SpecError(f"{where}: {e}") from e
+
+
+def _sweep_migration(entry: Any):
+    """A sweep migration entry: a bool toggle or a full mapping."""
+    if isinstance(entry, bool):
+        return entry
+    if isinstance(entry, Mapping):
+        return _migration_from_dict(entry, "sweep.migration entry")
+    raise SpecError(f"sweep.migration entries must be booleans or migration "
+                    f"mappings, got {entry!r}")
+
+
 def _sweep_from_dict(d: Mapping[str, Any]) -> SweepSpec:
     keys = [f.name for f in dataclasses.fields(SweepSpec)]
     _check_keys(d, keys, "sweep")
@@ -117,9 +141,11 @@ def _sweep_from_dict(d: Mapping[str, Any]) -> SweepSpec:
         if key in d and not isinstance(d[key], (list, tuple)):
             raise SpecError(f"sweep.{key} must be a list, got "
                             f"{type(d[key]).__name__}")
-    for tr in d.get("traces", ()):
-        if not isinstance(tr, str):
-            raise SpecError(f"sweep.traces entries must be strings, got {tr!r}")
+    for key in ("traces", "replica_models"):
+        for v in d.get(key, ()):
+            if not isinstance(v, str):
+                raise SpecError(f"sweep.{key} entries must be strings, got "
+                                f"{v!r}")
     return SweepSpec(
         policies=tuple(_sweep_entry(e, ReplicaPolicySpec, "name",
                                     "sweep.policies")
@@ -131,7 +157,7 @@ def _sweep_from_dict(d: Mapping[str, Any]) -> SweepSpec:
         seeds=tuple(d.get("seeds", ())),
         forecasters=tuple(d.get("forecasters", ())),
         replica_models=tuple(d.get("replica_models", ())),
-        migration=tuple(d.get("migration", ())),
+        migration=tuple(_sweep_migration(e) for e in d.get("migration", ())),
     )
 
 
@@ -155,9 +181,11 @@ def spec_from_dict(d: Mapping[str, Any]) -> ServiceSpec:
                          ("workload", WorkloadSpec),
                          ("latency", LatencySpec)):
             kw[key] = cls(**_pick(_section(d, key), cls, key))
-        for key in ("forecast", "migration"):
-            if d.get(key) is not None:
-                kw[key] = dict(_section(d, key))
+        if d.get("forecast") is not None:
+            kw["forecast"] = dict(_section(d, "forecast"))
+        if d.get("migration") is not None:
+            kw["migration"] = _migration_from_dict(_section(d, "migration"),
+                                                   "migration")
         serving = dict(_section(d, "serving"))
         # serving.replica_model is the reference's sugar for
         # sim.replica_model; a conflicting explicit sim value is an error

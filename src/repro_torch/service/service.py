@@ -15,8 +15,12 @@ CLI's ``--engine`` is: ``jax`` by default, whatever the spec's
 the caller passes ``device="cpu"``; without CUDA the default raises
 before phase A starts.  ``engine="vector"`` asks for the host engine (and
 refuses a device other than the CPU); ``engine=None`` keeps the spec's
-own ``sim.engine``.  The reference's artifact export (observability
-detail ``full``) is not ported, and the spec refuses that detail.
+own ``sim.engine``; ``engine="legacy"`` is the per-request
+``ServingSimulator``, a host engine as ``vector`` is.  Under ``jax`` a
+token-model spec runs on the host engine, as in the reference (its
+``status()`` says ``token_on_host``).  The reference's artifact export
+(observability detail ``full``) is not ported, and the spec refuses that
+detail.
 """
 
 from __future__ import annotations
@@ -141,4 +145,6 @@ class Service:
             if isinstance(resolved.simulator, TorchServingEngine):
                 # the lane's queue pool overflowed and the oracle reran it
                 out["oracle_rerun"] = resolved.simulator.fell_back
+                # a token-model cell: no phase B, the host engine ran it
+                out["token_on_host"] = resolved.simulator.ran_on_host
         return out

@@ -11,29 +11,35 @@ reference's dict and loads in either package.
 What the port cannot run as the reference does is refused by name
 (``SpecError``, a ``ValueError``), never ignored: ``ServiceSpec.unported``
 lists it, and ``refuse_unported`` / ``validate`` raise on it.  That is the
-``forecast`` and ``migration`` sections, the token-level model
-(``sim.replica_model: token`` and the ``serving`` section's token knobs),
-observability at detail ``full`` and its ``slo_burn`` monitor, the
-``legacy`` engine, the sweep axes ``forecasters``, ``replica_models`` and
-``migration``, and the policies ``omniscient`` and ``risk_spothedge``.
+``forecast`` section, observability at detail ``full`` and its
+``slo_burn`` monitor, the sweep axis ``forecasters``, and the policies
+``omniscient`` and ``risk_spothedge``.
 
 ``sim.engine`` takes the reference's names: ``vector`` is the host engine
-(the port's oracle, ``repro_torch.serving.engine``), ``jax`` the batched
-array engine (``TorchServingEngine``, phase B on the card).
+(the port's oracle, ``repro_torch.serving.engine``), ``legacy`` the
+per-request ``ServingSimulator`` (``repro_torch.serving.sim``), ``jax`` the
+batched array engine (``TorchServingEngine``, phase B on the card; a
+token-model cell runs on the host engine, as in the reference).
+``sim.replica_model`` picks the request model or the token-level
+continuous-batching model, tuned by the ``serving:`` section; the
+``migration:`` section is a ``MigrationSpec`` (grace-period KV migration,
+token cells only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
+from repro_torch.migration.config import MigrationSpec
+from repro_torch.serving.engine import REPLICA_MODELS
 from repro_torch.serving.latency import LATENCY_SOURCES
 
 __all__ = [
-    "AutoscalerSpec", "LatencySpec", "ObservabilitySpec", "PlacementFilter",
-    "ReplicaPolicySpec", "ResourceSpec", "SLOBurnSpec", "SLOSpec",
-    "ServiceSpec", "ServingSpec", "SimSpec", "SpecError", "SweepSpec",
-    "WorkloadSpec",
+    "AutoscalerSpec", "LatencySpec", "MigrationSpec", "ObservabilitySpec",
+    "PlacementFilter", "ReplicaPolicySpec", "ResourceSpec", "SLOBurnSpec",
+    "SLOSpec", "ServiceSpec", "ServingSpec", "SimSpec", "SpecError",
+    "SweepSpec", "WorkloadSpec",
 ]
 
 
@@ -248,17 +254,24 @@ class LatencySpec:
 
 
 # ---------------------------------------------------------------------------
-# serving and observability: carried for to_dict, their unported values
-# refused by ServiceSpec.unported
+# the serving data plane, and observability (its detail "full" and slo_burn
+# refused by ServiceSpec.unported)
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class SLOSpec:
-    """The token-level model's TTFT / TPOT targets."""
+    """The token-level model's TTFT / TPOT targets: a request attains the
+    SLO when both are within them, and goodput counts those requests."""
 
     ttft_s: float = 10.0
     tpot_s: float = 0.2
+
+    def __post_init__(self) -> None:
+        _require(self.ttft_s > 0,
+                 f"serving.slo.ttft_s must be positive, got {self.ttft_s}")
+        _require(self.tpot_s > 0,
+                 f"serving.slo.tpot_s must be positive, got {self.tpot_s}")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -268,7 +281,11 @@ class SLOSpec:
 class ServingSpec:
     """Replica data-plane knobs.  ``concurrency_cap`` bounds the request
     model's model-derived concurrency (when ``sim.concurrency`` is null);
-    the other fields configure the token-level model."""
+    the other fields configure the token-level model: the SLO, the prefill
+    chunk an iteration takes, the batch and KV caps (the KV budget is
+    otherwise the HBM left after the weights), a per-iteration overhead and
+    the goodput window.  The loader also takes ``replica_model`` here, as
+    another way to set ``sim.replica_model``."""
 
     slo: SLOSpec = dataclasses.field(default_factory=SLOSpec)
     concurrency_cap: int = 16
@@ -281,13 +298,17 @@ class ServingSpec:
     def __post_init__(self) -> None:
         _require(self.concurrency_cap >= 1, f"serving.concurrency_cap must "
                  f"be >= 1, got {self.concurrency_cap}")
-
-    def token_knobs(self) -> List[str]:
-        """The token-level fields set away from their defaults."""
-        default = ServingSpec()
-        return [f.name for f in dataclasses.fields(self)
-                if f.name != "concurrency_cap"
-                and getattr(self, f.name) != getattr(default, f.name)]
+        _require(self.prefill_chunk_tokens >= 1, f"serving.prefill_chunk_"
+                 f"tokens must be >= 1, got {self.prefill_chunk_tokens}")
+        _require(self.max_batch is None or self.max_batch >= 1,
+                 f"serving.max_batch must be >= 1, got {self.max_batch}")
+        _require(self.kv_budget_tokens is None or self.kv_budget_tokens >= 1,
+                 f"serving.kv_budget_tokens must be >= 1, got "
+                 f"{self.kv_budget_tokens}")
+        _require(self.iter_overhead_s >= 0, f"serving.iter_overhead_s must "
+                 f"be >= 0, got {self.iter_overhead_s}")
+        _require(self.goodput_window_s > 0, f"serving.goodput_window_s must "
+                 f"be positive, got {self.goodput_window_s}")
 
     def to_dict(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {
@@ -361,7 +382,6 @@ class ObservabilitySpec:
 
 
 ENGINE_NAMES = ("vector", "legacy", "jax")
-REPLICA_MODELS = ("request", "token")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,10 +435,13 @@ class SimSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
-    """A scenario grid ``policies x traces x workloads x seeds``; an empty
-    axis falls back to the base spec's single value, and a seed overrides
-    ``workload.seed``.  The reference's ``forecasters``, ``replica_models``
-    and ``migration`` axes are kept as given and refused by
+    """A scenario grid ``policies x traces x workloads x seeds x
+    replica_models x migration``; an empty axis falls back to the base
+    spec's single value.  A seed overrides ``workload.seed``, a replica
+    model ``sim.replica_model`` (a request- against a token-model cell on
+    one tape), and a migration entry, a bool or a ``MigrationSpec``,
+    toggles or replaces the base spec's ``migration`` section.  The
+    reference's ``forecasters`` axis is kept as given and refused by
     ``ServiceSpec.unported``."""
 
     policies: Tuple[ReplicaPolicySpec, ...] = ()
@@ -426,10 +449,17 @@ class SweepSpec:
     workloads: Tuple[WorkloadSpec, ...] = ()
     seeds: Tuple[int, ...] = ()
     forecasters: Tuple[Any, ...] = ()
-    replica_models: Tuple[Any, ...] = ()
-    migration: Tuple[Any, ...] = ()
+    replica_models: Tuple[str, ...] = ()
+    migration: Tuple[Union[bool, MigrationSpec], ...] = ()
 
     def __post_init__(self) -> None:
+        for m in self.migration:
+            _require(isinstance(m, (bool, MigrationSpec)),
+                     "sweep.migration entries must be booleans or migration "
+                     f"mappings, got {m!r}")
+        for rm in self.replica_models:
+            _require(rm in REPLICA_MODELS, f"sweep.replica_models entries "
+                     f"must be one of {list(REPLICA_MODELS)}, got {rm!r}")
         for tr in self.traces:
             _require(bool(tr), "sweep.traces entries must be non-empty strings")
         for s in self.seeds:
@@ -455,9 +485,13 @@ class SweepSpec:
             out["workloads"] = [w.to_dict() for w in self.workloads]
         if self.seeds:
             out["seeds"] = list(self.seeds)
-        for axis in ("forecasters", "replica_models", "migration"):
-            if getattr(self, axis):
-                out[axis] = list(getattr(self, axis))
+        if self.forecasters:
+            out["forecasters"] = list(self.forecasters)
+        if self.replica_models:
+            out["replica_models"] = list(self.replica_models)
+        if self.migration:
+            out["migration"] = [m if isinstance(m, bool) else m.to_dict()
+                                for m in self.migration]
         return out
 
 
@@ -466,7 +500,7 @@ class SweepSpec:
 # ---------------------------------------------------------------------------
 
 
-LB_NAMES = {"least_loaded": "ll", "round_robin": "rr"}
+LB_NAMES = ("least_loaded", "round_robin")
 
 #: the reference's policies the port does not have yet
 POLICIES_NOT_PORTED = ("omniscient", "risk_spothedge")
@@ -475,8 +509,8 @@ POLICIES_NOT_PORTED = ("omniscient", "risk_spothedge")
 @dataclasses.dataclass(frozen=True)
 class ServiceSpec:
     """The complete declarative description of one service run.
-    ``forecast`` and ``migration`` hold the reference's sections as given;
-    the port refuses both."""
+    ``forecast`` holds the reference's section as given, and the port
+    refuses it."""
 
     name: str = "service"
     model: str = "llama3.2-1b"
@@ -492,7 +526,7 @@ class ServiceSpec:
     serving: ServingSpec = dataclasses.field(default_factory=ServingSpec)
     observability: ObservabilitySpec = dataclasses.field(
         default_factory=ObservabilitySpec)
-    migration: Optional[Mapping[str, Any]] = None
+    migration: Optional[MigrationSpec] = None
     sim: SimSpec = dataclasses.field(default_factory=SimSpec)
     load_balancer: str = "least_loaded"
     sweep: Optional[SweepSpec] = None
@@ -502,6 +536,14 @@ class ServiceSpec:
             _require(bool(getattr(self, name)), f"service.{name} must be set")
         _require(self.load_balancer in LB_NAMES, f"service.load_balancer "
                  f"must be one of {list(LB_NAMES)}, got {self.load_balancer!r}")
+        if self.migration is not None and self.migration.enabled:
+            _require(self.sim.replica_model == "token" or (
+                self.sweep is not None
+                and "token" in self.sweep.replica_models),
+                "migration.enabled requires the token-level engine: set "
+                "sim.replica_model: token (or sweep over replica_models "
+                "including 'token'); the request-level model has no KV "
+                "state to migrate")
 
     def unported(self) -> List[str]:
         """What in this spec the port cannot run as the reference does, by
@@ -509,19 +551,6 @@ class ServiceSpec:
         out = []
         if self.forecast is not None:
             out.append("forecast (the forecasters and risk-aware policies)")
-        if self.migration is not None:
-            out.append("migration (grace-period KV migration)")
-        if self.sim.replica_model != "request":
-            out.append(f"sim.replica_model {self.sim.replica_model!r} (or "
-                       "serving.replica_model: the token-level replica "
-                       "model)")
-        knobs = self.serving.token_knobs()
-        if knobs:
-            out.append(f"serving.{', serving.'.join(knobs)} (token-level "
-                       "model knobs)")
-        if self.sim.engine == "legacy":
-            out.append("sim.engine 'legacy' (the per-request "
-                       "ServingSimulator)")
         if self.observability.detail == "full":
             out.append("observability.detail 'full' (event windows and "
                        "artifact export)")
@@ -532,10 +561,8 @@ class ServiceSpec:
         for name in dict.fromkeys(policies):
             if name in POLICIES_NOT_PORTED:
                 out.append(f"replica_policy {name!r}")
-        if self.sweep is not None:
-            for axis in ("forecasters", "replica_models", "migration"):
-                if getattr(self.sweep, axis):
-                    out.append(f"sweep.{axis}")
+        if self.sweep is not None and self.sweep.forecasters:
+            out.append("sweep.forecasters")
         return out
 
     def refuse_unported(self) -> "ServiceSpec":
@@ -600,7 +627,7 @@ class ServiceSpec:
         if self.forecast is not None:
             out["forecast"] = dict(self.forecast)
         if self.migration is not None:
-            out["migration"] = dict(self.migration)
+            out["migration"] = self.migration.to_dict()
         if self.sweep is not None:
             out["sweep"] = self.sweep.to_dict()
         return out

@@ -24,33 +24,57 @@ Every decision is the reference's: the same grid points (the same float
 accumulation), the same arrival batches to the autoscaler, the same picks,
 the same failures at the same instants.
 
-Not in the port yet: the token-level replica model
-(``replica_model="token"``) and KV migration, which raise ``ValueError``;
-the balancer classes (the balancer is named, ``lb="ll"`` or ``lb="rr"``);
-request spans, window samples and the metrics registry (observability).
+``replica_model="token"`` swaps the request path for the continuous-batching
+model (``repro_torch.serving.token``): each replica slot carries a
+``ContinuousBatch``, dispatch enqueues tape indices into the batches, and a
+sub-step advances every busy batch (pure decode in closed form).  With a
+``MigrationSpec`` enabled, a warned preemption drains, migrates or kills
+each sequence of the dying batch through the ``MigrationRuntime``.  Token
+mode is decision for decision the legacy ``ServingSimulator``'s
+``TokenReplica`` path, and the reference's.
+
+The balancer is a ``LeastLoadedBalancer`` or a ``RoundRobinBalancer``
+(exactly those types; a subclass runs on the legacy simulator only), or
+its name, ``"ll"`` or ``"rr"``.  Not in the port yet: request spans, window
+samples and the metrics registry (observability).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
 from repro_torch.cluster.catalog import Catalog, default_catalog, region_rtt_ms
-from repro_torch.cluster.instance import Instance
+from repro_torch.cluster.instance import Instance, InstanceState
 from repro_torch.cluster.simulator import ClusterSimulator, SimConfig
 from repro_torch.cluster.traces import SpotTrace
 from repro_torch.core.autoscaler import Autoscaler, ConstantTarget
 from repro_torch.core.policy import Policy
+from repro_torch.migration.config import MigrationSpec
+from repro_torch.migration.runtime import MigrationRuntime
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.latency import LatencyModel
+from repro_torch.serving.load_balancer import (
+    LeastLoadedBalancer,
+    LoadBalancer,
+    RoundRobinBalancer,
+)
 from repro_torch.serving.result import ServingResult
+from repro_torch.serving.token.batch import ContinuousBatch
+from repro_torch.serving.token.config import (
+    TokenEngineConfig,
+    TokenSchedulerConfig,
+)
+from repro_torch.serving.token.metrics import TokenRecord, TokenStats
 from repro_torch.serving.torchengine.schedule import tape_arrays
 from repro_torch.workloads.arrivals import Request
 
-__all__ = ["LB_KINDS", "VectorizedServingEngine"]
+__all__ = ["LB_KINDS", "REPLICA_MODELS", "VectorizedServingEngine",
+           "lb_kind"]
 
 _INF = float("inf")
 # below this size a plain Python scan beats numpy call overhead
@@ -58,13 +82,38 @@ _VEC_MIN = 24
 
 #: the balancers the engine simulates: least-loaded and round-robin
 LB_KINDS = ("ll", "rr")
+#: how a replica prices work: frozen service times, or continuous batching
+REPLICA_MODELS = ("request", "token")
+
+
+def lb_kind(lb: Union[LoadBalancer, str, None]) -> str:
+    """The balancer the engine simulates: ``"ll"`` for a
+    ``LeastLoadedBalancer`` (the default), ``"rr"`` for a
+    ``RoundRobinBalancer``, or either name.  Exactly those two types: a
+    subclass may override ``pick()``, and simulating it as the plain
+    balancer would be wrong."""
+    if lb is None:
+        return "ll"
+    if isinstance(lb, str):
+        if lb not in LB_KINDS:
+            raise ValueError(f"lb must be one of {list(LB_KINDS)} "
+                             f"(least-loaded, round-robin), got {lb!r}")
+        return lb
+    if type(lb) is RoundRobinBalancer:
+        return "rr"
+    if type(lb) is LeastLoadedBalancer:
+        return "ll"
+    raise TypeError(
+        f"VectorizedServingEngine supports LeastLoadedBalancer and "
+        f"RoundRobinBalancer, got {type(lb).__name__}; use the legacy "
+        "ServingSimulator (sim.engine: legacy) for custom balancers")
 
 
 class _Rep:
     """A replica slot: plain fields, no FSM object, no probes."""
 
     __slots__ = ("inst", "slot", "rid", "dead", "rtt",
-                 "running", "queue", "qage", "qmin")
+                 "running", "queue", "qage", "qmin", "batch")
 
     def __init__(self, inst: Instance, slot: int,
                  rtt: List[float]) -> None:
@@ -80,15 +129,18 @@ class _Rep:
         # the deadline applied to completed responses
         self.qage: List[float] = []
         self.qmin = _INF                     # lower bound on queued eff. ages
+        self.batch: Optional[ContinuousBatch] = None   # token mode only
 
     @property
     def load(self) -> int:
+        if self.batch is not None:
+            return self.batch.load
         return len(self.running) + len(self.queue)
 
 
 class VectorizedServingEngine:
-    """One cell's serving run: the cluster simulator plus the request
-    model, on the host."""
+    """One cell's serving run: the cluster simulator plus the request or
+    the token model, on the host."""
 
     def __init__(
         self,
@@ -100,7 +152,7 @@ class VectorizedServingEngine:
         itype: str = "p3.2xlarge",
         catalog: Optional[Catalog] = None,
         autoscaler: Optional[Autoscaler] = None,
-        lb: str = "ll",
+        lb: Union[LoadBalancer, str, None] = None,
         sim_config: Optional[SimConfig] = None,
         timeout_s: float = 100.0,
         sub_step_s: float = 1.0,
@@ -109,19 +161,9 @@ class VectorizedServingEngine:
         concurrency_cap: int = 16,
         latency_model: Optional[LatencyModel] = None,
         replica_model: str = "request",
-        migration: Optional[object] = None,
+        token_scheduler: Optional[TokenSchedulerConfig] = None,
+        migration: Optional[MigrationSpec] = None,
     ) -> None:
-        if replica_model != "request":
-            raise ValueError(
-                f"replica_model {replica_model!r}: the port has the request "
-                "model only; the token-level model is not ported yet"
-            )
-        if migration is not None:
-            raise ValueError("KV migration needs the token-level replica "
-                             "model, which is not ported yet")
-        if lb not in LB_KINDS:
-            raise ValueError(f"lb must be one of {list(LB_KINDS)} "
-                             f"(least-loaded, round-robin), got {lb!r}")
         self.catalog = catalog or default_catalog()
         self.cfg = cfg
         self.itype = self.catalog.instance_type(itype)
@@ -136,7 +178,35 @@ class VectorizedServingEngine:
         self.concurrency = concurrency or min(
             self.latency_model.max_concurrency(), concurrency_cap
         )
-        self._lb_kind = lb
+        if replica_model not in REPLICA_MODELS:
+            raise ValueError(f"replica_model must be one of "
+                             f"{list(REPLICA_MODELS)}, got {replica_model!r}")
+        self.replica_model = replica_model
+        self._token_knobs = token_scheduler or TokenSchedulerConfig()
+        self._token_cfg: Optional[TokenEngineConfig] = (
+            TokenEngineConfig.from_latency(self.latency_model,
+                                           self._token_knobs)
+            if replica_model == "token" else None)
+        self._token_records: List[TokenRecord] = []
+        self._busy: Set[int] = set()         # slots with live batch work
+        self._n_kv_preempted = 0
+        self._n_killed_queued = 0
+        self._lost_prefill_tokens = 0
+        self._lost_decode_tokens = 0
+        if (migration is not None and migration.enabled
+                and self._token_cfg is None):
+            raise ValueError("migration.enabled requires replica_model='token'")
+        self._mig_rt: Optional[MigrationRuntime] = (
+            MigrationRuntime(migration, self._token_cfg)
+            if migration is not None and migration.enabled else None)
+        self._n_drained = 0
+        self._n_migrated = 0
+        self._migrated_kv_tokens = 0
+        self._saved_prefill_tokens = 0
+        self._saved_decode_tokens = 0
+        self._migration_transfer_s = 0.0
+        self._recompute_saved_s = 0.0
+        self._lb_kind = lb_kind(lb)
         self._rr_cursor = 0
         self._n_retried = 0
 
@@ -154,6 +224,10 @@ class VectorizedServingEngine:
         self._arr_l: List[float] = self._arr.tolist()
         self._svc_l: List[float] = self._svc.tolist()
         self._rcode_l: List[int] = self._rcode.tolist()
+        if self._token_cfg is not None:
+            # token mode prices work in tokens, not frozen service times
+            self._ptok_l = [int(r.prompt_tokens) for r in self.requests]
+            self._otok_l = [int(r.output_tokens) for r in self.requests]
 
         # ---- mutable serving state ------------------------------------
         self._ptr = 0                        # next arrival index
@@ -207,12 +281,14 @@ class VectorizedServingEngine:
             for creg in self._client_regions
         ]
         rep = _Rep(inst, len(self._reps), rtt)
+        if self._token_cfg is not None:
+            rep.batch = ContinuousBatch(self._token_cfg)
         self._reps.append(rep)
         self._live.append(rep)
         self._by_id[inst.id] = rep
         return rep
 
-    def _kill(self, rep: _Rep) -> None:
+    def _kill(self, rep: _Rep, now: Optional[float] = None) -> None:
         """Preemption/termination: in-flight then queued back to pending."""
         if rep.dead:
             return
@@ -221,6 +297,29 @@ class VectorizedServingEngine:
         arr = self._arr_l
         pending = self._pending
         pmin = self._pmin
+        if rep.batch is not None:
+            # token mode: the batch loses its KV and every request retries
+            # client-side, unless migration is on and the preemption was
+            # warned
+            inst = rep.inst
+            if (self._mig_rt is not None and now is not None
+                    and inst.state is InstanceState.PREEMPTED
+                    and inst.warned_at is not None):
+                kr = self._kill_with_migration(rep, now)
+            else:
+                kr = rep.batch.kill()
+            for i in kr.keys:
+                pending.append(i)
+                if arr[i] < pmin:
+                    pmin = arr[i]
+            self._pmin = pmin
+            self._n_retried += len(kr.keys)
+            self._busy.discard(rep.slot)
+            self._n_kv_preempted += kr.n_batch
+            self._n_killed_queued += kr.n_queued
+            self._lost_prefill_tokens += kr.lost_prefill_tokens
+            self._lost_decode_tokens += kr.lost_decode_tokens
+            return
         for _, i in rep.running:
             pending.append(i)
             if arr[i] < pmin:
@@ -237,12 +336,60 @@ class VectorizedServingEngine:
         rep.qage = []
         rep.qmin = _INF
 
+    def _kill_with_migration(self, rep: _Rep, now: float):
+        """A warned preemption with migration on: drain, migrate or kill
+        the dying batch's sequences (the legacy simulator's decisions).
+        Returns the KillReport of the rest."""
+        inst = rep.inst
+        grace = now - inst.warned_at
+        cands = sorted(
+            (r for r in self._live
+             if r is not rep and not r.dead and r.batch is not None
+             and r.inst.is_ready()),
+            key=lambda r: r.rid)
+        outcome = self._mig_rt.execute_preemption(
+            rep.batch, inst, [(r.rid, r.batch, r.inst) for r in cands],
+            now, grace)
+        cfg = self._token_cfg
+        finish = now + cfg.overhead_s
+        rcode = self._rcode_l
+        arr = self._arr_l
+        for s in outcome.drained:
+            # finished decoding inside the grace window: completes at the
+            # kill instant, its first token (if any) already emitted
+            i = s.key
+            rtt = rep.rtt[rcode[i]]
+            e2e = finish - arr[i] + rtt
+            first = (s.first_s + cfg.overhead_s
+                     if math.isfinite(s.first_s) else finish)
+            if e2e <= self.timeout_s:
+                self.latencies.append(e2e)
+                self.completed += 1
+                self._token_records.append(TokenRecord(
+                    req_id=i, arrival_s=arr[i], first_token_s=first,
+                    finish_s=finish, output_tokens=s.output_tokens,
+                    rtt_s=rtt))
+            else:
+                self.failed += 1
+        by_rid = {r.rid: r for r in cands}
+        for m in outcome.migrated:
+            # the target batch has queued work now: it must step
+            self._busy.add(by_rid[m.target_rid].slot)
+        self._n_drained += outcome.n_drained
+        self._n_migrated += outcome.n_migrated
+        self._migrated_kv_tokens += outcome.migrated_kv_tokens
+        self._saved_prefill_tokens += outcome.saved_prefill_tokens
+        self._saved_decode_tokens += outcome.saved_decode_tokens
+        self._migration_transfer_s += outcome.transfer_s_total
+        self._recompute_saved_s += outcome.recompute_saved_s
+        return outcome.kill_report
+
     def _on_dead(self, inst: Instance, now: float) -> None:
         rep = self._by_id.get(inst.id)
         if rep is not None:
-            self._kill(rep)
+            self._kill(rep, now)
 
-    def _sync(self) -> None:
+    def _sync(self, now: Optional[float] = None) -> None:
         """Reconcile the replica set with the cluster's active instances.
 
         Instance state only changes at control ticks, so one reconciliation
@@ -255,7 +402,7 @@ class VectorizedServingEngine:
                 if inst.is_active():
                     self._new_rep(inst)
             elif not inst.is_active():
-                self._kill(rep)
+                self._kill(rep, now)
         if self._live_dirty:
             self._live = [r for r in self._live if not r.dead]
             self._live_dirty = False
@@ -290,14 +437,18 @@ class VectorizedServingEngine:
         return False
 
     def _tick(self, now: float, cluster: ClusterSimulator) -> None:
-        self._sync()
+        self._sync(now)
         dt = cluster.config.control_interval_s
         t = now
         end = now + dt
+        token = self._token_cfg is not None
         # the per-window float accumulation of every engine, so grid points,
         # arrival batches and timeout instants match bit for bit
         while t < end:
-            if self._active(t):
+            if token:
+                if self._active_token(t):
+                    self._process_token(t)
+            elif self._active(t):
                 self._process(t)
             t += self.sub_step_s
         # flush arrival observations before the cluster reads target():
@@ -551,12 +702,174 @@ class VectorizedServingEngine:
                 self._qn -= j
 
     # ------------------------------------------------------------------
+    # token mode: the continuous-batching path
+    # ------------------------------------------------------------------
+    def _active_token(self, t: float) -> bool:
+        """Arrivals due, pending work to route or expire, or a replica with
+        live batch state."""
+        if self._ptr < self._n and self._arr_l[self._ptr] <= t:
+            return True
+        if self._pending:
+            if self._ready_slots:
+                return True
+            if t - self._pmin > self.timeout_s:
+                return True
+        return bool(self._busy)
+
+    def _process_token(self, t: float) -> None:
+        # 1) arrivals, batched as in the request path
+        ptr = self._ptr
+        if ptr < self._n and self._arr_l[ptr] <= t:
+            new_ptr = int(self._searchsorted(t, side="right"))
+            self._pending.extend(range(ptr, new_ptr))
+            m = self._arr_l[ptr]
+            if m < self._pmin:
+                self._pmin = m
+            self._ptr = new_ptr
+            self._obs.append((t, new_ptr - ptr))
+        # 2) route pending requests into the replicas' batches
+        if self._pending:
+            self._dispatch_token(t)
+        # 3) run every busy batch's iterations up to t
+        if self._busy:
+            self._advance_batches(t)
+
+    def _dispatch_token(self, t: float) -> None:
+        pending = self._pending
+        arr = self._arr_l
+        timeout = self.timeout_s
+        ready = self._ready_slots
+        if not ready:
+            # nothing to route to: age out the requests past their timeout
+            kept: List[int] = []
+            pmin = _INF
+            for i in pending:
+                if t - arr[i] > timeout:
+                    self.failed += 1
+                else:
+                    kept.append(i)
+                    if arr[i] < pmin:
+                        pmin = arr[i]
+            self._pending = kept
+            self._pmin = pmin
+            return
+        reps = self._reps
+        busy = self._busy
+        ptok = self._ptok_l
+        otok = self._otok_l
+        rcode = self._rcode_l
+        loads = self._loads
+        nready = len(ready)
+        check_to = t - self._pmin > timeout
+        rr = self._lb_kind == "rr"
+        if rr:
+            cur = self._rr_cursor
+        else:
+            # least-loaded waterfill over (load, rtt, id), the load a
+            # batch's sequences plus its admission queue
+            ready_reps = self._ready_reps
+            ids = self._ids
+            cols = self._cols
+            rng = range(1, nready)
+        for i in pending:
+            if check_to and t - arr[i] > timeout:
+                self.failed += 1
+                continue
+            rc = rcode[i]
+            if rr:
+                best = cur % nready
+                cur += 1
+                rep = reps[ready[best]]
+            else:
+                col = cols.get(rc)
+                if col is None:
+                    col = cols[rc] = [r.rtt[rc] for r in ready_reps]
+                best, bl, br, bi = 0, loads[0], col[0], ids[0]
+                for j in rng:
+                    lj = loads[j]
+                    if lj > bl:
+                        continue
+                    if lj < bl or col[j] < br or (
+                        col[j] == br and ids[j] < bi
+                    ):
+                        best, bl, br, bi = j, lj, col[j], ids[j]
+                rep = ready_reps[best]
+            if rep.batch.enqueue(i, ptok[i], otok[i], arr[i], t,
+                                 rtt_s=rep.rtt[rc]):
+                loads[best] += 1
+                busy.add(rep.slot)
+            else:
+                self.failed += 1         # can never fit the KV budget
+        if rr:
+            self._rr_cursor = cur
+        self._pending = []
+        self._pmin = _INF
+
+    def _advance_batches(self, t: float) -> None:
+        timeout = self.timeout_s
+        loads = self._loads
+        pos = self._pos
+        rcode = self._rcode_l
+        records = self._token_records
+        idle: List[int] = []
+        for s in sorted(self._busy):
+            rep = self._reps[s]
+            batch = rep.batch
+            n_removed = 0
+            for c in batch.advance(t):
+                i = c.key
+                rtt = rep.rtt[rcode[i]]
+                e2e = c.finish_s - c.arrival_s + rtt
+                if e2e <= timeout:
+                    self.latencies.append(e2e)
+                    self.completed += 1
+                    records.append(TokenRecord(
+                        req_id=i, arrival_s=c.arrival_s,
+                        first_token_s=c.first_token_s, finish_s=c.finish_s,
+                        output_tokens=c.output_tokens, rtt_s=rtt))
+                else:
+                    self.failed += 1
+                n_removed += 1
+            if timeout > 0 and batch.n_queued:
+                expired = batch.expire_queue(t, timeout)
+                self.failed += len(expired)
+                n_removed += len(expired)
+            if n_removed:
+                loads[pos[s]] -= n_removed
+            if batch.load == 0:
+                idle.append(s)
+        for s in idle:
+            self._busy.discard(s)
+
+    # ------------------------------------------------------------------
     def run(self, duration_s: Optional[float] = None) -> ServingResult:
         base = self.cluster.run(duration_s)
         # drain: anything still pending/in-flight past the horizon fails
         self.failed += len(self._pending)
         for rep in self._reps:
             self.failed += rep.load
+        token_stats = None
+        if self._token_cfg is not None:
+            knobs = self._token_knobs
+            token_stats = TokenStats.from_records(
+                self._token_records,
+                slo_ttft_s=knobs.slo_ttft_s,
+                slo_tpot_s=knobs.slo_tpot_s,
+                horizon_s=base.duration_s,
+                window_s=knobs.goodput_window_s,
+                n_requests=self._ptr,
+                n_kv_preempted_seqs=self._n_kv_preempted,
+                n_killed_queued=self._n_killed_queued,
+                lost_prefill_tokens=self._lost_prefill_tokens,
+                lost_decode_tokens=self._lost_decode_tokens,
+                n_drained_seqs=self._n_drained,
+                n_migrated_seqs=self._n_migrated,
+                migrated_kv_tokens=self._migrated_kv_tokens,
+                saved_prefill_tokens=self._saved_prefill_tokens,
+                saved_decode_tokens=self._saved_decode_tokens,
+                migration_transfer_s=self._migration_transfer_s,
+                recompute_saved_s=self._recompute_saved_s,
+            )
         return ServingResult(
             policy=self.cluster.policy.name,
             trace=self.cluster.trace.name,
@@ -572,5 +885,7 @@ class VectorizedServingEngine:
             availability=base.availability,
             n_preemptions=base.n_preemptions,
             n_launch_failures=base.n_launch_failures,
+            token=token_stats,
             n_retried_requests=self._n_retried,
+            lost_kv_tokens=self._lost_prefill_tokens + self._lost_decode_tokens,
         )

@@ -1,12 +1,16 @@
 """One cell's serving result: the port's own copy of ``ServingResult``
-(``repro.serving.sim``), request-model fields only (the token-level stats
-and the observability snapshots stay in the reference)."""
+(``repro.serving.sim``), with the token model's stats and the KV lost to
+preemptions.  The reference's observability snapshots (``metrics``,
+``obs``) wait for the ``obs`` port."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+
+from repro_torch.serving.token.metrics import TokenStats
 
 __all__ = ["ServingResult"]
 
@@ -27,8 +31,12 @@ class ServingResult:
     availability: float
     n_preemptions: int = 0
     n_launch_failures: int = 0
-    # requests pushed back to the client for retry after a replica died
+    # token-level metrics (replica_model "token" only)
+    token: Optional[TokenStats] = None
+    # requests pushed back to the client for retry after a replica died,
+    # and the KV tokens destroyed doing so (0 under the request model)
     n_retried_requests: int = 0
+    lost_kv_tokens: int = 0
 
     @property
     def failure_rate(self) -> float:
@@ -40,9 +48,16 @@ class ServingResult:
         return float(np.percentile(self.latencies_s, q))
 
     def summary(self) -> str:
-        return (
+        out = (
             f"{self.policy:>16s} @ {self.trace}/{self.workload} "
             f"p50={self.pct(50):6.2f}s p90={self.pct(90):6.2f}s "
             f"p99={self.pct(99):7.2f}s fail={self.failure_rate:6.2%} "
             f"cost={self.cost_vs_ondemand:6.2%} avail={self.availability:.2%}"
         )
+        if self.token is not None:
+            out += (
+                f" ttft_p50={self.token.ttft_pct(50):5.2f}s "
+                f"goodput={self.token.goodput_rps:.3f}req/s "
+                f"slo={self.token.slo_attainment:.2%}"
+            )
+        return out

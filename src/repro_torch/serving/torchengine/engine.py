@@ -22,7 +22,11 @@ overflowed comes back as ``None``.
 ``run_cells`` runs a matrix end to end: phase A per cell, one
 ``run_schedules`` call, and every lane that came back ``None`` rerun on
 the oracle from the cell's pristine control-plane state, as the reference
-does, so the pool size never changes a result.
+does, so the pool size never changes a result.  A token-model cell
+(``replica_model="token"``) has no phase B: its continuous batches carry
+per-sequence KV state of data-dependent shape, so, as in the reference, it
+runs on the host engine (``VectorizedServingEngine.run``) beside the
+matrix's launches, and ``record_schedule`` refuses it.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ class TorchServingEngine(VectorizedServingEngine):
             "policy": copy.deepcopy(policy),
             "requests": requests,
             "cfg": cfg,
-            "kw": {k: (copy.deepcopy(v) if k == "autoscaler" else v)
+            "kw": {k: (copy.deepcopy(v) if k in ("autoscaler", "lb") else v)
                    for k, v in kw.items()},
         }
         super().__init__(trace, policy, requests, cfg, **kw)
@@ -77,6 +81,8 @@ class TorchServingEngine(VectorizedServingEngine):
         self.schedule: Optional[CellSchedule] = None
         #: set by ``run_cells`` when the lane overflowed and the oracle ran
         self.fell_back = False
+        #: set by ``run_cells`` when a token-model cell ran on the host
+        self.ran_on_host = False
 
     # -- phase-A hooks ------------------------------------------------
     def _tick(self, now, cluster) -> None:
@@ -84,16 +90,16 @@ class TorchServingEngine(VectorizedServingEngine):
         if rec is None:
             super()._tick(now, cluster)
             return
-        self._sync()
+        self._sync(now)
         k = rec.record_tick(self._ready_slots)
         obs = rec.obs_for(k)
         if obs:
             self._observe_batch(list(obs))
 
-    def _kill(self, rep: _Rep) -> None:
+    def _kill(self, rep: _Rep, now: Optional[float] = None) -> None:
         rec = self._rec
         if rec is None:
-            super()._kill(rep)
+            super()._kill(rep, now)
             return
         if rep.dead:
             return
@@ -107,7 +113,10 @@ class TorchServingEngine(VectorizedServingEngine):
         """Run the control plane once; return the phase-B payload (with
         span timelines if the engine's ``trace_on`` is set and the tape is
         not empty).  Consumes this engine (the cluster has run); callable
-        once."""
+        once.  A token-model cell has no phase B and is refused."""
+        if self._token_cfg is not None:
+            raise RuntimeError("token-model cells run on the NumPy data "
+                               "plane; call run() directly")
         if self._rec is not None or self.schedule is not None:
             raise RuntimeError("record_schedule runs once per engine")
         dt = self.cluster.config.control_interval_s
@@ -148,7 +157,7 @@ class TorchServingEngine(VectorizedServingEngine):
     def _fallback_run(self, duration_s: Optional[float]) -> ServingResult:
         """Oracle rerun from pristine control-plane state (overflow)."""
         p = self._pristine
-        kw = {k: (copy.deepcopy(v) if k == "autoscaler" else v)
+        kw = {k: (copy.deepcopy(v) if k in ("autoscaler", "lb") else v)
               for k, v in p["kw"].items()}
         eng = VectorizedServingEngine(
             p["trace"], copy.deepcopy(p["policy"]), p["requests"], p["cfg"],
@@ -321,19 +330,42 @@ def run_cells(
     cell whose schedule is already recorded keeps it), one
     ``run_schedules`` call (one launch per shape group, on CUDA unless
     ``device="cpu"``), and an oracle rerun for every lane whose queue pool
-    overflowed (its engine's ``fell_back`` is set).  Results align with
-    ``engines``; ``outputs`` and ``groups`` receive each lane's raw outputs
-    and each launch's cells as in ``run_schedules`` (``None`` for the
-    rerun lanes' outputs)."""
+    overflowed (its engine's ``fell_back`` is set).  A token-model cell runs
+    on the host engine instead (its ``ran_on_host`` is set).  Results align
+    with ``engines``; ``outputs`` receives each lane's raw outputs and
+    ``groups`` each launch's cells, as indices into ``engines``, as in
+    ``run_schedules`` (``None`` in ``outputs`` for a rerun lane and a token
+    cell, which is in no group)."""
+    dev = resolve_device(device)        # before any cell runs
     if durations is None:
         durations = [None] * len(engines)
-    scheds = [eng.schedule if eng.schedule is not None
-              else eng.record_schedule(dur)
-              for eng, dur in zip(engines, durations)]
-    results = run_schedules(scheds, queue_capacity=queue_capacity,
-                            outputs=outputs, groups=groups, device=device)
-    for i, res in enumerate(results):
+    results: List[Optional[ServingResult]] = [None] * len(engines)
+    lane_of: List[int] = []             # schedule index -> engine index
+    scheds: List[CellSchedule] = []
+    for i, (eng, dur) in enumerate(zip(engines, durations)):
+        if eng._token_cfg is not None:
+            results[i] = VectorizedServingEngine.run(eng, dur)
+            eng.ran_on_host = True
+            continue
+        scheds.append(eng.schedule if eng.schedule is not None
+                      else eng.record_schedule(dur))
+        lane_of.append(i)
+    lane_outs: Optional[List[Optional[dict]]] = (
+        [] if outputs is not None else None)
+    lane_groups: List[List[int]] = []
+    lanes = run_schedules(scheds, queue_capacity=queue_capacity,
+                          outputs=lane_outs, groups=lane_groups, device=dev)
+    for k, res in enumerate(lanes):
+        i = lane_of[k]
         if res is None:     # queue pool overflow -> oracle rerun
             engines[i].fell_back = True
-            results[i] = engines[i]._fallback_run(durations[i])
+            res = engines[i]._fallback_run(durations[i])
+        results[i] = res
+    if outputs is not None:
+        del outputs[:]
+        outputs.extend([None] * len(engines))
+        for k, out in enumerate(lane_outs):
+            outputs[lane_of[k]] = out
+    if groups is not None:
+        groups[:] = [[lane_of[k] for k in g] for g in lane_groups]
     return results

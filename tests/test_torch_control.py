@@ -376,12 +376,24 @@ def test_oracle_is_the_references(args):
 
 
 def test_oracle_refuses_what_it_does_not_model():
+    """An unknown replica model or balancer name, migration without the
+    token model, and a balancer subclass (the reference's TypeError: only
+    the legacy simulator runs a custom ``pick()``)."""
+    from repro_torch.migration import MigrationSpec
+    from repro_torch.serving.load_balancer import LeastLoadedBalancer
+
+    class Custom(LeastLoadedBalancer):
+        pass
+
     trace = _mini_trace(ttr, 60, 0)
     cfg = t_config("llama3.2-1b")
-    for kw, msg in (({"replica_model": "token"}, "token"),
-                    ({"migration": object()}, "migration"),
-                    ({"lb": "power_of_two"}, "lb")):
-        with pytest.raises(ValueError, match=msg):
+    for kw, exc, msg in (
+            ({"replica_model": "block"}, ValueError, "replica_model"),
+            ({"migration": MigrationSpec(enabled=True)}, ValueError,
+             "replica_model='token'"),
+            ({"lb": "power_of_two"}, ValueError, "lb"),
+            ({"lb": Custom()}, TypeError, "legacy ServingSimulator")):
+        with pytest.raises(exc, match=msg):
             TVector(trace, t_make_policy("spothedge"), [], cfg,
                     itype="g5.48xlarge", **kw)
 

@@ -1026,3 +1026,51 @@ def test_arena_sweep_on_card_equals_the_host_engine(card):
             assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-9), k
         for k in ("mean_s", "p50_s", "p90_s", "p99_s"):
             assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-6), k
+
+
+@pytest.mark.cuda
+def test_mixed_matrix_on_card_runs_token_cells_on_the_host(card):
+    """A request x token matrix through ``run_cells`` on the card: the
+    request lanes in one ``scenario_scan`` launch, the token cells on the
+    host engine (no lane, no output, in no group), no oracle rerun, and
+    every cell equal to the host engine's."""
+    import dataclasses
+
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.serving.engine import VectorizedServingEngine
+    from repro_torch.serving.torchengine import engine as teng
+
+    spec = dict(golden_spec("jax"),
+                workload={"kind": "arena", "rate_per_s": 0.8, "seed": 5},
+                sweep={"policies": ["spothedge", "ondemand_only"],
+                       "replica_models": ["request", "token"]})
+    spec["sim"] = dict(spec["sim"], duration_hours=1.0)
+    cells = ScenarioSuite.from_spec(spec).cells()
+    token = [c.spec.sim.replica_model == "token" for c in cells]
+    assert token == [False, True, False, True]
+    outs, groups = [], []
+    ops.reset_launch_counts()
+    got = teng.run_cells([c.engine for c in cells],
+                         [c.duration_s for c in cells], outputs=outs,
+                         groups=groups)
+    assert ops.scenario_scan.launches == 1
+    assert groups == [[0, 2]]
+    assert [o is None for o in outs] == token
+    assert [c.engine.ran_on_host for c in cells] == token
+    assert not any(c.engine.fell_back for c in cells)
+    hosts = ScenarioSuite.from_spec(spec).cells()
+    for res, host in zip(got, hosts):
+        want = VectorizedServingEngine.run(host.engine, host.duration_s)
+        for f in dataclasses.fields(want):
+            a, b = getattr(res, f.name), getattr(want, f.name)
+            if f.name == "latencies_s":
+                np.testing.assert_allclose(np.sort(a), np.sort(b), atol=1e-6,
+                                           rtol=0)
+            elif f.name == "token":
+                assert (a is None) == (b is None)
+                if b is not None:
+                    assert a.to_dict() == b.to_dict()
+            elif isinstance(b, float):
+                assert a == pytest.approx(b, abs=1e-9), f.name
+            else:
+                assert a == b, f.name

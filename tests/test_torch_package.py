@@ -295,3 +295,117 @@ def test_serve_cli_defaults_to_cuda(no_cuda, tmp_path):
         serve.main(["--spec", str(host), "--engine", "vector",
                     "--device", "cuda"])
     assert e.value.code == 2
+
+
+# ---------------------------------------------------------------------------
+# token-level serving, KV migration and the legacy engine
+# ---------------------------------------------------------------------------
+
+TOKEN_MODULES = (
+    "repro_torch.serving.token.config",
+    "repro_torch.serving.token.metrics",
+    "repro_torch.serving.token.batch",
+    "repro_torch.serving.token.replica",
+    "repro_torch.serving.replica",
+    "repro_torch.serving.load_balancer",
+    "repro_torch.serving.sim",
+    "repro_torch.migration.config",
+    "repro_torch.migration.cost",
+    "repro_torch.migration.planner",
+    "repro_torch.migration.runtime",
+)
+
+
+def test_token_modules_fall_under_the_import_rule():
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(TOKEN_MODULES) <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in TOKEN_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+
+
+# what the port still refuses, by name: the forecast section and the
+# risk-aware policies, observability at detail "full" and its burn monitor
+STILL_REFUSED = [
+    ({"forecast": {"name": "markov"}}, "forecast"),
+    ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
+    ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
+    ({"sweep": {"forecasters": ["markov"]}}, "sweep.forecasters"),
+    ({"observability": {"detail": "full"}}, "observability.detail 'full'"),
+    ({"observability": {"slo_burn": {"target": 0.9}}},
+     "observability.slo_burn"),
+]
+
+
+@pytest.mark.parametrize("extra,name", STILL_REFUSED,
+                         ids=[r[1] for r in STILL_REFUSED])
+def test_unported_parts_are_still_refused_by_name(extra, name):
+    from repro_torch.service import SpecError, spec_from_dict
+
+    with pytest.raises(SpecError, match="not ported") as e:
+        spec_from_dict({**_JAX_SPEC, **extra})
+    assert name in str(e.value)
+
+
+def test_suite_workers_are_still_refused():
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.service import SpecError
+
+    suite = ScenarioSuite.from_spec(dict(_JAX_SPEC, sweep={"seeds": [0, 1]}))
+    with pytest.raises(SpecError, match="fan-out"):
+        suite.run(workers=2, device="cpu")
+
+
+def test_listing1_is_refused_only_for_its_unported_parts():
+    """``examples/service.yaml`` names its forecast section, its risk-aware
+    policy and observability ``full``; without them, its token model and
+    its migration section build on the port."""
+    yaml = pytest.importorskip("yaml")
+    from repro_torch.service import SpecError, build_service, spec_from_dict
+
+    with open(os.path.join(ROOT, "examples", "service.yaml")) as f:
+        d = yaml.safe_load(f)["service"]
+    with pytest.raises(SpecError) as e:
+        spec_from_dict(d)
+    msg = str(e.value)
+    for part in ("forecast", "risk_spothedge", "observability.detail 'full'"):
+        assert part in msg, part
+    for part in ("migration", "replica_model", "token"):
+        assert part not in msg, part
+    d = {k: v for k, v in d.items() if k not in ("forecast", "observability")}
+    d["replica_policy"] = dict(d["replica_policy"], name="spothedge")
+    spec = spec_from_dict(d)
+    assert spec.sim.replica_model == "token" and spec.migration.enabled
+    sim = build_service(spec).simulator
+    assert sim.replica_model == "token" and sim._mig_rt is not None
+
+
+def test_legacy_engine_is_a_host_request(no_cuda, tmp_path):
+    """``legacy`` runs on the host as ``vector`` does: it takes no device
+    but the CPU; a token spec under the default engine still asks for the
+    card."""
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.launch import serve
+    from repro_torch.service import Service
+
+    with pytest.raises(ValueError, match="host engine"):
+        Service(_QUICKSTART, engine="legacy").run(device="cuda")
+    with pytest.raises(ValueError, match="host engine"):
+        ScenarioSuite.from_spec(_QUICKSTART).run(engine="legacy",
+                                                 device="cuda")
+    host = tmp_path / "h.json"
+    host.write_text(json.dumps(_QUICKSTART))
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--spec", str(host), "--engine", "legacy", "--device",
+                    "cuda"])
+    assert e.value.code == 2
+    token = dict(_JAX_SPEC, serving={"replica_model": "token"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Service(token).run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--spec", str(host), "--replica-model", "token"])

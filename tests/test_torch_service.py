@@ -332,19 +332,21 @@ def test_sections_have_the_references_fields_and_defaults(section):
 
 
 BAD = [
-    ({"sim": {"engine": "legacy"}}, "sim.engine 'legacy'"),
-    ({"sim": {"replica_model": "token"}}, "sim.replica_model 'token'"),
-    ({"serving": {"replica_model": "token"}}, "sim.replica_model 'token'"),
-    ({"serving": {"prefill_chunk_tokens": 256}}, "prefill_chunk_tokens"),
-    ({"serving": {"slo": {"ttft_s": 2.0}}}, "serving.slo"),
+    ({"sim": {"engine": "tpu"}}, "sim.engine"),
+    ({"sim": {"replica_model": "block"}}, "sim.replica_model"),
+    ({"serving": {"replica_model": "token"},
+      "sim": {"replica_model": "request"}}, "conflicts with sim.replica_model"),
+    ({"serving": {"prefill_chunk_tokens": 0}}, "prefill_chunk_tokens"),
+    ({"serving": {"slo": {"ttft_s": 0.0}}}, "serving.slo"),
     ({"forecast": {"name": "markov"}}, "forecast"),
-    ({"migration": {"enabled": False}}, "migration"),
+    ({"migration": {"compression": "zstd"}}, "migration"),
+    ({"migration": {"enabled": True}}, "requires the token-level engine"),
     ({"observability": {"detail": "full"}}, "detail 'full'"),
     ({"observability": {"slo_burn": {"target": 0.9}}}, "slo_burn"),
     ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
     ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
-    ({"sweep": {"replica_models": ["request"]}}, "sweep.replica_models"),
-    ({"sweep": {"migration": [True]}}, "sweep.migration"),
+    ({"sweep": {"replica_models": ["block"]}}, "sweep.replica_models"),
+    ({"sweep": {"migration": ["yes"]}}, "sweep.migration"),
     ({"workload": {"kind": "trace"}}, "workload.kind"),
     ({"latency": {"source": "measured"}}, "latency.source"),
     ({"resources": {"any_of": []}}, "any_of is empty"),
@@ -363,14 +365,18 @@ def test_loader_refuses_by_name(extra, match):
 
 
 def test_example_service_yaml_names_its_unported_sections():
+    """Listing 1 is refused for its forecast section, its risk-aware policy
+    and observability at detail ``full`` only: its token model and its
+    migration section are ported."""
     pytest.importorskip("yaml")
     with pytest.raises(SpecError) as e:
         spec_from_yaml(os.path.join(ROOT, "examples", "service.yaml"))
     msg = str(e.value)
-    for part in ("forecast", "migration", "sim.replica_model 'token'",
-                 "serving.replica_model", "observability.detail 'full'",
+    for part in ("forecast", "observability.detail 'full'",
                  "risk_spothedge"):
         assert part in msg, part
+    for part in ("migration", "replica_model", "token", "serving"):
+        assert part not in msg, part
 
 
 def test_malformed_inputs():
@@ -487,8 +493,11 @@ def test_service_engine_rule():
         host.run(device="cuda")
     assert host.result is None
     _assert_same_result(host.run(device=torch.device("cpu")), JService(d).run())
-    with pytest.raises(SpecError, match="sim.engine 'legacy'"):
-        TService(d, engine="legacy")
+    legacy = TService(d, engine="legacy")
+    assert legacy.spec.sim.engine == "legacy"
+    with pytest.raises(ValueError, match="host engine"):
+        legacy.run(device="cuda")
+    _assert_same_result(legacy.run(), JService(d).run())
     suite = TSuite.from_spec(dict(d, sweep={"traces": ["aws-1", "gcp-1"]}))
     with pytest.raises(ValueError, match="host engine"):
         suite.run(engine="vector", device="cuda")
@@ -628,7 +637,16 @@ def test_cli_workers_needs_sweep(tmp_path, capsys):
 
 
 def test_cli_refuses_the_token_model(tmp_path, capsys):
-    rc = tserve.main(["--spec", _spec_file(tmp_path, golden_dict("spothedge")),
-                      "--engine", "vector", "--replica-model", "token"])
+    """``--replica-model token`` runs now; what the CLI still refuses with
+    it is an unported section, named, and not the token model."""
+    d = golden_dict("spothedge")
+    d["sim"]["duration_hours"] = 0.5
+    assert tserve.main(["--spec", _spec_file(tmp_path, d), "--engine",
+                        "vector", "--replica-model", "token"]) == 0
+    assert "ttft_p50=" in capsys.readouterr().out
+    rc = tserve.main(["--spec", _spec_file(tmp_path, dict(
+        d, forecast={"name": "markov"})), "--engine", "vector",
+        "--replica-model", "token"])
     err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 2 and len(err) == 1 and "replica_model 'token'" in err[0]
+    assert rc == 2 and len(err) == 1 and "forecast" in err[0]
+    assert "replica_model" not in err[0]
