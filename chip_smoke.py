@@ -103,6 +103,30 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    step 6: the K and V bytes a cached token takes in the llama3.2-1b and
    qwen3-moe-30b caches on the card must equal
    ``TokenEngineConfig.kv_bytes_per_token`` (32,768 and 98,304 B);
+5d. drives SkyServe's observability (``phase_obs``), each part counted as
+   in 5b: (a) the reference's obs fixture (``tests/test_obs.py``: the mini
+   trace over 3 zones, spothedge x 3 on g5.48xlarge, Poisson 0.8/s for 2 h,
+   timeout 60 s, concurrency 2, detail ``full``, every request sampled)
+   through the legacy and vector engines on the host, whose event and span
+   logs must be byte-identical and whose event counts must be the
+   reference's golden counts, and through ``run_cells`` on the card in one
+   ``scenario_scan`` launch: its counts the golden ones without window and
+   burn events, its control plane the vector engine's byte for byte, its
+   spans rebuilt from the kernel's span timelines equal to the vector
+   engine's after the reference's filter (one attempt, served, ``ok`` or
+   ``timeout``) and to the plain version's, every span tiling its
+   lifetime, its metrics the host's; (b) the same cell at detail ``off``,
+   ``decisions`` and ``full``: metrics identical, one launch each,
+   ``trace_on`` false only at ``off``; ``scenario_scan``'s time with
+   ``trace_on`` off and on, phase B's wall and the span rebuild's host time
+   printed; (c) the README's quickstart with its observability example
+   through ``Service`` on the card: the event log, span log and trace
+   written under ``chiprun_out/obs/`` and read back, and ``python -m
+   repro_torch.obs`` ``summarize``, ``attribute``, ``request``, ``slo``,
+   ``trace`` and ``diff`` (of a log with itself) in-process, exit 0; (d)
+   the 96-cell matrix of step 4 with its spans rebuilt (count and host
+   time printed), and the quick matrix's 8 cells, whose card spans must
+   equal the port oracle's after the same filter;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -1513,6 +1537,9 @@ def check_oracle_and_fallback(oracle_results) -> None:
             continue
         for fld in dataclasses.fields(want):
             a, b = getattr(res, fld.name), getattr(want, fld.name)
+            if fld.name == "obs":
+                # the rerun's own recorder: the oracle's events, once
+                a, b = a.records(), b.records()
             same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
                     else a == b)
             if not same:
@@ -2329,6 +2356,312 @@ def phase_token() -> dict:
     return parts
 
 
+# the reference's obs fixture (tests/test_obs.py, tests/test_spans.py): the
+# "mini" correlated trace over 3 zones, seed 3; spothedge at a constant 3
+# replicas on g5.48xlarge; Poisson 0.8/s, seed 3, for 2 h; timeout 60 s,
+# concurrency 2
+OBS_HOURS = 2.0
+OBS_DUR = OBS_HOURS * 3600.0 + 600.0
+# tests/test_obs.py's GOLDEN_COUNTS, the reference's event totals of that
+# fixture at detail "full" (copied: the card's machine has no JAX)
+OBS_GOLDEN_COUNTS = {"autoscaler_target": 1, "decision": 498,
+                     "launch_failure": 478, "lifecycle": 40, "slo_burn": 130,
+                     "warning": 14, "window": 130}
+# README.md's observability example, on its quickstart service
+README_OBS = {"detail": "full", "jsonl": True, "chrome_trace": True,
+              "window_s": 60, "trace_sample": 0.01,
+              "slo_burn": {"target": 0.99, "fast_window_s": 300,
+                           "slow_window_s": 3600}}
+OBS_OUT = ROOT / "chiprun_out" / "obs"
+
+
+def obs_fixture(cls, detail: str = "full", trace_sample: float = 1.0):
+    """The reference's obs fixture as an engine of class ``cls``."""
+    from repro_torch.cluster.traces import synth_correlated_trace
+    from repro_torch.configs import get_config
+    from repro_torch.core.autoscaler import ConstantTarget
+    from repro_torch.core.policy import make_policy
+    from repro_torch.obs import ObsRecorder
+    from repro_torch.workloads.arrivals import make_workload
+
+    zones = ["us-west-2a", "us-west-2b", "us-east-2a"]
+    trace = synth_correlated_trace(
+        zones, {z: z[:-1] for z in zones}, steps=int(OBS_HOURS * 60) + 60,
+        dt=60.0, seed=3, max_capacity=4, name="mini")
+    reqs = make_workload("poisson", rate_per_s=0.8, seed=3).generate(
+        OBS_HOURS * 3600.0)
+    return cls(trace, make_policy("spothedge"), reqs, get_config("llama3.2-1b"),
+               itype="g5.48xlarge", autoscaler=ConstantTarget(3),
+               timeout_s=60.0, concurrency=2, workload_name="poisson",
+               obs=ObsRecorder(detail=detail, trace_sample=trace_sample))
+
+
+def check_tiling(where: str, records) -> None:
+    """Every span record tiles [arrival, last close] contiguously."""
+    if records != sorted(records, key=lambda r: r["ordinal"]):
+        raise AssertionError(f"{where}: span records out of ordinal order")
+    for rec in records:
+        segs = rec["segments"]
+        ok = bool(segs) and segs[0]["t0_s"] == rec["arrival_s"]
+        for a, b in zip(segs, segs[1:]):
+            ok = ok and a["t1_s"] >= a["t0_s"] and b["t0_s"] == a["t1_s"]
+        if not (ok and segs[-1]["t1_s"] >= segs[-1]["t0_s"]):
+            raise AssertionError(f"{where}: span {rec['ordinal']} does not "
+                                 f"tile its lifetime: {segs}")
+
+
+def check_card_spans(where: str, card, host) -> int:
+    """The card's span records against the host's after the reference's
+    filter (tests/test_spans.py): one attempt, served, outcome ``ok`` or
+    ``timeout``, byte for byte.  The kernel keeps a retried request's last
+    attempt only, so a request the host retried is the only extra ordinal
+    the card may hold.  Returns the count compared."""
+    want = {r["ordinal"]: r for r in host
+            if r["attempts"] == 1 and r["outcome"] in ("ok", "timeout")
+            and any(s["name"] == "service" for s in r["segments"])}
+    got = {r["ordinal"]: r for r in card}
+    bad = [o for o, r in want.items()
+           if json.dumps(got.get(o), sort_keys=True)
+           != json.dumps(r, sort_keys=True)]
+    retried = {r["ordinal"] for r in host if r["attempts"] > 1}
+    extra = set(got) - set(want) - retried
+    if bad or extra:
+        raise AssertionError(f"{where}: {len(bad)} spans differ from the "
+                             f"host's (first {bad[:3]}), {len(extra)} extra "
+                             f"ordinals {sorted(extra)[:3]}")
+    return len(want)
+
+
+def rebuild_s(engines, scheds, outs, repeats: int = 3) -> tuple:
+    """The host time of rebuilding the cells' spans from their lanes' span
+    timelines again, into fresh collectors, ``repeats`` times: (the
+    fastest and the slowest seconds, spans)."""
+    from repro_torch.obs.spans import SpanCollector
+    from repro_torch.serving.torchengine.engine import reconstruct_spans
+
+    times = []
+    for _ in range(repeats):
+        cols = [SpanCollector(e.obs.trace_sample, e.requests) for e in engines]
+        t0 = time.perf_counter()
+        for eng, col, sched, out in zip(engines, cols, scheds, outs):
+            reconstruct_spans(
+                types.SimpleNamespace(_spans=col, _reps=eng._reps), sched, out)
+        times.append(time.perf_counter() - t0)
+    return min(times), max(times), sum(len(c.records()) for c in cols)
+
+
+def phase_obs() -> dict:
+    """SkyServe's observability on the port (step 5d): (a) the reference's
+    obs fixture through the legacy and vector engines on the host and
+    ``run_cells`` on the card, the logs against each other, the reference's
+    golden counts and the card's rebuilt spans; (b) the same cell at detail
+    off, decisions and full on the card, what tracing costs; (c) the
+    README's observability example through ``Service`` on the card, its
+    artifacts and the CLI; (d) the 96-cell matrix with its spans rebuilt,
+    and the quick matrix's card spans against the port oracle's.  Returns
+    the ``scenario_scan`` launches by part."""
+    import io
+
+    from repro_torch.kernels import scenario_scan as scn
+    from repro_torch.obs import control_plane_records, dumps_jsonl, read_jsonl
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.serving.engine import VectorizedServingEngine
+    from repro_torch.serving.sim import ServingSimulator
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.serving.torchengine import recorded
+    from repro_torch.serving.torchengine.kernel import LANE_KEYS
+
+    card = card_line()
+    parts: Dict[str, int] = {}
+    t_phase = time.perf_counter()
+
+    # (a) the fixture, uncut, detail "full", every request sampled
+    t0 = time.perf_counter()
+    legacy = obs_fixture(ServingSimulator).run(OBS_DUR)
+    legacy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vector = obs_fixture(VectorizedServingEngine).run(OBS_DUR)
+    vector_s = time.perf_counter() - t0
+    log_bytes = dumps_jsonl(vector.obs.events)
+    if dumps_jsonl(legacy.obs.events) != log_bytes:
+        raise AssertionError("obs fixture: the legacy and vector event logs "
+                             "differ")
+    if dumps_jsonl(legacy.obs.span_records()) != dumps_jsonl(
+            vector.obs.span_records()):
+        raise AssertionError("obs fixture: the legacy and vector span logs "
+                             "differ")
+    for name, res in (("legacy", legacy), ("vector", vector)):
+        if res.obs.event_counts() != OBS_GOLDEN_COUNTS:
+            raise AssertionError(f"obs fixture {name}: event counts "
+                                 f"{res.obs.event_counts()} != the "
+                                 f"reference's {OBS_GOLDEN_COUNTS}")
+    eng = obs_fixture(teng.TorchServingEngine)
+    outs = []
+    res, launches, wall = counted(
+        lambda: teng.run_cells([eng], [OBS_DUR], outputs=outs)[0])
+    check_scan_launches("obs fixture", launches, 1)
+    parts["fixture"] = launches["scenario_scan"]
+    if eng.fell_back or not eng.schedule.trace_on or outs[0] is None:
+        raise AssertionError("obs fixture: the card's lane overflowed or "
+                             "carried no span timelines")
+    card_counts = {k: v for k, v in OBS_GOLDEN_COUNTS.items()
+                   if k not in ("window", "slo_burn")}
+    if res.obs.event_counts() != card_counts:
+        raise AssertionError(f"obs fixture card: event counts "
+                             f"{res.obs.event_counts()} != {card_counts}")
+    if dumps_jsonl(res.obs.records()) != dumps_jsonl(
+            control_plane_records(vector.obs.records())):
+        raise AssertionError("obs fixture: the card's control plane differs "
+                             "from the vector engine's")
+    spans, host_spans = res.obs.span_records(), vector.obs.span_records()
+    check_tiling("obs fixture card", spans)
+    check_tiling("obs fixture vector", host_spans)
+    n_cmp = check_card_spans("obs fixture", spans, host_spans)
+    check_result("obs fixture, card vs host", result_fields(res),
+                 result_fields(vector))
+    if res.metrics != vector.metrics:
+        raise AssertionError(f"obs fixture: registry {res.metrics} != the "
+                             f"host's {vector.metrics}")
+    # the plain version's timelines give the card's spans, byte for byte
+    plain = teng.run_cells([obs_fixture(teng.TorchServingEngine)], [OBS_DUR],
+                           device="cpu")[0]
+    if dumps_jsonl(plain.obs.span_records()) != dumps_jsonl(spans):
+        raise AssertionError("obs fixture: the card's spans differ from the "
+                             "plain version's")
+    log(f"obs fixture [{card}] (mini trace, spothedge x 3, Poisson 0.8/s, "
+        f"2 h, detail full, trace_sample 1.0): legacy {legacy_s:.4f} s and "
+        f"vector {vector_s:.4f} s on the host, event logs byte-identical "
+        f"({len(log_bytes)} B, counts {json.dumps(vector.obs.event_counts())}"
+        f" = the reference's golden counts); the card (run_cells, launches "
+        f"{json.dumps(launches)}, {wall:.4f} s wall): counts "
+        f"{json.dumps(res.obs.event_counts())}, control plane byte-identical "
+        f"to the vector engine's, {len(spans)} spans rebuilt, {n_cmp} equal "
+        f"the vector engine's after the filter ({len(host_spans)} on the "
+        f"host), every span tiles its lifetime, equal to the plain "
+        f"version's; metrics equal the host's: {metrics_line(res)}")
+
+    # (b) what tracing costs on the card: the same cell at three details
+    fields, scheds, lanes_out, walls = {}, {}, {}, {}
+    for detail in ("off", "decisions", "full"):
+        e = obs_fixture(teng.TorchServingEngine, detail=detail)
+        scheds[detail] = e.record_schedule(OBS_DUR)
+        o = []
+        r, launches, walls[detail] = counted(
+            lambda: teng.run_cells([e], [OBS_DUR], outputs=o)[0])
+        check_scan_launches(f"obs detail {detail}", launches, 1)
+        parts[f"detail {detail}"] = launches["scenario_scan"]
+        if scheds[detail].trace_on != (detail != "off"):
+            raise AssertionError(f"obs detail {detail}: trace_on "
+                                 f"{scheds[detail].trace_on}")
+        if (r.obs is None) != (detail == "off"):
+            raise AssertionError(f"obs detail {detail}: recorder {r.obs}")
+        fields[detail] = result_fields(r)
+        lanes_out[detail] = (e, o[0])
+    if not fields["off"] == fields["decisions"] == fields["full"]:
+        raise AssertionError(f"obs details: metrics differ {fields}")
+    kernel_ms = {}
+    for detail in ("off", "full"):
+        key, lanes, grid = teng.pack_group([scheds[detail]])
+        args = ([torch.from_numpy(lanes[k]).cuda() for k in LANE_KEYS]
+                + [torch.from_numpy(a).cuda() for a in grid])
+        kw = dict(Q=key.Q, C=key.C, amax=key.AMAX, lb_rr=key.lb_rr,
+                  expire_on=key.expire_on, trace_on=key.trace_on)
+        kernel_ms[detail] = cuda_ms(lambda: scn.launch(*args, **kw), iters=5,
+                                    warmup=1)
+    e, o = lanes_out["full"]
+    span_s, span_max, n_rebuilt = rebuild_s([e], [scheds["full"]], [o])
+    log(f"obs tracing cost [{card}]: metrics identical at detail off / "
+        f"decisions / full, one scenario_scan launch each, trace_on "
+        f"False / True / True; scenario_scan {kernel_ms['off']:.4f} ms with "
+        f"trace_on off, {kernel_ms['full']:.4f} ms on [CUDA events]; phase B "
+        f"wall {1e3 * walls['off']:.2f} / {1e3 * walls['decisions']:.2f} / "
+        f"{1e3 * walls['full']:.2f} ms [host clock, span rebuild included]; "
+        f"the span rebuild alone {1e3 * span_s:.2f} ms for {n_rebuilt} spans "
+        f"(fastest of 3, slowest {1e3 * span_max:.2f} ms) [host clock]")
+
+    # (c) the README's observability example through Service on the card
+    OBS_OUT.mkdir(parents=True, exist_ok=True)
+    spec = dict(QUICKSTART, name="readme-obs",
+                observability=dict(README_OBS, out_dir=str(OBS_OUT)))
+    svc, launches, wall = on_card(spec, "obs service")
+    parts["service"] = launches["scenario_scan"]
+    art = svc.artifacts
+    if set(art) != {"events", "spans", "trace"}:
+        raise AssertionError(f"obs service: artifacts {sorted(art)}")
+    obs = svc.result.obs
+    if dumps_jsonl(read_jsonl(art["events"])) != dumps_jsonl(obs.records()):
+        raise AssertionError("obs service: the event log does not read back")
+    if dumps_jsonl(read_jsonl(art["spans"])) != dumps_jsonl(
+            obs.span_records()):
+        raise AssertionError("obs service: the span log does not read back")
+    with open(art["trace"]) as f:
+        n_trace = len(json.load(f)["traceEvents"])
+    log(f"obs service [{card}] README quickstart + observability example: "
+        f"launches {json.dumps(launches)}, {wall:.4f} s wall, "
+        f"{len(obs.events)} events {json.dumps(obs.event_counts())}, "
+        f"{len(obs.span_records())} spans, the trace {n_trace} events; "
+        f"artifacts {json.dumps({k: Path(v).name for k, v in art.items()})} "
+        f"read back equal; {metrics_line(svc.result)}")
+    first = obs.span_records()[0]["ordinal"]
+    for argv, want_rc in (
+            (["summarize", art["events"]], 0),
+            (["attribute", art["events"], "--top", "3", "--spans",
+              art["spans"]], 0),
+            (["request", art["spans"], str(first)], 0),
+            (["slo", art["events"]], 0),
+            (["trace", art["events"], "-o", str(OBS_OUT / "cli.trace.json")],
+             0),
+            (["diff", art["events"], art["events"]], 0)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_main(argv)
+        for line in buf.getvalue().splitlines()[:12]:
+            log(f"obs CLI | {line}")
+        if rc != want_rc:
+            raise AssertionError(f"python -m repro_torch.obs {argv[0]} "
+                                 f"exited {rc}")
+        log(f"obs CLI [{card}] python -m repro_torch.obs {argv[0]}: exit {rc}")
+
+    # (d) the 96-cell matrix with its spans rebuilt, as in step 4
+    matrix = recorded.spec_matrix()
+    planes = recorded.recorded_planes()
+    ms = [c.engine.record_schedule(c.duration_s) for c in matrix]
+    if any(s.trace_on != planes[s.policy_name]["trace_on"] for s in ms):
+        raise AssertionError("obs matrix: trace_on differs from the recording")
+    outs = []
+    results, launches, wall = counted(lambda: teng.run_cells(
+        [c.engine for c in matrix], [c.duration_s for c in matrix],
+        outputs=outs))
+    check_scan_launches("obs matrix", launches, 1)
+    parts["matrix"] = launches["scenario_scan"]
+    n_spans = sum(len(r.obs.span_records()) for r in results)
+    span_s, span_max, n_rebuilt = rebuild_s([c.engine for c in matrix], ms,
+                                            outs)
+    if n_rebuilt != n_spans:
+        raise AssertionError(f"obs matrix: {n_rebuilt} spans rebuilt again, "
+                             f"{n_spans} in the results")
+    quick = recorded.spec_matrix(n_seeds=4)
+    qres, launches, _ = counted(lambda: teng.run_cells(
+        [c.engine for c in quick], [c.duration_s for c in quick]))
+    check_scan_launches("obs quick matrix", launches, 1)
+    parts["quick matrix"] = launches["scenario_scan"]
+    n_cmp = 0
+    for c, r in zip(recorded.spec_matrix(n_seeds=4), qres):
+        host = VectorizedServingEngine.run(c.engine, c.duration_s)
+        n_cmp += check_card_spans(f"obs quick {c.labels}",
+                                  r.obs.span_records(),
+                                  host.obs.span_records())
+    log(f"obs matrix [{card}]: {len(matrix)} cells (trace_on "
+        f"{ms[0].trace_on}, the recording's), one launch, {wall:.4f} s wall, "
+        f"{n_spans} spans rebuilt, the rebuild alone {1e3 * span_s:.2f} ms "
+        f"(fastest of 3, slowest {1e3 * span_max:.2f} ms) [host clock]; quick "
+        f"matrix's {len(quick)} cells: {n_cmp} spans "
+        f"equal the port oracle's after the filter")
+    log(f"obs scenario_scan launches by part [{card}]: {json.dumps(parts)}; "
+        f"the phase {time.perf_counter() - t_phase:.2f} s wall")
+    return parts
+
+
 def check_kv_bytes(fleet: Fleet) -> None:
     """The KV bytes a cached token takes in the card's cache (K and V only,
     not ``len``), against what the token model assumes,
@@ -2400,6 +2733,7 @@ def main() -> int:
     phase_profiles()
     phase_service()
     phase_token()
+    phase_obs()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],

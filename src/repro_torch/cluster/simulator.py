@@ -17,10 +17,11 @@ Replays a spot obtainability trace against a policy: at each control tick,
    per-second billing (including the provisioning period, §2.3).
 
 The draws (warning delivery) come from ``np.random.default_rng(seed)`` in
-the reference's order, so every result is the reference's to the bit.  The
-reference also taps each transition into its observability recorder; those
-taps change no result, and the port has no recorder yet, so they are left
-out.
+the reference's order, so every result is the reference's to the bit.  Each
+transition is also tapped into the run's observability recorder at the
+reference's points (policy decisions with their reasons, lifecycle,
+warnings, launch failures, the autoscaler target); the taps draw nothing
+and change no result.
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ from repro_torch.core.policy import (
     Policy,
     Terminate,
 )
+from repro_torch.obs.events import (
+    AutoscalerTargetEvent,
+    LaunchFailureEvent,
+    PolicyDecisionEvent,
+    PreemptionWarningEvent,
+    ReplicaLifecycleEvent,
+)
+from repro_torch.obs.recorder import ObsRecorder
 
 
 @dataclasses.dataclass
@@ -112,6 +121,9 @@ class ClusterSimulator:
         # hook called each tick AFTER state transitions, BEFORE policy
         # decisions — the serving simulator uses it to pump requests.
         tick_hook: Optional[Callable[[float, "ClusterSimulator"], None]] = None,
+        # the run's recorder; every engine taps the control plane here, so
+        # their event streams are byte-identical (a bare run records nothing)
+        obs: Optional[ObsRecorder] = None,
     ) -> None:
         self.trace = trace
         self.policy = policy
@@ -120,6 +132,7 @@ class ClusterSimulator:
         self.config = config or SimConfig()
         self.rng = np.random.default_rng(self.config.seed)
         self.tick_hook = tick_hook
+        self.obs = obs if obs is not None else ObsRecorder(detail="off")
 
         zone_names = list(zones) if zones is not None else list(trace.zones)
         missing = [z for z in zone_names if z not in trace.zones]
@@ -240,6 +253,9 @@ class ClusterSimulator:
             if in_use + 1 > cap:
                 self.n_launch_failures += 1
                 self._emit(EventKind.LAUNCH_FAILURE, zone_name)
+                if self.obs.enabled:
+                    self.obs.emit(LaunchFailureEvent(
+                        t=self.now, zone=zone_name, kind="spot"))
                 return None
             price = self.catalog.spot_price(self.config.itype, zone_name)
             self.n_spot_launches += 1
@@ -259,6 +275,15 @@ class ClusterSimulator:
             cold_start_s=self.config.cold_start_s,
         )
         self.instances.append(inst)
+        if self.obs.enabled:
+            self.obs.emit(ReplicaLifecycleEvent(
+                t=self.now,
+                phase="provision",
+                instance_id=self.obs.replica_ordinal(inst.id),
+                zone=zone_name,
+                kind="spot" if kind is InstanceKind.SPOT else "ondemand",
+                hourly_price=price,
+            ))
         return inst
 
     def _apply_trace(self, k: Optional[int] = None) -> None:
@@ -291,8 +316,18 @@ class ClusterSimulator:
                 inst.preempt(self.now)
                 self.n_preemptions += 1
                 self._emit(EventKind.PREEMPTION, zone_name, inst.id)
+                # the listeners may record the grace window's migration
+                # events, so the "dead" record comes after them
                 for fn in self._preempt_listeners:
                     fn(inst, self.now)
+                if self.obs.enabled:
+                    self.obs.emit(ReplicaLifecycleEvent(
+                        t=self.now,
+                        phase="dead",
+                        instance_id=self.obs.replica_ordinal(inst.id),
+                        zone=zone_name,
+                        cause="preemption",
+                    ))
                 self._retire(inst)
 
     def _resolve_warn_info(self) -> Dict[str, Tuple[float, float]]:
@@ -340,6 +375,9 @@ class ClusterSimulator:
                         if inst.warned_at is None:
                             inst.warned_at = self.now
                     self._emit(EventKind.WARNING, zone_name)
+                    if self.obs.enabled:
+                        self.obs.emit(PreemptionWarningEvent(
+                            t=self.now, zone=zone_name))
             return
         now_row = self.trace.capacity_row(self.now)
         for zone_name in self.zone_names:
@@ -353,6 +391,10 @@ class ClusterSimulator:
                         if inst.warned_at is None:
                             inst.warned_at = self.now
                     self._emit(EventKind.WARNING, zone_name)
+                    if self.obs.enabled:
+                        self.obs.emit(PreemptionWarningEvent(
+                            t=self.now, zone=zone_name))
+
     def _retire(self, inst: Instance) -> None:
         """Move a dead instance out of the scan list; bank its cost."""
         cost = inst.cost(self.now)
@@ -373,23 +415,58 @@ class ClusterSimulator:
                 if inst.is_ready() and not was_ready:
                     if inst.is_spot():
                         self._emit(EventKind.READY, inst.zone, inst.id)
+                    if self.obs.enabled:
+                        self.obs.emit(ReplicaLifecycleEvent(
+                            t=self.now,
+                            phase="ready",
+                            instance_id=self.obs.replica_ordinal(inst.id),
+                            zone=inst.zone,
+                        ))
                     for fn in self._ready_listeners:
                         fn(inst, self.now)
 
     def _execute(self, actions) -> None:
         by_id = {i.id: i for i in self.instances}
-        # drain the decision reasons the policy noted (no recorder reads
-        # them here)
-        self.policy.take_reasons()
-        for act in actions:
-            if isinstance(act, LaunchSpot):
-                self._launch(InstanceKind.SPOT, act.zone)
-            elif isinstance(act, LaunchOnDemand):
-                self._launch(InstanceKind.ON_DEMAND, act.zone)
+        # the policy's reasons pair with the actions by index (a policy
+        # that notes nothing yields an empty list: every reason None)
+        reasons = self.policy.take_reasons()
+        rec = self.obs
+        for idx, act in enumerate(actions):
+            reason = reasons[idx] if idx < len(reasons) else None
+            if isinstance(act, (LaunchSpot, LaunchOnDemand)):
+                spot = isinstance(act, LaunchSpot)
+                inst = self._launch(
+                    InstanceKind.SPOT if spot else InstanceKind.ON_DEMAND,
+                    act.zone)
+                if rec.enabled:
+                    rec.emit(PolicyDecisionEvent(
+                        t=self.now,
+                        action="launch_spot" if spot else "launch_ondemand",
+                        zone=act.zone,
+                        instance_id=(None if inst is None
+                                     else rec.replica_ordinal(inst.id)),
+                        reason=reason,
+                    ))
             elif isinstance(act, Terminate):
                 inst = by_id.get(act.instance_id)
+                if rec.enabled:
+                    rec.emit(PolicyDecisionEvent(
+                        t=self.now,
+                        action="terminate",
+                        zone=None if inst is None else inst.zone,
+                        instance_id=rec.replica_ordinal(act.instance_id),
+                        reason=reason,
+                    ))
                 if inst is not None and inst.is_active():
                     inst.terminate(self.now)
+                    if rec.enabled:
+                        rec.emit(ReplicaLifecycleEvent(
+                            t=self.now,
+                            phase="dead",
+                            instance_id=rec.replica_ordinal(inst.id),
+                            zone=inst.zone,
+                            cause="terminate",
+                        ))
                     for fn in self._terminate_listeners:
                         fn(inst, self.now)
                     self._retire(inst)
@@ -425,6 +502,7 @@ class ClusterSimulator:
         ok_ticks = 0
         self._precompute(dt, ticks)
 
+        prev_target: Optional[int] = None
         for k in range(ticks):
             self.now = k * dt
             self._k = k
@@ -434,6 +512,10 @@ class ClusterSimulator:
             if self.tick_hook is not None:
                 self.tick_hook(self.now, self)
             n_target = self.autoscaler.target(self.now)
+            if self.obs.enabled and n_target != prev_target:
+                self.obs.emit(AutoscalerTargetEvent(
+                    t=self.now, target=n_target, prev_target=prev_target))
+            prev_target = n_target
             obs = self._observation(n_target)
             self._execute(self.policy.decide(obs))
             # metrics AFTER actions so cold starts are charged immediately

@@ -1,8 +1,9 @@
 """Scenario reports, per-cell metrics and JSON artifacts: the port's own
 copy of ``repro.experiments.report``, with the token model's and
 migration's fields of a token cell (``None``, and left out of the
-artifact, for a request cell); the observability fields wait for the
-``obs`` port.
+artifact, for a request cell) and each cell's observability: its registry
+snapshot, event counts, window samples, SLO burn summary and span count,
+and the suite's merged snapshot.
 
 Artifact schema (``schema: 1``), as the reference's::
 
@@ -66,12 +67,21 @@ class CellResult:
     saved_prefill_tokens: Optional[int] = None
     n_retried_requests: Optional[int] = None
     lost_kv_tokens: Optional[int] = None
+    # observability: picklable snapshots, left out when the cell ran at
+    # detail "off" (or recorded nothing); the window samples, the burn
+    # summary and the span count exist at detail "full" only
+    metrics: Optional[Dict[str, Any]] = None
+    obs_event_counts: Optional[Dict[str, int]] = None
+    obs_windows: Optional[List[Dict[str, Any]]] = None
+    slo_burn: Optional[Dict[str, Any]] = None
+    n_spans: Optional[int] = None
 
     @staticmethod
     def from_result(labels: Mapping[str, Any], res: ServingResult,
                     wall_s: float) -> "CellResult":
         lat = res.latencies_s
         tok = res.token
+        obs = res.obs
         return CellResult(
             labels=dict(labels),
             n_requests=res.n_requests,
@@ -102,6 +112,13 @@ class CellResult:
             saved_prefill_tokens=tok.saved_prefill_tokens if tok else None,
             n_retried_requests=res.n_retried_requests if tok else None,
             lost_kv_tokens=res.lost_kv_tokens if tok else None,
+            metrics=res.metrics,
+            obs_event_counts=obs.event_counts() if obs is not None else None,
+            obs_windows=(obs.window_records() or None
+                         if obs is not None else None),
+            slo_burn=obs.slo_burn_summary() if obs is not None else None,
+            n_spans=(len(obs.span_records()) or None
+                     if obs is not None else None),
         )
 
     @property
@@ -137,6 +154,8 @@ class ScenarioReport:
     shape_groups: Optional[int] = None
     oracle_reruns: List[str] = dataclasses.field(default_factory=list)
     host_token_cells: List[str] = dataclasses.field(default_factory=list)
+    # every cell's registry snapshot merged (None when no cell recorded any)
+    metrics: Optional[Dict[str, Any]] = None
 
     def __len__(self) -> int:
         return len(self.cells)
@@ -145,6 +164,15 @@ class ScenarioReport:
         """Cells whose labels match every given ``axis=value``."""
         return [c for c in self.cells
                 if all(c.labels.get(k) == v for k, v in labels.items())]
+
+    def burn_ranking(self) -> List[CellResult]:
+        """The cells with a burn summary, the worst error-budget burn first
+        (minutes alerting, then alert windows); cells below detail ``full``
+        have none and are left out."""
+        burned = [c for c in self.cells if c.slo_burn]
+        return sorted(burned, key=lambda c: (
+            -float(c.slo_burn.get("alert_minutes", 0.0)),
+            -int(c.slo_burn.get("alert_windows", 0))))
 
     def to_dict(self) -> Dict[str, Any]:
         out = {
@@ -160,6 +188,8 @@ class ScenarioReport:
             out["shape_groups"] = self.shape_groups
             out["oracle_reruns"] = list(self.oracle_reruns)
             out["host_token_cells"] = list(self.host_token_cells)
+        if self.metrics is not None:
+            out["metrics"] = self.metrics
         return out
 
     def save(self, directory: str = os.path.join("artifacts", "bench"),
@@ -186,4 +216,12 @@ class ScenarioReport:
                          f"oracle {self.oracle_reruns}; "
                          f"{len(self.host_token_cells)} token cell(s) on the "
                          f"host engine")
+        burned = self.burn_ranking()
+        if burned:
+            lines.append("  SLO burn (worst first):")
+            for c in burned:
+                b = c.slo_burn
+                lines.append(f"    {c.cell_id:<42s} "
+                             f"alert={b['alert_minutes']:6.1f}min "
+                             f"({b['alert_windows']}/{b['windows']} windows)")
         return "\n".join(lines)

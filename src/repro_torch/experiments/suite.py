@@ -12,7 +12,8 @@ control plane replayed on the host (phase A), then every request-model
 data plane through ``run_cells``, one ``scenario_scan`` launch per shape
 group on the card, an overflowed lane rerun on the oracle, and every
 token-model cell on the host engine beside them; ``engine="vector"`` or
-``"legacy"`` runs them one by one on that host engine.
+``"legacy"`` runs them one by one on that host engine.  The report
+carries every cell's registry snapshot merged (``metrics``).
 
 The reference's process fan-out (``workers``) is not ported and is
 refused.
@@ -32,6 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.cluster.traces import SpotTrace
 from repro_torch.experiments.report import CellResult, ScenarioReport
+from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving.torchengine.engine import TorchServingEngine, run_cells
 from repro_torch.service.builder import (
     ENTRY_ENGINE,
@@ -308,11 +310,21 @@ class ScenarioSuite:
                 if progress:
                     print(f"[suite {self.name}] {cells[-1].cell_id} done "
                           f"({len(cells)}/{len(self.scenarios)})", flush=True)
+        snaps = [c.metrics for c in cells if c.metrics]
         report = ScenarioReport(
             suite=self.name, engine=engine or self._engine_label(), workers=1,
             cells=cells, wall_s=time.perf_counter() - t0,
             shape_groups=groups, oracle_reruns=reruns,
-            host_token_cells=on_host)
+            host_token_cells=on_host,
+            metrics=MetricsRegistry.merge_snapshots(snaps) or None)
+        if progress:
+            # the cells a paging SLO would flag, worst burn first
+            for c in report.burn_ranking():
+                b = c.slo_burn
+                if b["alert_windows"]:
+                    print(f"[suite {self.name}] SLO burn alert: "
+                          f"{c.cell_id} {b['alert_minutes']:.1f}min "
+                          f"over {b['alert_windows']} windows", flush=True)
         if save_to is not None:
             report.save(save_to)
         return report

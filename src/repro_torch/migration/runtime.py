@@ -1,7 +1,7 @@
 """``MigrationRuntime``, what a serving engine calls on a warned
-preemption: the port's own copy of ``repro.migration.runtime``, without
-the reference's event taps (observability is not ported; no result
-depends on them).
+preemption: the port's own copy of ``repro.migration.runtime``, with the
+reference's event taps (the plan, the draining / migrating lifecycle and
+the migrated requests' span hops; no result depends on them).
 
 It takes the dying replica's ``ContinuousBatch``, its ``Instance`` and the
 surviving candidates, snapshots the batch, runs the planner, queues each
@@ -14,11 +14,13 @@ make the same decisions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.cluster.catalog import link_bandwidth_gbps
 from repro_torch.migration.config import MigrationSpec
 from repro_torch.migration.planner import SeqState, TargetInfo, plan_preemption
+from repro_torch.obs.events import MigrationPlanEvent, ReplicaLifecycleEvent
+from repro_torch.obs.recorder import ObsRecorder
 
 __all__ = ["MigratedSeq", "MigrationRuntime", "PreemptionOutcome"]
 
@@ -58,12 +60,16 @@ class PreemptionOutcome:
 class MigrationRuntime:
     """Plans and carries out grace-period KV migration for one run."""
 
-    def __init__(self, spec: MigrationSpec, engine_cfg) -> None:
+    def __init__(self, spec: MigrationSpec, engine_cfg,
+                 obs: Optional[ObsRecorder] = None) -> None:
         if not spec.enabled:
             raise ValueError(
                 "MigrationRuntime requires migration.enabled: true")
         self.spec = spec
         self.engine_cfg = engine_cfg    # a TokenEngineConfig
+        # the events follow from the inputs and the planner's outcome only,
+        # so both engines record the same stream here
+        self.obs = obs if obs is not None else ObsRecorder(detail="off")
 
     def bandwidth_bytes_per_s(self, src_inst, dst_inst) -> float:
         """The link rate from the dying to a surviving instance: the spec's
@@ -100,6 +106,9 @@ class MigrationRuntime:
         drained: List[SeqState] = []
         migrated: List[MigratedSeq] = []
         removed: List[int] = []
+        # the span taps ride the source batch's sampled-key map: read it
+        # before remove() and kill() evict its entries
+        tord = getattr(src_batch, "_tord", None)
         for d in decisions:
             s = d.state
             if d.action == "drain":
@@ -114,6 +123,15 @@ class MigrationRuntime:
                         state=s, target_rid=d.target_rid,
                         transfer_s=d.transfer_s, resume_s=resume))
                     removed.append(s.key)
+                    o = tord.get(s.key) if tord else None
+                    if o is not None:
+                        to_ord = self.obs.replica_ordinal(d.target_rid)
+                        src_batch.tap.migrate(
+                            o, now, to_replica=to_ord,
+                            transfer_s=d.transfer_s, plan_t=now)
+                        src_batch.tap.migrate_arrive(o, resume,
+                                                     replica=to_ord)
+                        bmap[d.target_rid].track(s.key, o)
                 # else the target refused it (too large): it is killed
         if removed:
             src_batch.remove(removed)
@@ -122,6 +140,30 @@ class MigrationRuntime:
             m.state.prefilled for m in migrated)
         saved_d = sum(s.decoded for s in drained) + sum(
             m.state.decoded for m in migrated)
+        if self.obs.enabled:
+            # these precede the cluster's "dead" record: the engine runs
+            # inside the preempt listener, and the cluster records the
+            # death after every listener returns
+            src_ord = self.obs.replica_ordinal(src_inst.id)
+            if drained:
+                self.obs.emit(ReplicaLifecycleEvent(
+                    t=now, phase="draining",
+                    instance_id=src_ord, zone=src_inst.zone))
+            if migrated:
+                self.obs.emit(ReplicaLifecycleEvent(
+                    t=now, phase="migrating",
+                    instance_id=src_ord, zone=src_inst.zone))
+            self.obs.emit(MigrationPlanEvent(
+                t=now,
+                instance_id=src_ord,
+                n_drained=len(drained),
+                n_migrated=len(migrated),
+                n_killed=kr.n_batch + kr.n_queued,
+                migrated_kv_tokens=sum(m.state.resident_tokens
+                                       for m in migrated),
+                transfer_s=sum(m.transfer_s for m in migrated),
+                grace_s=grace_s,
+            ))
         cfg = self.engine_cfg
         return PreemptionOutcome(
             drained=tuple(drained),

@@ -9,8 +9,11 @@ balancer x request tape x latency model into one engine, picked by
 data plane runs on the card (a token-model cell runs on the host engine).
 ``sim.replica_model: token`` gets the ``serving:`` section's
 ``TokenSchedulerConfig``, and the ``migration:`` section attaches to token
-cells only.  A prepared trace, a catalog or a shared request tape may be
-passed in.
+cells only.  The ``observability:`` section becomes the run's
+``ObsRecorder``, shared by the engine, its cluster and its migration
+runtime, and the registry is scoped to the run while the latency model is
+built.  A prepared trace, a catalog or a shared request tape may be passed
+in.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.autoscaler import Autoscaler, ConstantTarget, LoadAutoscaler
 from repro_torch.core.policy import Policy, policy_class
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.recorder import ObsRecorder
+from repro_torch.obs.registry import use_registry
+from repro_torch.obs.slo import SLOBurnConfig
 from repro_torch.serving.engine import VectorizedServingEngine
 from repro_torch.serving.latency import make_latency_model
 from repro_torch.serving.load_balancer import (
@@ -172,6 +178,9 @@ class ResolvedService:
     load_balancer: LoadBalancer
     requests: List[Request]
     simulator: Engine             # per spec.sim.engine
+    # the run's event recorder and metrics registry, from the spec's
+    # observability: section
+    obs: Optional[ObsRecorder] = None
 
     def run(self, duration_s: Optional[float] = None, *,
             device: Union[str, torch.device, None] = None) -> ServingResult:
@@ -228,13 +237,18 @@ def build_service(
         cfg = get_config(spec.model)
     except KeyError as e:
         raise SpecError(f"model: {e.args[0]}") from None
-    latency_model = make_latency_model(
-        cfg, itype, model_id=spec.model, source=spec.latency.source,
-        profile=spec.latency.profile)
-    kw = {}
+    o = spec.observability
+    obs = ObsRecorder(
+        detail=o.detail, window_s=o.window_s, trace_sample=o.trace_sample,
+        slo_burn=SLOBurnConfig(**dataclasses.asdict(o.slo_burn)))
+    # the run's registry takes the factory's counters (the profile
+    # fallback), not a process-wide one
+    with use_registry(obs.registry):
+        latency_model = make_latency_model(
+            cfg, itype, model_id=spec.model, source=spec.latency.source,
+            profile=spec.latency.profile)
     if sim.engine == "jax":
         engine_cls = TorchServingEngine
-        kw["trace_on"] = spec.observability.spans_on
     elif sim.engine == "legacy":
         engine_cls = ServingSimulator
     else:
@@ -276,9 +290,9 @@ def build_service(
         ) if token else None,
         # a request-model cell of a mixed sweep has no KV to migrate
         migration=spec.migration if token else None,
-        **kw,
+        obs=obs,
     )
     return ResolvedService(
         spec=spec, trace=trace, catalog=catalog, model_config=cfg,
         zones=zones, policy=policy, autoscaler=autoscaler, load_balancer=lb,
-        requests=reqs, simulator=simulator)
+        requests=reqs, simulator=simulator, obs=obs)

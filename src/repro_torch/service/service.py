@@ -18,13 +18,15 @@ refuses a device other than the CPU); ``engine=None`` keeps the spec's
 own ``sim.engine``; ``engine="legacy"`` is the per-request
 ``ServingSimulator``, a host engine as ``vector`` is.  Under ``jax`` a
 token-model spec runs on the host engine, as in the reference (its
-``status()`` says ``token_on_host``).  The reference's artifact export
-(observability detail ``full``) is not ported, and the spec refuses that
-detail.
+``status()`` says ``token_on_host``).  At observability detail ``full`` a
+run writes its artifacts under ``observability.out_dir``:
+``<name>.events.jsonl``, ``<name>.spans.jsonl`` and ``<name>.trace.json``
+(read them with ``python -m repro_torch.obs``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import torch
@@ -32,6 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.cluster.catalog import Catalog
 from repro_torch.cluster.traces import SpotTrace
+from repro_torch.obs.export import write_chrome_trace, write_jsonl
 from repro_torch.serving.result import ServingResult
 from repro_torch.serving.torchengine.engine import TorchServingEngine
 from repro_torch.service.builder import (
@@ -67,6 +70,8 @@ class Service:
         self._resolved: Optional[ResolvedService] = None
         self._resolved_unused = False   # resolved but not yet run
         self.result: Optional[ServingResult] = None
+        #: artifact kind -> path, written by the last run at detail "full"
+        self.artifacts: Dict[str, str] = {}
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any], **overrides: Any) -> "Service":
@@ -106,7 +111,34 @@ class Service:
             resolved = self.resolve()
         self._resolved_unused = False
         self.result = resolved.run(duration_s, device=dev)
+        self._export_obs(resolved)
         return self.result
+
+    def _export_obs(self, resolved: ResolvedService) -> None:
+        """At observability detail ``full``, write the run's event log, span
+        log and Chrome trace under ``out_dir``."""
+        spec = self.spec.observability
+        obs = resolved.obs
+        if obs is None or obs.detail != "full":
+            return
+        if not (spec.jsonl or spec.chrome_trace):
+            return
+        os.makedirs(spec.out_dir, exist_ok=True)
+        stem = os.path.join(spec.out_dir, self.spec.name)
+        records = obs.records()
+        spans = obs.span_records()
+        tok = self.result.token
+        self.artifacts = {}
+        if spec.jsonl:
+            self.artifacts["events"] = write_jsonl(records,
+                                                   stem + ".events.jsonl")
+            if spans:
+                self.artifacts["spans"] = write_jsonl(spans,
+                                                      stem + ".spans.jsonl")
+        if spec.chrome_trace:
+            self.artifacts["trace"] = write_chrome_trace(
+                records, stem + ".trace.json", spans=spans or None,
+                token_windows=tok.windows if tok is not None else None)
 
     def status(self) -> Dict[str, Any]:
         """Resolved state (and metrics after a run), JSON-friendly."""
@@ -142,6 +174,10 @@ class Service:
                 p50_s=r.pct(50),
                 p99_s=r.pct(99),
             )
+            if r.obs is not None:
+                out["obs_event_counts"] = r.obs.event_counts()
+            if self.artifacts:
+                out["obs_artifacts"] = dict(self.artifacts)
             if isinstance(resolved.simulator, TorchServingEngine):
                 # the lane's queue pool overflowed and the oracle reran it
                 out["oracle_rerun"] = resolved.simulator.fell_back

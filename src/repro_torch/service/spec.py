@@ -11,9 +11,9 @@ reference's dict and loads in either package.
 What the port cannot run as the reference does is refused by name
 (``SpecError``, a ``ValueError``), never ignored: ``ServiceSpec.unported``
 lists it, and ``refuse_unported`` / ``validate`` raise on it.  That is the
-``forecast`` section, observability at detail ``full`` and its
-``slo_burn`` monitor, the sweep axis ``forecasters``, and the policies
-``omniscient`` and ``risk_spothedge``.
+``forecast`` section, the sweep axis ``forecasters``, and the policies
+``omniscient`` and ``risk_spothedge``.  The ``observability:`` section runs
+whole (``repro_torch.obs``).
 
 ``sim.engine`` takes the reference's names: ``vector`` is the host engine
 (the port's oracle, ``repro_torch.serving.engine``), ``legacy`` the
@@ -32,6 +32,7 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 from repro_torch.migration.config import MigrationSpec
+from repro_torch.obs.recorder import DETAIL_LEVELS
 from repro_torch.serving.engine import REPLICA_MODELS
 from repro_torch.serving.latency import LATENCY_SOURCES
 
@@ -254,8 +255,7 @@ class LatencySpec:
 
 
 # ---------------------------------------------------------------------------
-# the serving data plane, and observability (its detail "full" and slo_burn
-# refused by ServiceSpec.unported)
+# the serving data plane, and observability
 # ---------------------------------------------------------------------------
 
 
@@ -327,7 +327,11 @@ class ServingSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SLOBurnSpec:
-    """The reference's burn-rate monitor knobs (detail ``full`` only)."""
+    """Burn-rate alerting knobs (``observability.slo_burn``, detail
+    ``full``): the SLO attainment ``target`` whose error budget the burn
+    rates are measured against, the trailing ``fast_window_s`` /
+    ``slow_window_s`` and their alert thresholds (5 min at 14.4x and 1 h at
+    6x by default)."""
 
     target: float = 0.99
     fast_window_s: float = 300.0
@@ -335,20 +339,33 @@ class SLOBurnSpec:
     fast_threshold: float = 14.4
     slow_threshold: float = 6.0
 
+    def __post_init__(self) -> None:
+        _require(0.0 < self.target < 1.0, f"observability.slo_burn.target "
+                 f"must be in (0, 1), got {self.target}")
+        _require(0 < self.fast_window_s <= self.slow_window_s,
+                 "observability.slo_burn windows must be positive with "
+                 "fast_window_s <= slow_window_s")
+        _require(self.fast_threshold > 0 and self.slow_threshold > 0,
+                 "observability.slo_burn thresholds must be positive")
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
 
-DETAIL_LEVELS = ("off", "decisions", "full")
-
-
 @dataclasses.dataclass(frozen=True)
 class ObservabilitySpec:
-    """What the run records.  The port records no events; it reads
-    ``detail`` and ``trace_sample`` only to decide whether phase B carries
-    span timelines (``detail`` not ``off`` and ``trace_sample > 0``, as
-    the reference's span sampler).  ``out_dir``, ``jsonl``,
-    ``chrome_trace`` and ``window_s`` act at detail ``full`` only."""
+    """What the run records and exports (``repro_torch.obs``).
+
+    ``off`` records nothing; ``decisions`` (the default) records the control
+    plane's events (policy decisions with their reasons, replica lifecycle,
+    warnings, migration plans), the registry's metrics and the sampled
+    request spans; ``full`` adds a window sample and an SLO burn event every
+    ``window_s`` and has ``Service`` write the event log (``jsonl``), the
+    span log and the Perfetto timeline (``chrome_trace``) under
+    ``out_dir``.  ``trace_sample`` is the span sampling rate, keyed on the
+    request's run ordinal (no RNG, the same set in every engine; phase B
+    carries span timelines exactly when it samples), and ``slo_burn``
+    configures the burn monitor.  Recording never changes a metric."""
 
     detail: str = "decisions"
     out_dir: str = "artifacts/obs"
@@ -367,10 +384,6 @@ class ObservabilitySpec:
                  f"positive, got {self.window_s}")
         _require(0.0 <= self.trace_sample <= 1.0, f"observability."
                  f"trace_sample must be in [0, 1], got {self.trace_sample}")
-
-    @property
-    def spans_on(self) -> bool:
-        return self.detail != "off" and self.trace_sample > 0.0
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -551,11 +564,6 @@ class ServiceSpec:
         out = []
         if self.forecast is not None:
             out.append("forecast (the forecasters and risk-aware policies)")
-        if self.observability.detail == "full":
-            out.append("observability.detail 'full' (event windows and "
-                       "artifact export)")
-        if self.observability.slo_burn != SLOBurnSpec():
-            out.append("observability.slo_burn (the SLO burn-rate monitor)")
         policies = [self.replica_policy.name] + [
             p.name for p in (self.sweep.policies if self.sweep else ())]
         for name in dict.fromkeys(policies):

@@ -35,8 +35,11 @@ mode is decision for decision the legacy ``ServingSimulator``'s
 
 The balancer is a ``LeastLoadedBalancer`` or a ``RoundRobinBalancer``
 (exactly those types; a subclass runs on the legacy simulator only), or
-its name, ``"ll"`` or ``"rr"``.  Not in the port yet: request spans, window
-samples and the metrics registry (observability).
+its name, ``"ll"`` or ``"rr"``.  The run records into its ``ObsRecorder``
+(shared with the cluster and the migration runtime): the control plane,
+window samples and burn rates at detail ``full``, and the sampled requests'
+spans, whose ordinal is the tape index; the event log is the legacy
+simulator's byte for byte.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ from repro_torch.core.policy import Policy
 from repro_torch.migration.config import MigrationSpec
 from repro_torch.migration.runtime import MigrationRuntime
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.recorder import ObsRecorder
+from repro_torch.obs.registry import use_registry
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.load_balancer import (
     LeastLoadedBalancer,
@@ -71,6 +76,7 @@ from repro_torch.serving.token.config import (
 )
 from repro_torch.serving.token.metrics import TokenRecord, TokenStats
 from repro_torch.serving.torchengine.schedule import tape_arrays
+from repro_torch.serving.window import WindowSampler
 from repro_torch.workloads.arrivals import Request
 
 __all__ = ["LB_KINDS", "REPLICA_MODELS", "VectorizedServingEngine",
@@ -113,13 +119,14 @@ class _Rep:
     """A replica slot: plain fields, no FSM object, no probes."""
 
     __slots__ = ("inst", "slot", "rid", "dead", "rtt",
-                 "running", "queue", "qage", "qmin", "batch")
+                 "running", "queue", "qage", "qmin", "batch", "ord")
 
     def __init__(self, inst: Instance, slot: int,
                  rtt: List[float]) -> None:
         self.inst = inst
         self.slot = slot
         self.rid = inst.id
+        self.ord = -1                        # dense run ordinal (spans)
         self.dead = False
         self.rtt = rtt                       # client-region code -> seconds
         self.running: List[Tuple[float, int]] = []   # (finish_s, req index)
@@ -163,7 +170,11 @@ class VectorizedServingEngine:
         replica_model: str = "request",
         token_scheduler: Optional[TokenSchedulerConfig] = None,
         migration: Optional[MigrationSpec] = None,
+        obs: Optional[ObsRecorder] = None,
     ) -> None:
+        # the run's recorder: the cluster, the migration runtime and the
+        # window sampler record into it too
+        self.obs = obs if obs is not None else ObsRecorder()
         self.catalog = catalog or default_catalog()
         self.cfg = cfg
         self.itype = self.catalog.instance_type(itype)
@@ -187,6 +198,12 @@ class VectorizedServingEngine:
             TokenEngineConfig.from_latency(self.latency_model,
                                            self._token_knobs)
             if replica_model == "token" else None)
+        # the burn monitor needs the token SLO targets
+        token = self._token_cfg is not None
+        self._win = WindowSampler(
+            self.obs,
+            slo_ttft_s=self._token_knobs.slo_ttft_s if token else None,
+            slo_tpot_s=self._token_knobs.slo_tpot_s if token else None)
         self._token_records: List[TokenRecord] = []
         self._busy: Set[int] = set()         # slots with live batch work
         self._n_kv_preempted = 0
@@ -197,7 +214,7 @@ class VectorizedServingEngine:
                 and self._token_cfg is None):
             raise ValueError("migration.enabled requires replica_model='token'")
         self._mig_rt: Optional[MigrationRuntime] = (
-            MigrationRuntime(migration, self._token_cfg)
+            MigrationRuntime(migration, self._token_cfg, obs=self.obs)
             if migration is not None and migration.enabled else None)
         self._n_drained = 0
         self._n_migrated = 0
@@ -215,6 +232,10 @@ class VectorizedServingEngine:
         # per-request computation; client regions as small int codes, each
         # replica precomputing its RTT per code on creation)
         self.requests = sorted(requests, key=lambda r: r.arrival_s)
+        # the span collector (None when off): the tape is the stable sort
+        # by arrival, so a tape index is its span ordinal and the hot loops
+        # test want_l[i] directly
+        self._spans = self.obs.span_collector(self.requests)
         self._n = len(self.requests)
         self._arr, self._svc, self._rcode, self._client_regions = tape_arrays(
             self.requests, self.latency_model)
@@ -266,6 +287,7 @@ class VectorizedServingEngine:
             autoscaler=autoscaler or ConstantTarget(4),
             config=cfg_sim,
             tick_hook=self._tick,
+            obs=self.obs,
         )
         self.cluster.add_preempt_listener(self._on_dead)
         self.cluster.add_terminate_listener(self._on_dead)
@@ -281,8 +303,10 @@ class VectorizedServingEngine:
             for creg in self._client_regions
         ]
         rep = _Rep(inst, len(self._reps), rtt)
+        if self._spans is not None:
+            rep.ord = self.obs.replica_ordinal(inst.id)
         if self._token_cfg is not None:
-            rep.batch = ContinuousBatch(self._token_cfg)
+            rep.batch = ContinuousBatch(self._token_cfg, tap=self._spans)
         self._reps.append(rep)
         self._live.append(rep)
         self._by_id[inst.id] = rep
@@ -297,6 +321,9 @@ class VectorizedServingEngine:
         arr = self._arr_l
         pending = self._pending
         pmin = self._pmin
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
+        t_kill = now if now is not None else 0.0
         if rep.batch is not None:
             # token mode: the batch loses its KV and every request retries
             # client-side, unless migration is on and the preemption was
@@ -312,6 +339,8 @@ class VectorizedServingEngine:
                 pending.append(i)
                 if arr[i] < pmin:
                     pmin = arr[i]
+                if want is not None and want[i]:
+                    spans.preempt(i, t_kill)
             self._pmin = pmin
             self._n_retried += len(kr.keys)
             self._busy.discard(rep.slot)
@@ -320,14 +349,12 @@ class VectorizedServingEngine:
             self._lost_prefill_tokens += kr.lost_prefill_tokens
             self._lost_decode_tokens += kr.lost_decode_tokens
             return
-        for _, i in rep.running:
+        for i in [i for _, i in rep.running] + rep.queue:
             pending.append(i)
             if arr[i] < pmin:
                 pmin = arr[i]
-        for i in rep.queue:
-            pending.append(i)
-            if arr[i] < pmin:
-                pmin = arr[i]
+            if want is not None and want[i]:
+                spans.preempt(i, t_kill)
         self._pmin = pmin
         self._n_retried += len(rep.running) + len(rep.queue)
         self._qn -= len(rep.queue)
@@ -354,6 +381,8 @@ class VectorizedServingEngine:
         finish = now + cfg.overhead_s
         rcode = self._rcode_l
         arr = self._arr_l
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
         for s in outcome.drained:
             # finished decoding inside the grace window: completes at the
             # kill instant, its first token (if any) already emitted
@@ -362,7 +391,8 @@ class VectorizedServingEngine:
             e2e = finish - arr[i] + rtt
             first = (s.first_s + cfg.overhead_s
                      if math.isfinite(s.first_s) else finish)
-            if e2e <= self.timeout_s:
+            ok = e2e <= self.timeout_s
+            if ok:
                 self.latencies.append(e2e)
                 self.completed += 1
                 self._token_records.append(TokenRecord(
@@ -371,6 +401,9 @@ class VectorizedServingEngine:
                     rtt_s=rtt))
             else:
                 self.failed += 1
+            if want is not None and want[i]:
+                spans.finish_token(i, first, finish, cfg.overhead_s,
+                                   "ok" if ok else "timeout", e2e)
         by_rid = {r.rid: r for r in cands}
         for m in outcome.migrated:
             # the target batch has queued work now: it must step
@@ -456,6 +489,14 @@ class VectorizedServingEngine:
         if self._obs:
             self._observe_batch(self._obs)
             self._obs.clear()
+        self._win.maybe_emit(
+            now,
+            delivered=self._ptr,
+            completed=self.completed,
+            failed=self.failed,
+            instances=cluster.instances,
+            token_records=self._token_records if token else None,
+        )
 
     def _process(self, t: float) -> None:
         # 1) arrivals
@@ -513,6 +554,8 @@ class VectorizedServingEngine:
         pending = self._pending
         arr = self._arr_l
         timeout = self.timeout_s
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
         if len(pending) >= _VEC_MIN:
             arr_v = self._arr
             pa = np.fromiter(pending, dtype=np.int64, count=len(pending))
@@ -520,6 +563,10 @@ class VectorizedServingEngine:
             n_keep = int(keep.sum())
             if n_keep != len(pending):
                 self.failed += len(pending) - n_keep
+                if want is not None:
+                    for i in pa[~keep].tolist():
+                        if want[i]:
+                            spans.expire(i, t, arr[i])
                 pa = pa[keep]
                 self._pending = pa.tolist()
                 self._pmin = float(arr_v[pa].min()) if n_keep else _INF
@@ -529,6 +576,8 @@ class VectorizedServingEngine:
         for i in pending:
             if t - arr[i] > timeout:
                 self.failed += 1
+                if want is not None and want[i]:
+                    spans.expire(i, t, arr[i])
             else:
                 kept.append(i)
                 if arr[i] < pmin:
@@ -552,6 +601,8 @@ class VectorizedServingEngine:
         conc = self.concurrency
         loads = self._loads
         nready = len(ready)
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
         qn = 0
         qmin = self._qmin
         # pmin bounds every pending arrival from below, so when even the
@@ -571,6 +622,8 @@ class VectorizedServingEngine:
         for i in pending:
             if check_to and t - arr[i] > timeout:
                 self.failed += 1
+                if want is not None and want[i]:
+                    spans.expire(i, t, arr[i])
                 continue
             rc = rcode[i]
             if rr:
@@ -595,12 +648,17 @@ class VectorizedServingEngine:
             # decrements them, so both balancers keep the counts honest
             loads[best] += 1
             s = rep.slot
+            tap = want is not None and want[i]
+            if tap:
+                spans.dispatch(i, t, rep.ord, rep.rtt[rc], arr[i])
             run = rep.running
             if not rep.queue and len(run) < conc and s not in due:
                 # immediate start == queue-then-start this sub-step
                 finish = t + svc[i] * (1.0 + 0.15 * len(run))
                 run.append((finish, i))
                 heapq.heappush(heap, (finish, s))
+                if tap:
+                    spans.start(i, t)
                 continue
             a = arr[i] - rep.rtt[rc]
             rep.queue.append(i)
@@ -631,6 +689,8 @@ class VectorizedServingEngine:
         reps = self._reps
         loads = self._loads
         pos = self._pos
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
         for s in slots:
             rep = reps[s]
             run = rep.running
@@ -641,11 +701,15 @@ class VectorizedServingEngine:
                 for f, i in run:
                     if f <= t:
                         e2e = (f - arr[i]) + rep.rtt[rcode[i]]
-                        if e2e <= timeout:
+                        ok = e2e <= timeout
+                        if ok:
                             self.latencies.append(e2e)
                             self.completed += 1
                         else:
                             self.failed += 1
+                        if want is not None and want[i]:
+                            spans.finish(i, f, "ok" if ok else "timeout",
+                                         e2e)
                         n_done += 1
                     else:
                         still.append((f, i))
@@ -663,6 +727,10 @@ class VectorizedServingEngine:
                 while k < nq and t - ages[k] > timeout:
                     k += 1
                 if k:
+                    if want is not None:
+                        for i in q[:k]:
+                            if want[i]:
+                                spans.expire(i, t, arr[i])
                     del q[:k]
                     del ages[:k]
                     self.failed += k
@@ -677,6 +745,8 @@ class VectorizedServingEngine:
                             if t - a <= timeout:
                                 kept.append(i)
                                 kept_a.append(a)
+                            elif want is not None and want[i]:
+                                spans.expire(i, t, arr[i])
                         n_exp = len(q) - len(kept)
                         rep.queue = q = kept
                         rep.qage = ages = kept_a
@@ -697,6 +767,8 @@ class VectorizedServingEngine:
                     finish = t + svc[i] * (1.0 + 0.15 * len(run))
                     run.append((finish, i))
                     heapq.heappush(heap, (finish, s))
+                    if want is not None and want[i]:
+                        spans.start(i, t)
                 del q[:j]
                 del rep.qage[:j]
                 self._qn -= j
@@ -739,6 +811,8 @@ class VectorizedServingEngine:
         arr = self._arr_l
         timeout = self.timeout_s
         ready = self._ready_slots
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
         if not ready:
             # nothing to route to: age out the requests past their timeout
             kept: List[int] = []
@@ -746,6 +820,8 @@ class VectorizedServingEngine:
             for i in pending:
                 if t - arr[i] > timeout:
                     self.failed += 1
+                    if want is not None and want[i]:
+                        spans.expire(i, t, arr[i])
                 else:
                     kept.append(i)
                     if arr[i] < pmin:
@@ -774,6 +850,8 @@ class VectorizedServingEngine:
         for i in pending:
             if check_to and t - arr[i] > timeout:
                 self.failed += 1
+                if want is not None and want[i]:
+                    spans.expire(i, t, arr[i])
                 continue
             rc = rcode[i]
             if rr:
@@ -794,12 +872,22 @@ class VectorizedServingEngine:
                     ):
                         best, bl, br, bi = j, lj, col[j], ids[j]
                 rep = ready_reps[best]
-            if rep.batch.enqueue(i, ptok[i], otok[i], arr[i], t,
-                                 rtt_s=rep.rtt[rc]):
+            ok = rep.batch.enqueue(i, ptok[i], otok[i], arr[i], t,
+                                   rtt_s=rep.rtt[rc])
+            if ok:
                 loads[best] += 1
                 busy.add(rep.slot)
             else:
                 self.failed += 1         # can never fit the KV budget
+            if want is not None and want[i]:
+                # TokenReplica.submit's order: dispatch, then track (it
+                # was admitted) or reject (it never fits)
+                spans.dispatch(i, t, rep.ord, rep.rtt[rc], arr[i],
+                               token=True)
+                if ok:
+                    rep.batch.track(i, i)
+                else:
+                    spans.reject(i, t)
         if rr:
             self._rr_cursor = cur
         self._pending = []
@@ -811,6 +899,10 @@ class VectorizedServingEngine:
         pos = self._pos
         rcode = self._rcode_l
         records = self._token_records
+        spans = self._spans
+        want = spans.want_l if spans is not None else None
+        overhead = self._token_cfg.overhead_s
+        arr = self._arr_l
         idle: List[int] = []
         for s in sorted(self._busy):
             rep = self._reps[s]
@@ -820,7 +912,8 @@ class VectorizedServingEngine:
                 i = c.key
                 rtt = rep.rtt[rcode[i]]
                 e2e = c.finish_s - c.arrival_s + rtt
-                if e2e <= timeout:
+                ok = e2e <= timeout
+                if ok:
                     self.latencies.append(e2e)
                     self.completed += 1
                     records.append(TokenRecord(
@@ -829,10 +922,18 @@ class VectorizedServingEngine:
                         output_tokens=c.output_tokens, rtt_s=rtt))
                 else:
                     self.failed += 1
+                if want is not None and want[i]:
+                    spans.finish_token(i, c.first_token_s, c.finish_s,
+                                       overhead, "ok" if ok else "timeout",
+                                       e2e)
                 n_removed += 1
             if timeout > 0 and batch.n_queued:
                 expired = batch.expire_queue(t, timeout)
                 self.failed += len(expired)
+                if want is not None:
+                    for i in expired:
+                        if want[i]:
+                            spans.expire(i, t, arr[i])
                 n_removed += len(expired)
             if n_removed:
                 loads[pos[s]] -= n_removed
@@ -843,11 +944,16 @@ class VectorizedServingEngine:
 
     # ------------------------------------------------------------------
     def run(self, duration_s: Optional[float] = None) -> ServingResult:
-        base = self.cluster.run(duration_s)
+        # the run's registry takes the library's counters (the latency
+        # model's fallback) in this scope
+        with use_registry(self.obs.registry):
+            base = self.cluster.run(duration_s)
         # drain: anything still pending/in-flight past the horizon fails
         self.failed += len(self._pending)
         for rep in self._reps:
             self.failed += rep.load
+        if self._spans is not None:
+            self._spans.finalize(base.duration_s)
         token_stats = None
         if self._token_cfg is not None:
             knobs = self._token_knobs
@@ -888,4 +994,6 @@ class VectorizedServingEngine:
             token=token_stats,
             n_retried_requests=self._n_retried,
             lost_kv_tokens=self._lost_prefill_tokens + self._lost_decode_tokens,
+            metrics=self.obs.registry.snapshot() or None,
+            obs=self.obs if self.obs.enabled else None,
         )

@@ -15,8 +15,8 @@ serving engine's default.
 ``mbu_decode`` from a step-time table of ``repro_torch.profiles``, with
 the table's path, backend and mode as provenance.  ``make_latency_model``
 picks one of the two from a spec's ``latency:`` section; when no profile
-row matches it warns and returns the roofline, as the reference does (the
-reference also counts that on its obs registry, which is not ported).
+row matches it warns, counts ``latency_profile_fallback`` on the run's
+metrics registry and returns the roofline, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Optional
 
 from repro_torch.cluster.catalog import InstanceType
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.registry import get_registry
 from repro_torch.profiles.schema import (
     DEFAULT_PROFILE_DIR,
     ProfileEntry,
@@ -167,7 +168,9 @@ def make_latency_model(
     ``source="roofline"`` is the analytic model.  ``source="profile"``
     loads the table(s) at ``profile`` (a JSON file or a directory of them,
     default ``artifacts/profiles/``) and looks up ``(model_id,
-    itype.accelerator)``; with no table or no matching row it warns and
+    itype.accelerator)``; with no table or no matching row it warns, counts
+    ``latency_profile_fallback`` on the active registry (the calling run's,
+    so a sweep can tell which cells left the measured profiles) and
     returns the roofline."""
     if source not in LATENCY_SOURCES:
         raise ValueError(
@@ -180,6 +183,8 @@ def make_latency_model(
     entry = load_profiles(path, missing_ok=True).lookup(
         model_id, itype.accelerator)
     if entry is None:
+        get_registry().inc("latency_profile_fallback", model=model_id,
+                           accelerator=itype.accelerator)
         warnings.warn(
             f"latency source 'profile': no profile entry for "
             f"({model_id!r}, {itype.accelerator!r}) under {path!r}; "

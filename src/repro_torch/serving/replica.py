@@ -48,12 +48,16 @@ class Replica:
         concurrency: Optional[int] = None,
         concurrency_cap: int = 16,   # cap on the model-derived default
         timeout_s: float = 0.0,      # 0: queued requests never expire
+        span_tap=None,               # the run's SpanCollector
+        span_ord: int = -1,          # this replica's dense run ordinal
     ) -> None:
         self.instance = instance
         self.latency = latency
         self.concurrency = concurrency or min(latency.max_concurrency(),
                                              concurrency_cap)
         self.timeout_s = timeout_s
+        self.span_tap = span_tap
+        self.span_ord = span_ord
         self.state = ReplicaState.PROVISIONING
         self.queue: List[Request] = []
         self.running: List[InFlight] = []
@@ -120,12 +124,17 @@ class Replica:
                 else:
                     fresh.append(q)
             self.queue = fresh
+        tap = self.span_tap
         while self.queue and len(self.running) < self.concurrency:
             req = self.queue.pop(0)
             svc = self.latency.service_s(req.prompt_tokens, req.output_tokens)
             # concurrent decode shares the HBM rate
             factor = 1.0 + 0.15 * len(self.running)
             self.running.append(InFlight(req, now, now + svc * factor))
+            if tap is not None:
+                o = tap.want_ids.get(req.id)
+                if o is not None:
+                    tap.start(o, now)
         return done, expired
 
     def eta_if_submitted(self, req: Request, now: float) -> float:

@@ -1,15 +1,16 @@
 """One cell's serving result: the port's own copy of ``ServingResult``
-(``repro.serving.sim``), with the token model's stats and the KV lost to
-preemptions.  The reference's observability snapshots (``metrics``,
-``obs``) wait for the ``obs`` port."""
+(``repro.serving.sim``), with the token model's stats, the KV lost to
+preemptions and the run's observability (the registry's snapshot and the
+recorder)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
+from repro_torch.obs.recorder import ObsRecorder
 from repro_torch.serving.token.metrics import TokenStats
 
 __all__ = ["ServingResult"]
@@ -37,6 +38,10 @@ class ServingResult:
     # and the KV tokens destroyed doing so (0 under the request model)
     n_retried_requests: int = 0
     lost_kv_tokens: int = 0
+    # the run's metrics-registry snapshot, and the recorder holding its
+    # event stream (None at detail "off")
+    metrics: Optional[Dict[str, Any]] = None
+    obs: Optional[ObsRecorder] = None
 
     @property
     def failure_rate(self) -> float:

@@ -17,8 +17,9 @@ a ``LoadBalancer`` subclass included.
 
 Every replica is probed and stepped every sub-step, which costs time
 linear in the replicas ever created; the result is the vectorized
-engine's.  The reference's window samples and SLO-burn monitor
-(observability detail ``full``) are not ported.
+engine's, and so is the event log it records into its ``ObsRecorder``
+(control plane, migration, window samples and burn rates at detail
+``full``, sampled request spans), byte for byte.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from repro_torch.core.policy import Policy
 from repro_torch.migration.config import MigrationSpec
 from repro_torch.migration.runtime import MigrationRuntime
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.recorder import ObsRecorder
+from repro_torch.obs.registry import use_registry
 from repro_torch.serving.engine import REPLICA_MODELS
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.load_balancer import LeastLoadedBalancer, LoadBalancer
@@ -49,6 +52,7 @@ from repro_torch.serving.token.config import (
 )
 from repro_torch.serving.token.metrics import TokenRecord, TokenStats
 from repro_torch.serving.token.replica import TokenReplica
+from repro_torch.serving.window import WindowSampler
 from repro_torch.workloads.arrivals import Request
 
 __all__ = ["REPLICA_MODELS", "ServingSimulator"]
@@ -78,8 +82,10 @@ class ServingSimulator:
         replica_model: str = "request",
         token_scheduler: Optional[TokenSchedulerConfig] = None,
         migration: Optional[MigrationSpec] = None,
+        obs: Optional[ObsRecorder] = None,
     ) -> None:
         self.catalog = catalog or default_catalog()
+        self.obs = obs if obs is not None else ObsRecorder()
         self.cfg = cfg
         self.itype = self.catalog.instance_type(itype)
         self.latency_model = (
@@ -102,6 +108,12 @@ class ServingSimulator:
             TokenEngineConfig.from_latency(self.latency_model,
                                            self._token_knobs)
             if replica_model == "token" else None)
+        # the burn monitor needs the token SLO targets
+        token = self._token_cfg is not None
+        self._win = WindowSampler(
+            self.obs,
+            slo_ttft_s=self._token_knobs.slo_ttft_s if token else None,
+            slo_tpot_s=self._token_knobs.slo_tpot_s if token else None)
         self._token_records: List[TokenRecord] = []
         self._n_kv_preempted = 0
         self._n_killed_queued = 0
@@ -112,7 +124,7 @@ class ServingSimulator:
                 and self._token_cfg is None):
             raise ValueError("migration.enabled requires replica_model='token'")
         self._mig_rt: Optional[MigrationRuntime] = (
-            MigrationRuntime(migration, self._token_cfg)
+            MigrationRuntime(migration, self._token_cfg, obs=self.obs)
             if migration is not None and migration.enabled else None)
         self._n_drained = 0
         self._n_migrated = 0
@@ -123,6 +135,9 @@ class ServingSimulator:
         self._recompute_saved_s = 0.0
 
         self.requests = sorted(requests, key=lambda r: r.arrival_s)
+        # the span collector (None when off): the taps fire for sampled
+        # requests only, found through want_ids[req.id]
+        self._spans = self.obs.span_collector(self.requests)
         self._next_arrival = 0
         self.pending: List[Request] = []       # waiting for a replica
         self._arrival: Dict[int, float] = {}
@@ -143,6 +158,7 @@ class ServingSimulator:
             autoscaler=autoscaler or ConstantTarget(4),
             config=cfg_sim,
             tick_hook=self._tick,
+            obs=self.obs,
         )
         self.cluster.add_preempt_listener(self._on_dead)
         # a scale-down retires the instance from the cluster's scan list, so
@@ -151,12 +167,15 @@ class ServingSimulator:
 
     # ------------------------------------------------------------------
     def _new_replica(self, inst: Instance) -> Replica:
+        tap = self._spans
+        ord_ = self.obs.replica_ordinal(inst.id) if tap is not None else -1
         if self._token_cfg is not None:
             return TokenReplica(inst, self.latency_model, self._token_cfg,
-                                timeout_s=self.timeout_s)
+                                timeout_s=self.timeout_s, span_tap=tap,
+                                span_ord=ord_)
         return Replica(inst, self.latency_model, concurrency=self.concurrency,
                        concurrency_cap=self.concurrency_cap,
-                       timeout_s=self.timeout_s)
+                       timeout_s=self.timeout_s, span_tap=tap, span_ord=ord_)
 
     def _sync_replicas(self, now: float) -> None:
         for inst in self.cluster.instances:
@@ -180,8 +199,17 @@ class ServingSimulator:
         self._n_retried += len(killed)
         # the client retries: back into the pending pool
         self.pending.extend(killed)
+        self._tap_preempt(killed, now)
         if isinstance(rep, TokenReplica) and rep.kill_report is not None:
             self._count_kill(rep.kill_report)
+
+    def _tap_preempt(self, reqs: Sequence[Request], now: float) -> None:
+        tap = self._spans
+        if tap is not None:
+            for req in reqs:
+                o = tap.want_ids.get(req.id)
+                if o is not None:
+                    tap.preempt(o, now)
 
     def _count_kill(self, kr) -> None:
         self._n_kv_preempted += kr.n_batch
@@ -204,24 +232,31 @@ class ServingSimulator:
                                                       now, grace)
         cfg = self._token_cfg
         finish = now + cfg.overhead_s
+        tap = self._spans
         for req, s in drained:
             # finished decoding inside the grace window: completes at the
             # kill instant, its first token (if any) already emitted
             rtt = LoadBalancer.rtt_s(req, rep)
             e2e = finish - self._arrival[req.id] + rtt
-            if e2e <= self.timeout_s:
+            ok = e2e <= self.timeout_s
+            first = (s.first_s + cfg.overhead_s
+                     if math.isfinite(s.first_s) else finish)
+            if ok:
                 self.latencies.append(e2e)
                 self.completed += 1
-                first = (s.first_s + cfg.overhead_s
-                         if math.isfinite(s.first_s) else finish)
                 self._token_records.append(TokenRecord(
                     req_id=req.id, arrival_s=self._arrival[req.id],
                     first_token_s=first, finish_s=finish,
                     output_tokens=s.output_tokens, rtt_s=rtt))
             else:
                 self.failed += 1
+            o = tap.want_ids.get(req.id) if tap is not None else None
+            if o is not None:
+                tap.finish_token(o, first, finish, cfg.overhead_s,
+                                 "ok" if ok else "timeout", e2e)
         self._n_retried += len(failed)
         self.pending.extend(failed)
+        self._tap_preempt(failed, now)
         self._count_kill(outcome.kill_report)
         self._n_drained += outcome.n_drained
         self._n_migrated += outcome.n_migrated
@@ -239,37 +274,68 @@ class ServingSimulator:
         ready = [r for r in self.replicas.values()
                  if r.state is ReplicaState.READY]
         self.lb.update_ready(ready)
+        tap = self._spans
+        token = self._token_cfg is not None
         still: List[Request] = []
         for req in self.pending:
+            o = tap.want_ids.get(req.id) if tap is not None else None
             if now - self._arrival[req.id] > self.timeout_s:
                 self.failed += 1
+                if o is not None:
+                    tap.expire(o, now, req.arrival_s)
                 continue
-            if self.lb.route(req, now) is None:
+            rep = self.lb.route(req, now)
+            if rep is None:
                 still.append(req)
+            elif o is not None and not token:
+                # a token replica taps in its submit (it knows whether the
+                # batch admitted the request); the request model taps here
+                tap.dispatch(o, now, rep.span_ord,
+                             LoadBalancer.rtt_s(req, rep), req.arrival_s)
         self.pending = still
 
     def _step_replicas(self, now: float) -> None:
         token = self._token_cfg is not None
+        tap = self._spans
         for rep in self.replicas.values():
             if rep.state is not ReplicaState.READY:
                 continue
             done, expired = rep.step(now)
             self.failed += len(expired)
+            if tap is not None:
+                for req in expired:
+                    o = tap.want_ids.get(req.id)
+                    if o is not None:
+                        # a rejected admission already has its outcome:
+                        # expire() leaves it be
+                        tap.expire(o, now, req.arrival_s)
             comps = rep.take_completions() if token else None
             for k, (req, finish) in enumerate(done):
                 rtt = LoadBalancer.rtt_s(req, rep)
                 e2e = finish - self._arrival[req.id] + rtt
-                if e2e > self.timeout_s:
+                ok = e2e <= self.timeout_s
+                if not ok:
                     self.failed += 1
-                    continue
-                self.latencies.append(e2e)
-                self.completed += 1
-                if comps is not None:
-                    c = comps[k]
-                    self._token_records.append(TokenRecord(
-                        req_id=req.id, arrival_s=self._arrival[req.id],
-                        first_token_s=c.first_token_s, finish_s=c.finish_s,
-                        output_tokens=c.output_tokens, rtt_s=rtt))
+                else:
+                    self.latencies.append(e2e)
+                    self.completed += 1
+                    if comps is not None:
+                        c = comps[k]
+                        self._token_records.append(TokenRecord(
+                            req_id=req.id, arrival_s=self._arrival[req.id],
+                            first_token_s=c.first_token_s,
+                            finish_s=c.finish_s,
+                            output_tokens=c.output_tokens, rtt_s=rtt))
+                o = tap.want_ids.get(req.id) if tap is not None else None
+                if o is not None:
+                    outcome = "ok" if ok else "timeout"
+                    if comps is not None:
+                        c = comps[k]
+                        tap.finish_token(o, c.first_token_s, c.finish_s,
+                                         self._token_cfg.overhead_s,
+                                         outcome, e2e)
+                    else:
+                        tap.finish(o, finish, outcome, e2e)
 
     def _tick(self, now: float, cluster: ClusterSimulator) -> None:
         dt = cluster.config.control_interval_s
@@ -291,14 +357,28 @@ class ServingSimulator:
             self._dispatch(t)
             self._step_replicas(t)
             t += self.sub_step_s
+        self._win.maybe_emit(
+            now,
+            delivered=self._next_arrival,
+            completed=self.completed,
+            failed=self.failed,
+            instances=cluster.instances,
+            token_records=(self._token_records
+                           if self._token_cfg is not None else None),
+        )
 
     # ------------------------------------------------------------------
     def run(self, duration_s: Optional[float] = None) -> ServingResult:
-        base = self.cluster.run(duration_s)
+        # the run's registry takes the library's counters (the latency
+        # model's fallback) in this scope
+        with use_registry(self.obs.registry):
+            base = self.cluster.run(duration_s)
         # drain: anything still pending or in flight past the horizon fails
         self.failed += len(self.pending)
         for rep in self.replicas.values():
             self.failed += rep.load
+        if self._spans is not None:
+            self._spans.finalize(base.duration_s)
         n_total = self._next_arrival
         token_stats = None
         if self._token_cfg is not None:
@@ -340,4 +420,6 @@ class ServingSimulator:
             token=token_stats,
             n_retried_requests=self._n_retried,
             lost_kv_tokens=self._lost_prefill_tokens + self._lost_decode_tokens,
+            metrics=self.obs.registry.snapshot() or None,
+            obs=self.obs if self.obs.enabled else None,
         )

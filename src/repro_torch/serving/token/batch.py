@@ -76,11 +76,16 @@ class ContinuousBatch:
     __slots__ = (
         "cfg", "now", "queue", "reserved_tokens", "completed",
         "_keys", "_prompt", "_out", "_pref", "_dec",
-        "_arrival", "_enq", "_first", "_mig",
+        "_arrival", "_enq", "_first", "_mig", "tap", "_tord",
     )
 
-    def __init__(self, cfg: TokenEngineConfig) -> None:
+    def __init__(self, cfg: TokenEngineConfig, tap=None) -> None:
         self.cfg = cfg
+        # the span tap (a SpanCollector) and the key -> ordinal map of the
+        # sampled requests resident here; None when tracing is off, so
+        # every hot-path guard is one falsy check
+        self.tap = tap
+        self._tord: Optional[Dict[int, int]] = {} if tap is not None else None
         self.now = 0.0
         # (key, prompt, out, arrival_s, enqueued_s, rtt_s): rtt_s, the
         # client's round trip to this replica, is part of the queue-expiry
@@ -152,6 +157,12 @@ class ContinuousBatch:
                 + (rem_pref + q_pref) * cfg.prefill_s_per_token
                 + q_dec * cfg.weight_read_s)
 
+    def track(self, key: int, ordinal: int) -> None:
+        """Register a sampled request: the batch's events for ``key`` tap
+        the span at ``ordinal`` until the key retires or is evicted."""
+        if self._tord is not None:
+            self._tord[int(key)] = int(ordinal)
+
     # -- request path ---------------------------------------------------
     def enqueue(self, key: int, prompt_tokens: int, output_tokens: int,
                 arrival_s: float, enqueued_s: float,
@@ -205,6 +216,9 @@ class ContinuousBatch:
             if self._mig:
                 for k in expired:
                     self._mig.pop(k, None)
+            if self._tord:
+                for k in expired:
+                    self._tord.pop(k, None)
         return expired
 
     def remove(self, keys: Sequence[int]) -> None:
@@ -214,6 +228,9 @@ class ContinuousBatch:
         if len(self._keys) == 0 or not keys:
             return
         kset = {int(k) for k in keys}
+        if self._tord:
+            for k in kset:
+                self._tord.pop(k, None)
         mask = np.fromiter((int(k) in kset for k in self._keys), dtype=bool,
                            count=len(self._keys))
         if not mask.any():
@@ -240,6 +257,8 @@ class ContinuousBatch:
                             lost_decode_tokens=lost_d)
         self.queue.clear()
         self._mig = None
+        if self._tord:
+            self._tord.clear()
         self.reserved_tokens = 0
         self._keys = _EMPTY_I
         self._prompt = _EMPTY_I
@@ -295,11 +314,19 @@ class ContinuousBatch:
                 self._first = np.append(self._first, mig[2])
             self._arrival = np.append(self._arrival, arr)
             self._enq = np.append(self._enq, enq)
+            if self._tord:
+                o = self._tord.get(key)
+                if o is not None:
+                    pref0 = p if mig is None else p - mig[0]
+                    self.tap.token_join(o, self.now, prefilling=pref0 > 0)
 
     def _retire(self, mask: np.ndarray, end: float,
                 done: List[TokenCompletion]) -> None:
         cfg = self.cfg
         idx = np.nonzero(mask)[0]
+        if self._tord:
+            for j in idx:
+                self._tord.pop(int(self._keys[j]), None)
         for j in idx:
             done.append(TokenCompletion(
                 key=int(self._keys[j]),
@@ -366,6 +393,15 @@ class ContinuousBatch:
                     break
                 self.now = end
                 self._pref += take
+                if self._tord:
+                    tap = self.tap
+                    for j in np.nonzero(take)[0]:
+                        o = self._tord.get(int(self._keys[j]))
+                        if o is None:
+                            continue
+                        tap.token_chunk(o, int(take[j]))
+                        if self._pref[j] == self._prompt[j]:
+                            tap.token_prefill_done(o, end)
                 if n_dec:
                     self._dec[decoding] += 1
                     newly = decoding & (self._dec == 1)

@@ -34,11 +34,13 @@ class TokenReplica(Replica):
 
     def __init__(self, instance: Instance, latency: LatencyModel,
                  engine_cfg: TokenEngineConfig, *,
-                 timeout_s: float = 0.0) -> None:
+                 timeout_s: float = 0.0, span_tap=None,
+                 span_ord: int = -1) -> None:
         # the batch admits by KV budget and max_batch: no M/G/c slots
         super().__init__(instance, latency, concurrency=1,
-                         timeout_s=timeout_s)
-        self.batch = ContinuousBatch(engine_cfg)
+                         timeout_s=timeout_s, span_tap=span_tap,
+                         span_ord=span_ord)
+        self.batch = ContinuousBatch(engine_cfg, tap=span_tap)
         self.kill_report: Optional[KillReport] = None
         self._by_key: Dict[int, Request] = {}
         self._rejected: List[Request] = []
@@ -51,12 +53,23 @@ class TokenReplica(Replica):
 
     def submit(self, req: Request, now: float) -> None:
         rtt = region_rtt_ms(req.client_region, self.region) / 1e3
-        if self.batch.enqueue(req.id, req.prompt_tokens, req.output_tokens,
-                              req.arrival_s, now, rtt_s=rtt):
+        ok = self.batch.enqueue(req.id, req.prompt_tokens, req.output_tokens,
+                                req.arrival_s, now, rtt_s=rtt)
+        if ok:
             self._by_key[req.id] = req
         else:
             # prompt + output exceed the whole KV budget: unservable here
             self._rejected.append(req)
+        tap = self.span_tap
+        if tap is not None:
+            o = tap.want_ids.get(req.id)
+            if o is not None:
+                tap.dispatch(o, now, self.span_ord, rtt, req.arrival_s,
+                             token=True)
+                if ok:
+                    self.batch.track(req.id, o)
+                else:
+                    tap.reject(o, now)
 
     def step(self, now: float) -> Tuple[List[Tuple[Request, float]],
                                         List[Request]]:

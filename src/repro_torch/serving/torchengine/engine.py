@@ -27,6 +27,14 @@ does, so the pool size never changes a result.  A token-model cell
 per-sequence KV state of data-dependent shape, so, as in the reference, it
 runs on the host engine (``VectorizedServingEngine.run``) beside the
 matrix's launches, and ``record_schedule`` refuses it.
+
+Observability follows the reference's engine: phase A runs the real control
+plane, so the cluster's taps record the decision and lifecycle events of the
+other engines (no window samples: phase A's tick never runs the sampler).
+A cell carries span timelines through ``scenario_scan`` exactly when its
+recorder samples request spans, and ``run_cells`` rebuilds the sampled
+spans from the lane's ``disp_t``, ``start_t``, ``fin_t`` and ``rep``
+outputs; the result carries the registry's snapshot and the recorder.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs.registry import use_registry
 from repro_torch.serving.engine import VectorizedServingEngine, _Rep
 from repro_torch.serving.result import ServingResult
 from repro_torch.serving.torchengine.kernel import KernelKey, run_group
@@ -50,7 +59,8 @@ from repro_torch.serving.torchengine.schedule import (
 )
 
 __all__ = ["DEFAULT_QUEUE_CAPACITY", "TorchServingEngine", "assemble_result",
-           "group_key", "pack_group", "run_cells", "run_schedules"]
+           "group_key", "pack_group", "reconstruct_spans", "run_cells",
+           "run_schedules"]
 
 #: per-replica queue pool size (static shape); overflow => oracle rerun
 DEFAULT_QUEUE_CAPACITY = 256
@@ -59,12 +69,11 @@ DEFAULT_QUEUE_CAPACITY = 256
 class TorchServingEngine(VectorizedServingEngine):
     """The two-phase engine behind the ``VectorizedServingEngine`` API.
 
-    ``trace_on`` asks phase B to carry span timelines (dispatch, start,
-    finish and slot of every resolved request); the reference sets it when
-    its observability recorder samples request spans."""
+    Phase B carries span timelines (dispatch, start, finish and slot of
+    every resolved request) exactly when the engine's recorder (``obs=``)
+    samples request spans, as in the reference."""
 
-    def __init__(self, trace, policy, requests, cfg, *, trace_on: bool = False,
-                 **kw) -> None:
+    def __init__(self, trace, policy, requests, cfg, **kw) -> None:
         # pristine control-plane state for the overflow fallback (phase A
         # consumes the policy's and the autoscaler's state)
         self._pristine = {
@@ -76,7 +85,6 @@ class TorchServingEngine(VectorizedServingEngine):
                    for k, v in kw.items()},
         }
         super().__init__(trace, policy, requests, cfg, **kw)
-        self.trace_on = bool(trace_on)
         self._rec: Optional[ScheduleRecorder] = None
         self.schedule: Optional[CellSchedule] = None
         #: set by ``run_cells`` when the lane overflowed and the oracle ran
@@ -111,9 +119,9 @@ class TorchServingEngine(VectorizedServingEngine):
     def record_schedule(self, duration_s: Optional[float] = None
                         ) -> CellSchedule:
         """Run the control plane once; return the phase-B payload (with
-        span timelines if the engine's ``trace_on`` is set and the tape is
-        not empty).  Consumes this engine (the cluster has run); callable
-        once.  A token-model cell has no phase B and is refused."""
+        span timelines when the recorder samples request spans).  Consumes
+        this engine (the cluster has run); callable once.  A token-model
+        cell has no phase B and is refused."""
         if self._token_cfg is not None:
             raise RuntimeError("token-model cells run on the NumPy data "
                                "plane; call run() directly")
@@ -123,7 +131,9 @@ class TorchServingEngine(VectorizedServingEngine):
         dur = float(duration_s or self.cluster.trace.duration_s)
         grid = build_grid(dur, dt, self.sub_step_s)
         self._rec = ScheduleRecorder(grid, self._arr)
-        base = self.cluster.run(duration_s)
+        # the library's counters in phase A land on this run's registry
+        with use_registry(self.obs.registry):
+            base = self.cluster.run(duration_s)
         ready, rtt, kill_slot, kill_g, post = self._rec.control_arrays(
             len(self._reps),
             [r.rtt for r in self._reps],
@@ -150,7 +160,7 @@ class TorchServingEngine(VectorizedServingEngine):
             base=BaseMetrics(**{f.name: getattr(base, f.name)
                                 for f in dataclasses.fields(BaseMetrics)}),
             n_slots=len(self._reps),
-            trace_on=self.trace_on and self._n > 0,
+            trace_on=self._spans is not None,
         )
         return self.schedule
 
@@ -159,6 +169,9 @@ class TorchServingEngine(VectorizedServingEngine):
         p = self._pristine
         kw = {k: (copy.deepcopy(v) if k in ("autoscaler", "lb") else v)
               for k, v in p["kw"].items()}
+        # a fresh recorder: the rerun replays the whole control plane, and
+        # this engine's recorder already holds phase A's events
+        kw["obs"] = self.obs.fresh()
         eng = VectorizedServingEngine(
             p["trace"], copy.deepcopy(p["policy"]), p["requests"], p["cfg"],
             **kw,
@@ -317,6 +330,47 @@ def run_schedules(
     return results
 
 
+def reconstruct_spans(eng: TorchServingEngine, sched: CellSchedule,
+                      out: Dict) -> None:
+    """Rebuild the sampled request spans of ``eng``'s recorder from its
+    lane's span timelines (``disp_t``, ``start_t``, ``fin_t``, ``rep``).
+
+    The kernel keeps one (dispatch, start, finish, slot) quadruple per
+    resolved request: a request killed and retried records its last,
+    resolving attempt (``attempts`` stays 1, no preempt cut), and a request
+    failed at the drain or expired in a queue gets no span.  For a request
+    never preempted the taps are the oracle's to the bit (float64 on the
+    same grid), so the spans equal the oracle's after that filter.  A lane
+    of a sampling cell without timelines raises: the spans are never
+    dropped in silence."""
+    spans = eng._spans
+    if spans is None:
+        return
+    if "disp_t" not in out:
+        raise RuntimeError(
+            f"cell {sched.policy_name}/{sched.trace_name} samples request "
+            "spans, but its phase-B outputs carry no span timelines")
+    n = sched.n
+    status = np.asarray(out["status"][:n])
+    e2e = np.asarray(out["e2e"][:n])
+    disp = np.asarray(out["disp_t"][:n])
+    start = np.asarray(out["start_t"][:n])
+    fin = np.asarray(out["fin_t"][:n])
+    rep_slot = np.asarray(out["rep"][:n])
+    rtt, rcode, arr = sched.rtt, sched.rcode, sched.arr
+    ords = [r.ord for r in eng._reps]
+    want = spans.want_l
+    for o in np.flatnonzero(status[:len(want)] != 0).tolist():
+        if not want[o]:
+            continue
+        slot = int(rep_slot[o])
+        spans.dispatch(o, float(disp[o]), ords[slot],
+                       float(rtt[slot, rcode[o]]), float(arr[o]))
+        spans.start(o, float(start[o]))
+        spans.finish(o, float(fin[o]),
+                     "ok" if status[o] == 1 else "timeout", float(e2e[o]))
+
+
 def run_cells(
     engines: Sequence[TorchServingEngine],
     durations: Optional[Sequence[Optional[float]]] = None,
@@ -330,8 +384,11 @@ def run_cells(
     cell whose schedule is already recorded keeps it), one
     ``run_schedules`` call (one launch per shape group, on CUDA unless
     ``device="cpu"``), and an oracle rerun for every lane whose queue pool
-    overflowed (its engine's ``fell_back`` is set).  A token-model cell runs
-    on the host engine instead (its ``ran_on_host`` is set).  Results align
+    overflowed (its engine's ``fell_back`` is set; the rerun records into a
+    fresh recorder, which rides on its result).  A token-model cell runs on
+    the host engine instead (its ``ran_on_host`` is set).  Every other cell
+    has its sampled request spans rebuilt from its lane's span timelines
+    and its registry's snapshot and recorder on its result.  Results align
     with ``engines``; ``outputs`` receives each lane's raw outputs and
     ``groups`` each launch's cells, as indices into ``engines``, as in
     ``run_schedules`` (``None`` in ``outputs`` for a rerun lane and a token
@@ -350,21 +407,29 @@ def run_cells(
         scheds.append(eng.schedule if eng.schedule is not None
                       else eng.record_schedule(dur))
         lane_of.append(i)
-    lane_outs: Optional[List[Optional[dict]]] = (
-        [] if outputs is not None else None)
+    lane_outs_all: List[Optional[dict]] = []
     lane_groups: List[List[int]] = []
     lanes = run_schedules(scheds, queue_capacity=queue_capacity,
-                          outputs=lane_outs, groups=lane_groups, device=dev)
+                          outputs=lane_outs_all, groups=lane_groups,
+                          device=dev)
     for k, res in enumerate(lanes):
         i = lane_of[k]
+        eng = engines[i]
         if res is None:     # queue pool overflow -> oracle rerun
-            engines[i].fell_back = True
-            res = engines[i]._fallback_run(durations[i])
+            eng.fell_back = True
+            res = eng._fallback_run(durations[i])
+        else:
+            if lane_outs_all[k] is not None:
+                reconstruct_spans(eng, scheds[k], lane_outs_all[k])
+            obs = eng.obs
+            res = dataclasses.replace(
+                res, metrics=obs.registry.snapshot() or None,
+                obs=obs if obs.enabled else None)
         results[i] = res
     if outputs is not None:
         del outputs[:]
         outputs.extend([None] * len(engines))
-        for k, out in enumerate(lane_outs):
+        for k, out in enumerate(lane_outs_all):
             outputs[lane_of[k]] = out
     if groups is not None:
         groups[:] = [[lane_of[k] for k in g] for g in lane_groups]

@@ -54,6 +54,7 @@ from repro_torch.core import autoscaler as tauto  # noqa: E402
 from repro_torch.core.policy import make_policy as t_make_policy  # noqa: E402
 from repro_torch.core.policy import registered_policies as t_registered  # noqa: E402
 from repro_torch.experiments import ScenarioSuite  # noqa: E402
+from repro_torch.obs import ObsRecorder, dumps_jsonl  # noqa: E402
 from repro_torch.serving.engine import VectorizedServingEngine as TVector  # noqa: E402
 from repro_torch.serving.torchengine import engine as teng  # noqa: E402
 from repro_torch.serving.torchengine import recorded  # noqa: E402
@@ -307,7 +308,10 @@ def _engines(policy, workload, *, hours=1.0, seed=3, rate=0.8, load=False,
         _mini_trace(jtr, steps, seed), j_make_policy(policy), reqs, CFG,
         autoscaler=_load_autoscaler(jauto) if load else jauto.ConstantTarget(3),
         **({"lb": RoundRobinBalancer()} if rr else {}), **common)
-    port_kw = {"trace_on": True} if port_cls is teng.TorchServingEngine else {}
+    # the reference's engine carries span timelines when its recorder
+    # samples spans (its default recorder does); so does the port's
+    port_kw = ({"obs": ObsRecorder(trace_sample=1.0)}
+               if port_cls is teng.TorchServingEngine else {})
     port = port_cls(
         _mini_trace(ttr, steps, seed), t_make_policy(policy), port_reqs,
         t_config("llama3.2-1b"),
@@ -414,6 +418,12 @@ def test_overflowed_lane_reruns_on_the_oracle():
         a, b = getattr(got, f.name), getattr(want, f.name)
         if isinstance(a, np.ndarray):
             np.testing.assert_array_equal(a, b)
+        elif f.name == "obs":
+            # the rerun's own recorder rides on its result: phase A's
+            # events are not recorded twice
+            assert a is not port.obs
+            assert a.trace_sample == port.obs.trace_sample
+            assert dumps_jsonl(a.records()) == dumps_jsonl(b.records())
         else:
             assert a == b, f.name
 

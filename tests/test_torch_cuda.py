@@ -1070,7 +1070,53 @@ def test_mixed_matrix_on_card_runs_token_cells_on_the_host(card):
                 assert (a is None) == (b is None)
                 if b is not None:
                     assert a.to_dict() == b.to_dict()
+            elif f.name == "obs":
+                # the card's phase A records the host engine's control
+                # plane (a token cell ran on the host: all of it)
+                from repro_torch.obs import control_plane_records
+                want_recs = (b.records() if res.token is not None
+                             else control_plane_records(b.records()))
+                assert a.records() == want_recs
             elif isinstance(b, float):
                 assert a == pytest.approx(b, abs=1e-9), f.name
             else:
                 assert a == b, f.name
+
+
+@pytest.mark.cuda
+def test_card_spans_equal_the_plain_versions(card):
+    """The reference's obs fixture (tests/test_obs.py: the mini trace over 3
+    zones, spothedge x 3, Poisson 0.8/s for 1 h, every request sampled)
+    through ``run_cells`` on the card and through the plain version on the
+    CPU: the same event stream, and span records rebuilt from the kernel's
+    span timelines byte-identical to the plain version's."""
+    from repro_torch.cluster.traces import synth_correlated_trace
+    from repro_torch.configs import get_config
+    from repro_torch.core.autoscaler import ConstantTarget
+    from repro_torch.core.policy import make_policy
+    from repro_torch.obs import ObsRecorder, dumps_jsonl
+    from repro_torch.serving.torchengine import engine as teng
+    from repro_torch.workloads.arrivals import make_workload
+
+    zones = ["us-west-2a", "us-west-2b", "us-east-2a"]
+
+    def engine():
+        trace = synth_correlated_trace(
+            zones, {z: z[:-1] for z in zones}, steps=120, dt=60.0, seed=3,
+            max_capacity=4, name="mini")
+        reqs = make_workload("poisson", rate_per_s=0.8, seed=3).generate(3600.0)
+        return teng.TorchServingEngine(
+            trace, make_policy("spothedge"), reqs, get_config("llama3.2-1b"),
+            itype="g5.48xlarge", autoscaler=ConstantTarget(3), timeout_s=60.0,
+            concurrency=2, workload_name="poisson",
+            obs=ObsRecorder(detail="full", trace_sample=1.0))
+
+    ops.reset_launch_counts()
+    got = teng.run_cells([engine()], [4200.0])[0]
+    assert ops.scenario_scan.launches == 1
+    want = teng.run_cells([engine()], [4200.0], device="cpu")[0]
+    spans = got.obs.span_records()
+    assert spans and len(spans) == len(want.obs.span_records())
+    assert dumps_jsonl(spans) == dumps_jsonl(want.obs.span_records())
+    assert dumps_jsonl(got.obs.records()) == dumps_jsonl(want.obs.records())
+    assert got.metrics == want.metrics

@@ -329,13 +329,47 @@ def test_token_modules_fall_under_the_import_rule():
         assert mod.replace(".", os.sep) + ".py" in scanned, mod
 
 
+OBS_MODULES = (
+    "repro_torch.obs",
+    "repro_torch.obs.__main__",
+    "repro_torch.obs.attribution",
+    "repro_torch.obs.events",
+    "repro_torch.obs.export",
+    "repro_torch.obs.recorder",
+    "repro_torch.obs.registry",
+    "repro_torch.obs.slo",
+    "repro_torch.obs.spans",
+    "repro_torch.serving.window",
+)
+
+
+def test_obs_modules_fall_under_the_import_rule():
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(OBS_MODULES) - {"repro_torch.obs"} <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in OBS_MODULES:
+        path = mod.replace(".", os.sep)
+        assert (path + ".py" in scanned
+                or os.path.join(path, "__init__.py") in scanned), mod
+
+
 # what the port still refuses, by name: the forecast section and the
-# risk-aware policies, observability at detail "full" and its burn monitor
+# risk-aware policies
 STILL_REFUSED = [
     ({"forecast": {"name": "markov"}}, "forecast"),
     ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
     ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
     ({"sweep": {"forecasters": ["markov"]}}, "sweep.forecasters"),
+]
+
+# what the port refused until its obs port, and now runs: observability at
+# detail "full" and its burn monitor
+NOW_PORTED = [
     ({"observability": {"detail": "full"}}, "observability.detail 'full'"),
     ({"observability": {"slo_burn": {"target": 0.9}}},
      "observability.slo_burn"),
@@ -352,6 +386,27 @@ def test_unported_parts_are_still_refused_by_name(extra, name):
     assert name in str(e.value)
 
 
+@pytest.mark.parametrize("extra,name", NOW_PORTED,
+                         ids=[r[1] for r in NOW_PORTED])
+def test_ported_observability_sections_are_accepted_and_run(extra, name,
+                                                            tmp_path):
+    from repro_torch.service import Service, spec_from_dict
+
+    obs = dict(extra["observability"], out_dir=str(tmp_path))
+    spec = spec_from_dict({**_JAX_SPEC, "observability": obs,
+                           "sim": {"duration_hours": 0.25, "engine": "jax"}})
+    assert spec.unported() == [], name
+    svc = Service(spec)
+    res = svc.run(device="cpu")
+    assert res.obs is not None and res.obs.events
+    assert res.metrics is None or isinstance(res.metrics, dict)
+    if spec.observability.detail == "full":
+        assert set(svc.artifacts) == {"events", "spans", "trace"}
+    else:
+        assert svc.artifacts == {}
+        assert res.obs.slo_burn.target == 0.9
+
+
 def test_suite_workers_are_still_refused():
     from repro_torch.experiments import ScenarioSuite
     from repro_torch.service import SpecError
@@ -362,9 +417,9 @@ def test_suite_workers_are_still_refused():
 
 
 def test_listing1_is_refused_only_for_its_unported_parts():
-    """``examples/service.yaml`` names its forecast section, its risk-aware
-    policy and observability ``full``; without them, its token model and
-    its migration section build on the port."""
+    """``examples/service.yaml`` names its forecast section and its
+    risk-aware policy; without them, its token model, its migration section
+    and its observability at detail ``full`` build on the port."""
     yaml = pytest.importorskip("yaml")
     from repro_torch.service import SpecError, build_service, spec_from_dict
 
@@ -373,16 +428,20 @@ def test_listing1_is_refused_only_for_its_unported_parts():
     with pytest.raises(SpecError) as e:
         spec_from_dict(d)
     msg = str(e.value)
-    for part in ("forecast", "risk_spothedge", "observability.detail 'full'"):
+    for part in ("forecast", "risk_spothedge"):
         assert part in msg, part
-    for part in ("migration", "replica_model", "token"):
+    for part in ("migration", "replica_model", "token", "observability"):
         assert part not in msg, part
-    d = {k: v for k, v in d.items() if k not in ("forecast", "observability")}
+    d = {k: v for k, v in d.items() if k != "forecast"}
     d["replica_policy"] = dict(d["replica_policy"], name="spothedge")
     spec = spec_from_dict(d)
     assert spec.sim.replica_model == "token" and spec.migration.enabled
-    sim = build_service(spec).simulator
+    assert spec.observability.detail == "full"
+    resolved = build_service(spec)
+    sim = resolved.simulator
     assert sim.replica_model == "token" and sim._mig_rt is not None
+    assert resolved.obs is sim.obs and sim._mig_rt.obs is sim.obs
+    assert resolved.obs.detail == "full"
 
 
 def test_legacy_engine_is_a_host_request(no_cuda, tmp_path):

@@ -341,8 +341,8 @@ BAD = [
     ({"forecast": {"name": "markov"}}, "forecast"),
     ({"migration": {"compression": "zstd"}}, "migration"),
     ({"migration": {"enabled": True}}, "requires the token-level engine"),
-    ({"observability": {"detail": "full"}}, "detail 'full'"),
-    ({"observability": {"slo_burn": {"target": 0.9}}}, "slo_burn"),
+    ({"observability": {"detail": "verbose"}}, "observability.detail"),
+    ({"observability": {"slo_burn": {"target": 1.5}}}, "slo_burn"),
     ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
     ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
     ({"sweep": {"replica_models": ["block"]}}, "sweep.replica_models"),
@@ -364,18 +364,44 @@ def test_loader_refuses_by_name(extra, match):
         spec_from_dict({**golden_dict("spothedge"), **extra})
 
 
+# the observability sections the port refused until its obs port: accepted
+# now, and run through Service at a short horizon
+OBS_NOW_PORTED = [
+    ({"observability": {"detail": "full"}}, "detail 'full'"),
+    ({"observability": {"slo_burn": {"target": 0.9}}}, "slo_burn"),
+]
+
+
+@pytest.mark.parametrize("extra,name", OBS_NOW_PORTED,
+                         ids=[b[1] for b in OBS_NOW_PORTED])
+def test_loader_accepts_ported_observability(extra, name, tmp_path):
+    d = golden_dict("spothedge")
+    d["sim"] = dict(d["sim"], duration_hours=0.25)
+    obs = dict(extra["observability"], out_dir=str(tmp_path))
+    spec = spec_from_dict({**d, "observability": obs})
+    assert spec.unported() == [], name
+    want = j_spec_from_dict({**d, "observability": obs})
+    assert spec.to_dict() == want.to_dict()
+    svc = TService(spec, engine="vector")
+    res = svc.run()
+    assert res.obs is not None and res.obs.events
+    full = spec.observability.detail == "full"
+    assert bool(svc.artifacts) == full
+    assert res.obs.slo_burn.target == spec.observability.slo_burn.target
+
+
 def test_example_service_yaml_names_its_unported_sections():
-    """Listing 1 is refused for its forecast section, its risk-aware policy
-    and observability at detail ``full`` only: its token model and its
-    migration section are ported."""
+    """Listing 1 is refused for its forecast section and its risk-aware
+    policy only: its token model, its migration section and its
+    observability at detail ``full`` are ported."""
     pytest.importorskip("yaml")
     with pytest.raises(SpecError) as e:
         spec_from_yaml(os.path.join(ROOT, "examples", "service.yaml"))
     msg = str(e.value)
-    for part in ("forecast", "observability.detail 'full'",
-                 "risk_spothedge"):
+    for part in ("forecast", "risk_spothedge"):
         assert part in msg, part
-    for part in ("migration", "replica_model", "token", "serving"):
+    for part in ("migration", "replica_model", "token", "serving",
+                 "observability"):
         assert part not in msg, part
 
 
