@@ -89,11 +89,12 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    launch's cells printed) and on the host engine, every cell equal
    (counts exact, cost 1e-9, availability 1e-12, latencies and the TTFT /
    TPOT arrays 1e-6, goodput and SLO attainment 1e-9) and its metrics
-   printed; (b) the migration matrix (``benchmarks/migration.py``: aws-1
-   and aws-3 at 2 h, Arena 4/s seed 11, int8, drain_threshold_s 2.0, off
-   and on; cut to spothedge and without its forecast section, which wait
-   for the forecast port), each cell equal to the host and the legacy
-   engine's, the migration counters and the off -> on deltas printed; (c)
+   printed; (b) the migration matrix uncut (``benchmarks/migration.py``:
+   spothedge and risk_spothedge with its Markov forecast, aws-1 and aws-3
+   at 2 h, Arena 4/s seed 11, int8, drain_threshold_s 2.0, off and on: 8
+   token cells), each cell equal to the host and the legacy engine's, each
+   run in 4 worker processes, the migration counters and the off -> on
+   deltas printed; (c)
    a llama3.2-1b token service on the ``h100`` instance priced by step 5's
    own profile row (no roofline fallback warning) and by the roofline,
    each equal to the host engine, their TTFT / TPOT / goodput and the
@@ -127,6 +128,31 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    the 96-cell matrix of step 4 with its spans rebuilt (count and host
    time printed), and the quick matrix's 8 cells, whose card spans must
    equal the port oracle's after the same filter;
+5e. drives the forecasters, risk-aware SpotHedge, the Omniscient oracle and
+   the suite's worker fan-out (``phase_forecast``), each part counted as in
+   5b: (a) the paper's Listing 1 (``examples/service.yaml``, copied as a
+   dict, its artifacts under ``chiprun_out/obs/``) uncut through
+   ``Service``: a token cell, so 0 launches, equal to the host engine with
+   its three artifacts byte-equal; then its request-model variant (no
+   migration) in one ``scenario_scan`` launch, equal to the host engine;
+   (b) the README's quickstart with a Markov forecast and a sweep of
+   spothedge / risk_spothedge / omniscient / even_spread x persistence /
+   ewma / markov (6 cells: risk_spothedge once per forecaster) through
+   ``ScenarioSuite.run`` on the card, one launch a shape group, and on the
+   host engine in 4 worker processes, every cell equal, each printed, with
+   the Omniscient solve's status (Optimal, or the phase fails), time,
+   objective and bucket count; (c) the backtest CLI in-process on aws-1,
+   aws-2, aws-3 and gcp-1 x persistence / ewma / markov into
+   ``chiprun_out/forecast/``, each report equal to the committed
+   ``artifacts/forecast/`` one, and ``python -m repro_torch.cluster.traces
+   --json`` in-process, exit 0; (d) ``benchmarks/forecast_eval.py``'s
+   forecast-risk suite (8 cells, no workload, up to 7 days) on the host
+   engine at 4 workers and serially, both equal to
+   ``artifacts/bench/scenario_forecast_risk.json`` at its 6 digits, both
+   walls printed; (f) the serve CLI in-process on Listing 1 (``--status``)
+   and on (b)'s sweep (``--sweep --engine vector --workers 4``), exit 0.
+   Part (e), the migration matrix uncut, is 5c (b).  The phase's launches
+   are added to ``scenario_scan``'s count on the kernels line;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -2091,25 +2117,23 @@ TOKEN_MATRIX = {
               "replica_models": ["request", "token"]},
 }
 
-# benchmarks/migration.py's matrix (aws-1 and aws-3 at 2 h, Arena 4/s seed
-# 11, int8, drain_threshold_s 2.0, migration off and on), cut to spothedge
-# and without its forecast section: risk_spothedge and the Markov
-# forecaster wait for the forecast port
-MIGRATION_CUT = ("policies cut to spothedge (risk_spothedge waits for the "
-                 "forecast port) and no forecast section")
+# benchmarks/migration.py's matrix, uncut: spothedge and risk_spothedge
+# (with its Markov forecast section) on aws-1 and aws-3 at 2 h, Arena 4/s
+# seed 11, int8, drain_threshold_s 2.0, migration off and on: 8 token cells
 MIGRATION_MATRIX = {
     "name": "migration", "model": "command-r-35b", "trace": "aws-1",
     "resources": {"instance_type": "g5.48xlarge"},
     "autoscaler": {"kind": "constant", "target": 4},
     "workload": {"kind": "arena", "rate_per_s": 4.0, "seed": 11},
+    "forecast": {"name": "markov"},
     "serving": {"replica_model": "token",
                 "slo": {"ttft_s": 10.0, "tpot_s": 0.2}},
     "migration": {"enabled": False, "compression": "int8",
                   "drain_threshold_s": 2.0},
     "sim": {"duration_hours": 2.0, "control_interval_s": 15.0,
             "timeout_s": 100.0, "concurrency": 4, "drain_s": 300.0},
-    "sweep": {"policies": ["spothedge"], "traces": ["aws-1", "aws-3"],
-              "migration": [False, True]},
+    "sweep": {"policies": ["spothedge", "risk_spothedge"],
+              "traces": ["aws-1", "aws-3"], "migration": [False, True]},
 }
 
 #: a token cell's fields held against the host engine's, beside RESULT_TOL:
@@ -2174,7 +2198,8 @@ def phase_token() -> dict:
     the card, the token cells on the host engine, no oracle rerun), every
     cell against the host engine, then the same cells through ``run_cells``
     with their arrays held against the host engine's; (b) the migration
-    matrix against the host and the legacy engine; (c) a llama3.2-1b token
+    matrix, uncut, against the host and the legacy engine (each run in 4
+    worker processes); (c) a llama3.2-1b token
     service on the H100 priced by phase 5's profile row and by the
     roofline; (e) the serve CLI's token runs in-process.  Part (d), the KV
     bytes of the card's caches, runs in the fleet phase.  Returns the
@@ -2264,26 +2289,32 @@ def phase_token() -> dict:
     report, launches, wall = counted(
         lambda: ScenarioSuite.from_spec(MIGRATION_MATRIX).run(engine="jax"))
     check_scan_launches("migration matrix", launches, 0)
-    if report.oracle_reruns or len(report.host_token_cells) != 4:
+    if report.oracle_reruns or len(report.host_token_cells) != 8:
         raise AssertionError(f"migration matrix: {report.oracle_reruns}, "
                              f"{report.host_token_cells}")
     walls = {"jax": wall}
     for engine in ("vector", "legacy"):
         t0 = time.perf_counter()
-        other = ScenarioSuite.from_spec(MIGRATION_MATRIX).run(engine=engine)
-        walls[engine] = time.perf_counter() - t0
+        other = ScenarioSuite.from_spec(MIGRATION_MATRIX).run(engine=engine,
+                                                              workers=4)
+        walls[f"{engine} x4 workers"] = time.perf_counter() - t0
+        if other.workers != 4:
+            raise AssertionError(f"migration matrix {engine}: "
+                                 f"{other.workers} workers")
         check_cells(f"migration matrix vs {engine}", report, other)
     parts["migration matrix"] = launches["scenario_scan"]
-    log(f"migration matrix [{card}] (benchmarks/migration.py: command-r-35b "
-        f"on g5.48xlarge, aws-1 + aws-3, 2 h, Arena 4/s seed 11, int8, "
-        f"drain_threshold_s 2.0, off / on; {MIGRATION_CUT}): walls "
+    log(f"migration matrix [{card}] (benchmarks/migration.py uncut: "
+        f"command-r-35b on g5.48xlarge, aws-1 + aws-3, 2 h, Arena 4/s seed "
+        f"11, int8, drain_threshold_s 2.0, spothedge + risk_spothedge with "
+        f"the Markov forecast, off / on; 8 token cells): walls "
         f"{json.dumps({k: round(v, 4) for k, v in walls.items()})} s, "
         f"launches {json.dumps(launches)}; every cell equal to the host and "
         f"the legacy engine's")
-    for tr in ("aws-1", "aws-3"):
-        off, on = (report.select(trace=tr, migration=m)[0]
+    for pol, tr in ((p, t) for p in ("spothedge", "risk_spothedge")
+                    for t in ("aws-1", "aws-3")):
+        off, on = (report.select(policy=pol, trace=tr, migration=m)[0]
                    for m in ("off", "on"))
-        log(f"migration matrix [{card}] {tr}: off {token_line(off)}; on "
+        log(f"migration matrix [{card}] {pol} {tr}: off {token_line(off)}; on "
             f"{token_line(on)}; migrated sequences {on.n_migrated_seqs}, "
             f"drained {on.n_drained_seqs}, migrated KV tokens "
             f"{on.migrated_kv_tokens}, saved prefill tokens "
@@ -2662,6 +2693,314 @@ def phase_obs() -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# Forecasters, risk-aware SpotHedge, the Omniscient oracle, the fan-out
+# ---------------------------------------------------------------------------
+
+# examples/service.yaml, the paper's Listing 1, uncut (this script reads no
+# YAML): command-r-35b on g5.48xlarge, aws-3 in three regions,
+# risk_spothedge with N_Extra 2 and the Markov forecast, the load
+# autoscaler, Arena at 2/s with client regions, the token model with int8
+# migration, observability at detail full, 2 h
+LISTING1 = {
+    "name": "chatbot", "model": "command-r-35b", "trace": "aws-3",
+    "resources": {"instance_type": "g5.48xlarge",
+                  "any_of": [{"region": "us-east-1"}, {"region": "us-east-2"},
+                             {"region": "us-west-2"}]},
+    "replica_policy": {"name": "risk_spothedge", "overprovision": 2,
+                       "dynamic_fallback": True},
+    "forecast": {"name": "markov", "horizon_s": 450, "risk_threshold": 0.6,
+                 "calm_threshold": 0.06},
+    "autoscaler": {"kind": "load", "target": 4, "qps_per_replica": 0.8,
+                   "min_replicas": 2, "max_replicas": 12,
+                   "upscale_delay_s": 60, "downscale_delay_s": 600},
+    "workload": {"kind": "arena", "rate_per_s": 2.0, "seed": 11,
+                 "args": {"client_regions": {"us-west-2": 0.5,
+                                             "us-east-1": 0.3,
+                                             "eu-central-1": 0.2}}},
+    "latency": {"source": "roofline"},
+    "serving": {"replica_model": "token",
+                "slo": {"ttft_s": 10.0, "tpot_s": 0.2},
+                "prefill_chunk_tokens": 512},
+    "migration": {"enabled": True, "compression": "int8",
+                  "drain_threshold_s": 2.0},
+    "observability": {"detail": "full", "out_dir": str(OBS_OUT),
+                      "trace_sample": 0.01,
+                      "slo_burn": {"target": 0.99, "fast_window_s": 300.0,
+                                   "slow_window_s": 3600.0,
+                                   "fast_threshold": 14.4,
+                                   "slow_threshold": 6.0}},
+    "sim": {"duration_hours": 2.0, "control_interval_s": 15, "timeout_s": 100,
+            "concurrency": 4},
+}
+
+# the README's quickstart with a Markov forecast section and a policy sweep:
+# risk_spothedge once per forecaster, the others once (6 cells)
+POLICY_SWEEP = dict(
+    QUICKSTART, name="policy-sweep", forecast={"name": "markov"},
+    sweep={"policies": ["spothedge", "risk_spothedge", "omniscient",
+                        "even_spread"],
+           "forecasters": ["persistence", "ewma", "markov"]})
+
+BACKTEST_TRACES = ("aws-1", "aws-2", "aws-3", "gcp-1")
+FORECAST_OUT = ROOT / "chiprun_out" / "forecast"
+# the fields of artifacts/bench/scenario_forecast_risk.json's cells held
+# against this run's, at the artifact's own 6-digit rounding
+RISK_SUITE_KEYS = ("cost_vs_ondemand", "total_cost", "availability",
+                   "n_preemptions", "n_launch_failures")
+
+
+def forecast_risk_suite():
+    """``benchmarks/forecast_eval.py``'s ``build_serving_suite``: spothedge
+    and risk_spothedge (Markov forecast) on the four named traces, a
+    constant 4 replicas of llama3.2-1b on p3.2xlarge, no workload, each
+    trace's full length up to 7 days; copied because benchmarks/ imports
+    repro."""
+    from repro_torch.cluster.traces import load_trace
+    from repro_torch.experiments import Scenario, ScenarioSuite
+    from repro_torch.service import spec_from_dict
+
+    scenarios = []
+    for tname in BACKTEST_TRACES:
+        hours = min(load_trace(tname).duration_s / 3600.0, 7 * 24.0)
+        for policy in ("spothedge", "risk_spothedge"):
+            spec = spec_from_dict({
+                "name": f"forecast-risk-{policy}-{tname}",
+                "model": "llama3.2-1b", "trace": tname,
+                "resources": {"instance_type": "p3.2xlarge"},
+                "replica_policy": {"name": policy},
+                "autoscaler": {"kind": "constant", "target": 4},
+                "workload": {"kind": "none"},
+                "forecast": {"name": "markov"},
+                "sim": {"duration_hours": hours, "control_interval_s": 30.0,
+                        "drain_s": 0.0, "seed": 0},
+            })
+            scenarios.append(Scenario(labels={"policy": policy,
+                                              "trace": tname}, spec=spec))
+    return ScenarioSuite(scenarios, name="forecast_risk")
+
+
+def cell_line(c) -> str:
+    return (f"cost vs on-demand {c.cost_vs_ondemand:.6f}, availability "
+            f"{c.availability:.6f}, preemptions {c.n_preemptions}, p50 / p99 "
+            f"{c.p50_s:.6f} / {c.p99_s:.6f} s")
+
+
+def in_process(main, argv, where: str) -> str:
+    """``main(argv)`` with its standard output captured: must exit 0."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{where} {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def phase_forecast() -> dict:
+    """Forecasters, risk-aware SpotHedge, the Omniscient oracle and the
+    suite's worker fan-out on the port (step 5e), each part counted: (a)
+    Listing 1 uncut through ``Service`` on the card path and the host
+    engine, then its request-model variant in one ``scenario_scan`` launch;
+    (b) a 6-cell policy sweep through ``ScenarioSuite.run`` on the card and
+    on the host engine in 4 worker processes, with the Omniscient solve's
+    status, time, objective and buckets; (c) the backtest CLI on the four
+    named traces against the committed reports, and the trace statistics
+    CLI; (d) the reference's forecast-risk suite at 4 workers and serially
+    against its committed report; (f) the serve CLI on Listing 1 and on the
+    sweep.  Part (e), the migration matrix uncut, runs in ``phase_token``.
+    Returns the ``scenario_scan`` launches by part."""
+    from repro_torch.cluster.traces import main as traces_main
+    from repro_torch.core.omniscient import solve_omniscient
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.forecast.backtest import main as backtest_main
+    from repro_torch.launch import serve
+    from repro_torch.service import Service, build_service
+
+    card = card_line()
+    parts = {}
+    t_phase = time.perf_counter()
+
+    # (a) Listing 1 uncut: a token cell, so the host engine runs it under
+    # the card engine too (no launch); then its request-model variant
+    listing = Service(LISTING1)
+    res, launches, wall = counted(listing.run)
+    check_scan_launches("listing 1", launches, 0)
+    st = listing.status()
+    if not st["token_on_host"] or st["oracle_rerun"]:
+        raise AssertionError(f"listing 1: status {st}")
+    pol = listing.resolve().policy
+    if (pol.name, pol.forecaster.name, pol.horizon_s) != (
+            "risk_spothedge", "markov", 450.0):
+        raise AssertionError(f"listing 1: policy {pol.name} with "
+                             f"{pol.forecaster.name} at {pol.horizon_s} s")
+    host_spec = dict(LISTING1, observability=dict(
+        LISTING1["observability"], out_dir=str(OBS_OUT / "listing1-host")))
+    t0 = time.perf_counter()
+    host_svc = Service(host_spec, engine="vector")
+    host = host_svc.run()
+    host_s = time.perf_counter() - t0
+    check_arrays("listing 1, card path vs host", res, host)
+    for kind, path in listing.artifacts.items():
+        if Path(path).read_bytes() != Path(host_svc.artifacts[kind]) \
+                .read_bytes():
+            raise AssertionError(f"listing 1: {kind} artifact differs from "
+                                 "the host engine's")
+    parts["listing 1"] = launches["scenario_scan"]
+    log(f"forecast listing 1 [{card}] (examples/service.yaml uncut: "
+        f"command-r-35b on g5.48xlarge, aws-3 in 3 regions, risk_spothedge "
+        f"N_Extra 2, Markov forecast 450 s / 0.6 / 0.06, load autoscaler 4 -> "
+        f"2-12, Arena 2/s seed 11 with client regions, token model with int8 "
+        f"migration, detail full, 2 h; {st['n_requests']} requests): "
+        f"{wall:.4f} s wall on the host engine (a token cell has no phase B), "
+        f"launches {json.dumps(launches)}; host engine alone {host_s:.4f} s; "
+        f"equal, artifacts {sorted(listing.artifacts)} byte-equal to the host "
+        f"engine's; {res.summary()}")
+    request = {k: v for k, v in LISTING1.items() if k != "migration"}
+    request["serving"] = dict(LISTING1["serving"], replica_model="request")
+    request["observability"] = dict(LISTING1["observability"],
+                                    out_dir=str(OBS_OUT / "listing1-request"))
+    svc, host, parts["listing 1 request"], (wall, host_s) = on_card_and_host(
+        request, "listing 1 request")
+    log(f"forecast listing 1 request model [{card}]: card {wall:.4f} s wall, "
+        f"one scenario_scan launch, host engine {host_s:.4f} s, equal; "
+        f"{metrics_line(svc.result)}")
+
+    # (b) the policy sweep: on the card, then on the host in 4 processes
+    report, launches, wall = counted(
+        lambda: ScenarioSuite.from_spec(POLICY_SWEEP).run(engine="jax"))
+    check_scan_launches("policy sweep", launches, report.shape_groups)
+    if len(report.cells) != 6 or report.oracle_reruns:
+        raise AssertionError(f"policy sweep: {len(report.cells)} cells, "
+                             f"reruns {report.oracle_reruns}")
+    t0 = time.perf_counter()
+    host = ScenarioSuite.from_spec(POLICY_SWEEP).run(engine="vector",
+                                                     workers=4)
+    host_s = time.perf_counter() - t0
+    if host.workers != 4:
+        raise AssertionError(f"policy sweep: {host.workers} workers")
+    for a, b in zip(report.cells, host.cells):
+        if a.labels != b.labels:
+            raise AssertionError(f"policy sweep: {a.labels} vs {b.labels}")
+        keys = [k for k in (*RESULT_COUNTS, *RESULT_TOL) if hasattr(b, k)]
+        check_result(f"policy sweep {a.cell_id}",
+                     {k: getattr(a, k) for k in keys},
+                     {k: getattr(b, k) for k in keys})
+    parts["policy sweep"] = launches["scenario_scan"]
+    log(f"forecast policy sweep [{card}] (the README quickstart, 4 h, "
+        f"policies spothedge / risk_spothedge / omniscient / even_spread x "
+        f"forecasters persistence / ewma / markov: 6 cells): "
+        f"ScenarioSuite.run engine jax {wall:.4f} s wall, "
+        f"{report.shape_groups} shape group(s), launches "
+        f"{json.dumps(launches)}, no oracle rerun; engine vector at 4 workers "
+        f"{host_s:.4f} s; every cell equal")
+    for c in report.cells:
+        log(f"forecast policy sweep [{card}] {c.cell_id}: {cell_line(c)}")
+    oracle = next(sc for sc in ScenarioSuite.from_spec(POLICY_SWEEP).scenarios
+                  if sc.labels["policy"] == "omniscient")
+    t0 = time.perf_counter()
+    resolved = build_service(oracle.spec)
+    build_s = time.perf_counter() - t0
+    sched = resolved.policy.schedule
+    itype = oracle.spec.resources.instance_type
+    k = (resolved.catalog.od_price(itype, resolved.trace.zones[0])
+         / resolved.catalog.spot_price(itype, resolved.trace.zones[0]))
+    t0 = time.perf_counter()
+    again = solve_omniscient(resolved.trace, n_target=4,
+                             cold_start_s=oracle.spec.sim.cold_start_s,
+                             k_ratio=k, avail_target=0.99)
+    solve_s = time.perf_counter() - t0
+    if "Optimal" not in sched.status or again.status != sched.status \
+            or again.objective != sched.objective \
+            or not np.array_equal(again.spot_plan, sched.spot_plan) \
+            or not np.array_equal(again.od_plan, sched.od_plan):
+        raise AssertionError(f"omniscient solve: {sched.status!r}, "
+                             f"{again.status!r}, objectives {sched.objective} "
+                             f"/ {again.objective}")
+    log(f"forecast omniscient solve [{card}] (aws-3's 9 zones sliced to the "
+        f"spec's {len(sched.zones)}, N_Tar 4, k {k:.6g}): status "
+        f"{sched.status!r}, {solve_s:.4f} s [host clock, HiGHS], objective "
+        f"{sched.objective!r}, {len(sched.od_plan)} buckets of "
+        f"{sched.bucket_s:g} s, availability indicator mean "
+        f"{sched.availability_ind.mean():.6f}; the cell's build with its "
+        f"solve {build_s:.4f} s; a second solve gives the same plan")
+
+    # (c) backtests through the CLI, against the committed reports
+    t0 = time.perf_counter()
+    for tname in BACKTEST_TRACES:
+        out = in_process(backtest_main, ["--trace", tname, "--out-dir",
+                                         str(FORECAST_OUT)], "backtest")
+        for line in out.splitlines():
+            log(f"forecast backtest | {line}")
+        for fc in ("persistence", "ewma", "markov"):
+            name = f"backtest_{tname}_{fc}.json"
+            got = json.loads((FORECAST_OUT / name).read_text())
+            want = json.loads((ROOT / "artifacts" / "forecast" / name)
+                              .read_text())
+            if got != want:
+                raise AssertionError(f"backtest {name}: differs from the "
+                                     "committed report")
+    backtest_s = time.perf_counter() - t0
+    stats = json.loads(in_process(traces_main, ["--json"], "traces"))
+    log(f"forecast backtests [{card}]: 12 reports (4 traces x persistence / "
+        f"ewma / markov) in {backtest_s:.4f} s [host clock], each equal to "
+        f"artifacts/forecast/ field for field; python -m "
+        f"repro_torch.cluster.traces --json: exit 0, {len(stats)} traces")
+
+    # (d) the forecast-risk suite at 4 workers and serially
+    walls, runs = {}, {}
+    for workers in (4, None):
+        t0 = time.perf_counter()
+        runs[workers] = forecast_risk_suite().run(engine="vector",
+                                                  workers=workers)
+        walls[f"workers={workers}"] = time.perf_counter() - t0
+    want = json.loads((ROOT / "artifacts" / "bench" /
+                       "scenario_forecast_risk.json").read_text())["cells"]
+    if runs[4].workers != 4 or len(want) != len(runs[4].cells) != 8:
+        raise AssertionError("forecast-risk suite: workers or cells")
+    for a, b, w in zip(runs[4].cells, runs[None].cells, want):
+        da, db = a.to_dict(), b.to_dict()
+        for key in RISK_SUITE_KEYS:
+            if not da[key] == db[key] == w[key]:
+                raise AssertionError(f"forecast-risk {a.cell_id}: {key} "
+                                     f"{da[key]} / {db[key]} vs {w[key]}")
+    cell_s = {f"workers={w}": round(sum(c.wall_s for c in r.cells), 4)
+              for w, r in runs.items()}
+    log(f"forecast risk suite [{card}] (benchmarks/forecast_eval.py: "
+        f"spothedge vs risk_spothedge, 4 traces up to 7 days, no workload; "
+        f"engine vector): walls {json.dumps({k: round(v, 4) for k, v in walls.items()})}"
+        f" s, the cells' own walls summed {json.dumps(cell_s)} s; both equal to artifacts/bench/scenario_forecast_risk.json at "
+        f"its 6 digits ({', '.join(RISK_SUITE_KEYS)})")
+    for c in runs[4].cells:
+        log(f"forecast risk suite [{card}] {c.cell_id}: {cell_line(c)}, "
+            f"launch failures {c.n_launch_failures}")
+
+    # (f) the serve CLI: Listing 1's status, the sweep on 4 workers
+    out_dir = PROFILE_OUT.parent.parent / "service"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    one, grid = out_dir / "listing1.json", out_dir / "policy-sweep.json"
+    one.write_text(json.dumps(LISTING1))
+    grid.write_text(json.dumps(POLICY_SWEEP))
+    for argv in (["--spec", str(one), "--status"],
+                 ["--spec", str(grid), "--sweep", "--engine", "vector",
+                  "--workers", "4"]):
+        rc, launches, wall, out = serve_in_process(argv)
+        if rc != 0:
+            raise AssertionError(f"serve {' '.join(argv)} exited {rc}")
+        check_scan_launches(f"serve {' '.join(argv)}", launches, 0)
+        if "--sweep" in argv and "workers=4" not in out:
+            raise AssertionError("serve --sweep: not on 4 workers")
+        parts[f"cli {' '.join(argv[2:])}"] = launches["scenario_scan"]
+        log(f"forecast CLI [{card}] repro_torch.launch.serve "
+            f"{' '.join(argv)}: exit 0, {wall:.4f} s wall, launches "
+            f"{json.dumps(launches)}")
+    log(f"forecast scenario_scan launches by part [{card}]: "
+        f"{json.dumps(parts)}; the phase {time.perf_counter() - t_phase:.2f} "
+        f"s wall")
+    return parts
+
+
 def check_kv_bytes(fleet: Fleet) -> None:
     """The KV bytes a cached token takes in the card's cache (K and V only,
     not ``len``), against what the token model assumes,
@@ -2710,6 +3049,17 @@ def serve_path(arch: str) -> dict:
     return launches
 
 
+def stop_worker_servers() -> None:
+    """Stop the processes the suite's worker fan-out left to the end of the
+    run, the forkserver and multiprocessing's resource tracker, so that the
+    script exits leaving no process behind (each would exit on its own
+    only once this process has gone)."""
+    from multiprocessing import forkserver, resource_tracker
+
+    for server in (forkserver._forkserver, resource_tracker._resource_tracker):
+        server._stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device "
@@ -2734,6 +3084,8 @@ def main() -> int:
     phase_service()
     phase_token()
     phase_obs()
+    forecast = phase_forecast()
+    stop_worker_servers()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],
@@ -2743,6 +3095,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = errors[k["name"]]
+    # the matrix's launch, and those of the forecast phase's main path
+    scenario["launches"] += sum(forecast.values())
     kernels.append(scenario)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

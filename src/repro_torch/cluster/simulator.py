@@ -594,11 +594,20 @@ def run_policy_on_trace(
     seed: int = 0,
     policy_kwargs: Optional[dict] = None,
 ) -> SimResult:
-    """Convenience one-shot runner used by benchmarks and tests (the
-    Omniscient oracle is not ported: ``make_policy`` refuses it)."""
+    """Convenience one-shot runner used by benchmarks and tests; the
+    Omniscient oracle gets its schedule solved on ``trace`` first."""
     from repro_torch.core.policy import make_policy
 
     policy = make_policy(policy_name, **(policy_kwargs or {}))
+    if policy_name == "omniscient":
+        from repro_torch.core.omniscient import solve_omniscient
+
+        cat = default_catalog()
+        k = (cat.od_price(itype, trace.zones[0])
+             / cat.spot_price(itype, trace.zones[0]))
+        policy.attach_schedule(solve_omniscient(
+            trace, n_target=n_target, cold_start_s=cold_start_s, k_ratio=k,
+            avail_target=0.99))
     sim = ClusterSimulator(
         trace,
         policy,

@@ -9,8 +9,9 @@ documented structure: preemptions correlated within a region and nearly
 independent across regions (Fig. 3), volatile spot GPUs against stable spot
 CPUs (Fig. 4), whole-region dropouts (§2.2).  The draws are the reference's,
 in its order, from ``np.random.default_rng(seed)``: every named trace here
-is the reference's to the bit.  The reference's command-line statistics
-printer is not ported.
+is the reference's to the bit.  ``python -m repro_torch.cluster.traces
+[name ...] [--json]`` prints each trace's per-zone availability,
+preemption rate and sibling correlation.
 """
 
 from __future__ import annotations
@@ -579,3 +580,64 @@ def load_trace(name_or_path: str) -> SpotTrace:
     if name_or_path.endswith(".json"):
         return SpotTrace.from_json(name_or_path)
     return SpotTrace.load(name_or_path)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.cluster.traces [name ...]
+# ---------------------------------------------------------------------------
+
+
+def _print_stats(stats: Dict[str, object]) -> None:
+    print(
+        f"{stats['name']}: {stats['steps']} steps x {stats['dt_s']:g}s "
+        f"({stats['duration_days']:g} days), "
+        f"mean availability {stats['mean_availability']:.2%}"
+    )
+    print(
+        f"  {'zone':<16s} {'region':<14s} {'avail':>7s} "
+        f"{'preempt/day':>12s} {'sibling r':>10s}"
+    )
+    for z, s in stats["zones"].items():  # type: ignore[union-attr]
+        print(
+            f"  {z:<16s} {s['region']:<14s} {s['availability']:7.2%} "
+            f"{s['preemptions_per_day']:12.2f} {s['mean_sibling_corr']:10.3f}"
+        )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Per-zone availability / preemption-rate / "
+        "sibling-correlation stats of the benchmark traces"
+    )
+    ap.add_argument(
+        "traces", nargs="*",
+        help="named datasets or .json/.npz trace paths "
+        "(default: every named dataset)",
+    )
+    ap.add_argument("--json", action="store_true",
+                    help="emit one JSON document instead of tables")
+    args = ap.parse_args(argv)
+
+    names = args.traces or TraceLibrary().names()
+    all_stats = [trace_stats(load_trace(n)) for n in names]
+    if args.json:
+        print(json.dumps(all_stats, indent=1))
+    else:
+        for stats in all_stats:
+            _print_stats(stats)
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    # ``python -m repro_torch.cluster.traces`` re-executes this file as
+    # ``__main__`` after the package __init__ already imported the
+    # canonical module; delegate so the CLI runs with the canonical
+    # SpotTrace / TraceLibrary (one cache, one class identity), not
+    # this duplicate copy.
+    from repro_torch.cluster.traces import main as _canonical_main
+
+    sys.exit(_canonical_main())

@@ -1,6 +1,6 @@
-"""SpotHedge, the paper's policy, with its baselines and the autoscalers:
-the port's own copy of ``repro.core`` (the Omniscient ILP oracle and the
-risk-aware SpotHedge are not ported yet).
+"""SpotHedge, the paper's policy, with its risk-aware variant, its
+baselines, the Omniscient ILP oracle and the autoscalers: the port's own
+copy of ``repro.core``.
 
 ``policy``      Observation / Action / Policy interfaces shared by the
                 cluster simulator and the controller.
@@ -8,6 +8,9 @@ risk-aware SpotHedge are not ported yet).
                 Dynamic Fallback (§3.2).
 ``baselines``   EvenSpread, RoundRobin, StaticMixture (ASG), AWSSpot,
                 MArk-like, OnDemandOnly, SpotOnly.
+``risk_aware``  SpotHedge with a spot-availability forecaster in the
+                placement and hedging loop (``repro_torch.forecast``).
+``omniscient``  The Omniscient ILP oracle (§3.3, Eq. 1-5) via HiGHS.
 ``autoscaler``  The load-based autoscaler with hysteresis (§4).
 """
 
@@ -30,6 +33,8 @@ from repro_torch.core.policy import (
     Terminate,
     make_policy,
 )
+from repro_torch.core.omniscient import OmniscientPolicy, solve_omniscient
+from repro_torch.core.risk_aware import RiskAwareSpotHedgePolicy
 from repro_torch.core.spothedge import SpotHedgePolicy
 
 __all__ = [
@@ -41,6 +46,7 @@ __all__ = [
     "Terminate",
     "make_policy",
     "SpotHedgePolicy",
+    "RiskAwareSpotHedgePolicy",
     "EvenSpreadPolicy",
     "RoundRobinPolicy",
     "StaticMixturePolicy",
@@ -48,6 +54,8 @@ __all__ = [
     "MArkLikePolicy",
     "OnDemandOnlyPolicy",
     "SpotOnlyPolicy",
+    "OmniscientPolicy",
+    "solve_omniscient",
     "Autoscaler",
     "ConstantTarget",
     "LoadAutoscaler",

@@ -7,10 +7,10 @@ on-demand, terminate instance i).  Event hooks deliver preemption / ready /
 launch-failure / warning transitions between ticks, which is what Alg. 1
 keys off.  A policy never sees the future of the trace.
 
-The registry holds the policies the port has: SpotHedge and the seven
-baselines.  The reference's Omniscient ILP oracle and risk-aware SpotHedge
-(which needs the forecasters) are not ported yet; asking for them raises
-``KeyError`` saying so.
+The registry holds SpotHedge, its risk-aware variant, the seven baselines
+and the Omniscient oracle (the one policy that sees the whole trace,
+through its offline ILP); an unknown name raises the reference's
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -273,24 +273,19 @@ def register_policy(cls: type) -> type:
     return cls
 
 
-#: the reference's policies the port does not have yet
-NOT_PORTED = ("omniscient", "risk_spothedge")
-
-
 def _load_builtin() -> None:
     # Import for registration side effects.
     from repro_torch.core import baselines as _b  # noqa: F401
+    from repro_torch.core import omniscient as _o  # noqa: F401
+    from repro_torch.core import risk_aware as _r  # noqa: F401
     from repro_torch.core import spothedge as _s  # noqa: F401
 
 
 def _lookup(name: str) -> type:
     _load_builtin()
-    if name in _REGISTRY:
-        return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise KeyError(f"policy {name!r} is not ported yet; the port has "
-                       f"{sorted(_REGISTRY)}")
-    raise KeyError(f"unknown policy {name!r}; have {sorted(_REGISTRY)}")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown policy {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
 
 
 def make_policy(name: str, **kwargs) -> Policy:
@@ -300,7 +295,7 @@ def make_policy(name: str, **kwargs) -> Policy:
 
 def policy_class(name: str) -> type:
     """The registered class for ``name`` (builders peek at class flags
-    before instantiating)."""
+    like ``uses_forecast`` before instantiating)."""
     return _lookup(name)
 
 

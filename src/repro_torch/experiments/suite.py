@@ -2,27 +2,33 @@
 copy of ``repro.experiments.suite``.
 
 ``ScenarioSuite.from_spec`` crosses the sweep's ``policies x traces x
-workloads x seeds x replica_models x migration`` in the reference's order,
-with its labels, cell names and shared-tape keys: cells with equal
-workload, seed and arrival horizon replay one request tape.  A migration
-axis collapses to one unlabelled cell for a request-model cell, which has
-no KV to migrate.  ``run`` takes the serve CLI's engine rule: by default
-(``engine="jax"``) the cells run as one matrix, every cell built and its
-control plane replayed on the host (phase A), then every request-model
-data plane through ``run_cells``, one ``scenario_scan`` launch per shape
-group on the card, an overflowed lane rerun on the oracle, and every
-token-model cell on the host engine beside them; ``engine="vector"`` or
-``"legacy"`` runs them one by one on that host engine.  The report
-carries every cell's registry snapshot merged (``metrics``).
-
-The reference's process fan-out (``workers``) is not ported and is
-refused.
+workloads x seeds x forecasters x replica_models x migration`` in the
+reference's order, with its labels, cell names and shared-tape keys: cells
+with equal workload, seed and arrival horizon replay one request tape.  A
+forecasters axis collapses to one unlabelled cell for a policy that
+ignores the forecast, and a migration axis to one for a request-model
+cell, which has no KV to migrate.  ``run`` takes the serve CLI's engine
+rule: by default (``engine="jax"``) the cells run as one matrix, every
+cell built and its control plane replayed on the host (phase A), then
+every request-model data plane through ``run_cells``, one
+``scenario_scan`` launch per shape group on the card, an overflowed lane
+rerun on the oracle, and every token-model cell on the host engine beside
+them; ``engine="vector"`` or ``"legacy"`` runs them on that host engine,
+one by one or, with ``workers``, fanned out over worker processes forked
+from a clean server (``"forkserver"``) that run the host engine only;
+results are identical for any worker count.  The report carries every
+cell's registry snapshot merged (``metrics``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import itertools
+import multiprocessing
+import multiprocessing.context
+import os
+from multiprocessing import forkserver
 import time
 from typing import (
     Any, Dict, Hashable, List, Mapping, Optional, Sequence, Tuple, Union,
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.cluster.traces import SpotTrace
+from repro_torch.core.policy import policy_class
 from repro_torch.experiments.report import CellResult, ScenarioReport
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving.torchengine.engine import TorchServingEngine, run_cells
@@ -43,6 +50,7 @@ from repro_torch.service.builder import (
 )
 from repro_torch.service.loader import load_spec
 from repro_torch.service.spec import (
+    ForecastSpec,
     MigrationSpec,
     ServiceSpec,
     SpecError,
@@ -78,6 +86,10 @@ class Scenario:
             raise SpecError(f"scenario label axes {sorted(clash)} collide "
                             "with CellResult metric fields; pick different "
                             "axis names")
+
+    @property
+    def cell_id(self) -> str:
+        return "/".join(str(v) for v in self.labels.values())
 
 
 @dataclasses.dataclass
@@ -176,8 +188,9 @@ class ScenarioSuite:
         workloads = sweep.workloads or (base.workload,)
         # no seeds axis: every workload keeps its own seed
         seeds: Tuple[Optional[int], ...] = sweep.seeds or (None,)
-        # no replica_models / migration axis: every cell keeps the base
-        # spec's value and no label column is emitted
+        # no forecasters / replica_models / migration axis: every cell keeps
+        # the base spec's value and no label column is emitted
+        forecasters: Tuple[Optional[str], ...] = sweep.forecasters or (None,)
         replica_models: Tuple[Optional[str], ...] = (sweep.replica_models
                                                      or (None,))
         migrations: Tuple[Union[bool, MigrationSpec, None], ...] = (
@@ -190,10 +203,17 @@ class ScenarioSuite:
             [[("rate_per_s", w.rate_per_s), ("seed", w.seed),
               *sorted(w.args.items())] for w in workloads])
         scenarios: List[Scenario] = []
-        for (pol, plabel), tr, (wl, wlabel), seed, rm, mg in itertools.product(
-                zip(policies, policy_labels), traces,
-                zip(workloads, workload_labels), seeds, replica_models,
-                migrations):
+        for (pol, plabel), tr, (wl, wlabel), seed, fc, rm, mg in (
+                itertools.product(zip(policies, policy_labels), traces,
+                                  zip(workloads, workload_labels), seeds,
+                                  forecasters, replica_models, migrations)):
+            if fc is not None and not getattr(policy_class(pol.name),
+                                              "uses_forecast", False):
+                # a policy that ignores the forecast would rerun one cell
+                # per forecaster: one unlabelled cell stands for the axis
+                if fc != forecasters[0]:
+                    continue
+                fc = None
             cell_rm = rm if rm is not None else base.sim.replica_model
             if mg is not None and cell_rm != "token":
                 # a request-model cell has no KV to migrate: one
@@ -203,6 +223,10 @@ class ScenarioSuite:
                 mg = None
             wl_seeded = wl if seed is None else dataclasses.replace(wl,
                                                                     seed=seed)
+            forecast = base.forecast
+            if fc is not None:
+                forecast = dataclasses.replace(base.forecast or ForecastSpec(),
+                                               name=fc)
             sim = base.sim
             if rm is not None and sim.replica_model != rm:
                 sim = dataclasses.replace(sim, replica_model=rm)
@@ -221,13 +245,16 @@ class ScenarioSuite:
             cell_spec = dataclasses.replace(
                 base,
                 name=(f"{base.name}-{plabel}-{tr}-{wlabel}-s{wl_seeded.seed}"
+                      + (f"-{fc}" if fc is not None else "")
                       + (f"-{rm}" if rm is not None else "")
                       + (f"-mig_{mig_label}" if mig_label is not None
                          else "")),
                 replica_policy=pol, trace=tr, workload=wl_seeded,
-                migration=migration, sim=sim, sweep=None)
+                forecast=forecast, migration=migration, sim=sim, sweep=None)
             labels = {"policy": plabel, "trace": tr, "workload": wlabel,
                       "seed": wl_seeded.seed}
+            if fc is not None:
+                labels["forecaster"] = fc
             if rm is not None:
                 labels["replica_model"] = rm
             if mig_label is not None:
@@ -280,13 +307,12 @@ class ScenarioSuite:
         every cell's) the suite runs as one matrix through ``run_cells``;
         ``device`` is phase B's (default CUDA), and the report counts the
         shape groups (one launch each) and names the lanes rerun on the
-        oracle and the token cells run on the host engine.  Otherwise cells
-        run one by one.  ``save_to`` writes the JSON artifact into that
-        directory."""
-        if workers not in (None, 1):
-            raise SpecError(f"workers={workers!r}: the suite's process "
-                            "fan-out is not ported yet; run serially "
-                            "(workers=None)")
+        oracle and the token cells run on the host engine; ``workers`` is
+        ignored there (the batch is the parallelism) and the report says 1.
+        Otherwise cells run on the host engine, one by one or fanned out
+        over ``workers`` processes (an int >= 1, or ``"auto"``: one per
+        CPU).  ``save_to`` writes the JSON artifact into that directory."""
+        n_workers = _resolve_workers(workers)
         t0 = time.perf_counter()
         use_jax = engine == "jax" or (engine is None and all(
             sc.spec.sim.engine == "jax" for sc in self.scenarios))
@@ -294,25 +320,24 @@ class ScenarioSuite:
         reruns: List[str] = []
         on_host: List[str] = []
         if use_jax:
+            n_workers = 1
             cells, groups, reruns, on_host = self._run_matrix(progress,
                                                               device)
-        else:
+        elif n_workers <= 1 or len(self.scenarios) <= 1:
+            n_workers = 1
             cells = []
             for sc in self.scenarios:
-                spec = with_engine(sc.spec, engine)
-                requests = self._tape(sc)
-                t1 = time.perf_counter()
-                resolved = build_service(spec, trace=sc.trace,
-                                         requests=requests)
-                result = resolved.run(device=device)
-                cells.append(CellResult.from_result(
-                    sc.labels, result, time.perf_counter() - t1))
+                cells.append(_run_scenario(sc, engine, self._tape(sc),
+                                           device))
                 if progress:
                     print(f"[suite {self.name}] {cells[-1].cell_id} done "
                           f"({len(cells)}/{len(self.scenarios)})", flush=True)
+        else:
+            cells = self._run_parallel(n_workers, engine, progress, device)
         snaps = [c.metrics for c in cells if c.metrics]
         report = ScenarioReport(
-            suite=self.name, engine=engine or self._engine_label(), workers=1,
+            suite=self.name, engine=engine or self._engine_label(),
+            workers=n_workers,
             cells=cells, wall_s=time.perf_counter() - t0,
             shape_groups=groups, oracle_reruns=reruns,
             host_token_cells=on_host,
@@ -357,6 +382,88 @@ class ScenarioSuite:
                    if c.engine.ran_on_host]
         return out, len(groups), reruns, on_host
 
+    def _run_parallel(self, n_workers: int, engine: Optional[str],
+                      progress: bool, device) -> List[CellResult]:
+        """Every cell on the host engine in a pool of ``n_workers``
+        processes.  Each payload carries the cell's shared tape, built
+        once here: a worker never makes a tape of its own."""
+        payloads = [(sc, engine, self._tape(sc), device)
+                    for sc in self.scenarios]
+        cells: List[Optional[CellResult]] = [None] * len(payloads)
+        with cf.ProcessPoolExecutor(max_workers=min(n_workers, len(payloads)),
+                                    mp_context=_forkserver()) as pool:
+            futures = {pool.submit(_run_scenario, *p): i
+                       for i, p in enumerate(payloads)}
+            n_done = 0
+            for fut in cf.as_completed(futures):
+                i = futures[fut]
+                cells[i] = fut.result()
+                n_done += 1
+                if progress:
+                    print(f"[suite {self.name}] {cells[i].cell_id} done "
+                          f"({n_done}/{len(payloads)})", flush=True)
+        # a lost future is a loud failure, never a shorter report
+        missing = [self.scenarios[i].cell_id
+                   for i, c in enumerate(cells) if c is None]
+        if missing:
+            raise RuntimeError(
+                f"scenario suite {self.name!r}: {len(missing)} of "
+                f"{len(cells)} cells never returned a result (lost futures): "
+                f"{missing}")
+        return [c for c in cells if c is not None]
+
     def _engine_label(self) -> str:
         engines = {sc.spec.sim.engine for sc in self.scenarios}
         return engines.pop() if len(engines) == 1 else "mixed"
+
+
+def _forkserver() -> multiprocessing.context.BaseContext:
+    """The workers' start method, ``forkserver``: a worker forks from a
+    server process that holds no thread of this one (a forked copy of a
+    process that has run a HiGHS solve or holds a CUDA context can hang)
+    and that has imported this package once, so a worker does not spend
+    seconds importing torch.  Python 3.12.3's server finds the modules it
+    preloads through ``PYTHONPATH`` only (later versions also copy
+    ``sys.path``), so the server is started with this package's root on
+    it; the variable is restored at once.  A worker runs the host engine
+    only and never touches the card."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (root, old) if p)
+    try:
+        forkserver.ensure_running()
+    finally:
+        if old is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old
+    return ctx
+
+
+def _resolve_workers(workers: Union[int, str, None]) -> int:
+    if workers is None:
+        return 1
+    if workers == "auto":
+        return os.cpu_count() or 1
+    try:
+        n = int(workers)
+    except (TypeError, ValueError):
+        raise SpecError(f"workers must be an int >= 1 or 'auto', got "
+                        f"{workers!r}") from None
+    if n < 1:
+        raise SpecError(f"workers must be an int >= 1 or 'auto', got {n}")
+    return n
+
+
+def _run_scenario(sc: Scenario, engine: Optional[str],
+                  requests: Optional[List[Request]],
+                  device) -> CellResult:
+    """Build and run one cell on a host engine (a worker's task too)."""
+    spec = with_engine(sc.spec, engine)
+    t0 = time.perf_counter()
+    resolved = build_service(spec, trace=sc.trace, requests=requests)
+    result = resolved.run(device=device)
+    return CellResult.from_result(sc.labels, result, time.perf_counter() - t0)

@@ -7,8 +7,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --spec service.json
 
     # a spec's sweep: section as a scenario matrix (report JSON under
-    # artifacts/bench/):
+    # artifacts/bench/), on the card or on the host engine in 4 processes:
     PYTHONPATH=src python -m repro_torch.launch.serve --spec sweep.json --sweep
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec sweep.json \
+        --sweep --engine vector --workers 4
 
 Every run is a ``ServiceSpec``; the flags build one.  ``--engine`` picks
 the engine, whatever the spec's ``sim.engine`` says, and defaults to
@@ -18,8 +20,8 @@ unless the caller asks for a host engine (``--engine vector``, or
 ``--device`` but ``cpu``) or for ``--device cpu``, the kernel's plain
 version.  ``--replica-model token`` runs the continuous-batching model (on
 the host engine under ``jax`` too, as in the reference).  Without CUDA the
-default exits non-zero before anything runs.  A malformed or unported spec
-exits 2 with one ``error: ...`` line.
+default exits non-zero before anything runs.  A malformed spec exits 2 with
+one ``error: ...`` line.
 """
 
 from __future__ import annotations
@@ -101,8 +103,9 @@ def main(argv=None) -> int:
                     help="expand the spec's sweep: grid into a scenario "
                     "suite and run every cell")
     ap.add_argument("--workers", default=None, metavar="N|auto",
-                    help="the reference's process fan-out; not ported, "
-                    "refused unless 1")
+                    help="with --sweep: run the cells in N worker "
+                    "processes ('auto' = one per CPU) on a host engine; "
+                    "default serial (--engine jax batches instead)")
     ap.add_argument("--engine", default="jax",
                     choices=["vector", "legacy", "jax"],
                     help="the engine for this run, over the spec's "

@@ -18,6 +18,7 @@ from repro_torch.service.loader import (
 from repro_torch.service.service import Service
 from repro_torch.service.spec import (
     AutoscalerSpec,
+    ForecastSpec,
     LatencySpec,
     ObservabilitySpec,
     PlacementFilter,
@@ -32,7 +33,8 @@ from repro_torch.service.spec import (
 )
 
 __all__ = [
-    "AutoscalerSpec", "LatencySpec", "ObservabilitySpec", "PlacementFilter",
+    "AutoscalerSpec", "ForecastSpec", "LatencySpec", "ObservabilitySpec",
+    "PlacementFilter",
     "ReplicaPolicySpec", "ResolvedService", "ResourceSpec", "Service",
     "ServiceSpec", "ServingSpec", "SimSpec", "SpecError", "SweepSpec",
     "WorkloadSpec", "build_requests", "build_service",

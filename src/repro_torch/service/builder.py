@@ -9,10 +9,12 @@ balancer x request tape x latency model into one engine, picked by
 data plane runs on the card (a token-model cell runs on the host engine).
 ``sim.replica_model: token`` gets the ``serving:`` section's
 ``TokenSchedulerConfig``, and the ``migration:`` section attaches to token
-cells only.  The ``observability:`` section becomes the run's
-``ObsRecorder``, shared by the engine, its cluster and its migration
-runtime, and the registry is scoped to the run while the latency model is
-built.  A prepared trace, a catalog or a shared request tape may be passed
+cells only.  The ``forecast:`` section goes to the forecast-consuming
+policies (``risk_spothedge``), and the Omniscient oracle gets its plan
+solved on the (filtered) trace before the run.  The ``observability:``
+section becomes the run's ``ObsRecorder``, shared by the engine, its
+cluster and its migration runtime, and the registry is scoped to the run
+while the latency model is built.  A prepared trace, a catalog or a shared request tape may be passed
 in.
 """
 
@@ -28,6 +30,7 @@ from repro_torch.cluster.simulator import SimConfig
 from repro_torch.cluster.traces import SpotTrace, load_trace
 from repro_torch.configs import get_config
 from repro_torch.core.autoscaler import Autoscaler, ConstantTarget, LoadAutoscaler
+from repro_torch.core.omniscient import solve_omniscient
 from repro_torch.core.policy import Policy, policy_class
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.recorder import ObsRecorder
@@ -63,8 +66,7 @@ def with_engine(spec: ServiceSpec, engine: Optional[str]) -> ServiceSpec:
     if engine is None or spec.sim.engine == engine:
         return spec
     return dataclasses.replace(
-        spec, sim=dataclasses.replace(spec.sim, engine=engine)
-    ).refuse_unported()
+        spec, sim=dataclasses.replace(spec.sim, engine=engine))
 
 
 def check_host_device(spec: ServiceSpec,
@@ -101,18 +103,33 @@ def resolve_zones(resources: ResourceSpec, trace: SpotTrace,
     return out
 
 
-def _build_policy(spec: ServiceSpec) -> Policy:
+def _build_policy(spec: ServiceSpec, trace: SpotTrace,
+                  catalog: Catalog) -> Policy:
     name = spec.replica_policy.name
     try:
         cls = policy_class(name)
     except KeyError as e:
         raise SpecError(f"replica_policy.name: {e.args[0]}") from None
     kwargs = spec.replica_policy.policy_kwargs()
+    # the forecast: section applies to forecast-consuming policies only;
+    # the vanilla cells of a mixed sweep ignore it
+    if spec.forecast is not None and getattr(cls, "uses_forecast", False):
+        kwargs.update(spec.forecast.policy_kwargs())
     try:
-        return cls(**kwargs)
+        policy = cls(**kwargs)
     except (TypeError, ValueError) as e:
         raise SpecError(f"replica_policy {name!r} rejected its knobs "
                         f"{kwargs}: {e}") from e
+    if name == "omniscient":
+        # the oracle plans over the whole trace ahead of time (offline ILP)
+        itype = spec.resources.instance_type
+        k = (catalog.od_price(itype, trace.zones[0])
+             / catalog.spot_price(itype, trace.zones[0]))
+        policy.attach_schedule(solve_omniscient(
+            trace, n_target=spec.autoscaler.target,
+            cold_start_s=spec.sim.cold_start_s, k_ratio=k,
+            avail_target=0.99))
+    return policy
 
 
 def _build_autoscaler(spec: ServiceSpec) -> Autoscaler:
@@ -202,7 +219,6 @@ def build_service(
     requests: Optional[Sequence[Request]] = None,
 ) -> ResolvedService:
     """Spec -> resolved, runnable service (a fresh engine each call)."""
-    spec.refuse_unported()
     catalog = catalog or default_catalog()
     try:
         itype = catalog.instance_type(spec.resources.instance_type)
@@ -224,7 +240,7 @@ def build_service(
         # a copy: named traces are cached for the process
         trace = dataclasses.replace(
             trace, preemption_warning_s=sim.preemption_warning_s)
-    policy = _build_policy(spec)
+    policy = _build_policy(spec, trace, catalog)
     autoscaler = _build_autoscaler(spec)
     lb = _build_lb(spec)
     reqs = list(requests) if requests is not None else build_requests(spec)

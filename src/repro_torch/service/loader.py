@@ -3,9 +3,8 @@ copy of ``repro.service.loader``.
 
 The loader is strict: unknown keys, wrong section types and out-of-range
 values raise ``SpecError`` naming the field (a ``migration:`` section's own
-checks included), and so does every section, value or axis the port cannot
-run yet (``ServiceSpec.unported``).  The
-top-level ``service:`` wrapper is optional.  YAML needs PyYAML, an
+checks included), as do an unknown policy, forecaster, model, instance
+type or trace.  The top-level ``service:`` wrapper is optional.  YAML needs PyYAML, an
 optional import; without it, JSON files and dicts still load.
 """
 
@@ -17,6 +16,7 @@ from typing import Any, Mapping
 
 from repro_torch.service.spec import (
     AutoscalerSpec,
+    ForecastSpec,
     LatencySpec,
     MigrationSpec,
     ObservabilitySpec,
@@ -141,7 +141,7 @@ def _sweep_from_dict(d: Mapping[str, Any]) -> SweepSpec:
         if key in d and not isinstance(d[key], (list, tuple)):
             raise SpecError(f"sweep.{key} must be a list, got "
                             f"{type(d[key]).__name__}")
-    for key in ("traces", "replica_models"):
+    for key in ("traces", "forecasters", "replica_models"):
         for v in d.get(key, ()):
             if not isinstance(v, str):
                 raise SpecError(f"sweep.{key} entries must be strings, got "
@@ -182,7 +182,8 @@ def spec_from_dict(d: Mapping[str, Any]) -> ServiceSpec:
                          ("latency", LatencySpec)):
             kw[key] = cls(**_pick(_section(d, key), cls, key))
         if d.get("forecast") is not None:
-            kw["forecast"] = dict(_section(d, "forecast"))
+            kw["forecast"] = ForecastSpec(
+                **_pick(_section(d, "forecast"), ForecastSpec, "forecast"))
         if d.get("migration") is not None:
             kw["migration"] = _migration_from_dict(_section(d, "migration"),
                                                    "migration")

@@ -5,15 +5,12 @@ A ``ServiceSpec`` names the model, the spot trace, the ``any_of``
 resource filter, the replica policy and its knobs, the autoscaler, the
 request workload, the latency source and the simulation horizon.  Every
 section is a frozen dataclass with the reference's fields, defaults,
-checks and ``to_dict``, so a spec the port accepts serialises to the
-reference's dict and loads in either package.
-
-What the port cannot run as the reference does is refused by name
-(``SpecError``, a ``ValueError``), never ignored: ``ServiceSpec.unported``
-lists it, and ``refuse_unported`` / ``validate`` raise on it.  That is the
-``forecast`` section, the sweep axis ``forecasters``, and the policies
-``omniscient`` and ``risk_spothedge``.  The ``observability:`` section runs
-whole (``repro_torch.obs``).
+checks and ``to_dict``, so a spec serialises to the reference's dict and
+loads in either package; a malformed one raises ``SpecError`` (a
+``ValueError``) naming the field.  The ``forecast:`` section is a
+``ForecastSpec`` that configures the forecast-consuming policies
+(``risk_spothedge``); the ``observability:`` section runs whole
+(``repro_torch.obs``).
 
 ``sim.engine`` takes the reference's names: ``vector`` is the host engine
 (the port's oracle, ``repro_torch.serving.engine``), ``legacy`` the
@@ -29,7 +26,7 @@ token cells only).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 from repro_torch.migration.config import MigrationSpec
 from repro_torch.obs.recorder import DETAIL_LEVELS
@@ -37,16 +34,15 @@ from repro_torch.serving.engine import REPLICA_MODELS
 from repro_torch.serving.latency import LATENCY_SOURCES
 
 __all__ = [
-    "AutoscalerSpec", "LatencySpec", "MigrationSpec", "ObservabilitySpec",
-    "PlacementFilter", "ReplicaPolicySpec", "ResourceSpec", "SLOBurnSpec",
-    "SLOSpec", "ServiceSpec", "ServingSpec", "SimSpec", "SpecError",
-    "SweepSpec", "WorkloadSpec",
+    "AutoscalerSpec", "ForecastSpec", "LatencySpec", "MigrationSpec",
+    "ObservabilitySpec", "PlacementFilter", "ReplicaPolicySpec",
+    "ResourceSpec", "SLOBurnSpec", "SLOSpec", "ServiceSpec", "ServingSpec",
+    "SimSpec", "SpecError", "SweepSpec", "WorkloadSpec",
 ]
 
 
 class SpecError(ValueError):
-    """A malformed spec, or one the port cannot run; the message names the
-    field."""
+    """A malformed spec; the message names the field."""
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -446,22 +442,73 @@ class SimSpec:
         return dataclasses.asdict(self)
 
 
+# ---------------------------------------------------------------------------
+# forecasting (spot-availability predictors, repro_torch.forecast)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecastSpec:
+    """Which spot-availability forecaster a risk-aware policy consults.
+
+    Only policies declaring ``uses_forecast`` (``risk_spothedge``) read the
+    section; the others ignore it, so one sweep can mix risk-aware and
+    vanilla cells.  ``name`` picks the estimator (``persistence`` /
+    ``ewma`` / ``markov``), ``horizon_s`` is the look-ahead the policy
+    prices risk over, ``risk_threshold`` / ``calm_threshold`` bound its
+    surge and trim regimes, and ``args`` goes verbatim to the forecaster's
+    constructor (``smoothing`` for ``markov``)."""
+
+    name: str = "markov"
+    horizon_s: Optional[float] = None
+    risk_threshold: Optional[float] = None
+    calm_threshold: Optional[float] = None
+    args: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        _require(bool(self.name), "forecast.name must be set")
+        _require(self.horizon_s is None or self.horizon_s > 0,
+                 f"forecast.horizon_s must be positive, got {self.horizon_s}")
+        for name in ("risk_threshold", "calm_threshold"):
+            v = getattr(self, name)
+            _require(v is None or 0.0 <= v <= 1.0,
+                     f"forecast.{name} must be a probability, got {v}")
+
+    def policy_kwargs(self) -> Dict[str, Any]:
+        """Constructor kwargs for a forecast-consuming policy."""
+        kw: Dict[str, Any] = {"forecaster": self.name}
+        if self.args:
+            kw["forecaster_args"] = dict(self.args)
+        for name in ("horizon_s", "risk_threshold", "calm_threshold"):
+            if getattr(self, name) is not None:
+                kw[name] = getattr(self, name)
+        return kw
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = _clean({"name": self.name, "horizon_s": self.horizon_s,
+                      "risk_threshold": self.risk_threshold,
+                      "calm_threshold": self.calm_threshold})
+        if self.args:
+            out["args"] = dict(self.args)
+        return out
+
+
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
     """A scenario grid ``policies x traces x workloads x seeds x
-    replica_models x migration``; an empty axis falls back to the base
-    spec's single value.  A seed overrides ``workload.seed``, a replica
-    model ``sim.replica_model`` (a request- against a token-model cell on
-    one tape), and a migration entry, a bool or a ``MigrationSpec``,
-    toggles or replaces the base spec's ``migration`` section.  The
-    reference's ``forecasters`` axis is kept as given and refused by
-    ``ServiceSpec.unported``."""
+    forecasters x replica_models x migration``; an empty axis falls back to
+    the base spec's single value.  A seed overrides ``workload.seed``, a
+    forecaster ``forecast.name`` (policies that ignore the forecast keep
+    one cell), a replica model ``sim.replica_model`` (a request- against a
+    token-model cell on one tape), and a migration entry, a bool or a
+    ``MigrationSpec``, toggles or replaces the base spec's ``migration``
+    section."""
 
     policies: Tuple[ReplicaPolicySpec, ...] = ()
     traces: Tuple[str, ...] = ()
     workloads: Tuple[WorkloadSpec, ...] = ()
     seeds: Tuple[int, ...] = ()
-    forecasters: Tuple[Any, ...] = ()
+    forecasters: Tuple[str, ...] = ()
     replica_models: Tuple[str, ...] = ()
     migration: Tuple[Union[bool, MigrationSpec], ...] = ()
 
@@ -470,14 +517,17 @@ class SweepSpec:
             _require(isinstance(m, (bool, MigrationSpec)),
                      "sweep.migration entries must be booleans or migration "
                      f"mappings, got {m!r}")
-        for rm in self.replica_models:
-            _require(rm in REPLICA_MODELS, f"sweep.replica_models entries "
-                     f"must be one of {list(REPLICA_MODELS)}, got {rm!r}")
         for tr in self.traces:
             _require(bool(tr), "sweep.traces entries must be non-empty strings")
         for s in self.seeds:
             _require(isinstance(s, int) and not isinstance(s, bool),
                      f"sweep.seeds entries must be ints, got {s!r}")
+        for fc in self.forecasters:
+            _require(bool(fc),
+                     "sweep.forecasters entries must be non-empty strings")
+        for rm in self.replica_models:
+            _require(rm in REPLICA_MODELS, f"sweep.replica_models entries "
+                     f"must be one of {list(REPLICA_MODELS)}, got {rm!r}")
 
     @property
     def size(self) -> int:
@@ -515,15 +565,10 @@ class SweepSpec:
 
 LB_NAMES = ("least_loaded", "round_robin")
 
-#: the reference's policies the port does not have yet
-POLICIES_NOT_PORTED = ("omniscient", "risk_spothedge")
-
 
 @dataclasses.dataclass(frozen=True)
 class ServiceSpec:
-    """The complete declarative description of one service run.
-    ``forecast`` holds the reference's section as given, and the port
-    refuses it."""
+    """The complete declarative description of one service run."""
 
     name: str = "service"
     model: str = "llama3.2-1b"
@@ -535,7 +580,7 @@ class ServiceSpec:
         default_factory=AutoscalerSpec)
     workload: WorkloadSpec = dataclasses.field(default_factory=WorkloadSpec)
     latency: LatencySpec = dataclasses.field(default_factory=LatencySpec)
-    forecast: Optional[Mapping[str, Any]] = None
+    forecast: Optional[ForecastSpec] = None
     serving: ServingSpec = dataclasses.field(default_factory=ServingSpec)
     observability: ObservabilitySpec = dataclasses.field(
         default_factory=ObservabilitySpec)
@@ -558,46 +603,33 @@ class ServiceSpec:
                 "including 'token'); the request-level model has no KV "
                 "state to migrate")
 
-    def unported(self) -> List[str]:
-        """What in this spec the port cannot run as the reference does, by
-        field name (empty: it runs)."""
-        out = []
-        if self.forecast is not None:
-            out.append("forecast (the forecasters and risk-aware policies)")
-        policies = [self.replica_policy.name] + [
-            p.name for p in (self.sweep.policies if self.sweep else ())]
-        for name in dict.fromkeys(policies):
-            if name in POLICIES_NOT_PORTED:
-                out.append(f"replica_policy {name!r}")
-        if self.sweep is not None and self.sweep.forecasters:
-            out.append("sweep.forecasters")
-        return out
-
-    def refuse_unported(self) -> "ServiceSpec":
-        gaps = self.unported()
-        _require(not gaps, "not ported yet, so the port refuses this spec: "
-                 + "; ".join(gaps))
-        return self
-
     def validate(self) -> "ServiceSpec":
-        """Refuse what the port cannot run, then check the fields against
-        the port's registries (policies, models, instance types, named
-        traces).  Returns self."""
+        """Check the fields against the port's registries (policies,
+        forecasters, models, instance types, named traces).  Returns
+        self."""
         from repro_torch.cluster.catalog import default_catalog
         from repro_torch.cluster.traces import TraceLibrary
         from repro_torch.configs import ARCH_IDS
         from repro_torch.core.policy import registered_policies
+        from repro_torch.forecast.base import registered_forecasters
 
-        self.refuse_unported()
         policies = registered_policies()
         _require(self.replica_policy.name in policies,
                  f"unknown replica_policy.name {self.replica_policy.name!r}; "
                  f"registered policies: {policies}")
+        forecasters = registered_forecasters()
+        if self.forecast is not None:
+            _require(self.forecast.name in forecasters,
+                     f"unknown forecast.name {self.forecast.name!r}; "
+                     f"registered forecasters: {forecasters}")
         names = TraceLibrary().names()
         if self.sweep is not None:
             for p in self.sweep.policies:
                 _require(p.name in policies, f"unknown sweep policy "
                          f"{p.name!r}; registered policies: {policies}")
+            for fc in self.sweep.forecasters:
+                _require(fc in forecasters, f"unknown sweep forecaster "
+                         f"{fc!r}; registered forecasters: {forecasters}")
             for tr in self.sweep.traces:
                 _require(tr in names or tr.endswith((".json", ".npz")),
                          f"unknown sweep trace {tr!r}; named datasets: "
@@ -633,7 +665,7 @@ class ServiceSpec:
             "load_balancer": self.load_balancer,
         }
         if self.forecast is not None:
-            out["forecast"] = dict(self.forecast)
+            out["forecast"] = self.forecast.to_dict()
         if self.migration is not None:
             out["migration"] = self.migration.to_dict()
         if self.sweep is not None:

@@ -15,6 +15,7 @@ recording (``repro_torch/serving/torchengine/recorded_matrix.json``).
 """
 
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -64,7 +65,8 @@ from repro_torch.service.builder import build_service  # noqa: E402
 from repro_torch.workloads.arrivals import Request  # noqa: E402
 
 POLICIES = ["spothedge", "even_spread", "round_robin", "static_mixture",
-            "aws_spot", "mark_like", "ondemand_only", "spot_only"]
+            "aws_spot", "mark_like", "ondemand_only", "spot_only",
+            "omniscient", "risk_spothedge"]
 TRACES = ["aws-1", "aws-2", "aws-3", "gcp-1", "cpu-ref"]
 
 
@@ -192,14 +194,15 @@ def test_synthetic_trace_is_the_references(seed, tmp_path):
 
 
 def test_policy_registry():
-    assert t_registered() == sorted(POLICIES)
-    assert set(j_registered()) - set(t_registered()) == {"omniscient",
-                                                         "risk_spothedge"}
+    assert t_registered() == sorted(POLICIES) == j_registered()
     for name in ("omniscient", "risk_spothedge"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            t_make_policy(name)
-    with pytest.raises(KeyError, match="unknown policy"):
+        assert type(t_make_policy(name)).__name__ == type(
+            j_make_policy(name)).__name__
+    with pytest.raises(KeyError) as got:
         t_make_policy("nope")
+    with pytest.raises(KeyError) as want:
+        j_make_policy("nope")
+    assert str(got.value) == str(want.value)
 
 
 def _assert_same_sim_result(got, want):
@@ -223,7 +226,19 @@ def _load_sim(mod_sim, mod_auto, make_policy, trace, policy, sim_config):
     auto = mod_auto.LoadAutoscaler(0.5, min_replicas=1, max_replicas=6,
                                    initial_target=2, upscale_delay_s=120.0,
                                    downscale_delay_s=600.0)
-    return mod_sim(trace, make_policy(policy), autoscaler=auto,
+    pol = make_policy(policy)
+    if policy == "omniscient":
+        # the oracle plans for the initial target, as run_policy_on_trace
+        # plans for its constant one
+        solve = importlib.import_module(
+            make_policy.__module__.replace("policy", "omniscient")
+        ).solve_omniscient
+        cat = (tcat if make_policy is t_make_policy else jcat).default_catalog()
+        k = (cat.od_price("p3.2xlarge", trace.zones[0])
+             / cat.spot_price("p3.2xlarge", trace.zones[0]))
+        pol.attach_schedule(solve(trace, n_target=2, cold_start_s=183.0,
+                                  k_ratio=k))
+    return mod_sim(trace, pol, autoscaler=auto,
                    config=sim_config(itype="p3.2xlarge", seed=5),
                    tick_hook=_load_feed)
 
@@ -507,9 +522,10 @@ BAD_SPECS = [
     ("workload arg", {"workload": {"args": {"burst": 2}}}, "burst"),
     ("autoscaler kind", {"autoscaler": {"kind": "predictive"}}, "predictive"),
     ("balancer", {"load_balancer": "power_of_two"}, "power_of_two"),
-    ("sweep axis", {"sweep": {"forecasters": ["markov"]}}, "forecasters"),
-    ("policy not ported", {"replica_policy": {"name": "omniscient"}},
-     "not ported yet"),
+    ("sweep forecaster", {"sweep": {"forecasters": ["oracle"]}},
+     "unknown sweep forecaster 'oracle'"),
+    ("oracle knob", {"replica_policy": {"name": "omniscient",
+                                        "overprovision": 2}}, "knobs"),
     ("unknown policy", {"sweep": {"policies": ["nope"]}}, "nope"),
     ("policy knob", {"replica_policy": {"name": "even_spread",
                                         "overprovision": 2}}, "knobs"),

@@ -1029,6 +1029,45 @@ def test_arena_sweep_on_card_equals_the_host_engine(card):
 
 
 @pytest.mark.cuda
+def test_risk_and_omniscient_sweep_on_card_equals_the_plain_version(card):
+    """Risk-aware SpotHedge under two forecasters and the Omniscient oracle
+    (its plan solved on the trace when the cell is built), their request
+    lanes through ``run_cells`` on the card in one launch: every cell
+    equal to the plain version's on the host."""
+    from repro_torch.experiments import ScenarioSuite
+    from repro_torch.serving.torchengine import engine as teng
+
+    spec = dict(golden_spec("jax"),
+                workload={"kind": "arena", "rate_per_s": 0.8, "seed": 5},
+                forecast={"name": "markov"},
+                sweep={"policies": ["risk_spothedge", "omniscient"],
+                       "forecasters": ["ewma", "markov"]})
+    spec["sim"] = dict(spec["sim"], duration_hours=1.0)
+    cells = ScenarioSuite.from_spec(spec).cells()
+    assert [c.labels.get("forecaster") for c in cells] == ["ewma", "markov",
+                                                           None]
+    assert cells[2].engine.cluster.policy.schedule is not None
+    groups = []
+    ops.reset_launch_counts()
+    got = teng.run_cells([c.engine for c in cells],
+                         [c.duration_s for c in cells], groups=groups)
+    assert ops.scenario_scan.launches == len(groups) == 1
+    assert not any(c.engine.fell_back for c in cells)
+    plain = ScenarioSuite.from_spec(spec).cells()
+    want = teng.run_cells([c.engine for c in plain],
+                          [c.duration_s for c in plain], device="cpu")
+    for a, b in zip(got, want):
+        for k in ("n_requests", "n_completed", "n_failed", "n_preemptions",
+                  "n_launch_failures", "n_retried_requests"):
+            assert getattr(a, k) == getattr(b, k), k
+        for k in ("total_cost", "cost_vs_ondemand"):
+            assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-9), k
+        assert a.availability == pytest.approx(b.availability, abs=1e-12)
+        np.testing.assert_allclose(np.sort(a.latencies_s),
+                                   np.sort(b.latencies_s), atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
 def test_mixed_matrix_on_card_runs_token_cells_on_the_host(card):
     """A request x token matrix through ``run_cells`` on the card: the
     request lanes in one ``scenario_scan`` launch, the token cells on the

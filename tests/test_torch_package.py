@@ -358,13 +358,15 @@ def test_obs_modules_fall_under_the_import_rule():
                 or os.path.join(path, "__init__.py") in scanned), mod
 
 
-# what the port still refuses, by name: the forecast section and the
-# risk-aware policies
-STILL_REFUSED = [
+# what the port refused by name until its forecast port, and now runs: the
+# forecast section, the risk-aware policy, the Omniscient oracle and the
+# forecasters axis
+ONCE_REFUSED = [
     ({"forecast": {"name": "markov"}}, "forecast"),
     ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
     ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
-    ({"sweep": {"forecasters": ["markov"]}}, "sweep.forecasters"),
+    ({"replica_policy": {"name": "risk_spothedge"},
+      "sweep": {"forecasters": ["markov", "ewma"]}}, "sweep.forecasters"),
 ]
 
 # what the port refused until its obs port, and now runs: observability at
@@ -376,14 +378,27 @@ NOW_PORTED = [
 ]
 
 
-@pytest.mark.parametrize("extra,name", STILL_REFUSED,
-                         ids=[r[1] for r in STILL_REFUSED])
-def test_unported_parts_are_still_refused_by_name(extra, name):
-    from repro_torch.service import SpecError, spec_from_dict
+@pytest.mark.parametrize("extra,name", ONCE_REFUSED,
+                         ids=[r[1] for r in ONCE_REFUSED])
+def test_once_refused_parts_run_as_the_reference(extra, name):
+    """Each part runs through the port's suite with phase B on the CPU and
+    equals the reference's vector engine, cell for cell."""
+    from repro.experiments import ScenarioSuite as JScenarioSuite
+    from repro_torch.experiments import ScenarioSuite
 
-    with pytest.raises(SpecError, match="not ported") as e:
-        spec_from_dict({**_JAX_SPEC, **extra})
-    assert name in str(e.value)
+    d = {**_JAX_SPEC, **extra, "sim": {"duration_hours": 0.5}}
+    got = ScenarioSuite.from_spec(d).run(device="cpu")
+    want = JScenarioSuite.from_spec(d).run(engine="vector")
+    assert [c.labels for c in got.cells] == [c.labels for c in want.cells]
+    for a, b in zip(got.cells, want.cells):
+        for k in ("n_requests", "n_completed", "n_failed", "n_preemptions",
+                  "n_launch_failures"):
+            assert getattr(a, k) == getattr(b, k), k
+        for k in ("total_cost", "cost_vs_ondemand", "availability"):
+            assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-9), k
+        for k in ("p50_s", "p99_s"):
+            assert getattr(a, k) == pytest.approx(getattr(b, k), abs=1e-6), k
+    assert got.oracle_reruns == []
 
 
 @pytest.mark.parametrize("extra,name", NOW_PORTED,
@@ -395,7 +410,6 @@ def test_ported_observability_sections_are_accepted_and_run(extra, name,
     obs = dict(extra["observability"], out_dir=str(tmp_path))
     spec = spec_from_dict({**_JAX_SPEC, "observability": obs,
                            "sim": {"duration_hours": 0.25, "engine": "jax"}})
-    assert spec.unported() == [], name
     svc = Service(spec)
     res = svc.run(device="cpu")
     assert res.obs is not None and res.obs.events
@@ -407,37 +421,45 @@ def test_ported_observability_sections_are_accepted_and_run(extra, name,
         assert res.obs.slo_burn.target == 0.9
 
 
-def test_suite_workers_are_still_refused():
+def test_suite_workers_fan_out_on_the_host_only():
+    """``workers`` fans host-engine cells out over processes (the report
+    says how many); under the card engine the batch is the parallelism, the
+    count is ignored and the report says 1, as the reference's does."""
     from repro_torch.experiments import ScenarioSuite
     from repro_torch.service import SpecError
 
-    suite = ScenarioSuite.from_spec(dict(_JAX_SPEC, sweep={"seeds": [0, 1]}))
-    with pytest.raises(SpecError, match="fan-out"):
-        suite.run(workers=2, device="cpu")
+    d = dict(_JAX_SPEC, sim={"duration_hours": 0.25},
+             sweep={"seeds": [0, 1]})
+    suite = ScenarioSuite.from_spec(d)
+    host = suite.run(engine="vector", workers=2)
+    card = suite.run(workers=2, device="cpu")
+    assert (host.workers, card.workers) == (2, 1)
+    assert [c.total_cost for c in host.cells] == pytest.approx(
+        [c.total_cost for c in card.cells], abs=1e-9)
+    with pytest.raises(SpecError, match="workers must be an int"):
+        suite.run(engine="vector", workers=0)
 
 
-def test_listing1_is_refused_only_for_its_unported_parts():
-    """``examples/service.yaml`` names its forecast section and its
-    risk-aware policy; without them, its token model, its migration section
-    and its observability at detail ``full`` build on the port."""
+def test_listing1_builds_whole():
+    """``examples/service.yaml``, its forecast section and risk-aware
+    policy included, builds on the port: the policy consults the Markov
+    forecaster at the section's horizon and thresholds, and the token
+    model, the migration section and observability at detail ``full``
+    are wired as before."""
     yaml = pytest.importorskip("yaml")
-    from repro_torch.service import SpecError, build_service, spec_from_dict
+    from repro_torch.service import build_service, spec_from_dict
 
     with open(os.path.join(ROOT, "examples", "service.yaml")) as f:
         d = yaml.safe_load(f)["service"]
-    with pytest.raises(SpecError) as e:
-        spec_from_dict(d)
-    msg = str(e.value)
-    for part in ("forecast", "risk_spothedge"):
-        assert part in msg, part
-    for part in ("migration", "replica_model", "token", "observability"):
-        assert part not in msg, part
-    d = {k: v for k, v in d.items() if k != "forecast"}
-    d["replica_policy"] = dict(d["replica_policy"], name="spothedge")
     spec = spec_from_dict(d)
+    assert spec.replica_policy.name == "risk_spothedge"
     assert spec.sim.replica_model == "token" and spec.migration.enabled
     assert spec.observability.detail == "full"
     resolved = build_service(spec)
+    pol = resolved.policy
+    assert (pol.name, pol.forecaster.name, pol.horizon_s, pol.risk_threshold,
+            pol.calm_threshold, pol.n_extra) == (
+        "risk_spothedge", "markov", 450.0, 0.6, 0.06, 2)
     sim = resolved.simulator
     assert sim.replica_model == "token" and sim._mig_rt is not None
     assert resolved.obs is sim.obs and sim._mig_rt.obs is sim.obs

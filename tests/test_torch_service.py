@@ -320,7 +320,8 @@ def test_to_dict_and_loaders_are_the_references(name, tmp_path):
                                      "WorkloadSpec", "LatencySpec",
                                      "ServingSpec", "SLOSpec",
                                      "ObservabilitySpec", "SLOBurnSpec",
-                                     "SimSpec", "SweepSpec", "ServiceSpec"])
+                                     "SimSpec", "ForecastSpec", "SweepSpec",
+                                     "ServiceSpec"])
 def test_sections_have_the_references_fields_and_defaults(section):
     port, ref = getattr(__import__("repro_torch.service.spec",
                                    fromlist=[section]), section), \
@@ -338,13 +339,14 @@ BAD = [
       "sim": {"replica_model": "request"}}, "conflicts with sim.replica_model"),
     ({"serving": {"prefill_chunk_tokens": 0}}, "prefill_chunk_tokens"),
     ({"serving": {"slo": {"ttft_s": 0.0}}}, "serving.slo"),
-    ({"forecast": {"name": "markov"}}, "forecast"),
+    ({"forecast": {"horizon_s": -5.0}}, "forecast"),
     ({"migration": {"compression": "zstd"}}, "migration"),
     ({"migration": {"enabled": True}}, "requires the token-level engine"),
     ({"observability": {"detail": "verbose"}}, "observability.detail"),
     ({"observability": {"slo_burn": {"target": 1.5}}}, "slo_burn"),
-    ({"replica_policy": {"name": "risk_spothedge"}}, "risk_spothedge"),
-    ({"sweep": {"policies": ["omniscient"]}}, "omniscient"),
+    ({"sweep": {"forecasters": ["markov", "risk_spothedge"]}},
+     "unknown sweep forecaster 'risk_spothedge'"),
+    ({"forecast": {"name": "omniscient"}}, "unknown forecast.name"),
     ({"sweep": {"replica_models": ["block"]}}, "sweep.replica_models"),
     ({"sweep": {"migration": ["yes"]}}, "sweep.migration"),
     ({"workload": {"kind": "trace"}}, "workload.kind"),
@@ -379,7 +381,6 @@ def test_loader_accepts_ported_observability(extra, name, tmp_path):
     d["sim"] = dict(d["sim"], duration_hours=0.25)
     obs = dict(extra["observability"], out_dir=str(tmp_path))
     spec = spec_from_dict({**d, "observability": obs})
-    assert spec.unported() == [], name
     want = j_spec_from_dict({**d, "observability": obs})
     assert spec.to_dict() == want.to_dict()
     svc = TService(spec, engine="vector")
@@ -390,19 +391,19 @@ def test_loader_accepts_ported_observability(extra, name, tmp_path):
     assert res.obs.slo_burn.target == spec.observability.slo_burn.target
 
 
-def test_example_service_yaml_names_its_unported_sections():
-    """Listing 1 is refused for its forecast section and its risk-aware
-    policy only: its token model, its migration section and its
-    observability at detail ``full`` are ported."""
+def test_example_service_yaml_loads_as_the_references():
+    """Listing 1 loads whole, its forecast section and risk-aware policy
+    included, into the reference's spec."""
     pytest.importorskip("yaml")
-    with pytest.raises(SpecError) as e:
-        spec_from_yaml(os.path.join(ROOT, "examples", "service.yaml"))
-    msg = str(e.value)
-    for part in ("forecast", "risk_spothedge"):
-        assert part in msg, part
-    for part in ("migration", "replica_model", "token", "serving",
-                 "observability"):
-        assert part not in msg, part
+    from repro.service import spec_from_yaml as j_spec_from_yaml
+
+    path = os.path.join(ROOT, "examples", "service.yaml")
+    got, want = spec_from_yaml(path), j_spec_from_yaml(path)
+    assert got.to_dict() == want.to_dict()
+    assert got.forecast.to_dict() == {"name": "markov", "horizon_s": 450,
+                                      "risk_threshold": 0.6,
+                                      "calm_threshold": 0.06}
+    assert got.replica_policy.name == "risk_spothedge"
 
 
 def test_malformed_inputs():
@@ -592,7 +593,7 @@ def test_suite_is_the_references_cell_for_cell(engine, tmp_path):
         "even_spread/gcp-1/poisson/0"
 
 
-def test_suite_shares_tapes_and_refuses_workers():
+def test_suite_shares_tapes_and_fans_out():
     suite = TSuite.from_spec(sweep_dict(workloads=()))
     assert len(suite) == 4 and len({sc.tape_key for sc in suite.scenarios}) == 1
     tapes = [suite._tape(sc) for sc in suite.scenarios]
@@ -600,12 +601,23 @@ def test_suite_shares_tapes_and_refuses_workers():
     cells = suite.cells()
     arr = [[r.arrival_s for r in c.engine.requests] for c in cells]
     assert all(a == arr[0] for a in arr)
-    with pytest.raises(SpecError, match="fan-out"):
-        suite.run(workers=4)
+    # the workers share the suite's tapes: each payload carries its own
     d = sweep_dict(workloads=())
+    d["service"]["sim"]["duration_hours"] = 0.5
     d["service"]["forecast"] = {"name": "markov"}
-    with pytest.raises(SpecError, match="not ported"):
-        TSuite.from_spec(d)
+    suite = TSuite.from_spec(d)
+    report = suite.run(engine="vector", workers=4)
+    want = JSuite.from_spec(d).run(engine="vector", workers=None)
+    assert report.workers == 4 and want.workers == 1
+    assert len(suite._tapes) == 1
+    for a, b in zip(report.cells, want.cells):
+        assert a.labels == b.labels
+        for k in REPORT_FIELDS:
+            x, y = getattr(a, k), getattr(b, k)
+            if isinstance(y, float):
+                assert x == pytest.approx(y, abs=TOL, nan_ok=True), k
+            else:
+                assert x == y, k
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +657,7 @@ def test_cli_status_and_sweep(tmp_path, monkeypatch, capsys, engine):
 
 @pytest.mark.parametrize("spec,fragment", [
     ({"sim": {"duration_hours": -1}}, "duration_hours"),
-    ({"forecast": {"name": "markov"}}, "forecast"),
+    ({"forecast": {"name": "prophet"}}, "forecast"),
     ({"bogus": 1}, "bogus"),
 ])
 def test_cli_malformed_spec_exits_2(tmp_path, capsys, spec, fragment):
@@ -662,17 +674,22 @@ def test_cli_workers_needs_sweep(tmp_path, capsys):
     assert rc == 2 and "--workers requires --sweep" in capsys.readouterr().err
 
 
-def test_cli_refuses_the_token_model(tmp_path, capsys):
-    """``--replica-model token`` runs now; what the CLI still refuses with
-    it is an unported section, named, and not the token model."""
+def test_cli_runs_the_token_model_with_a_forecast(tmp_path, capsys):
+    """``--replica-model token`` runs, and so does a forecast section with
+    the risk-aware policy: the summary line is the reference CLI's."""
+    from repro.launch import serve as jserve
+
     d = golden_dict("spothedge")
     d["sim"]["duration_hours"] = 0.5
     assert tserve.main(["--spec", _spec_file(tmp_path, d), "--engine",
                         "vector", "--replica-model", "token"]) == 0
     assert "ttft_p50=" in capsys.readouterr().out
-    rc = tserve.main(["--spec", _spec_file(tmp_path, dict(
-        d, forecast={"name": "markov"})), "--engine", "vector",
-        "--replica-model", "token"])
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 2 and len(err) == 1 and "forecast" in err[0]
-    assert "replica_model" not in err[0]
+    path = _spec_file(tmp_path, dict(
+        d, forecast={"name": "markov"},
+        replica_policy={"name": "risk_spothedge"}))
+    args = ["--spec", path, "--engine", "vector", "--replica-model", "token"]
+    assert tserve.main(args) == 0
+    got = capsys.readouterr().out.strip().splitlines()
+    assert jserve.main(args) == 0
+    want = capsys.readouterr().out.strip().splitlines()
+    assert "ttft_p50=" in got[-1] and got[1:] == want[1:]
