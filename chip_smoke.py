@@ -153,6 +153,19 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    and on (b)'s sweep (``--sweep --engine vector --workers 4``), exit 0.
    Part (e), the migration matrix uncut, is 5c (b).  The phase's launches
    are added to ``scenario_scan``'s count on the kernels line;
+5f. trains on the card (``phase_train``), the reference's train path,
+   which reaches none of the five kernels: (a) full-width llama3.2-1b
+   (seeded bf16 weights, fp32 AdamW moments) through ``build_train_step``
+   (``impl="blockwise"``, remat, 2 microbatches) on ``make_batch``
+   batches of B = 4, S = 128, 5 steps and then 3 with int8 error-feedback
+   compression: every loss and grad norm finite, every weight matrix
+   changed, the five launch counters 0 across the phase; each step's loss
+   (the first beside ln V), grad norm, wall, tokens/s and peak memory
+   printed; (b) llama3.2-1b at full width with 2 layers in float32, one
+   train step on the card and one on the CPU from the same weights and
+   batch (B = 2, S = 64): loss and every parameter within 1e-5 relative;
+   (c) the train CLI in-process, 6 smoke steps with a checkpoint every 3
+   into ``chiprun_out/train`` and then 9, which must resume from step 6;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -179,8 +192,14 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    launched exactly as often as the model's path says.  One request of the
    longest prompt then decodes 32 steps eagerly and 32 by replay from the
    same prefill: the tokens must be equal (the largest logit difference is
-   printed) and a replay must hold one decode step's launches.  For the MoE
-   model one full-width MoE layer is held kernel against plain.  Prefill
+   printed) and a replay must hold one decode step's launches.  A prefill
+   step of S = 1024 tokens (whisper-medium: 224, with 1500 frames) is
+   captured (``build_prefill_step``) and one replay held against one
+   eager prefill of the same tokens into a fresh cache: logits and every
+   cache tensor equal to the bit, or else within the reference's bf16
+   tolerance with the largest differences printed; the replay must add
+   exactly one prefill's launches; eager and replay walls printed.  For
+   the MoE model one full-width MoE layer is held kernel against plain.  Prefill
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
    one prefill plus eight decode steps, eager and replayed, are profiled;
@@ -3001,6 +3020,235 @@ def phase_forecast() -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# Phase 5f: training on the card (no kernel), and step 6's prefill step
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 128          # the reference train CLI's defaults
+TRAIN_OUT = ROOT / "chiprun_out" / "train"
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def train_full_width() -> None:
+    """(a) llama3.2-1b at full width, bf16 weights from seed 0, through
+    ``build_train_step`` (blockwise, remat, fp32 moments, 2 microbatches)
+    on ``make_batch`` batches of B = 4, S = 128: 5 steps, then 3 with int8
+    error-feedback compression on the same parameters and state.  Every
+    loss and grad norm finite, every weight matrix changed, no kernel
+    launched.  Warmup 1, so the first steps move bf16 weights at all: an
+    update of lr x ~1 must pass half a bf16 step of the weight (3.9e-5 at
+    0.02); the RMSNorm scales at 1.0 need 3.9e-3 and stay, as they do in
+    the reference, whose update is cast to bf16 too (their count is
+    printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training import AdamWConfig, make_batch, make_train_step
+
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = build_train_step(cfg, microbatches=2,
+                            opt_cfg=AdamWConfig(warmup_steps=1),
+                            generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    model = step.model
+    if model.num_params() != FULL_PARAMS["llama3.2-1b"]:
+        raise AssertionError(f"train model has {model.num_params():,} params")
+    log(f"train [{card_line()}] llama3.2-1b {model.num_params():,} params bf16, "
+        f"fp32 m/v, impl={model.impl} remat={model.remat}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    before = {k: p.detach().clone() for k, p in step.params.items()}
+    compressed = make_train_step(model, step.opt_cfg, microbatches=2,
+                                 compress_grads=True)
+    ops.reset_launch_counts()
+    for i in range(8):
+        batch = make_batch(cfg, TRAIN_B, TRAIN_S, seed=0, step=i, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch) if i < 5 else compressed(step.opt_state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        wall = time.perf_counter() - t0
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train step {i}: loss {loss} grad norm {gnorm}")
+        first = f" (ln V = {math.log(cfg.vocab_size):.4f})" if i == 0 else ""
+        log(f"train [{card_line()}] step {i} "
+            f"{'compressed ' if i >= 5 else ''}loss {loss:.4f}{first} "
+            f"grad_norm {gnorm:.4f} wall_s {wall:.4f} "
+            f"tokens/s {TRAIN_B * TRAIN_S / wall:.1f} peak_GiB "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    if int(step.opt_state["step"]) != 8:
+        raise AssertionError(f"optimizer step {int(step.opt_state['step'])}, want 8")
+    same = [k for k, p in step.params.items() if torch.equal(p, before[k])]
+    if any(step.params[k].dim() > 1 for k in same):
+        raise AssertionError(f"weight matrices did not change: {same[:3]}")
+    log(f"train parameters changed: {len(step.params) - len(same)} of "
+        f"{len(step.params)} (unchanged: {len(same)} vectors, e.g. "
+        f"{same[:2]})")
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the train path launched kernels: {counts}")
+    log(f"train launches over the 8 steps (want all 0): {json.dumps(counts)}")
+    del step, compressed, model, before
+
+
+def train_card_vs_cpu() -> None:
+    """(b) llama3.2-1b at full width with 2 layers, float32 weights from a
+    CPU seed, one train step on the card and one on the CPU on the same
+    batch (B = 2, S = 64, float32 activations, TF32 off), the reference's
+    default AdamW (lr 3e-6 at step 1): the loss and each parameter (by the
+    norm of its difference) within 1e-5 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training import make_batch
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    kw = dict(microbatches=1, param_dtype=torch.float32, dtype=torch.float32)
+    cpu = build_train_step(cfg, device="cpu", **kw,
+                           generator=torch.Generator().manual_seed(0))
+    card = build_train_step(cfg, device="cuda", **kw)
+    card.model.load_state_dict(cpu.model.state_dict())
+    start = {k: p.detach().clone() for k, p in cpu.params.items()}
+    batch = make_batch(cfg, 2, 64, seed=3, device="cpu", dtype=torch.float32)
+    t0 = time.perf_counter()
+    m_cpu = cpu(batch)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_card = card({k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    worst, worst_delta = ("", 0.0), ("", 0.0)
+    for k, p in cpu.params.items():
+        got, p = card.params[k].detach().cpu(), p.detach()
+        rel = float((got - p).norm() / p.norm())
+        delta = float((got - p).norm() / (p - start[k]).norm().clamp_min(1e-30))
+        worst = max(worst, (k, rel), key=lambda t: t[1])
+        worst_delta = max(worst_delta, (k, delta), key=lambda t: t[1])
+    log(f"train card vs cpu [{card_line()}] llama3.2-1b full width, 2 layers, "
+        f"fp32, B=2 S=64: loss card {float(m_card['loss']):.7f} cpu "
+        f"{float(m_cpu['loss']):.7f} (rel {loss_err:.3g}), grad_norm card "
+        f"{float(m_card['grad_norm']):.6f} cpu {float(m_cpu['grad_norm']):.6f}; "
+        f"largest parameter difference / its norm {worst[1]:.3g} ({worst[0]}), "
+        f"/ its update's norm {worst_delta[1]:.3g} ({worst_delta[0]}); step "
+        f"wall card {card_s:.3f} s, cpu {cpu_s:.3f} s; tol 1e-5")
+    if loss_err > 1e-5 or worst[1] > 1e-5:
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def train_cli() -> None:
+    """(c) The train CLI in-process: smoke llama3.2-1b, 6 steps with a
+    checkpoint every 3 into ``chiprun_out/train``, then 9 steps, which must
+    resume from step 6."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    argv = ["--scale", "smoke", "--ckpt-dir", str(TRAIN_OUT), "--ckpt-every", "3"]
+    first = in_process(train.main, argv + ["--steps", "6"], "train CLI")
+    second = in_process(train.main, argv + ["--steps", "9"], "train CLI")
+    for line in (first + second).splitlines():
+        log(f"train CLI [{card_line()}] | {line}")
+    if "resumed" in first or "[train] resumed from step 6" not in second:
+        raise AssertionError("the train CLI did not resume from step 6")
+
+
+def phase_train() -> None:
+    """Training on the card: (a), (b), (c) above."""
+    t0 = time.perf_counter()
+    train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cli()
+    log(f"train phase {time.perf_counter() - t0:.1f} s wall")
+
+
+PREFILL_STEP_S = {"whisper-medium": 224}
+
+
+@torch.inference_mode()
+def check_prefill_step(fleet: Fleet) -> None:
+    """Step 6's prefill step: a prefill of S = 1024 tokens (whisper-medium:
+    224, with its 1500 frames) at batch 1 captured by
+    ``build_prefill_step`` into a cache of the fleet's slots.  One replay
+    against one eager ``model.prefill`` of the same tokens into a fresh
+    cache: logits and every cache tensor equal to the bit, or else the
+    largest differences printed and held to the reference's bf16
+    tolerance (0.02 + 0.004 x max |logit|); a replay must add exactly the
+    launches the capture counted, one prefill's worth.  Eager and replay
+    walls printed side by side (3 of each, host clock around a sync)."""
+    from repro_torch.launch.steps import build_prefill_step
+
+    model, cfg = fleet.model, fleet.model.cfg
+    S = PREFILL_STEP_S.get(cfg.name, PREFILL_S)
+    tokens = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, S))).cuda()
+    frames = None
+    if fleet.frames is not None:
+        frames = next(iter(fleet.frames.values())).to(torch.bfloat16)
+    inputs = dict(frames=frames) if frames is not None else {}
+    t0 = time.perf_counter()
+    step = build_prefill_step(model, model.init_cache(1, fleet.max_len), S)
+    capture_s = time.perf_counter() - t0
+    want = expected_launches(model, types.SimpleNamespace(
+        prefills=1, decode_steps=0, prefill_lens=[S]))
+    if step.launches != want:
+        raise AssertionError(f"{cfg.name}: the captured prefill holds "
+                             f"{step.launches}, want {want}")
+
+    def eager(cache):
+        args = (frames, tokens) if frames is not None else (tokens,)
+        return model.prefill(*args, cache)[0]
+
+    eager_cache = model.init_cache(1, fleet.max_len)
+    want_logits = eager(eager_cache)
+    before = launch_counts()
+    got = step(tokens, **inputs)
+    after = launch_counts()
+    added = {k: after[k] - before[k] for k in after}
+    if added != step.launches:
+        raise AssertionError(f"{cfg.name}: a replay added {added}, the capture "
+                             f"counted {step.launches}")
+    diffs = {"logits": (got.float() - want_logits.float()).abs().max().item()}
+    theirs = dict(_cache_tensors(eager_cache))
+    for k, t in _cache_tensors(step.cache):
+        diffs[k] = (t.float() - theirs[k].float()).abs().max().item()
+    bitwise = torch.equal(got, want_logits) and all(
+        torch.equal(t, theirs[k]) for k, t in _cache_tensors(step.cache))
+    walls = {"eager": [], "replay": []}
+    for _ in range(3):
+        for name, fn in (("eager", lambda: eager(model.init_cache(1, fleet.max_len))),
+                         ("replay", lambda: step(tokens, **inputs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+    tols = {"logits": 0.02 + 0.004 * want_logits.float().abs().max().item()}
+    tols.update({k: 0.02 + 0.004 * t.float().abs().max().item()
+                 for k, t in theirs.items()})
+    log(f"{cfg.name} prefill step [{card_line()}] S={S} (capture {capture_s:.3f} s): "
+        f"replay vs eager equal to the bit: {bitwise}; largest |difference| "
+        + json.dumps({k: float(f"{v:.4g}") for k, v in diffs.items()})
+        + f"; launches per replay {json.dumps(step.launches)}; wall ms eager "
+        f"{[round(w, 3) for w in walls['eager']]} replay "
+        f"{[round(w, 3) for w in walls['replay']]}")
+    over = {k: v for k, v in diffs.items() if v > tols[k]}
+    if over:
+        raise AssertionError(f"{cfg.name}: the replayed prefill differs from "
+                             f"eager past the bf16 tolerance: {over}")
+    del step, eager_cache
+
+
 def check_kv_bytes(fleet: Fleet) -> None:
     """The KV bytes a cached token takes in the card's cache (K and V only,
     not ``len``), against what the token model assumes,
@@ -3038,6 +3286,7 @@ def serve_path(arch: str) -> dict:
     gc.collect()          # the fleet's replicas: their caches and graphs
     torch.cuda.empty_cache()
     check_replay(fleet)
+    check_prefill_step(fleet)
     if fleet.model.cfg.is_moe:
         check_moe_layer(fleet.model, fleet.prompts)
     compare_prefill_logits(fleet)
@@ -3086,6 +3335,7 @@ def main() -> int:
     phase_obs()
     forecast = phase_forecast()
     stop_worker_servers()
+    phase_train()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
     launches = {"flash_attention": llama["flash_attention"],

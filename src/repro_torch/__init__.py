@@ -1,6 +1,7 @@
-"""PyTorch / CUDA port of SkyServe for NVIDIA Hopper: the model data plane,
-the scenario engine, and the control plane it runs on (the spot traces, the
-cluster simulator, SpotHedge and its baselines, the autoscalers).
+"""PyTorch / CUDA port of SkyServe for NVIDIA Hopper: the model data plane
+and its train path, the scenario engine, and the control plane it runs on
+(the spot traces, the cluster simulator, SpotHedge and its baselines, the
+autoscalers).
 
 A sibling of the JAX package ``repro``, which stays the reference.  This
 package imports ``torch`` and numpy only: never ``jax`` and nothing from

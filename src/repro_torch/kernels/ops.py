@@ -10,6 +10,13 @@ version; a CUDA tensor launches the hand-written CUDA kernel, which raises on
 what it does not take.  Nothing falls back from the kernel to the plain
 version.  Each wrapper counts its kernel launches in ``<wrapper>.launches``,
 so a run can show that its main path went through the kernels.
+
+The kernels have no backward, and a launch writes its output through
+ctypes, outside autograd.  So a model wrapper refuses, on any device, an
+input that requires grad while grad mode is on: the gradient would stop at
+the kernel without a word.  A model trains under ``impl="blockwise"``, the
+reference's train path, which reaches no kernel (as the reference's train
+path reaches no ``pallas_call``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,15 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"inputs on devices {sorted(kinds)}; need all CPU or all CUDA")
 
 
+def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the hand-written kernel "
+            "has no backward (its output would carry no grad_fn); train "
+            "with impl='blockwise', or run under torch.no_grad()")
+
+
 def flash_attention(
     q: torch.Tensor,              # model layout (B, S, H, D)
     k: torch.Tensor,              # (B, S, Kv, D)
@@ -44,6 +60,7 @@ def flash_attention(
     window: Optional[int] = None,
     prefix_len: int = 0,
 ) -> torch.Tensor:
+    _refuse_grad("flash_attention", q, k, v)
     if _on_cpu(q, k, v):
         return _fa.plain(q, k, v, causal=causal, window=window,
                          prefix_len=prefix_len)
@@ -63,6 +80,7 @@ def flash_decode(
     *,
     kv_valid: torch.Tensor,       # (B, S)
 ) -> torch.Tensor:
+    _refuse_grad("flash_decode", q, k_cache, v_cache)
     if _on_cpu(q, k_cache, v_cache, kv_valid):
         return _fd.plain(q, k_cache, v_cache, kv_valid)
     out = _fd.launch(q, k_cache, v_cache, kv_valid)
@@ -83,6 +101,7 @@ def selective_scan(
     The reference halves ``block_c`` until it divides C: that is the TPU
     kernel's (block_c, N) VMEM tiling.  The CUDA kernel gives each (c, n)
     element its own thread and takes any C, so there is no block size."""
+    _refuse_grad("selective_scan", a, b, h0)
     if _on_cpu(a, b, h0):
         return _ss.plain(a, b, h0)
     out = _ss.launch(a, b, h0)
@@ -107,6 +126,7 @@ def moe_gmm(
     The reference pads C, D and F to its 128/512 blocks: that is the TPU
     kernel's MXU tiling.  The CUDA kernel masks ragged edges itself, so
     nothing is padded or copied."""
+    _refuse_grad("moe_gmm", x, w)
     if _on_cpu(*(t for t in (x, w, rows) if t is not None)):
         return _gmm.plain(x, w, rows)
     out = _gmm.launch(x, w, rows)
@@ -134,6 +154,8 @@ def moe_ffn(
     device."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    if impl == "kernel":
+        _refuse_grad("moe_ffn", xe, wi, wg, wo)
     gmm = moe_gmm if impl == "kernel" else _gmm.plain
     a = activation(act)
     h = gmm(xe, wi, rows)

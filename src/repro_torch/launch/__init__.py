@@ -1,3 +1,4 @@
 """Launch-side entry points of the port (counterpart of ``repro.launch``):
-the serve step, captured as a CUDA graph on the card (``steps``), and the
-service CLI (``serve``)."""
+the serve, prefill and train steps (``steps``; the serve and prefill steps
+captured as CUDA graphs on the card), the service CLI (``serve``) and the
+train CLI (``train``)."""

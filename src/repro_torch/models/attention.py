@@ -1,14 +1,19 @@
 """Attention: GQA / sliding-window / prefix-LM, prefill + decode paths
 (counterpart of ``repro.models.attention``).
 
-Two compute paths, chosen by ``impl``:
+Three compute paths, chosen by ``impl``:
 
 * ``"kernel"`` (default) goes through ``repro_torch.kernels.ops``: the
   hand-written CUDA kernels for CUDA tensors, their plain versions for CPU
-  tensors.
+  tensors.  The kernels have no backward: their wrappers refuse inputs
+  that need a gradient.
 * ``"plain"`` runs the kernels' plain PyTorch versions on any device (fp32
   softmax and products, as in the kernels); ``chip_smoke.py`` holds the
   kernel path against it on the card.
+* ``"blockwise"`` is the reference's default and its train path:
+  ``blockwise_attention`` in full mode (online softmax over Q and KV
+  blocks in torch ops, which autograd differentiates) and
+  ``decode_attention`` in decode mode.
 
 ``naive_attention`` and ``decode_attention`` are the reference's model-level
 oracles, kept for parity with it.
@@ -34,7 +39,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, rmsnorm_spec, rope_cos_sin, rotate
 
 NEG_INF = -1e30
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "blockwise")
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +122,7 @@ def naive_attention(
         mask = mask[:, None, None]          # (B,1,1,Sq,Skv)
     else:
         mask = mask[None, None, None]
-    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqm,bmkd->bqkgd", w.to(v.dtype), v)
     return out.reshape(B, Sq, H, D)
@@ -135,11 +140,134 @@ def decode_attention(
     G = H // Kv
     qg = q.reshape(B, Kv, G, D).float()
     s = torch.einsum("bkgd,bmkd->bkgm", qg, k_cache.float()) / math.sqrt(D)
-    s = torch.where(kv_valid.bool()[:, None, None, :], s,
-                    torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(kv_valid.bool()[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgm,bmkd->bkgd", w, v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (memory-efficient) attention: the reference's train path
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(
+    q: torch.Tensor,         # (B, Sq, H, D)
+    k: torch.Tensor,         # (B, Skv, Kv, D)
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,     # (Sq,) int
+    kv_pos: torch.Tensor,    # (Skv,)
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    causal_split: int = 2,   # triangle-decomposition depth (0 = off)
+) -> torch.Tensor:
+    """Online-softmax attention over Q and KV blocks, O(q_block x
+    kv_block) live scores, in torch ops that autograd differentiates.
+
+    Causal triangle decomposition (``causal_split`` > 0, as the
+    reference): the lower-left quarter of a causal S x S square is an
+    unmasked rectangle, so the sequence is halved, the rectangle and the
+    lower-right triangle are attended apart and merged exactly through
+    their (acc, m, l) states, and the upper-left triangle recurses.
+
+    The reference visits, under a sliding window, only the KV blocks a Q
+    block's window can reach; its block list is clipped at 0 and then
+    repeats block 0 (counted two or more times when the window spans fewer
+    blocks than the sequence).  Here every KV block is visited and the
+    mask decides, which is exact in every case and O(S^2) in work."""
+    S = q.shape[1]
+    if (
+        causal_split > 0
+        and causal
+        and window is None
+        and S == k.shape[1]
+        and S >= 4 * q_block
+        and S % 2 == 0
+        and prefix_len <= S // 2     # prefix-LM: the zone in the top half
+    ):
+        h = S // 2
+        blocks = dict(q_block=q_block, kv_block=kv_block)
+        top = blockwise_attention(
+            q[:, :h], k[:, :h], v[:, :h], q_pos=q_pos[:h], kv_pos=kv_pos[:h],
+            causal=True, prefix_len=prefix_len, causal_split=causal_split - 1,
+            **blocks)
+        # every q >= h attends every kv < h (under prefix-LM too): dense
+        acc_l, m_l, l_l = _attend_raw(
+            q[:, h:], k[:, :h], v[:, :h], q_pos=q_pos[h:], kv_pos=kv_pos[:h],
+            causal=False, window=None, prefix_len=0, **blocks)
+        acc_r, m_r, l_r = _attend_raw(
+            q[:, h:], k[:, h:], v[:, h:], q_pos=q_pos[h:], kv_pos=kv_pos[h:],
+            causal=True, window=None, prefix_len=0, **blocks)
+        m = torch.maximum(m_l, m_r)
+        wl, wr = torch.exp(m_l - m), torch.exp(m_r - m)
+        l = torch.clamp(l_l * wl + l_r * wr, min=1e-20)
+        acc = acc_l * wl[..., None] + acc_r * wr[..., None]
+        B, _, Kv, G, D = acc.shape
+        bottom = (acc / l[..., None]).reshape(B, S - h, Kv * G, D).to(q.dtype)
+        return torch.cat([top, bottom], dim=1)
+    acc, m, l = _attend_raw(
+        q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+        prefix_len=prefix_len, q_block=q_block, kv_block=kv_block)
+    B, Sq, Kv, G, D = acc.shape
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(B, Sq, Kv * G, D).to(q.dtype)
+
+
+def _attend_raw(
+    q: torch.Tensor,         # (B, Sq, H, D)
+    k: torch.Tensor,         # (B, Skv, Kv, D)
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    causal: bool,
+    window: Optional[int],
+    prefix_len: int,
+    q_block: int,
+    kv_block: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalised online-softmax attention, fp32: (acc (B, Sq, Kv, G,
+    D), m (B, Sq, Kv, G), l (B, Sq, Kv, G)), so that results over disjoint
+    KV ranges merge exactly.  The reference pads Q and KV to whole blocks
+    and masks the padded KV slots; here the last block of each is its true
+    length, which adds the same nothing."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / math.sqrt(D)
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Skv)
+    qf = q.reshape(B, Sq, Kv, G, D).float()
+    kf, vf = k.float(), v.float()
+    accs, ms, ls = [], [], []
+    for q0 in range(0, Sq, q_block):
+        q1 = min(q0 + q_block, Sq)
+        qblk, qpos_i = qf[:, q0:q1], q_pos[q0:q1]
+        m = torch.full((B, Kv, G, q1 - q0), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Kv, G, q1 - q0, D), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Skv, kv_block):
+            k1 = min(k0 + kv_block, Skv)
+            s = torch.einsum("bqkgd,bmkd->bkgqm", qblk, kf[:, k0:k1]) * scale
+            mask = _pair_mask(qpos_i, kv_pos[k0:k1], causal=causal,
+                              window=window, prefix_len=prefix_len)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqm,bmkd->bkgqd", p, vf[:, k0:k1])
+            m = m_new
+        accs.append(acc.permute(0, 3, 1, 2, 4))
+        ms.append(m.permute(0, 3, 1, 2))
+        ls.append(l.permute(0, 3, 1, 2))
+    return torch.cat(accs, dim=1), torch.cat(ms, dim=1), torch.cat(ls, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +356,11 @@ def attention_apply(
                 q, k, v, causal=causal, window=cfg.sliding_window,
                 prefix_len=prefix_len,
             )
+        elif impl == "blockwise":
+            out = blockwise_attention(
+                q, k, v, q_pos=positions, kv_pos=positions, causal=causal,
+                window=cfg.sliding_window, prefix_len=prefix_len,
+            )
         else:
             out = _fa.plain(
                 q, k, v, causal=causal, window=cfg.sliding_window,
@@ -266,6 +399,8 @@ def attention_apply(
         cv.index_copy_(1, slot, v.to(cv.dtype))
         if impl == "kernel":
             out = ops.flash_decode(q, ck, cv, kv_valid=valid)
+        elif impl == "blockwise":
+            out = decode_attention(q, ck, cv, kv_valid=valid)
         else:
             out = _fd.plain(q, ck, cv, valid)
         new_cache = layer_cache

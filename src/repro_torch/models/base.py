@@ -141,7 +141,8 @@ def stack_blueprint(bp: Blueprint, layers: int) -> Blueprint:
 
 class ParamTree(nn.Module):
     """Nested parameters as an ``nn.Module``: dict leaves become
-    ``nn.Parameter``s (no gradient: the port serves), dict nodes become
+    ``nn.Parameter``s (built frozen for serving; ``requires_grad_(True)``
+    makes them trainable), dict nodes become
     child ``ParamTree``s.  ``tree["attn"]["wq"]`` reads like the
     reference's nested dicts, and ``state_dict`` keys are the dotted paths
     (``attn.wq``)."""

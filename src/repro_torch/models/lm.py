@@ -18,9 +18,25 @@ zamba2 are simplified away there, and here too.
 
 Modes
 -----
-``forward``      full-sequence hidden states
+``forward``      full-sequence hidden states (``forward_aux``: and the
+                 MoE aux loss summed over layers)
+``loss``         mean next-token CE (``chunked_ce``) + the MoE aux loss
 ``prefill``      full sequence + KV cache write, last-position logits
 ``decode_step``  one token per sequence against the carried cache
+
+Training
+--------
+The parameters are built frozen; ``model.requires_grad_(True)`` makes them
+trainable (``repro_torch.launch.steps.build_train_step`` does).  The train
+path is the reference's default, ``impl="blockwise"``: blockwise
+attention, the Mamba-1 doubling scan, the einsum MoE, all in torch ops that
+autograd differentiates (the kernel wrappers refuse inputs that need a
+gradient).  ``remat=True`` checkpoints each layer (each Mamba-2 layer and
+shared-block application of the hybrid) with
+``torch.utils.checkpoint(use_reentrant=False)``, as the reference's
+``jax.checkpoint`` of each scanned block.  A forward without a cache (the
+loss's) adds each MoE layer's Switch aux loss, as the reference's
+``forward`` does; prefill and decode drop it, as the reference does.
 
 The cache is a dict ``{"len": (), "kv": {"k", "v"}}`` with K/V of shape
 (layers, batch, slots, kv_heads, head_dim), or for the SSM family
@@ -46,6 +62,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
@@ -138,8 +155,9 @@ class TransformerLM(nn.Module):
         self,
         cfg: ModelConfig,
         *,
-        impl: str = "kernel",          # attention / MoE / scan: kernel | plain
+        impl: str = "kernel",          # attention / MoE / scan: kernel | plain | blockwise
         ssm_chunk: int = 256,          # Mamba prefill: steps per chunk
+        remat: bool = False,           # checkpoint each layer under grad
         device: Any = "cuda",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
@@ -155,6 +173,7 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.impl = impl
         self.ssm_chunk = ssm_chunk
+        self.remat = remat
 
         bp = self.blueprint()
         top = cast_params(
@@ -280,15 +299,24 @@ class TransformerLM(nn.Module):
     # ==================================================================
     # Blocks
     # ==================================================================
-    def _ffn(self, lp, h):
-        """The layer's FFN: the MLP, or the MoE layer (no aux loss: the
-        port serves)."""
+    def _layer(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, checkpointed under ``remat`` when
+        autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
+
+    def _ffn(self, lp, h, aux: bool):
+        """The layer's FFN, (y, aux loss or None): the MLP, or the MoE layer
+        with its Switch aux loss when ``aux``."""
         if self.cfg.is_moe:
-            return moe.moe_apply(lp["moe"], self.cfg, h, impl=self.impl)[0]
-        return mlp_apply(lp["mlp"], self.cfg, h)
+            return moe.moe_apply(lp["moe"], self.cfg, h, impl=self.impl,
+                                 return_aux=aux)
+        return mlp_apply(lp["mlp"], self.cfg, h), None
 
     def _attn_block(self, lp, x, *, positions, mode, layer_kv, prefix_len,
-                    rope, decode_at):
+                    rope, decode_at, aux=False):
+        """One attention layer: (x, its MoE aux loss or None)."""
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attn.attention_apply(
@@ -299,10 +327,11 @@ class TransformerLM(nn.Module):
         )
         if cfg.parallel_block:
             # command-r: attn and FFN read the SAME normed input, summed
-            return x + a + self._ffn(lp, h)
+            f, aux_l = self._ffn(lp, h, aux)
+            return x + a + f, aux_l
         x = x + a
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + self._ffn(lp, h2)
+        f, aux_l = self._ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux)
+        return x + f, aux_l
 
     def _mamba_block(self, lp, x, *, mode, state, version):
         cfg = self.cfg
@@ -336,8 +365,8 @@ class TransformerLM(nn.Module):
         """Mamba-1 layers."""
         states = None if cache is None else cache["ssm_state"]
         for i, lp in enumerate(self.layers):
-            x = self._mamba_layer(lp, x, mode=mode, states=states, at=i,
-                                  version=1)
+            x = self._layer(self._mamba_layer, lp, x, mode=mode, states=states,
+                            at=i, version=1)
         return x
 
     def _step_attention(self, x, positions, mode, cache, kv_key):
@@ -364,39 +393,45 @@ class TransformerLM(nn.Module):
         if cache is not None:
             pre, blk = cache.get("prelude_state"), cache["block_state"]
         for i, lp in enumerate(self.prelude):
-            x = self._mamba_layer(lp, x, mode=mode, states=pre, at=i,
-                                  version=2)
+            x = self._layer(self._mamba_layer, lp, x, mode=mode, states=pre,
+                            at=i, version=2)
         for b, group in enumerate(self.blocks):
             layer_kv = None
             if cache is not None:
                 layer_kv = {k: t[b] for k, t in cache["attn_kv"].items()}
-            x = self._attn_block(
-                self.shared_attn, x, positions=positions, mode=mode,
-                layer_kv=layer_kv, prefix_len=prefix_len, rope=rope,
-                decode_at=decode_at,
+            x, _ = self._layer(
+                self._attn_block, self.shared_attn, x, positions=positions,
+                mode=mode, layer_kv=layer_kv, prefix_len=prefix_len,
+                rope=rope, decode_at=decode_at,
             )
             for j, lp in enumerate(group):
-                x = self._mamba_layer(lp, x, mode=mode, states=blk,
-                                      at=(b, j), version=2)
+                x = self._layer(self._mamba_layer, lp, x, mode=mode,
+                                states=blk, at=(b, j), version=2)
         return x
 
     def _run_stack(self, x, *, positions, mode, cache, prefix_len):
+        """The layer stack: (x, the MoE aux loss summed over layers, or None
+        where no layer gave one: no MoE layer, or a cache)."""
         cfg = self.cfg
+        aux = None
         if cfg.family == "ssm":
-            return self._run_ssm_stack(x, mode=mode, cache=cache)
+            return self._run_ssm_stack(x, mode=mode, cache=cache), aux
         if cfg.family == "hybrid":
             return self._run_hybrid_stack(x, positions=positions, mode=mode,
-                                          cache=cache, prefix_len=prefix_len)
+                                          cache=cache, prefix_len=prefix_len), aux
         rope, decode_at = self._step_attention(x, positions, mode, cache, "kv")
         for i, lp in enumerate(self.layers):
             layer_kv = None
             if cache is not None:
                 layer_kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
-            x = self._attn_block(
-                lp, x, positions=positions, mode=mode, layer_kv=layer_kv,
-                prefix_len=prefix_len, rope=rope, decode_at=decode_at,
+            x, aux_l = self._layer(
+                self._attn_block, lp, x, positions=positions, mode=mode,
+                layer_kv=layer_kv, prefix_len=prefix_len, rope=rope,
+                decode_at=decode_at, aux=cache is None,
             )
-        return x
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
+        return x, aux
 
     # ==================================================================
     # Public entry points
@@ -409,6 +444,25 @@ class TransformerLM(nn.Module):
             prefix_len = prefix_embed.shape[1]
         return x, prefix_len
 
+    def forward_aux(
+        self,
+        tokens: torch.Tensor,            # (B, S)
+        *,
+        prefix_embed: Optional[torch.Tensor] = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence hidden states (B, S', d) after the final norm, and
+        the MoE aux loss summed over layers (the reference's ``forward``)."""
+        x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self._run_stack(
+            x, positions=positions, mode="full", cache=None,
+            prefix_len=prefix_len if self.cfg.prefix_lm else 0,
+        )
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
+
     def forward(
         self,
         tokens: torch.Tensor,            # (B, S)
@@ -417,13 +471,28 @@ class TransformerLM(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
     ) -> torch.Tensor:
         """Full-sequence hidden states (B, S', d) after the final norm."""
-        x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x = self._run_stack(
-            x, positions=positions, mode="full", cache=None,
-            prefix_len=prefix_len if self.cfg.prefix_lm else 0,
-        )
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.forward_aux(tokens, prefix_embed=prefix_embed,
+                                dtype=dtype)[0]
+
+    def loss(
+        self,
+        tokens: torch.Tensor,            # (B, S)
+        labels: torch.Tensor,            # (B, S): next-token targets
+        *,
+        prefix_embed: Optional[torch.Tensor] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        ce_chunk: int = 512,
+    ) -> torch.Tensor:
+        """Mean next-token CE over the text positions + the MoE aux loss,
+        an fp32 () tensor; the logits are computed ``ce_chunk`` positions
+        at a time."""
+        hidden, aux = self.forward_aux(tokens, prefix_embed=prefix_embed,
+                                       dtype=dtype)
+        if prefix_embed is not None:
+            hidden = hidden[:, prefix_embed.shape[1]:]
+        ce = chunked_ce(hidden, labels, self.cfg, embedding=self.embed,
+                        unembed=self.unembed, chunk=ce_chunk)
+        return ce + aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden(
@@ -445,7 +514,7 @@ class TransformerLM(nn.Module):
         wait for it."""
         x, prefix_len = self._embed_inputs(tokens, prefix_embed, dtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = self._run_stack(
+        x, _ = self._run_stack(
             x, positions=positions, mode="full", cache=cache,
             prefix_len=prefix_len if self.cfg.prefix_lm else 0,
         )
@@ -465,9 +534,51 @@ class TransformerLM(nn.Module):
         step advances in place at its end; nothing waits for the device."""
         x = embed_tokens(self.embed, tokens, dtype)
         positions = cache["len"].reshape(1)
-        x = self._run_stack(
+        x, _ = self._run_stack(
             x, positions=positions, mode="decode", cache=cache, prefix_len=0,
         )
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         cache["len"].add_(1)
         return self.logits(x), cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def chunked_ce(
+    hidden: torch.Tensor,     # (B, S, d)
+    labels: torch.Tensor,     # (B, S)
+    cfg: ModelConfig,
+    *,
+    embedding: Optional[torch.Tensor],
+    unembed: Optional[torch.Tensor],
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean next-token CE without materialising (B, S, V): the logits of
+    ``chunk`` positions at a time, their fp32 logsumexp less the label's
+    logit (a gather, where the reference takes a one-hot product).  Under
+    autograd each chunk is checkpointed, so its logits are recomputed in
+    the backward pass instead of kept.
+
+    The reference pads S to a whole number of chunks and counts the padded
+    positions' CE (zero hidden, label 0: log V each) in the mean over
+    B x S; here the last chunk is its true length, so the mean is over the
+    real positions only.  The two agree whenever ``chunk`` divides S or
+    exceeds it."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+
+    def part(h, lab):
+        logits = logits_from_hidden(h, cfg, embedding=embedding,
+                                    unembed=unembed).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        return (lse - logits.gather(-1, lab[..., None].long())[..., 0]).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        total = total + (checkpoint(part, h, lab, use_reentrant=False)
+                         if torch.is_grad_enabled() else part(h, lab))
+    return total / (B * S)

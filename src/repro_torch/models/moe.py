@@ -11,6 +11,9 @@ still fire).  The expert FFN runs as grouped matmuls over the expert axis
   CUDA kernel for CUDA tensors, its plain version for CPU tensors.
 * ``impl="plain"`` runs the same composition through the plain version on
   any device; ``chip_smoke.py`` holds the kernel path against it on the card.
+* ``impl="blockwise"`` is the reference model's path, the train path: the
+  expert FFN as batched einsums over the expert axis in the activation
+  dtype, every expert row computed, which autograd differentiates.
 
 The reference's model never passes ``impl`` to its ``moe_apply`` and so
 always takes the einsum path; the reference's kernel path
@@ -29,8 +32,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.base import ParamSpec, dense_spec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import activation
 
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "blockwise")
 
 
 def moe_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
@@ -63,6 +67,15 @@ def route_topk(
     weights, idx = torch.topk(gates, top_k, dim=-1)
     weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     return weights, idx
+
+
+def _einsum_ffn(xe, wi, wg, wo, act: str) -> torch.Tensor:
+    """The reference's einsum expert FFN: h = x @ wi, h = act(x @ wg) * h
+    (or act(h) without a gate), then h @ wo, per expert."""
+    a = activation(act)
+    h = torch.einsum("ecd,edf->ecf", xe, wi)
+    h = a(torch.einsum("ecd,edf->ecf", xe, wg)) * h if wg is not None else a(h)
+    return torch.einsum("ecf,efd->ecd", h, wo)
 
 
 def moe_apply(
@@ -134,11 +147,13 @@ def moe_apply(
     # rows[e]: the leading rows of xe[e] that hold tokens, the capacity count
     # clamped to C, handed over on the device (no sync): the kernel reads no
     # weight of an empty expert, 120 of 128 in a qwen3-moe decode step
-    rows = counts[:, -1].clamp(max=C).to(torch.int32)
-    ye = ops.moe_ffn(
-        xe, p["wi"].to(dt), p["wg"].to(dt) if "wg" in p else None,
-        p["wo"].to(dt), act=cfg.act, impl=impl, rows=rows,
-    )
+    wg = p["wg"].to(dt) if "wg" in p else None
+    if impl == "blockwise":
+        ye = _einsum_ffn(xe, p["wi"].to(dt), wg, p["wo"].to(dt), cfg.act)
+    else:
+        rows = counts[:, -1].clamp(max=C).to(torch.int32)
+        ye = ops.moe_ffn(xe, p["wi"].to(dt), wg, p["wo"].to(dt), act=cfg.act,
+                         impl=impl, rows=rows)
 
     # ---- combine (the same wire format on the way back) -----------------
     # The k contributions of a token are summed in a fixed order (no

@@ -13,6 +13,11 @@ by ``impl``:
   hand-written CUDA scan for CUDA tensors, its plain version for CPU tensors.
 * ``"plain"`` runs the scan's plain PyTorch version on any device;
   ``chip_smoke.py`` holds the kernel path against it on the card.
+* ``"blockwise"`` is the reference's ``impl="jnp"`` chunk step, its train
+  path: an associative scan of the (a, b) pairs within the chunk, here a
+  Hillis-Steele doubling scan in ceil(log2(chunk)) out-of-place steps,
+  which autograd differentiates (the plain version's step loop writes
+  through ``out=`` and has no backward; it stays the kernel's oracle).
 
 The reference pads the last chunk with a = 1, b = 0 up to a whole chunk;
 here the last chunk is scanned with its true length, which leaves the same
@@ -56,7 +61,7 @@ from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, rmsnorm_spec
 
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "blockwise")
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +95,22 @@ def causal_conv1d(
 # ---------------------------------------------------------------------------
 # Mamba-1
 # ---------------------------------------------------------------------------
+
+
+def doubling_scan(a: torch.Tensor, b: torch.Tensor,
+                  h0: torch.Tensor) -> torch.Tensor:
+    """Every h_t of h_t = a_t * h_{t-1} + b_t along axis 1 of a, b (B, Q,
+    C, N), from h0 (B, C, N): the prefix compositions of the pairs (a_t,
+    b_t) under (a, b) o (a', b') = (a a', b a' + b'), built by doubling
+    (step d combines each t with t - d), then applied to h0.  Out of place
+    throughout, so autograd differentiates it."""
+    Q = a.shape[1]
+    d = 1
+    while d < Q:
+        a, b = (torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1),
+                torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1))
+        d *= 2
+    return b + a * h0[:, None]
 
 
 def mamba1_blueprint(cfg: ModelConfig) -> Dict[str, Any]:
@@ -152,7 +173,8 @@ def mamba1_full(
     a, bx, Cc = _mamba1_coeffs(p, cfg, x_conv, dt)
     h = (torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
          if state is None else state["ssm"].float())
-    scan = ops.selective_scan if impl == "kernel" else _ss.plain
+    scan = {"kernel": ops.selective_scan, "plain": _ss.plain,
+            "blockwise": doubling_scan}[impl]
     y = torch.empty((B, S, di), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
         c1 = min(c0 + chunk, S)

@@ -19,8 +19,16 @@ functions those kernels replace.
 The parameters follow the reference's ``blueprint()``: ``embed``,
 ``encoder.<i>`` (``ln1``, ``attn``, ``ln2``, ``mlp``), ``enc_norm``,
 ``decoder.<i>`` (``ln1``, ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``,
-``mlp``), ``dec_norm``; the cross-attention has no biases.  The port serves:
-the training path (no cache) and ``loss`` are not ported here.
+``mlp``), ``dec_norm``; the cross-attention has no biases.
+
+Under ``impl="blockwise"`` (the reference's default and its train path)
+the encoder, the decoder's self-attention and the prompt's cross-attention
+run through ``blockwise_attention`` and decode through
+``decode_attention``, in torch ops that autograd differentiates.
+``loss`` is the reference's teacher-forced seq2seq CE: encode, the decoder
+stack without a cache (each layer's cross K/V computed from the encoder's
+output), ``dec_norm`` and ``chunked_ce`` with the tied embedding;
+``remat=True`` checkpoints each encoder and decoder layer under autograd.
 
 The cache is ``{"len", "kv": {"k", "v"}, "cross_k", "cross_v",
 "cross_valid"}``: ``len`` a () int32 on the model's device, K/V of shape
@@ -37,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as _fa
@@ -52,6 +61,7 @@ from repro_torch.models.base import (
     stack_blueprint,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import chunked_ce
 from repro_torch.models.layers import (
     embed_spec,
     embed_tokens,
@@ -126,7 +136,8 @@ class EncDecLM(nn.Module):
         self,
         cfg: ModelConfig,
         *,
-        impl: str = "kernel",          # attention: kernel | plain
+        impl: str = "kernel",          # attention: kernel | plain | blockwise
+        remat: bool = False,           # checkpoint each layer under grad
         device: Any = "cuda",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
@@ -143,6 +154,7 @@ class EncDecLM(nn.Module):
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         self.cfg = cfg
         self.impl = impl
+        self.remat = remat
 
         self.embed = nn.Parameter(
             cast_params(init_params(embed_spec(cfg), generator), dtype),
@@ -211,6 +223,21 @@ class EncDecLM(nn.Module):
     # ==================================================================
     # Encoder and cross-attention
     # ==================================================================
+    def _layer(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, checkpointed under ``remat`` when
+        autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
+
+    def _enc_layer(self, lp, x, positions):
+        cfg = self.cfg
+        h = layer_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = attn.attention_apply(lp["attn"], cfg, h, positions=positions,
+                                    mode="full", causal=False, impl=self.impl)
+        x = x + a
+        return x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
+
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_enc, d): the stub frontend's embeddings, in the
         activation dtype.  Returns the encoder's output after ``enc_norm``."""
@@ -220,11 +247,7 @@ class EncDecLM(nn.Module):
         x = frames + pos.to(frames.dtype)
         positions = torch.arange(S, device=x.device)
         for lp in self.encoder:
-            h = layer_norm(x, lp["ln1"], cfg.norm_eps)
-            a, _ = attn.attention_apply(lp["attn"], cfg, h, positions=positions,
-                                        mode="full", causal=False, impl=self.impl)
-            x = x + a
-            x = x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
+            x = self._layer(self._enc_layer, lp, x, positions)
         return layer_norm(x, self.enc_norm, cfg.norm_eps)
 
     def _cross_kv(self, p, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,46 +261,66 @@ class EncDecLM(nn.Module):
     def _cross_attend(self, p, x: torch.Tensor, ck: torch.Tensor,
                       cv: torch.Tensor,
                       valid: Optional[torch.Tensor]) -> torch.Tensor:
-        """x (B, S, d) against one layer's cached cross K/V (B, S_enc, Kv,
-        D): a decode token (``valid``, the cache's all-true mask, given)
-        through flash_decode, a prompt through non-causal flash_attention."""
+        """x (B, S, d) against one layer's cross K/V (B, S_enc, Kv, D): a
+        decode token (``valid``, the cache's all-true mask, given) through
+        flash_decode, a prompt through non-causal flash_attention (under
+        ``impl="blockwise"``: ``decode_attention``, ``blockwise_attention``,
+        as the reference)."""
         cfg = self.cfg
         B, S, d = x.shape
         h, hd = cfg.num_heads, cfg.resolved_head_dim
         dt = x.dtype
         q = (x @ p["wq"].to(dt).reshape(d, h * hd)).view(B, S, h, hd)
-        kernel = self.impl == "kernel"
-        if valid is not None:
-            out = (ops.flash_decode(q, ck, cv, kv_valid=valid) if kernel
-                   else _fd.plain(q, ck, cv, valid))
+        if self.impl == "blockwise":
+            if valid is not None:
+                out = attn.decode_attention(q, ck, cv, kv_valid=valid)
+            else:
+                out = attn.blockwise_attention(
+                    q, ck, cv, q_pos=torch.arange(S, device=x.device),
+                    kv_pos=torch.arange(ck.shape[1], device=x.device),
+                    causal=False)
+        elif valid is not None:
+            out = (ops.flash_decode(q, ck, cv, kv_valid=valid)
+                   if self.impl == "kernel" else _fd.plain(q, ck, cv, valid))
         else:
-            out = (ops.flash_attention(q, ck, cv, causal=False) if kernel
-                   else _fa.plain(q, ck, cv, causal=False))
+            out = (ops.flash_attention(q, ck, cv, causal=False)
+                   if self.impl == "kernel" else _fa.plain(q, ck, cv, causal=False))
         return out.reshape(B, S, h * hd) @ p["wo"].to(dt).reshape(h * hd, d)
 
     # ==================================================================
     # Decoder
     # ==================================================================
-    def _run_decoder(self, x, *, positions, mode, cache):
-        """The decoder stack over the cache: each layer writes its self K/V
-        in place and reads its cross K/V."""
+    def _dec_layer(self, lp, x, *, positions, mode, layer_kv, ck, cv, valid,
+                   decode_at, enc_out):
         cfg = self.cfg
+        if ck is None:      # no cache: this layer's cross K/V, as the reference
+            ck, cv = self._cross_kv(lp["cross_attn"], enc_out)
+        h = layer_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = attn.attention_apply(
+            lp["self_attn"], cfg, h, positions=positions, mode=mode,
+            layer_cache=layer_kv, impl=self.impl, decode_at=decode_at)
+        x = x + a
+        hx = layer_norm(x, lp["ln_x"], cfg.norm_eps)
+        x = x + self._cross_attend(lp["cross_attn"], hx, ck, cv, valid)
+        return x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
+
+    def _run_decoder(self, x, *, positions, mode, cache, enc_out=None):
+        """The decoder stack.  Over a cache, each layer writes its self K/V
+        in place and reads its cross K/V; without one (the loss's), each
+        layer computes its cross K/V from ``enc_out``."""
         decode_at, valid = None, None
         if mode == "decode":
             decode_at = attn.decode_slot_and_mask(
                 cache["len"], cache["kv"]["k"].shape[2], x.shape[0], False)
             valid = cache["cross_valid"]
         for i, lp in enumerate(self.decoder):
-            h = layer_norm(x, lp["ln1"], cfg.norm_eps)
-            layer_kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
-            a, _ = attn.attention_apply(
-                lp["self_attn"], cfg, h, positions=positions, mode=mode,
-                layer_cache=layer_kv, impl=self.impl, decode_at=decode_at)
-            x = x + a
-            hx = layer_norm(x, lp["ln_x"], cfg.norm_eps)
-            x = x + self._cross_attend(lp["cross_attn"], hx, cache["cross_k"][i],
-                                       cache["cross_v"][i], valid)
-            x = x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
+            layer_kv = ck = cv = None
+            if cache is not None:
+                layer_kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
+                ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+            x = self._layer(self._dec_layer, lp, x, positions=positions,
+                            mode=mode, layer_kv=layer_kv, ck=ck, cv=cv,
+                            valid=valid, decode_at=decode_at, enc_out=enc_out)
         return x
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -288,6 +331,30 @@ class EncDecLM(nn.Module):
     # ==================================================================
     # Public entry points
     # ==================================================================
+    def _embed_dec(self, tokens, dtype) -> torch.Tensor:
+        S = tokens.shape[1]
+        x = embed_tokens(self.embed, tokens, dtype)
+        return x + sinusoidal_positions(S, self.cfg.d_model, x.device).to(dtype)
+
+    def loss(
+        self,
+        frames: torch.Tensor,            # (B, S_enc, d_model)
+        tokens: torch.Tensor,            # (B, S)
+        labels: torch.Tensor,            # (B, S)
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+        ce_chunk: int = 512,
+    ) -> torch.Tensor:
+        """Teacher-forced seq2seq CE, an fp32 () tensor."""
+        enc_out = self.encode(frames.to(dtype))
+        x = self._embed_dec(tokens, dtype)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        x = self._run_decoder(x, positions=positions, mode="full", cache=None,
+                              enc_out=enc_out)
+        x = layer_norm(x, self.dec_norm, self.cfg.norm_eps)
+        return chunked_ce(x, labels, self.cfg, embedding=self.embed,
+                          unembed=None, chunk=ce_chunk)
+
     def prefill(
         self,
         frames: torch.Tensor,            # (B, S_enc, d_model)
@@ -311,8 +378,7 @@ class EncDecLM(nn.Module):
             cross_k[i].copy_(k)
             cross_v[i].copy_(v)
         S = tokens.shape[1]
-        x = embed_tokens(self.embed, tokens, dtype)
-        x = x + sinusoidal_positions(S, self.cfg.d_model, x.device).to(dtype)
+        x = self._embed_dec(tokens, dtype)
         positions = torch.arange(S, device=x.device)
         x = self._run_decoder(x, positions=positions, mode="full", cache=cache)
         cache["len"].fill_(S)

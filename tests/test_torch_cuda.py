@@ -1159,3 +1159,84 @@ def test_card_spans_equal_the_plain_versions(card):
     assert dumps_jsonl(spans) == dumps_jsonl(want.obs.span_records())
     assert dumps_jsonl(got.obs.records()) == dumps_jsonl(want.obs.records())
     assert got.metrics == want.metrics
+
+
+# ---------------------------------------------------------------------------
+# the prefill step captured as a CUDA graph, and the train path on the card
+# ---------------------------------------------------------------------------
+
+
+def _cache_tensors(cache):
+    for key, value in cache.items():
+        if isinstance(value, torch.Tensor):
+            yield key, value
+        else:
+            for name, t in value.items():
+                yield f"{key}.{name}", t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_captured_prefill_equals_eager_prefill(card, arch):
+    """Two replays (the second over the cache the first filled) each equal
+    one eager ``prefill`` into a fresh cache, logits and every cache tensor
+    to the bit; a replay adds the launches the capture counted."""
+    from repro_torch.launch.steps import build_prefill_step
+
+    model = _card_model(arch, card)
+    step = build_prefill_step(model, model.init_cache(1, 96), 80)
+    assert step.graph is not None and int(step.cache["len"]) == 0
+    with torch.inference_mode():
+        for seed in (1, 2):
+            tokens = _prompt(model, 80, card, seed=seed)
+            fresh = model.init_cache(1, 96)
+            want, _ = model.prefill(tokens, fresh)
+            before = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+            got = step(tokens)
+            torch.cuda.synchronize()
+            assert {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in ops.KERNEL_WRAPPERS} == step.launches
+            assert torch.equal(got, want), seed
+            theirs = dict(_cache_tensors(fresh))
+            for k, t in _cache_tensors(step.cache):
+                assert torch.equal(t, theirs[k]), (seed, k)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(card):
+    """A 2-layer llama3.2-1b at d_model 256 in float32 (TF32 off): one train
+    step on the card and on the CPU from the same weights and batch, loss
+    and parameters within 1e-5 relative; no kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training import make_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b").scaled(d_model=256),
+                              num_layers=2)
+    kw = dict(microbatches=2, param_dtype=torch.float32, dtype=torch.float32)
+    cpu = build_train_step(cfg, device="cpu", **kw)
+    dev = build_train_step(cfg, device=card, **kw)
+    dev.model.load_state_dict(cpu.model.state_dict())
+    batch = make_batch(cfg, 4, 32, seed=2, device="cpu", dtype=torch.float32)
+    ops.reset_launch_counts()
+    m_dev = dev({k: v.to(card) for k, v in batch.items()})
+    m_cpu = cpu(batch)
+    assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
+    assert float(m_dev["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-5)
+    for k, p in cpu.params.items():
+        got = dev.params[k].detach().cpu()
+        assert float((got - p.detach()).norm()) <= 1e-5 * float(p.detach().norm()), k
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_the_card(card):
+    q = torch.randn(1, 64, 4, 64, device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 64, 4, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == q.shape

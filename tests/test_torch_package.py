@@ -490,3 +490,50 @@ def test_legacy_engine_is_a_host_request(no_cuda, tmp_path):
         Service(token).run()
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--spec", str(host), "--replica-model", "token"])
+
+
+# ---------------------------------------------------------------------------
+# the train path: training, distributed, the train CLI, launch.steps
+# ---------------------------------------------------------------------------
+
+TRAIN_MODULES = (
+    "repro_torch.training",
+    "repro_torch.training.data",
+    "repro_torch.training.optimizer",
+    "repro_torch.training.train_loop",
+    "repro_torch.distributed",
+    "repro_torch.distributed.checkpoint",
+    "repro_torch.distributed.compression",
+    "repro_torch.launch.steps",
+    "repro_torch.launch.train",
+)
+
+
+def test_train_modules_fall_under_the_import_rule():
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(TRAIN_MODULES) <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in TRAIN_MODULES:
+        path = mod.replace(".", os.sep)
+        assert (path + ".py" in scanned
+                or os.path.join(path, "__init__.py") in scanned), mod
+
+
+def test_train_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training import make_batch
+
+    cfg = t_smoke("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(cfg, 1, 4)
+    assert make_batch(cfg, 1, 4, device="cpu")["tokens"].device.type == "cpu"
