@@ -166,6 +166,21 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    batch (B = 2, S = 64): loss and every parameter within 1e-5 relative;
    (c) the train CLI in-process, 6 smoke steps with a checkpoint every 3
    into ``chiprun_out/train`` and then 9, which must resume from step 6;
+5g. the mesh on the card (``phase_mesh``): a 1x1 mesh over an NCCL process
+   group of one rank; full-width llama3.2-1b's parameters placed under the
+   ``tp`` rules and its cache under ``decode_cp`` (DTensors), every local
+   shard equal to its source to the bit with no replication fallback
+   counted, then re-meshed (``plan_remesh`` onto 1 survivor, ``reshard``)
+   and equal again; the NCCL version printed;
+5h. the dry run (``DryRun``, started after step 1 at nice 19 beside the
+   card phases and collected after step 6): ``python -m
+   repro_torch.launch.dryrun`` in subprocesses for the five served
+   models x the four shapes x both
+   H100 node meshes ((2, 4) and (2, 2, 4), each over a ``"fake"`` process
+   group, on ``meta`` tensors: host work); every cell OK or the
+   reference's own skip, a line per cell with one device's argument and
+   temporary GiB, fits in 80 GiB, FLOPs, link bytes, the roofline bound
+   and its bottleneck (counted, not measured);
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -202,7 +217,14 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    the MoE model one full-width MoE layer is held kernel against plain.  Prefill
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
-   one prefill plus eight decode steps, eager and replayed, are profiled;
+   one prefill plus eight decode steps, eager and replayed, are profiled.
+   (6c) The dry run's accounting against these steps: the serve and
+   prefill steps built by ``build_mesh_serve_step`` /
+   ``build_mesh_prefill_step`` at the fleet's shapes (one device,
+   ``impl="kernel"``, meta tensors) must predict the card's parameter and
+   cache bytes exactly and the kernel calls of one replay of the captured
+   serve step and of the captured prefill step; each roofline bound is
+   printed beside the measured replay;
 7. prints a ``kernels`` JSON line (all five kernels), the card line and,
    last, the device JSON line.
 
@@ -211,6 +233,7 @@ Any failure exits non-zero; without CUDA it exits 1 before printing results.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -618,18 +641,6 @@ def ptxas_resources(name: str) -> str:
             found.append(f"{entry}: {m.group(1)} registers, spill stores/loads "
                          f"{spills} B")
     return "; ".join(found) or "not in the build log"
-
-
-def attention_pairs(S: int, causal: bool, window, prefix: int) -> int:
-    """Unmasked (query, key) pairs: the work this input needs."""
-    q = np.arange(S)[:, None]
-    k = np.arange(S)[None, :]
-    m = np.ones((S, S), bool)
-    if causal:
-        m &= (q >= k) | (k < prefix)
-    if window is not None:
-        m &= q - k < window
-    return int(m.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -1161,12 +1172,13 @@ def copy_cache(dst, src) -> None:
 
 
 @torch.inference_mode()
-def check_replay(fleet: Fleet, steps: int = 32) -> None:
+def check_replay(fleet: Fleet, steps: int = 32):
     """One request of the longest prompt, prefilled once: ``steps`` eager
     decode steps on one copy of the cache and ``steps`` replays of a
     captured serve step on another.  Any token that differs fails the run,
     as do graph launches per replay other than one decode step's; the
-    largest difference in logits is printed."""
+    largest difference in logits is printed.  Returns the launches per
+    replay and a replay's ms (CUDA events, 10 replays)."""
     from repro_torch.launch.steps import build_serve_step
 
     model, rid = fleet.model, fleet.longest()
@@ -1200,6 +1212,9 @@ def check_replay(fleet: Fleet, steps: int = 32) -> None:
     if step.launches != per_step:
         raise AssertionError(f"{model.cfg.name}: a replay launches "
                              f"{step.launches}, want {per_step}")
+    # the replay's time for the dry run's accounting (step 6c): 12 more
+    # steps of the same request, CUDA events around each
+    return step.launches, cuda_ms(step, iters=10, warmup=2)
 
 
 @torch.inference_mode()
@@ -1266,6 +1281,7 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
     yardstick, never called by the port) and the bound (the larger of the
     unmasked pairs' products over the bf16 tensor-core peak and the bytes
     over the HBM rate)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(13 + D)
@@ -1283,8 +1299,8 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
     queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
-    flops = 4.0 * B * H * D * attention_pairs(S, causal, None, 0)
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
+    work = cost.flash_attention_work(B, H, Kv, S, S, D, 2, causal=causal)
+    flops, nbytes = work.flops, work.bytes
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"flash_attention timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
         f"{'causal' if causal else 'bidirectional'}: "
@@ -1324,6 +1340,7 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     (the larger of the products over the bf16 tensor-core peak and the
     bytes that must move: q and the output, the mask, and the K/V rows of
     the valid slots, over the HBM rate)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_decode as fd
 
     rng = np.random.default_rng(14 + D)
@@ -1343,9 +1360,8 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     ms, plain_ms, library_ms = (device_ms(f, iters=20) for f in calls.values())
     call_ms = {k: cuda_ms(f, iters=50) for k, f in calls.items()}
     queued = {k: queued_ms(calls[k], iters=20) for k in ("kernel", "library")}
-    flops = 4.0 * B * H * D * n_valid
-    nbytes = 2 * 2 * B * H * D + B * S + 2 * 2 * B * n_valid * Kv * D
-    b_ms, b_by = bound_ms(flops, nbytes)
+    work = cost.flash_decode_work(B, H, Kv, S, D, 2, n_valid)
+    b_ms, b_by = bound_ms(work.flops, work.bytes)
     log(f"flash_decode timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
         f"valid={n_valid}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} (SDPA) kernel/library="
@@ -1377,6 +1393,7 @@ def time_flash_decode() -> dict:
 
 
 def time_selective_scan() -> dict:
+    from repro_torch.kernels import cost
     from repro_torch.kernels import selective_scan as ss
 
     rng = np.random.default_rng(16)
@@ -1389,11 +1406,8 @@ def time_selective_scan() -> dict:
     }
     ms, plain_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
-    # one FMA per element and step on the fp32 units; a and b read once, h0
-    # read, every h_t written (fp32)
-    flops = 2.0 * B * Q * C * N
-    nbytes = 4.0 * (3 * Q + 1) * B * C * N
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+    work = cost.selective_scan_work(B, Q, C, N, a.element_size())
+    b_ms, b_by = bound_ms(work.flops, work.bytes, PEAK_FP32_FLOPS)
     log(f"selective_scan timing f32 B={B} Q={Q} C={C} N={N}: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call "
         f"computes this recurrence) bound_ms={b_ms:.5f} ({b_by}) [device time, "
@@ -1429,6 +1443,7 @@ def time_moe_gmm_at(C: int, n_tokens: int) -> dict:
     (the larger of bytes over the HBM rate and the occupied rows' products
     over the bf16 tensor-core peak; the bytes are the occupied experts'
     weights, the occupied rows of x, and all of y)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import moe_gmm as gmm
 
     rng = np.random.default_rng(18 + C)
@@ -1448,10 +1463,11 @@ def time_moe_gmm_at(C: int, n_tokens: int) -> dict:
                                                "kernel, every expert")}
     n_rows = int(rows.sum())                 # one read for the bound's count
     n_occ = int((rows > 0).sum())
-    flops = 2.0 * n_rows * D * F
-    nbytes = 2.0 * (n_occ * D * F + n_rows * D + E * C * F)
-    b_ms, b_by = bound_ms(flops, nbytes)
-    full_b_ms, _ = bound_ms(2.0 * E * C * D * F, 2.0 * (E * C * D + E * D * F + E * C * F))
+    work = cost.moe_gmm_work(E, C, D, F, 2, n_rows, n_occ)
+    nbytes = work.bytes
+    b_ms, b_by = bound_ms(work.flops, nbytes)
+    full = cost.moe_gmm_work(E, C, D, F, 2)
+    full_b_ms, _ = bound_ms(full.flops, full.bytes)
     log(f"moe_gmm timing bf16 E={E} C={C} D={D} F={F}, rows of {n_tokens} "
         f"routed token(s): {n_occ} experts occupied, {n_rows} rows: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -1536,31 +1552,6 @@ def check_recorded_result(res, cell) -> None:
     check_result(f"{where} vs recorded", result_fields(res), cell["result"])
 
 
-def scenario_bytes(scheds, got: dict, key) -> float:
-    """The bytes the data plane must move for this run's data, in the dtypes
-    the kernel reads and writes (float64 times, int32 codes, slots and grid
-    indices, uint8 ready flags), each lane at its own sizes, not the
-    group's padding.  Read once: the tape up to the arrivals (``arr`` of
-    every arrived request and the one that stops the arrivals, ``svc`` of
-    the requests that were started and are still counted, ``rcode`` of
-    those and the ones still queued), the lane's rtt, ready flags, kill
-    events and timeout, and the grid once.  Written once: ``status``,
-    ``e2e`` and, with trace_on, the span timelines and slot of every
-    resolved request, and the per-lane counters.  The wrapper's memsets of
-    the unresolved entries are separate launches and are not counted."""
-    total = 16.0 * key.G                       # ts float64, gs / wins int32
-    per_req = 1 + 8 + (4 * 8 if key.trace_on else 0)
-    for i, c in enumerate(scheds):
-        n_res = int((got["status"][i] > 0).sum())
-        n_run, n_q = int(got["run_n"][i].sum()), int(got["q_cnt"][i].sum())
-        total += 8 * min(int(got["a_ptr"][i]) + 1, key.N)      # arr
-        total += 8 * (n_res + n_run) + 4 * (n_res + n_run + n_q)  # svc, rcode
-        total += (8 * c.n_slots * c.n_regions + key.W * c.n_slots
-                  + 8 * c.n_events + 8)        # rtt, ready, kills, timeout
-        total += per_req * n_res + 17 + 16 * key.R  # outputs
-    return total
-
-
 def check_oracle_and_fallback(oracle_results) -> None:
     """One ``run_cells`` call on the card at the smallest queue pool the
     kernel takes (one cell a slot), where the quick matrix's lanes
@@ -1608,6 +1599,7 @@ def phase_scenario() -> dict:
     the same 96 lanes and against the reference oracle's recorded results,
     then timed.  The port's oracle then runs the quick matrix's 8 cells, and
     one ``run_cells`` call overflows lanes and reruns them on it."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ops
     from repro_torch.kernels import scenario_scan as scn
     from repro_torch.serving.engine import VectorizedServingEngine
@@ -1733,7 +1725,7 @@ def phase_scenario() -> dict:
     n_lane = len(LANE_KEYS)
     few = [t[:8] for t in on_card[:n_lane]] + on_card[n_lane:]
     few_ms = cuda_ms(lambda: scn.launch(*few, **kw), iters=5, warmup=1)
-    nbytes = scenario_bytes(scheds, got, key)
+    nbytes = cost.scenario_scan_bytes(scheds, got, key)
     # float64 work the data asks for: a finish time (4 operations) per start
     # and a latency and its deadline test (3) per resolved request
     n_done = int((got["status"] > 0).sum())
@@ -3176,7 +3168,7 @@ PREFILL_STEP_S = {"whisper-medium": 224}
 
 
 @torch.inference_mode()
-def check_prefill_step(fleet: Fleet) -> None:
+def check_prefill_step(fleet: Fleet):
     """Step 6's prefill step: a prefill of S = 1024 tokens (whisper-medium:
     224, with its 1500 frames) at batch 1 captured by
     ``build_prefill_step`` into a cache of the fleet's slots.  One replay
@@ -3185,7 +3177,8 @@ def check_prefill_step(fleet: Fleet) -> None:
     largest differences printed and held to the reference's bf16
     tolerance (0.02 + 0.004 x max |logit|); a replay must add exactly the
     launches the capture counted, one prefill's worth.  Eager and replay
-    walls printed side by side (3 of each, host clock around a sync)."""
+    walls printed side by side (3 of each, host clock around a sync).
+    Returns the launches per replay and the shortest replay wall in ms."""
     from repro_torch.launch.steps import build_prefill_step
 
     model, cfg = fleet.model, fleet.model.cfg
@@ -3247,6 +3240,7 @@ def check_prefill_step(fleet: Fleet) -> None:
         raise AssertionError(f"{cfg.name}: the replayed prefill differs from "
                              f"eager past the bf16 tolerance: {over}")
     del step, eager_cache
+    return added, min(walls["replay"])
 
 
 def check_kv_bytes(fleet: Fleet) -> None:
@@ -3276,6 +3270,257 @@ def check_kv_bytes(fleet: Fleet) -> None:
         f"kv_bytes_per_token {want:,.0f} B")
 
 
+def check_accounting(fleet: Fleet, decode, prefill) -> None:
+    """Step 6c: the dry run's accounting against the real steps.  The
+    serve step and the prefill step built by the mesh-aware builders at
+    the fleet's own shapes (one device, ``impl="kernel"``, on meta tensors;
+    ``launch.steps``) and counted (``launch.op_count``) must predict the
+    argument bytes of the card's parameters and cache exactly, and the
+    kernel calls of one replay of the captured serve step and of the
+    captured prefill step; each dry-run roofline bound is printed beside
+    the measured replay, their ratio with no limit set."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.analysis import Roofline, model_flops_for
+    from repro_torch.launch.op_count import count_step
+    from repro_torch.launch.steps import (build_mesh_prefill_step,
+                                          build_mesh_serve_step)
+
+    model, cfg = fleet.model, fleet.model.cfg
+    real_params = sum(p.nbytes for p in model.parameters())
+    real_cache = cache_bytes(model.init_cache(1, fleet.max_len))
+    S = PREFILL_STEP_S.get(cfg.name, PREFILL_S)
+    for kind, shape, builder, (launches, measured_ms) in (
+            ("decode", ShapeSpec("fleet", fleet.max_len, 1, "decode"),
+             build_mesh_serve_step, decode),
+            ("prefill", ShapeSpec("fleet", S, 1, "prefill"),
+             build_mesh_prefill_step, prefill)):
+        t0 = time.perf_counter()
+        built = builder(cfg, None, shape, impl="kernel")
+        args = built.arg_bytes()
+        _, counts = count_step(built.run)
+        host_s = time.perf_counter() - t0
+        calls = {k: counts.kernel_calls.get(k, 0) for k in launches}
+        roof = Roofline(arch=cfg.name, shape=kind, mesh_desc="1", chips=1,
+                        hlo_flops=counts.flops, hlo_bytes=counts.bytes,
+                        collective_link_bytes=counts.coll_bytes,
+                        model_flops=model_flops_for(cfg, shape))
+        bound = 1e3 * roof.step_time_s
+        log(f"{cfg.name} dry-run accounting {kind} [{card_line()}] "
+            f"(S={shape.seq_len}, B=1, {host_s:.2f} s on the host): argument "
+            f"bytes params {args['params']:,} (card {real_params:,}) cache "
+            f"{args['cache']:,} (card {real_cache:,}); kernel calls "
+            f"{json.dumps(calls)} (launches per replay "
+            f"{json.dumps(launches)}); counted flops {counts.flops:.4e} bytes "
+            f"{counts.bytes:.4e}; roofline bound {bound:.4f} ms "
+            f"({roof.bottleneck}) vs replay {measured_ms:.4f} ms: "
+            f"measured/bound {measured_ms / bound:.2f}")
+        if calls != launches:
+            raise AssertionError(f"{cfg.name} {kind}: the dry run counts "
+                                 f"{calls}, a replay launches {launches}")
+        if kind == "decode" and (args["params"], args["cache"]) != (
+                real_params, real_cache):
+            raise AssertionError(f"{cfg.name}: the dry run's argument bytes "
+                                 f"{args} differ from the card's params "
+                                 f"{real_params} and cache {real_cache}")
+
+
+def phase_mesh() -> None:
+    """Step 5g (a): the mesh on the card.  A 1x1 mesh over an NCCL process
+    group of one rank (``launch.mesh.make_host_mesh``; the group set up
+    here with a ``HashStore``, destroyed at the end).  Full-width
+    llama3.2-1b's parameters placed under the ``tp`` rules and its cache
+    (1 x 2048 slots) under ``decode_cp`` (``distribute_params``): every
+    local shard equal to its source to the bit, no replication fallback
+    counted; then ``plan_remesh`` onto 1 survivor and ``reshard`` onto the
+    plan's mesh: equal to the bit again.  Prints the NCCL version."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import cache_logical
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs.registry import MetricsRegistry, use_registry
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        cfg = get_config("llama3.2-1b")
+        model = build_model(cfg, impl="kernel", device="cuda",
+                            dtype=torch.bfloat16,
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        cache = model.init_cache(1, DEFAULT_FLEET_SHAPE[2])
+        cache["kv"]["k"].normal_(generator=torch.Generator(device="cuda").manual_seed(1))
+        mesh = make_host_mesh()
+        tp, cp = sharding.make_rules("tp"), sharding.make_rules("decode_cp")
+        trees = ((params, sharding.model_logical(model), tp),
+                 (cache, cache_logical(cache), cp))
+
+        def held(placed, tree):
+            return all(torch.equal(placed[k].to_local(), v) if isinstance(v, torch.Tensor)
+                       else held(placed[k], v) for k, v in tree.items())
+
+        with use_registry(MetricsRegistry()) as reg:
+            placed = [sharding.distribute_params(t, lg, mesh, r) for t, lg, r in trees]
+            plan = elastic.plan_remesh(mesh, 1)
+            new_mesh = elastic.build_mesh(plan)
+            moved = [elastic.reshard(p, lg, new_mesh, r)
+                     for p, (t, lg, r) in zip(placed, trees)]
+        torch.cuda.synchronize()
+        fallbacks = reg.snapshot().get("counters", {})
+        ok = [held(p, t) for p, (t, _, _) in zip(placed, trees)]
+        ok_moved = [held(m, t) for m, (t, _, _) in zip(moved, trees)]
+        n = sum(1 for _ in sharding.model_logical(model))
+        log(f"mesh [{card_line()}] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: "
+            f"1x1 mesh {mesh}; llama3.2-1b's {n} parameters under tp and its "
+            f"cache ({', '.join(k for k in cache)}) under decode_cp: local "
+            f"shards equal to the source to the bit {ok}; fallbacks counted "
+            f"{fallbacks or 0}; plan_remesh onto 1 survivor {plan}; after "
+            f"reshard equal to the bit {ok_moved}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not all(ok + ok_moved) or fallbacks:
+            raise AssertionError("the 1x1 NCCL mesh changed a tensor or "
+                                 "counted a fallback")
+        del placed, moved, trees, params, cache, model
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+DRYRUN_OUT = ROOT / "artifacts" / "dryrun_h100"
+
+
+class DryRun:
+    """Step 5h (b): the dry-run CLI for the five served models × the four
+    shapes × both meshes, one ``python -m repro_torch.launch.dryrun``
+    process per model and mesh (zamba2-7b's train cell apart, the
+    longest), each its own ``"fake"`` process group on ``meta`` tensors:
+    host work that needs no card.  ``start`` runs them beside the card
+    phases from a scheduler thread, half as many at once as the host has
+    cores and each at the lowest CPU priority (nice 19), so the phases'
+    host work keeps the CPU first; ``finish`` waits for them and checks
+    every cell: OK or the reference's skip, with a line per cell of one
+    device's argument and temporary GiB, fits, FLOPs, link bytes, the
+    roofline bound and its bottleneck, and the functions DTensor refused
+    (run replicated)."""
+
+    def __init__(self) -> None:
+        self.done, self.running = [], []
+        self.stopped, self.thread = False, None
+
+    def start(self) -> None:
+        import os
+        import shutil
+        import threading
+
+        from repro_torch.configs import SHAPES
+
+        rest = ("prefill_32k", "decode_32k", "long_500k")
+        jobs = [("zamba2-7b", ("train_4k",), m) for m in ("multi", "single")]
+        jobs += [("zamba2-7b", rest, m) for m in ("multi", "single")]
+        jobs += [(a, tuple(SHAPES), m)
+                 for a in ("qwen3-moe-30b", "falcon-mamba-7b",
+                           "whisper-medium", "llama3.2-1b")
+                 for m in ("multi", "single")]
+        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)  # no earlier records
+        self.t0 = time.time()
+        self.width = max(1, (os.cpu_count() or 2) // 2)
+        log(f"dryrun: {len(jobs)} processes, {self.width} at a time at nice "
+            f"19, beside the card phases")
+        self.thread = threading.Thread(target=self._schedule, args=(jobs,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _schedule(self, jobs) -> None:
+        import os
+        import subprocess
+
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        while (jobs or self.running) and not self.stopped:
+            while jobs and len(self.running) < self.width:
+                arch, shapes, mesh = jobs.pop(0)
+                log_path = (ROOT / "chiprun_out" / "dryrun"
+                            / f"{arch}__{len(shapes)}__{mesh}.log")
+                log_path.parent.mkdir(parents=True, exist_ok=True)
+                f = open(log_path, "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", *shapes, "--mesh", mesh],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    preexec_fn=lambda: os.nice(19))
+                self.running.append((proc, f, (arch, "+".join(shapes), mesh)))
+            time.sleep(0.5)
+            for job in list(self.running):
+                proc, f, cell = job
+                if proc.poll() is not None:
+                    f.close()
+                    self.running.remove(job)
+                    self.done.append((cell, proc.returncode,
+                                      time.time() - self.t0))
+
+    def stop(self) -> None:
+        """Kill whatever still runs (a failed run must leave no process)."""
+        self.stopped = True
+        if getattr(self, "thread", None) is not None:
+            self.thread.join(timeout=5)       # no process starts after this
+        for proc, f, _ in list(self.running):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+
+    def finish(self) -> None:
+        from repro_torch.configs import SHAPES, cells_for, get_config
+
+        self.thread.join()
+        failed = []
+        for cell, rc, end in self.done:
+            if rc:
+                failed.append(cell + (rc,))
+            log(f"dryrun {' x '.join(cell)}: rc {rc}, done {end:.1f} s after "
+                f"the start")
+        wall = max(end for _, _, end in self.done)
+        n_ok = n_skip = 0
+        for arch in SERVED:
+            status = dict(cells_for(get_config(arch)))
+            for shape in SHAPES:
+                for mesh in ("single", "multi"):
+                    path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+                    if not path.exists():
+                        failed.append((arch, shape, mesh))
+                        continue
+                    r = json.loads(path.read_text())
+                    if r["status"] != "run":
+                        if r["status"] != status[shape]:
+                            failed.append((arch, shape, mesh, r["status"]))
+                        n_skip += 1
+                        log(f"dryrun cell {arch} x {shape} x {mesh}: {r['status']}")
+                        continue
+                    n_ok += 1
+                    ma, h, rl = r["memory_analysis"], r["hlo_counts"], r["roofline"]
+                    log(f"dryrun cell {arch} x {shape} x {mesh} ({r['mesh_desc']}, "
+                        f"counted, not measured): args "
+                        f"{ma['argument_size_in_bytes'] / 2**30:.3f} GiB temp "
+                        f"{ma['temp_size_in_bytes'] / 2**30:.3f} GiB per device, "
+                        f"fits 80 GiB {r['fits_hbm_80gib']}, flops {h['flops']:.4e}, "
+                        f"link bytes {h['collective_link_bytes']:.4e}, bound "
+                        f"{1e3 * max(rl['compute_s'], rl['memory_s'], rl['collective_s']):.3f} ms "
+                        f"({rl['bottleneck']}), kernel calls "
+                        f"{json.dumps(h['kernel_calls'])}, refused "
+                        f"{json.dumps(r['refused_ops'])}")
+        log(f"dryrun: {n_ok} cells OK and {n_skip} the reference's skips of "
+            f"{len(SERVED) * len(SHAPES) * 2}, all done {wall:.1f} s after "
+            f"they started ({self.width} at a time at nice 19, beside the "
+            f"card phases)")
+        if failed:
+            raise AssertionError(f"dry-run cells failed: {failed}")
+
+
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
@@ -3285,8 +3530,9 @@ def serve_path(arch: str) -> dict:
         check_kv_bytes(fleet)
     gc.collect()          # the fleet's replicas: their caches and graphs
     torch.cuda.empty_cache()
-    check_replay(fleet)
-    check_prefill_step(fleet)
+    decode = check_replay(fleet)
+    prefill = check_prefill_step(fleet)
+    check_accounting(fleet, decode, prefill)
     if fleet.model.cfg.is_moe:
         check_moe_layer(fleet.model, fleet.prompts)
     compare_prefill_logits(fleet)
@@ -3317,6 +3563,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card_and_build()
+    dryrun = DryRun()
+    atexit.register(dryrun.stop)
+    dryrun.start()
     errors = {"flash_attention": check_flash_attention(),
               "flash_decode": check_flash_decode(),
               "selective_scan": check_selective_scan(),
@@ -3336,8 +3585,10 @@ def main() -> int:
     forecast = phase_forecast()
     stop_worker_servers()
     phase_train()
+    phase_mesh()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
+    dryrun.finish()
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],
                 "selective_scan": mamba["selective_scan"],

@@ -2,7 +2,7 @@
 
 ``get_config(arch_id)`` returns the exact published ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family config used by the
-CPU tests.  The files are data and are kept field-for-field equal to the
+CPU tests; ``SHAPES`` the four assigned input-shape cells.  The files are data and are kept field-for-field equal to the
 reference package's.
 """
 
@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, cells_for
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = [
@@ -54,4 +55,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return get_config(arch_id).scaled()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "SHAPES", "ShapeSpec", "cells_for",
+           "get_config", "get_smoke_config"]

@@ -395,6 +395,28 @@ def plain(
     return out
 
 
+def new_outputs(L: int, N: int, R: int, trace_on: bool,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """The lane outputs as a launch starts them: counters and statuses zero,
+    span timelines -inf and slots -1 for requests never resolved."""
+    f64 = torch.float64
+    out = {
+        "status": torch.zeros((L, N), dtype=torch.int8, device=device),
+        "e2e": torch.zeros((L, N), dtype=f64, device=device),
+        "a_ptr": torch.zeros(L, dtype=torch.int64, device=device),
+        "run_n": torch.zeros((L, R), dtype=torch.int64, device=device),
+        "q_cnt": torch.zeros((L, R), dtype=torch.int64, device=device),
+        "n_retried": torch.zeros(L, dtype=torch.int64, device=device),
+        "overflow": torch.zeros(L, dtype=torch.bool, device=device),
+    }
+    if trace_on:
+        for k in ("disp_t", "start_t", "fin_t"):
+            out[k] = torch.full((L, N), float("-inf"), dtype=f64,
+                                device=device)
+        out["rep"] = torch.full((L, N), -1, dtype=torch.int64, device=device)
+    return out
+
+
 def launch(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
            wins, *, Q: int, C: int, amax: int, lb_rr: bool, expire_on: bool,
            trace_on: bool) -> Dict[str, torch.Tensor]:
@@ -440,19 +462,7 @@ def launch(arr, svc, rcode, rtt, ready, kill_slot, kill_g, timeout, ts, gs,
            kill_g.to(i32).contiguous(), timeout.to(f64).contiguous(),
            ts.to(f64).contiguous(), gs.to(i32).contiguous(),
            wins.to(i32).contiguous()]
-    out = {
-        "status": torch.zeros((L, N), dtype=torch.int8, device=dev),
-        "e2e": torch.zeros((L, N), dtype=f64, device=dev),
-        "a_ptr": torch.zeros(L, dtype=torch.int64, device=dev),
-        "run_n": torch.zeros((L, R), dtype=torch.int64, device=dev),
-        "q_cnt": torch.zeros((L, R), dtype=torch.int64, device=dev),
-        "n_retried": torch.zeros(L, dtype=torch.int64, device=dev),
-        "overflow": torch.zeros(L, dtype=torch.bool, device=dev),
-    }
-    if trace_on:
-        for k in ("disp_t", "start_t", "fin_t"):
-            out[k] = torch.full((L, N), float("-inf"), dtype=f64, device=dev)
-        out["rep"] = torch.full((L, N), -1, dtype=torch.int64, device=dev)
+    out = new_outputs(L, N, R, trace_on, dev)
     pend = torch.empty((L, NP), dtype=i32, device=dev)     # rings' spill
     names = ("status", "e2e", "a_ptr", "run_n", "q_cnt", "n_retried",
              "overflow", "disp_t", "start_t", "fin_t", "rep")

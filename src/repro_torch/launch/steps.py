@@ -53,7 +53,9 @@ device.  It is not captured: it runs eagerly on either device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import collections.abc
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -306,5 +308,517 @@ def build_train_step(
                      grad_accum=grad_accum, dtype=dtype)
 
 
-__all__ = ["PrefillStep", "ServeStep", "TrainStep", "build_prefill_step",
-           "build_serve_step", "build_train_step"]
+# ===========================================================================
+# Mesh-aware builders (the dry-run contract)
+# ===========================================================================
+#
+# The reference's ``build_train_step`` / ``build_prefill_step`` /
+# ``build_serve_step`` take (config, mesh, shape) and return a pjit-able
+# function with abstract inputs and shardings; ``build_step`` dispatches on
+# the shape's kind and ``input_specs`` returns the abstract inputs.  Their
+# port keeps ``build_step`` and ``input_specs`` and names the three builders
+# ``build_mesh_*_step``: the names above belong to the captured steps.
+#
+# A built step holds a model built on ``meta`` (shapes, no data) and meta
+# inputs; on a mesh every parameter, cache tensor and input is a DTensor
+# placed by ``distributed.sharding``'s rules, its local shard a meta tensor
+# of one device's shape.  ``BuiltStep.run()`` runs the step itself, which
+# ``launch.op_count`` counts and ``launch.dryrun`` records.  Sharding
+# policy, as the reference's:
+#
+# * weights: Megatron TP over "model" (heads / mlp / vocab / experts /
+#   ssm_inner); a dimension that does not divide falls back to replication;
+# * train: batch over ("pod", "data"); optimizer state ZeRO-1 over "data";
+# * prefill: batch over ("pod", "data"); the cache in the decode layout;
+# * decode: context parallelism, the KV cache's sequence over "model",
+#   batch over ("pod", "data").
+#
+# ``mesh=None`` is one device: plain meta tensors, no placements.  The
+# model's ``impl`` defaults to "blockwise", as the reference's builders do;
+# the serve and prefill builders also take ``impl="kernel"``, the port's
+# serving path, where each kernel wrapper's meta route counts the kernel's
+# own work (on a mesh, on one device's shards: ``kernels.ops._on_mesh``).
+
+# the cache's logical axes, keyed by the port's cache keys (the reference's
+# ``_CACHE_LOGICAL_AXES`` and ``_cache_pspec_tree``)
+_KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+_CROSS_AXES = ("layers", "batch", None, "kv_heads", "head_dim")
+
+
+def cache_logical(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical axes of every cache tensor: K/V (layers or blocks,
+    batch, slots, kv heads, head_dim) with their slots on ``kv_seq``;
+    whisper's cross K/V over the encoder's frames, which are not sharded,
+    and its (batch, frames) cross mask; the Mamba states with batch and
+    their channels (``ssm_inner``, or the Mamba-2 heads) named; ``len``
+    replicated."""
+    def leaf(path: Tuple[str, ...], t: torch.Tensor) -> Tuple:
+        name, nd = path[0], t.dim()
+        if name == "len":
+            return (None,) * nd
+        if name in ("kv", "attn_kv"):
+            return _KV_AXES
+        if name in ("cross_k", "cross_v"):
+            return _CROSS_AXES
+        if name == "cross_valid":
+            return ("batch", None)
+        if name in ("ssm_state", "prelude_state", "block_state"):
+            # (stack..., batch, channels...): batch, and channels over
+            # model where they divide
+            if path[-1] == "conv":
+                return (None,) * (nd - 3) + ("batch", None, "ssm_inner")
+            if nd >= 4 and path[-1] == "ssm":
+                # mamba1: (L, B, di, N); mamba2: (stack.., B, H, P, N)
+                if nd == 4:
+                    return (None, "batch", "ssm_inner", None)
+                return (None,) * (nd - 4) + ("batch", "heads", None, None)
+            return (None,) * (nd - 1) + ("batch",)
+        return (None,) * nd
+
+    def walk(tree, path):
+        if isinstance(tree, torch.Tensor):
+            return leaf(path, tree)
+        return {k: walk(v, path + (k,)) for k, v in tree.items()}
+
+    return walk(cache, ())
+
+
+def batch_placements(mesh, batch: int = 0) -> Tuple[Any, ...]:
+    """Placements of a batch-leading input (the reference's ``_batch_spec``):
+    dim 0 over ("pod", "data"); a batch the whole data extent does not
+    divide over "data" alone where it divides that, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    axes = ("pod", "data") if "pod" in sizes else ("data",)
+    if batch:
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if batch % n != 0:
+            axes = ("data",) if (batch % sizes.get("data", 1) == 0
+                                 and batch > 1) else ()
+    return tuple(Shard(0) if name in axes else Replicate()
+                 for name in mesh.mesh_dim_names)
+
+
+def local_nbytes(tree: Any) -> int:
+    """Bytes one device holds of a tree of tensors (a DTensor's local
+    shard)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, torch.Tensor):
+        t = tree.to_local() if isinstance(tree, DTensor) else tree
+        return t.nbytes
+    if isinstance(tree, dict):
+        return sum(local_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(local_nbytes(v) for v in tree)
+    return 0
+
+
+def placements_of(tree: Any) -> Any:
+    """The placements of every DTensor of a tree (None for a plain
+    tensor)."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.placements) if hasattr(tree, "placements") else None
+    if isinstance(tree, dict):
+        return {k: placements_of(v) for k, v in tree.items()}
+    return tuple(placements_of(v) for v in tree)
+
+
+def _from_dtensor_code(err: BaseException) -> bool:
+    """The exception was raised inside DTensor's own code (a sharding
+    propagation it has no rule for, or an op it cannot run on shards)."""
+    tb = err.__traceback__
+    while tb is not None:
+        if "torch/distributed/tensor/" in tb.tb_frame.f_code.co_filename:
+            return True
+        tb = tb.tb_next
+    return False
+
+
+_AUTOGRAD = (torch.autograd.grad, torch.autograd.backward,
+             torch.Tensor.backward)
+
+
+class ReplicateOnRefusal(torch.overrides.TorchFunctionMode):
+    """Run a torch function that DTensor refuses on replicated inputs.
+
+    DTensor has no sharding rule for some ops, or fails on some placements
+    (its version decides which: torch 2.11's has no ``index_copy_`` and no
+    two mesh dimensions on one tensor dimension, as the two-node mesh's
+    batch over ("pod", "data") needs).  Such a call is run again on every
+    DTensor input gathered whole (``Replicate`` on every mesh dimension,
+    the collectives counted), its plain result wrapped as a replicated
+    DTensor; an in-place call writes its result back into its first
+    argument, in that argument's placements.  It computes what the call
+    computes.  Each refused function is counted in ``refused`` with its
+    first error, which the dry run records and prints."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.refused: Dict[str, int] = {}
+        self.errors: Dict[str, str] = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+        kwargs = kwargs or {}
+        # DTensor opts out of __torch_function__, so ``types`` never names
+        # it: look at the arguments
+        flat, spec = tree_flatten((args, kwargs))
+        if not any(isinstance(x, DTensor) for x in flat):
+            return func(*args, **kwargs)
+        try:
+            return func(*args, **kwargs)
+        except (RuntimeError, NotImplementedError, ValueError,
+                AssertionError, IndexError) as err:
+            # a backward op's refusal surfaces here and is not this call's
+            if func in _AUTOGRAD or not _from_dtensor_code(err):
+                raise
+            name = getattr(func, "__name__", str(func))
+            self.refused[name] = self.refused.get(name, 0) + 1
+            self.errors.setdefault(name, str(err).splitlines()[0][:300])
+        mesh = next(x for x in flat if isinstance(x, DTensor)).device_mesh
+        rep = [Replicate()] * mesh.ndim
+        local = [x.redistribute(mesh, rep).to_local() if isinstance(x, DTensor)
+                 else x for x in flat]
+        l_args, l_kwargs = tree_unflatten(local, spec)
+        target = args[0] if args else None
+        in_place = isinstance(target, DTensor) and (
+            name == "__setitem__" or name.startswith("__i")
+            or (name.endswith("_") and not name.startswith("__")))
+        if in_place:      # on a copy: the gathered local is DTensor's view
+            l_args = (l_args[0].clone(),) + tuple(l_args[1:])
+        out = func(*l_args, **l_kwargs)
+        if isinstance(out, collections.abc.Iterator):     # Tensor.__iter__
+            out = iter(tuple(out))
+        if in_place and target.requires_grad and torch.is_grad_enabled():
+            # inside autograd the result is a new tensor, as an in-place
+            # op's caller reads it (``a = (...).exp_()``)
+            return DTensor.from_local(l_args[0], mesh, rep, run_check=False)
+        if in_place:
+            # a state update (a cache, an accumulator): written back
+            with torch.no_grad():
+                written = DTensor.from_local(l_args[0], mesh, rep,
+                                             run_check=False)
+                target.to_local().copy_(
+                    written.redistribute(mesh, target.placements).to_local())
+            return None if name == "__setitem__" else target
+        lead = next(x for x in flat if isinstance(x, DTensor))
+
+        def wrap(t):
+            """A plain result as a DTensor, sharded back as the first
+            DTensor input was where its shape allows (the gathered copy is
+            sliced locally), replicated elsewhere."""
+            if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
+                return t
+            out = DTensor.from_local(t, mesh, rep, run_check=False)
+            back = [p if isinstance(p, Shard) and p.dim < t.dim()
+                    and t.shape[p.dim] % mesh.size(i) == 0 else Replicate()
+                    for i, p in enumerate(lead.placements)]
+            if t.dim() != lead.dim() or back == rep:
+                return out
+            return out.redistribute(mesh, back)
+
+        if isinstance(out, collections.abc.Iterator):
+            return iter(tuple(wrap(t) for t in out))
+        return tree_map(wrap, out)
+
+
+@dataclasses.dataclass
+class BuiltStep:
+    """Everything needed to run and count one cell: ``fn(*abstract_args)``
+    is the step; ``abstract_args`` are meta tensors (DTensors on a mesh),
+    the first of them the model's own parameters by name;
+    ``in_placements`` / ``out_placements`` their DTensor placements (None
+    without a mesh); ``donate`` the arguments the step updates in place
+    (the reference donates them: parameters and optimizer state, or the
+    cache)."""
+
+    fn: Callable
+    abstract_args: Tuple[Any, ...]
+    arg_names: Tuple[str, ...]
+    in_placements: Any
+    out_placements: Any
+    static_desc: str
+    donate: Tuple[int, ...] = ()
+    model: Any = None
+    mesh: Any = None
+    refused: Dict[str, int] = dataclasses.field(default_factory=dict)
+    refusal_errors: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def run(self):
+        """``fn(*abstract_args)``; on a mesh, the plain tensors the step
+        makes (positions, masks) count as replicated
+        (``implicit_replication``), and a call DTensor refuses runs
+        replicated (``ReplicateOnRefusal``; its counts in ``self.refused``
+        and ``self.refusal_errors`` after the run)."""
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        if self.mesh is None:
+            return self.fn(*self.abstract_args)
+        fallback = ReplicateOnRefusal()
+        with implicit_replication(), fallback:
+            out = self.fn(*self.abstract_args)
+        self.refused, self.refusal_errors = fallback.refused, fallback.errors
+        return out
+
+    def arg_bytes(self) -> Dict[str, int]:
+        """One device's bytes of each argument, by name."""
+        return {n: local_nbytes(a)
+                for n, a in zip(self.arg_names, self.abstract_args)}
+
+
+def _mesh_model(cfg, mesh, rules, *, impl: str, dtype: torch.dtype,
+                remat: bool = False):
+    """``cfg``'s model on ``meta`` in ``dtype``, its parameters placed by
+    ``rules`` on ``mesh`` (as they are without one)."""
+    from repro_torch.distributed.sharding import distribute_module_params
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, impl=impl, remat=remat, device="meta",
+                        dtype=dtype)
+    if mesh is not None:
+        distribute_module_params(model, mesh, rules)
+    return model
+
+
+def _place(tree, logical, mesh, rules):
+    """``tree``'s meta tensors as DTensors on ``mesh`` under ``rules`` (as
+    they are without a mesh)."""
+    if mesh is None:
+        return tree
+    from repro_torch.distributed.sharding import distribute_params
+
+    return distribute_params(tree, logical, mesh, rules)
+
+
+def _place_batch(t: torch.Tensor, mesh):
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, batch_placements(mesh, t.shape[0]))
+
+
+def _params(model) -> Dict[str, torch.Tensor]:
+    return dict(model.named_parameters())
+
+
+def build_mesh_train_step(
+    cfg,
+    mesh,
+    shape,
+    *,
+    microbatches: int = 16,
+    rules_name: str = "tp",
+    param_dtype: torch.dtype = torch.bfloat16,   # bf16 params, fp32 m/v
+    compress_grads: bool = False,
+    impl: str = "blockwise",
+    remat: bool = True,
+    grad_accum: str = "f32_sharded",
+    opt_cfg: Optional[AdamWConfig] = None,
+) -> BuiltStep:
+    """The reference's mesh train step: loss, gradients over
+    ``microbatches``, AdamW with its moments ZeRO-1 sharded over "data"
+    (``zero1_logical_tree``).  The gradient accumulator takes each
+    parameter's placements."""
+    from repro_torch.distributed.sharding import make_rules, model_logical
+    from repro_torch.launch.mesh import data_axis_size
+    from repro_torch.training.data import abstract_batch
+    from repro_torch.training.optimizer import zero1_logical
+
+    if impl == "kernel":
+        raise ValueError("the train step runs impl='blockwise': the kernels "
+                         "have no backward")
+    rules = make_rules(rules_name)
+    model = _mesh_model(cfg, mesh, rules, impl=impl, dtype=param_dtype,
+                        remat=remat)
+    model.requires_grad_(True)
+    params = _params(model)
+    logical = model_logical(model)
+    data_size = data_axis_size(mesh) if mesh is not None else 1
+    z_logical = {k: zero1_logical(logical[k], p.shape, data_size)
+                 for k, p in params.items()}
+    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device="meta")
+             for k, p in params.items()}
+    opt_state = {
+        "m": _place(zeros, z_logical, mesh, rules),
+        "v": _place({k: torch.zeros_like(t) for k, t in zeros.items()},
+                    z_logical, mesh, rules),
+        "step": _place(torch.zeros((), dtype=torch.int32, device="meta"),
+                       (), mesh, rules),
+    }
+    if compress_grads:
+        opt_state["ef_error"] = _place(
+            {k: torch.zeros_like(t) for k, t in zeros.items()}, z_logical,
+            mesh, rules)
+    B, S = shape.global_batch, shape.seq_len
+    batch = {k: _place_batch(t, mesh)
+             for k, t in abstract_batch(cfg, B, S, dtype=param_dtype).items()}
+    step = make_train_step(model, opt_cfg or AdamWConfig(),
+                           microbatches=microbatches,
+                           compress_grads=compress_grads,
+                           grad_accum=grad_accum)
+
+    def fn(params, opt_state, batch):
+        # the model holds ``params``: the step updates them in place
+        return params, opt_state, step(opt_state, batch)
+
+    metrics = {"loss": None, "grad_norm": None, "step": None}
+    return BuiltStep(
+        fn=fn,
+        abstract_args=(params, opt_state, batch),
+        arg_names=("params", "opt_state", "batch"),
+        in_placements=placements_of((params, opt_state, batch))
+        if mesh is not None else None,
+        out_placements=(placements_of(params), placements_of(opt_state),
+                        metrics) if mesh is not None else None,
+        static_desc=(f"train {cfg.name} seq={S} gb={B} mb={microbatches}"),
+        donate=(0, 1),        # params + opt_state update in place
+        model=model, mesh=mesh,
+    )
+
+
+def _cache_len(cfg, shape) -> int:
+    return shape.seq_len + (cfg.frontend_seq if (cfg.frontend and not
+                                                 cfg.is_encdec) else 0)
+
+
+def _serving_parts(cfg, mesh, shape, rules_name, cache_rules_name, dtype,
+                   cache_dtype, impl):
+    """The model, its parameters and its cache, placed."""
+    from repro_torch.distributed.sharding import make_rules
+
+    rules = make_rules(rules_name)
+    model = _mesh_model(cfg, mesh, rules, impl=impl, dtype=dtype)
+    cache = model.init_cache(shape.global_batch, _cache_len(cfg, shape),
+                             cache_dtype)
+    cache = _place(cache, cache_logical(cache), mesh,
+                   make_rules(cache_rules_name))
+    return model, _params(model), cache
+
+
+def build_mesh_prefill_step(
+    cfg,
+    mesh,
+    shape,
+    *,
+    rules_name: str = "tp",
+    cache_rules_name: str = "decode_cp",
+    dtype: torch.dtype = torch.bfloat16,
+    impl: str = "blockwise",
+) -> BuiltStep:
+    """The prompt of ``shape.seq_len`` tokens (and an encoder-decoder's
+    frames or a prefix-LM's patches) into a cache in the decode layout;
+    returns the last position's logits and the cache."""
+    model, params, cache = _serving_parts(cfg, mesh, shape, rules_name,
+                                          cache_rules_name, dtype, dtype, impl)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = _place_batch(
+        torch.zeros((B, S), dtype=torch.long, device="meta"), mesh)
+    extra: Tuple[Any, ...] = ()
+    if cfg.frontend:
+        extra = (_place_batch(torch.zeros(
+            (B, cfg.frontend_seq, cfg.d_model), dtype=dtype, device="meta"),
+            mesh),)
+
+    if cfg.is_encdec:
+        def fn(params, tokens, frames, cache):
+            return model.prefill(frames, tokens, cache, dtype=dtype)
+        names = ("params", "tokens", "frames", "cache")
+    elif cfg.frontend:
+        def fn(params, tokens, patches, cache):
+            return model.prefill(tokens, cache, prefix_embed=patches,
+                                 dtype=dtype)
+        names = ("params", "tokens", "patches", "cache")
+    else:
+        def fn(params, tokens, cache):
+            return model.prefill(tokens, cache, dtype=dtype)
+        names = ("params", "tokens", "cache")
+
+    args = (params, tokens) + extra + (cache,)
+    return BuiltStep(
+        fn=fn,
+        abstract_args=args,
+        arg_names=names,
+        in_placements=placements_of(args) if mesh is not None else None,
+        out_placements=(batch_placements(mesh, B), placements_of(cache))
+        if mesh is not None else None,
+        static_desc=f"prefill {cfg.name} seq={S} gb={B}",
+        donate=(len(args) - 1,),    # the cache
+        model=model, mesh=mesh,
+    )
+
+
+def build_mesh_serve_step(
+    cfg,
+    mesh,
+    shape,
+    *,
+    rules_name: str = "tp",
+    cache_rules_name: str = "decode_cp",
+    dtype: torch.dtype = torch.bfloat16,
+    kv_dtype: Optional[torch.dtype] = None,
+    impl: str = "blockwise",
+) -> BuiltStep:
+    """One-token decode step against a cache of ``shape.seq_len`` tokens,
+    then the greedy next token (serving returns tokens, not logits)."""
+    from repro_torch.distributed.sharding import constrain
+
+    model, params, cache = _serving_parts(cfg, mesh, shape, rules_name,
+                                          cache_rules_name, dtype,
+                                          kv_dtype or dtype, impl)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = _place_batch(
+        torch.zeros((B, 1), dtype=torch.long, device="meta"), mesh)
+
+    def fn(params, tokens, cache):
+        logits, cache = model.decode_step(tokens, cache, dtype=dtype)
+        # on a mesh the logits are sharded over the vocabulary: gathered
+        # whole first, the greedy pick reads every entry of a row
+        logits = constrain(logits, "batch", None, None)
+        return logits.argmax(-1), cache
+
+    args = (params, tokens, cache)
+    return BuiltStep(
+        fn=fn,
+        abstract_args=args,
+        arg_names=("params", "tokens", "cache"),
+        in_placements=placements_of(args) if mesh is not None else None,
+        out_placements=(batch_placements(mesh, B), placements_of(cache))
+        if mesh is not None else None,
+        static_desc=f"decode {cfg.name} ctx={S} gb={B}",
+        donate=(2,),          # the cache
+        model=model, mesh=mesh,
+    )
+
+
+def build_step(arch: str, shape_name: str, mesh, **kwargs) -> BuiltStep:
+    """Dispatch on the shape's kind (``mesh=None``: one device)."""
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return build_mesh_train_step(cfg, mesh, shape, **kwargs)
+    if shape.kind == "prefill":
+        return build_mesh_prefill_step(cfg, mesh, shape, **kwargs)
+    if shape.kind == "decode":
+        return build_mesh_serve_step(cfg, mesh, shape, **kwargs)
+    raise ValueError(f"unknown shape kind {shape.kind}")
+
+
+def input_specs(arch: str, shape_name: str, mesh, **kwargs):
+    """Meta-tensor stand-ins for every input of a cell (the dry-run
+    contract: the right shapes and dtypes, placed, nothing allocated)."""
+    return build_step(arch, shape_name, mesh, **kwargs).abstract_args
+
+
+__all__ = ["BuiltStep", "PrefillStep", "ServeStep", "TrainStep",
+           "build_mesh_prefill_step", "build_mesh_serve_step",
+           "build_mesh_train_step", "build_prefill_step", "build_serve_step",
+           "build_step", "build_train_step", "input_specs"]

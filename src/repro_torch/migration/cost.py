@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+from repro_torch.distributed.elastic import RemeshPlan
+
 __all__ = [
     "INT8_KV_FACTOR", "RemeshPlan", "ReshardCost", "compression_factor",
     "kv_transfer_bytes", "kv_transfer_s", "plan_reshard",
@@ -51,17 +53,6 @@ def kv_transfer_s(nbytes: float, bandwidth_bytes_per_s: float,
         return float("inf")
     return float(link_latency_s) + float(nbytes) / float(
         bandwidth_bytes_per_s)
-
-
-@dataclasses.dataclass(frozen=True)
-class RemeshPlan:
-    """A mesh shrink: the fields of the reference's
-    ``distributed.elastic.RemeshPlan``, which the port does not have yet."""
-
-    old_shape: Tuple[int, ...]
-    new_shape: Tuple[int, ...]
-    axis_names: Tuple[str, ...]
-    dropped_chips: int
 
 
 @dataclasses.dataclass(frozen=True)

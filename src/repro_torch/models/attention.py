@@ -135,6 +135,10 @@ def decode_attention(
     *,
     kv_valid: torch.Tensor,  # (B, S_cache) bool — slot validity
 ) -> torch.Tensor:
+    if type(q).__name__ == "DTensor":       # a mesh: each device's heads
+        return ops.attention_on_mesh(
+            lambda q, k, v, valid: decode_attention(q, k, v, kv_valid=valid),
+            (q, k_cache, v_cache, kv_valid))
     B, _, H, D = q.shape
     Kv = k_cache.shape[2]
     G = H // Kv
@@ -178,7 +182,15 @@ def blockwise_attention(
     block's window can reach; its block list is clipped at 0 and then
     repeats block 0 (counted two or more times when the window spans fewer
     blocks than the sequence).  Here every KV block is visited and the
-    mask decides, which is exact in every case and O(S^2) in work."""
+    mask decides, which is exact in every case and O(S^2) in work.
+
+    On a mesh (DTensors, the dry run's) each device attends its own rows
+    and heads (``ops.attention_on_mesh``)."""
+    if type(q).__name__ == "DTensor":
+        return ops.attention_on_mesh(
+            blockwise_attention, (q, k, v), q_pos=q_pos, kv_pos=kv_pos,
+            causal=causal, window=window, prefix_len=prefix_len,
+            q_block=q_block, kv_block=kv_block, causal_split=causal_split)
     S = q.shape[1]
     if (
         causal_split > 0
@@ -293,6 +305,34 @@ def decode_slot_and_mask(
     return slot, valid[None].expand(batch, slots)
 
 
+def write_slot(cache: torch.Tensor, slot: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` in place (an ``index_copy_`` at a device
+    index).  A cache sharded over its slots (a DTensor under the
+    ``decode_cp`` rules, the dry run's) is written context-parallel: each
+    device writes the token only if the slot falls in its own range."""
+    if type(cache).__name__ != "DTensor":
+        cache.index_copy_(1, slot, new)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, local = cache.device_mesh, cache.to_local()
+    offset = 0
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            offset += mesh.get_local_rank(i) * local.shape[1]
+    new_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+              for p in cache.placements]
+    new_l = new.redistribute(mesh, new_pl).to_local()
+    slot_l = (slot.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+              if isinstance(slot, DTensor) else slot)
+    rel = slot_l - offset
+    inside = (rel >= 0) & (rel < local.shape[1])
+    at = rel.clamp(0, local.shape[1] - 1)
+    local.index_copy_(1, at, torch.where(inside, new_l,
+                                         local.index_select(1, at)))
+
+
 def attention_apply(
     p,
     cfg: ModelConfig,
@@ -395,8 +435,8 @@ def attention_apply(
             decode_at = decode_slot_and_mask(
                 cache_len, slots, B, cfg.sliding_window is not None)
         slot, valid = decode_at
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
+        write_slot(ck, slot, k.to(ck.dtype))
+        write_slot(cv, slot, v.to(cv.dtype))
         if impl == "kernel":
             out = ops.flash_decode(q, ck, cv, kv_valid=valid)
         elif impl == "blockwise":

@@ -5,10 +5,16 @@ leaves.  From it the port derives
 
 * ``init_params(bp, generator)``  materialized tensors, drawn from an
   explicit ``torch.Generator``,
+* ``abstract_params(bp, dtype)``  ``meta`` tensors of the same shapes: the
+  dry run (``repro_torch.launch.dryrun``) sizes full-width models without
+  allocating anything,
+* ``logical_axes(bp)``            logical sharding axes per leaf, read by
+  ``repro_torch.distributed.sharding``'s rule tables,
 * ``param_count(bp)``             the exact parameter count,
 * ``ParamTree``                   an ``nn.Module`` holding the tensors as
   parameters, indexed like the reference's nested dicts (``p["wq"]``);
-  ``param_tree(bp, generator, dtype)`` draws one.
+  ``param_tree(bp, generator, dtype)`` draws one (``generator`` None:
+  ``meta`` tensors, nothing drawn).
 
 Shapes and logical axes are the reference's, so parameters carry over from
 the JAX package one to one (``repro_torch.convert``).  The draws are not the
@@ -98,6 +104,20 @@ def init_params(bp: Blueprint, generator: torch.Generator) -> Any:
     )
 
 
+def abstract_params(bp: Blueprint, dtype: Optional[torch.dtype] = None) -> Any:
+    """``meta`` tensors of the blueprint's shapes, in ``dtype`` (each
+    leaf's own without it): nothing is allocated."""
+    return _map_specs(
+        lambda s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"),
+        bp,
+    )
+
+
+def logical_axes(bp: Blueprint) -> Any:
+    """The logical-axis tree, mirroring the parameter structure."""
+    return _map_specs(lambda s: s.logical, bp)
+
+
 def param_count(bp: Blueprint) -> int:
     return sum(s.size for s in _leaves(bp))
 
@@ -164,8 +184,16 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-def param_tree(bp: Blueprint, generator: torch.Generator,
+def draw_params(bp: Blueprint, generator: Optional[torch.Generator],
+                dtype: torch.dtype) -> Any:
+    """``bp``'s parameters drawn from ``generator`` and cast to ``dtype``;
+    with no generator, ``abstract_params(bp, dtype)``."""
+    if generator is None:
+        return abstract_params(bp, dtype)
+    return cast_params(init_params(bp, generator), dtype)
+
+
+def param_tree(bp: Blueprint, generator: Optional[torch.Generator],
                dtype: torch.dtype) -> ParamTree:
-    """A ``ParamTree`` of ``bp``'s parameters, drawn from ``generator`` and
-    cast to ``dtype``."""
-    return ParamTree(cast_params(init_params(bp, generator), dtype))
+    """A ``ParamTree`` of ``draw_params(bp, generator, dtype)``."""
+    return ParamTree(draw_params(bp, generator, dtype))

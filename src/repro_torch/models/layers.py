@@ -7,6 +7,8 @@ the same points as the reference.
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Any, Optional, Tuple
 
 import torch
@@ -145,6 +147,37 @@ def unembed_spec(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec(
         (cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), "normal"
     )
+
+
+def remat_context():
+    """``context_fn`` of a checkpointed layer: its recompute, which runs
+    inside the backward pass, runs under the torch-function modes that were
+    active at its forward (none on the train path; the dry run's
+    ``ReplicateOnRefusal`` on a mesh), so both passes dispatch alike."""
+    modes = list(torch.overrides._get_current_function_mode_stack())
+
+    @contextlib.contextmanager
+    def again():
+        with contextlib.ExitStack() as stack:
+            for mode in modes:
+                stack.enter_context(mode)
+            yield
+
+    return contextlib.nullcontext(), again()
+
+
+def residual_layout(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream as it enters a layer: a plain tensor as it is; on
+    a mesh (a DTensor, the dry run's) rows over the data axes and the
+    model dimension whole on every tensor-parallel device ("batch", "seq",
+    "act_embed"), as Megatron keeps it.  DTensor would otherwise carry the
+    partial sums of a row-parallel product (or of the vocabulary-parallel
+    embedding) into the next projections and gather their weights whole."""
+    if type(x).__name__ != "DTensor":
+        return x
+    from repro_torch.distributed.sharding import constrain
+
+    return constrain(x, "batch", "seq", "act_embed")
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,

@@ -68,14 +68,15 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm
 from repro_torch.models.base import (
-    cast_params,
-    init_params,
+    draw_params,
     param_count,
     param_tree,
     stack_blueprint,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    remat_context,
+    residual_layout,
     embed_spec,
     embed_tokens,
     logits_from_hidden,
@@ -165,10 +166,12 @@ class TransformerLM(nn.Module):
         super().__init__()
         if impl not in attn.IMPLS:
             raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
-        dev = resolve_device(device)
-        if generator is None:
+        dev = resolve_device(device, allow_meta=True)
+        if dev.type == "meta":
+            generator = None             # shapes only: nothing is drawn
+        elif generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        if generator.device.type != dev.type:
+        if generator is not None and generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         self.cfg = cfg
         self.impl = impl
@@ -176,11 +179,8 @@ class TransformerLM(nn.Module):
         self.remat = remat
 
         bp = self.blueprint()
-        top = cast_params(
-            init_params({k: v for k, v in bp.items() if k != "decoder"},
-                        generator),
-            dtype,
-        )
+        top = draw_params({k: v for k, v in bp.items() if k != "decoder"},
+                          generator, dtype)
         self.embed = nn.Parameter(top["embed"], requires_grad=False)
         self.final_norm = nn.Parameter(top["final_norm"], requires_grad=False)
         if "unembed" in top:
@@ -299,11 +299,13 @@ class TransformerLM(nn.Module):
     # ==================================================================
     # Blocks
     # ==================================================================
-    def _layer(self, fn, *args, **kwargs):
-        """``fn(*args, **kwargs)``, checkpointed under ``remat`` when
-        autograd records."""
+    def _layer(self, fn, lp, x, *args, **kwargs):
+        """``fn(lp, x, *args, **kwargs)``, checkpointed under ``remat`` when
+        autograd records; ``x`` in the residual layout (``residual_layout``)."""
+        args = (lp, residual_layout(x)) + args
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=remat_context, **kwargs)
         return fn(*args, **kwargs)
 
     def _ffn(self, lp, h, aux: bool):
@@ -547,6 +549,41 @@ class TransformerLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: a gather along the vocabulary.  Logits
+    sharded over the vocabulary (a DTensor on a mesh, the dry run's) are
+    picked vocabulary-parallel: each shard gathers the labels that fall in
+    its slice, zeros elsewhere, and the shards' sum is the result
+    (``Partial``), as a sharded one-hot product would give."""
+    if type(logits).__name__ != "DTensor":
+        return logits.gather(-1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    vdim, mesh = logits.dim() - 1, logits.device_mesh
+    if any(isinstance(p, Partial) for p in logits.placements):
+        logits = logits.redistribute(mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in logits.placements])
+    local = logits.to_local()
+    lab_pl, out_pl, offset = [], [], 0
+    for i, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim == vdim:
+            offset += mesh.get_local_rank(i) * local.shape[-1]
+            lab_pl.append(Replicate())
+            out_pl.append(Partial())
+        else:
+            lab_pl.append(p)
+            out_pl.append(p)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rel = labels.redistribute(mesh, lab_pl).to_local().long() - offset
+    inside = (rel >= 0) & (rel < local.shape[-1])
+    picked = local.gather(-1, rel.clamp(0, local.shape[-1] - 1)[..., None])
+    return DTensor.from_local(torch.where(inside, picked[..., 0], 0.0), mesh,
+                              out_pl, run_check=False)
+
+
 def chunked_ce(
     hidden: torch.Tensor,     # (B, S, d)
     labels: torch.Tensor,     # (B, S)
@@ -574,11 +611,12 @@ def chunked_ce(
         logits = logits_from_hidden(h, cfg, embedding=embedding,
                                     unembed=unembed).float()
         lse = torch.logsumexp(logits, dim=-1)
-        return (lse - logits.gather(-1, lab[..., None].long())[..., 0]).sum()
+        return (lse - label_logits(logits, lab)).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
         h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
-        total = total + (checkpoint(part, h, lab, use_reentrant=False)
+        total = total + (checkpoint(part, h, lab, use_reentrant=False,
+                                    context_fn=remat_context)
                          if torch.is_grad_enabled() else part(h, lab))
     return total / (B * S)

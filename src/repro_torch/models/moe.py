@@ -78,6 +78,46 @@ def _einsum_ffn(xe, wi, wg, wo, act: str) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, wo)
 
 
+def _chunks_on_mesh(p, cfg: ModelConfig, x, *, impl: str, return_aux: bool,
+                    chunk_tokens: int):
+    """``moe_apply`` of a chunked batch on a mesh (DTensors, the dry run's),
+    expert-parallel: each device routes its own rows' chunks (a chunk of
+    ``chunk_tokens`` tokens lies within one device's rows, so routing and
+    capacity are the chunk's own, as without a mesh) over every expert,
+    with the router gathered whole, and runs only the experts it holds; y
+    is the devices' sum over the expert axis (``Partial``), aux the mean
+    over the rows' devices."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in x.placements]
+    x_l = x.redistribute(mesh, [Shard(0) if r else Replicate()
+                                for r in rows]).to_local()
+    wi = p["wi"]
+    ex = [i for i, pl in enumerate(wi.placements)
+          if isinstance(pl, Shard) and pl.dim == 0]
+    n_loc = wi.to_local().shape[0]
+    lo = sum(mesh.get_local_rank(i) for i in ex) * n_loc if ex else 0
+    local = {"router": p["router"].redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()}
+    for name in ("wi", "wg", "wo"):
+        if name in p:
+            w = p[name]
+            local[name] = w.redistribute(mesh, [
+                Shard(0) if i in ex else Replicate()
+                for i in range(mesh.ndim)]).to_local()
+    y, aux = moe_apply(local, cfg, x_l, impl=impl, return_aux=return_aux,
+                       chunk_tokens=chunk_tokens, experts=(lo, lo + n_loc))
+    y = DTensor.from_local(y, mesh, [
+        Shard(0) if r else Partial() if i in ex else Replicate()
+        for i, r in enumerate(rows)], run_check=False)
+    if aux is not None:
+        aux = DTensor.from_local(aux, mesh, [
+            Partial("avg") if r else Replicate() for r in rows],
+            run_check=False)
+    return y, aux
+
+
 def moe_apply(
     p,
     cfg: ModelConfig,
@@ -86,6 +126,7 @@ def moe_apply(
     impl: str = "kernel",
     return_aux: bool = False,
     chunk_tokens: int = 16_384,
+    experts: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Capacity-based top-k MoE, chunked over tokens.
 
@@ -93,17 +134,22 @@ def moe_apply(
     the tokens run in equal chunks with capacity per chunk (the reference's
     ``lax.scan`` over chunks, here a loop), so the dispatch buffer stays
     O(chunk x d).  Returns (y, aux_loss or None); aux is the Switch
-    load-balancing loss."""
+    load-balancing loss.  ``experts=(lo, hi)`` holds only those experts'
+    weights (``p``'s expert leaves are their slices): tokens routed
+    elsewhere add nothing, so y is this slice's share of the sum."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
     B, S, d = x.shape
     N = B * S
+    if N > chunk_tokens and N % chunk_tokens == 0 and type(x).__name__ == "DTensor":
+        return _chunks_on_mesh(p, cfg, x, impl=impl, return_aux=return_aux,
+                               chunk_tokens=chunk_tokens)
     if N > chunk_tokens and N % chunk_tokens == 0:
         n_chunks = N // chunk_tokens
         ys, aux_sum = [], torch.zeros((), dtype=torch.float32, device=x.device)
         for xc in x.reshape(n_chunks, 1, chunk_tokens, d):
             y, aux = moe_apply(p, cfg, xc, impl=impl, return_aux=return_aux,
-                               chunk_tokens=chunk_tokens)
+                               chunk_tokens=chunk_tokens, experts=experts)
             ys.append(y)
             if aux is not None:
                 aux_sum = aux_sum + aux
@@ -112,6 +158,7 @@ def moe_apply(
     E, k = cfg.num_experts, cfg.experts_per_token
     C = _capacity(cfg, N)
     dt = x.dtype
+    lo, hi = experts if experts is not None else (0, E)
 
     xf = x.reshape(N, d)
     router_logits = xf.float() @ p["router"].float()
@@ -136,12 +183,19 @@ def moe_apply(
     # round trip through the quantized wire format.
     wire_dt = (getattr(torch, cfg.moe_dispatch_dtype)
                if cfg.moe_dispatch_dtype else dt)
+    if (lo, hi) != (0, E):
+        # only experts [lo, hi) live here: the others' pairs go to the
+        # overflow row of local expert 0 and weigh nothing in the combine
+        mine = (expert_flat >= lo) & (expert_flat < hi)
+        expert_flat = torch.where(mine, expert_flat - lo, 0)
+        slot = torch.where(mine, slot, C)
+        keep = keep & mine
     dispatch_idx = expert_flat * (C + 1) + slot            # (N*k,)
     token_idx = torch.arange(N, device=x.device)[:, None].expand(N, k).reshape(-1)
     vals = (xf[token_idx] * keep[:, None].to(dt)).to(wire_dt).to(dt)
-    buf = torch.zeros((E * (C + 1), d), dtype=dt, device=x.device)
+    buf = vals.new_zeros(((hi - lo) * (C + 1), d))   # a DTensor's on a mesh
     buf[dispatch_idx] = vals
-    xe = buf.view(E, C + 1, d)[:, :C]                      # (E, C, d) view
+    xe = buf.view(hi - lo, C + 1, d)[:, :C]                # (E, C, d) view
 
     # ---- expert FFN -------------------------------------------------------
     # rows[e]: the leading rows of xe[e] that hold tokens, the capacity count
@@ -151,15 +205,15 @@ def moe_apply(
     if impl == "blockwise":
         ye = _einsum_ffn(xe, p["wi"].to(dt), wg, p["wo"].to(dt), cfg.act)
     else:
-        rows = counts[:, -1].clamp(max=C).to(torch.int32)
+        rows = counts[lo:hi, -1].clamp(max=C).to(torch.int32)
         ye = ops.moe_ffn(xe, p["wi"].to(dt), wg, p["wo"].to(dt), act=cfg.act,
                          impl=impl, rows=rows)
 
     # ---- combine (the same wire format on the way back) -----------------
     # The k contributions of a token are summed in a fixed order (no
     # scatter-add, whose atomics on the card add in a varying order).
-    ye_flat = torch.cat([ye, ye.new_zeros((E, 1, d))], dim=1).reshape(
-        E * (C + 1), d)
+    ye_flat = torch.cat([ye, ye.new_zeros((hi - lo, 1, d))], dim=1).reshape(
+        (hi - lo) * (C + 1), d)
     gathered = ye_flat[dispatch_idx].to(wire_dt).to(dt)   # (N*k, d)
     w = (weights.reshape(N * k) * keep).to(dt)
     y = (gathered * w[:, None]).view(N, k, d).sum(1).reshape(B, S, d)

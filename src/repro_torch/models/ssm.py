@@ -175,17 +175,34 @@ def mamba1_full(
          if state is None else state["ssm"].float())
     scan = {"kernel": ops.selective_scan, "plain": _ss.plain,
             "blockwise": doubling_scan}[impl]
-    y = torch.empty((B, S, di), dtype=torch.float32, device=x.device)
-    for c0 in range(0, S, chunk):
-        c1 = min(c0 + chunk, S)
-        hs = scan(a[:, c0:c1], bx[:, c0:c1], h)           # (B, Q, di, N)
-        y[:, c0:c1] = torch.einsum("bsdn,bsn->bsd", hs, Cc[:, c0:c1])
-        h = hs[:, -1]
+    if type(a).__name__ == "DTensor":     # a mesh: each device's channels
+        rows, chan = {"batch": 0}, {"batch": 0, "chan": 2}
+        y, h = ops.on_mesh(_scan_chunks, (a, bx, Cc, h),
+                           [chan, chan, rows, {"batch": 0, "chan": 1}],
+                           [chan, {"batch": 0, "chan": 1}], scan=scan,
+                           chunk=chunk)
+    else:
+        y, h = _scan_chunks(a, bx, Cc, h, scan=scan, chunk=chunk)
     del a, bx                     # (B, S, di, N) fp32 each: free them now
     y = y + x_conv.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(dt)
     out = y @ p["out_proj"].to(dt)
     return out, {"conv": conv_state, "ssm": h}
+
+
+def _scan_chunks(a, bx, Cc, h, *, scan, chunk: int):
+    """The Mamba-1 recurrence over the sequence in chunks of ``chunk``
+    steps, contracted with C: (y (B, S, di) fp32, the last state (B, di,
+    N)).  Channels are independent.  The chunks' outputs are joined at the
+    end (no preallocated buffer written in place)."""
+    S = a.shape[1]
+    ys = []
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        hs = scan(a[:, c0:c1], bx[:, c0:c1], h)           # (B, Q, di, N)
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cc[:, c0:c1]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
 
 
 def mamba1_decode(
@@ -297,7 +314,24 @@ def mamba2_full(
 
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
          if state is None else state["ssm"].float())
-    y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
+    args = (xh, Bc, Cc, delta, loga, h)
+    if type(xh).__name__ == "DTensor":    # a mesh: each device's heads
+        rows, heads = {"batch": 0}, {"batch": 0, "heads": 2}
+        y, h = ops.on_mesh(_ssd_chunks, args,
+                           [heads, rows, rows, heads, heads,
+                            {"batch": 0, "heads": 1}],
+                           [heads, {"batch": 0, "heads": 1}], chunk=chunk)
+    else:
+        y, h = _ssd_chunks(*args, chunk=chunk)
+    out = _mamba2_out(p, cfg, y, xh, z)
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def _ssd_chunks(xh, Bc, Cc, delta, loga, h, *, chunk: int):
+    """The chunked SSD over the sequence from state ``h``: (y (B, S, H, P),
+    the last state (B, H, P, N)), fp32.  Heads are independent."""
+    S = xh.shape[1]
+    ys = []                       # joined at the end, as in mamba1_full
     for c0 in range(0, S, chunk):
         c1 = min(c0 + chunk, S)
         lah = loga[:, c0:c1].transpose(1, 2)               # (B, H, Q)
@@ -312,15 +346,14 @@ def mamba2_full(
         cumla = torch.exp(cum)
         y_inter = (torch.einsum("bin,bhpn->bihp", cc, h)
                    * cumla.transpose(1, 2)[..., None])
-        y[:, c0:c1] = y_intra + y_inter
+        ys.append(y_intra + y_inter)
         # state update: h' = a_tot h + sum_j (prod_{t>j} a) dt_j B_j x_j
         decay = torch.exp(
             torch.cumsum(lah.flip(-1), dim=-1).flip(-1) - lah)   # (B, H, Q)
         w = (dc * decay.transpose(1, 2))[..., None] * xc   # (B, Q, H, P)
         h = (h * cumla[..., -1, None, None]
              + torch.einsum("bjhp,bjn->bhpn", w, bc))
-    out = _mamba2_out(p, cfg, y, xh, z)
-    return out, {"conv": conv_state, "ssm": h}
+    return torch.cat(ys, dim=1), h
 
 
 def mamba2_decode(

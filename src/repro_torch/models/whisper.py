@@ -54,8 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.base import (
     ParamSpec,
-    cast_params,
-    init_params,
+    draw_params,
     param_count,
     param_tree,
     stack_blueprint,
@@ -63,6 +62,8 @@ from repro_torch.models.base import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import chunked_ce
 from repro_torch.models.layers import (
+    remat_context,
+    residual_layout,
     embed_spec,
     embed_tokens,
     layer_norm,
@@ -147,17 +148,19 @@ class EncDecLM(nn.Module):
             raise ValueError(f"{cfg.name} is not an encoder-decoder config")
         if impl not in attn.IMPLS:
             raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
-        dev = resolve_device(device)
-        if generator is None:
+        dev = resolve_device(device, allow_meta=True)
+        if dev.type == "meta":
+            generator = None             # shapes only: nothing is drawn
+        elif generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        if generator.device.type != dev.type:
+        if generator is not None and generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         self.cfg = cfg
         self.impl = impl
         self.remat = remat
 
         self.embed = nn.Parameter(
-            cast_params(init_params(embed_spec(cfg), generator), dtype),
+            draw_params(embed_spec(cfg), generator, dtype),
             requires_grad=False)
         enc_bp, dec_bp = enc_layer_blueprint(cfg), dec_layer_blueprint(cfg)
         self.encoder = nn.ModuleList(param_tree(enc_bp, generator, dtype)
@@ -223,11 +226,13 @@ class EncDecLM(nn.Module):
     # ==================================================================
     # Encoder and cross-attention
     # ==================================================================
-    def _layer(self, fn, *args, **kwargs):
-        """``fn(*args, **kwargs)``, checkpointed under ``remat`` when
-        autograd records."""
+    def _layer(self, fn, lp, x, *args, **kwargs):
+        """``fn(lp, x, *args, **kwargs)``, checkpointed under ``remat`` when
+        autograd records; ``x`` in the residual layout (``residual_layout``)."""
+        args = (lp, residual_layout(x)) + args
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=remat_context, **kwargs)
         return fn(*args, **kwargs)
 
     def _enc_layer(self, lp, x, positions):

@@ -92,8 +92,9 @@ def make_train_step(
                                  f"by microbatches {microbatches}")
         parts = {k: x.chunk(microbatches) for k, x in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-        acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-               for p in tensors]
+        # zeros_like: on a mesh each accumulator takes its parameter's
+        # placements
+        acc = [torch.zeros_like(p, dtype=acc_dtype) for p in tensors]
         for i in range(microbatches):
             loss, grads = value_and_grad({k: v[i] for k, v in parts.items()})
             loss_sum = loss_sum + loss
