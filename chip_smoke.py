@@ -20,6 +20,16 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    224, and flash_decode over a 1500-slot cross cache all valid and 600
    valid, and the grouped matmul with the occupancy ``rows``
    (0, 8 and 128 of 128 experts; nonzero x past the rows);
+   flash_decode's log-sum-exp (``return_lse``: the output in fp32 and each
+   row's log-sum-exp, a slot shard's partial) against the plain version's
+   in both dtypes (1e-5 relative in float32, 2e-3 absolute in bf16), rows
+   with no valid slot and with one among them; and a slot split on one
+   card: llama3.2-1b's decode shape (H = 32, Kv = 8, D = 64) over a
+   32,768-slot cache cut into 4 slot views, the kernel launched on each
+   with its log-sum-exp and the partials merged
+   (``merge_decode_partials``), against one whole-cache launch and the
+   plain version (2e-2 bf16, 2e-5 float32) under three masks: 600 valid
+   slots (three views empty), every slot valid, valid slots in every view;
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
@@ -180,7 +190,10 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    group, on ``meta`` tensors: host work); every cell OK or the
    reference's own skip, a line per cell with one device's argument and
    temporary GiB, fits in 80 GiB, FLOPs, link bytes, the roofline bound
-   and its bottleneck (counted, not measured);
+   and its bottleneck (counted, not measured); a decode cell of a model
+   with attention (its cache sharded over its slots, attended where it
+   lies and merged by log-sum-exp) must not be bound by its collectives,
+   and a line per decode cell gives its link bytes and bottleneck;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -725,6 +738,172 @@ def check_flash_decode() -> float:
             raise AssertionError("flash_decode disagrees with its plain version")
         worst = max(worst, err)
     return worst
+
+
+# flash_decode's log-sum-exp (tests/test_torch_cuda.py LSE_CASES): (B, H,
+# Kv, S, D, mask) with a row with no valid slot beside a partial one, one
+# valid slot, llama3.2-1b's decode shape and qwen3-moe-30b's and
+# zamba2-7b's heads
+LSE_CASES = [
+    (2, 32, 8, 2048, 64, "empty beside 600"),
+    (1, 32, 8, 2048, 64, "last"),
+    (1, 32, 8, 2048, 64, "600"),
+    (1, 32, 8, 2048, 64, "empty"),
+    (2, 32, 4, 1000, 128, "ring"),
+    (1, 32, 32, 2048, 112, "empty beside 600"),
+]
+LSE_TOL = {torch.float32: ("relative", 1e-5), torch.bfloat16: ("absolute", 2e-3)}
+NEG_INF = -1e30
+
+# a slot split on one card: llama3.2-1b's decode heads over a 32,768-slot
+# cache (decode_32k's), cut into 4 views of 8,192 slots (multiples of the
+# 64-slot tile, 16-byte aligned); masks: 600 valid slots (three views
+# empty), every slot valid, and slots valid in every view
+SPLIT_S, SPLIT_VIEWS = 32_768, 4
+SPLIT_MASKS = ("600", str(SPLIT_S), "every view")
+
+
+def lse_error(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """The largest log-sum-exp difference in LSE_TOL's measure for
+    ``dtype``: relative in float32, absolute in bf16.  Rows with no valid
+    slot must hold the mask's -1e30 in both."""
+    empty = want == NEG_INF
+    if not torch.equal(got == NEG_INF, empty):
+        return float("inf")
+    diff = (got - want).abs()[~empty]
+    if LSE_TOL[dtype][0] == "relative":
+        diff = diff / want.abs()[~empty].clamp(min=1.0)
+    return diff.max().item() if diff.numel() else 0.0
+
+
+def check_flash_decode_lse() -> float:
+    """Step 2, flash_decode's log-sum-exp: every LSE_CASES case in both
+    dtypes, the kernel's (fp32 output, log-sum-exp) against the plain
+    version's, and the launch without it equal to that fp32 output cast
+    to q's dtype, to the bit; returns the largest output error."""
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(13)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Kv, S, D, mask in LSE_CASES:
+            q = randn(rng, (B, 1, H, D), dtype)
+            k = randn(rng, (B, S, Kv, D), dtype)
+            v = randn(rng, (B, S, Kv, D), dtype)
+            valid = make_valid(B, S, mask, rng)
+            got, got_lse = fd.launch(q, k, v, valid, return_lse=True)
+            want, want_lse = fd.plain(q, k, v, valid, return_lse=True)
+            # without it: the same launch but for the epilogue's store
+            same = torch.equal(fd.launch(q, k, v, valid), got.to(dtype))
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            lerr = lse_error(got_lse, want_lse, dtype)
+            tol = TOL[dtype]
+            kind, ltol = LSE_TOL[dtype]
+            ok = (same and got.dtype == torch.float32 and got_lse.shape == (B, H)
+                  and torch.isfinite(got).all().item()
+                  and torch.isfinite(got_lse).all().item()
+                  and torch.allclose(got, want, atol=tol, rtol=tol)
+                  and lerr <= ltol)
+            log(f"flash_decode lse {str(dtype)[6:]} B={B} H={H} Kv={Kv} S={S} "
+                f"D={D} valid={mask}: output max_abs_err={err:.3g} tol={tol}, "
+                f"lse {kind} err={lerr:.3g} tol={ltol}, without the lse "
+                f"the fp32 output cast to the bit {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_decode's log-sum-exp disagrees "
+                                     "with its plain version")
+            worst = max(worst, err)
+    return worst
+
+
+def split_inputs(rng, dtype, mask: str, B: int = 2):
+    q = randn(rng, (B, 1, MAIN_H, MAIN_D), dtype)
+    k = randn(rng, (B, SPLIT_S, MAIN_KV, MAIN_D), dtype)
+    v = randn(rng, (B, SPLIT_S, MAIN_KV, MAIN_D), dtype)
+    if mask == "every view":
+        pos = torch.arange(SPLIT_S, device="cuda")
+        valid = ((pos % (SPLIT_S // SPLIT_VIEWS)) < 3000)[None].expand(B, SPLIT_S)
+        valid = valid.to(torch.int8).contiguous()
+    else:
+        valid = make_valid(B, SPLIT_S, mask, rng)
+    return q, k, v, valid
+
+
+def split_decode(q, k, v, valid):
+    """The kernel on SPLIT_VIEWS slot views of the cache, each with its
+    log-sum-exp, merged once (``merge_decode_partials``)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    n = SPLIT_S // SPLIT_VIEWS
+    parts = [fd.launch(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                       valid[:, i * n:(i + 1) * n], return_lse=True)
+             for i in range(SPLIT_VIEWS)]
+    return fd.merge_decode_partials([o for o, _ in parts],
+                                    [lse for _, lse in parts], dtype=q.dtype)
+
+
+def check_slot_split() -> float:
+    """Step 2, a slot split on one card: SPLIT_VIEWS views of a
+    SPLIT_S-slot cache through the kernel with their log-sum-exp, merged,
+    against one whole-cache launch and the plain version, bf16 then
+    float32, under SPLIT_MASKS; returns the largest error."""
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(17)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for mask in SPLIT_MASKS:
+            q, k, v, valid = split_inputs(rng, dtype, mask)
+            got = split_decode(q, k, v, valid)
+            whole = fd.launch(q, k, v, valid)
+            want = fd.plain(q, k, v, valid)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            errs = [(got.float() - w.float()).abs().max().item()
+                    for w in (whole, want)]
+            ok = (got.dtype == dtype and torch.isfinite(got).all().item()
+                  and all(torch.allclose(got.float(), w.float(), atol=tol,
+                                         rtol=tol) for w in (whole, want)))
+            log(f"flash_decode slot split {str(dtype)[6:]} B={q.shape[0]} "
+                f"H={MAIN_H} Kv={MAIN_KV} D={MAIN_D} S={SPLIT_S} in "
+                f"{SPLIT_VIEWS} views, valid={mask}: max_abs_err vs the "
+                f"whole-cache launch {errs[0]:.3g}, vs plain {errs[1]:.3g} "
+                f"tol={tol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the merged slot split disagrees with "
+                                     "the whole cache")
+            worst = max(worst, *errs)
+    return worst
+
+
+def time_slot_split() -> None:
+    """Step 3, the slot split's times (bf16, B = 1, SPLIT_MASKS): one
+    whole-cache launch against the SPLIT_VIEWS launches with their
+    log-sum-exp plus the merge, device time (``torch.profiler``) and CUDA
+    events around back-to-back calls, beside the whole cache's bound.  No
+    limit is set."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(18)
+    for mask in SPLIT_MASKS:
+        q, k, v, valid = split_inputs(rng, torch.bfloat16, mask, B=1)
+        n_valid = int(valid.bool().sum().item())
+        calls = {"whole": lambda: fd.launch(q, k, v, valid),
+                 "split": lambda: split_decode(q, k, v, valid)}
+        dev = {name: device_ms(f, iters=20) for name, f in calls.items()}
+        ev = {name: cuda_ms(f, iters=50) for name, f in calls.items()}
+        work = cost.flash_decode_work(1, MAIN_H, MAIN_KV, SPLIT_S, MAIN_D, 2,
+                                      n_valid)
+        b_ms, b_by = bound_ms(work.flops, work.bytes)
+        log(f"flash_decode slot split timing [{card_line()}] bf16 B=1 "
+            f"H={MAIN_H} Kv={MAIN_KV} D={MAIN_D} S={SPLIT_S} valid={mask} "
+            f"({n_valid} slots): whole-cache launch {dev['whole']:.4f} ms, "
+            f"{SPLIT_VIEWS} launches + merge {dev['split']:.4f} ms (device "
+            f"time, torch.profiler); per call with host overhead (CUDA "
+            f"events): whole {ev['whole']:.4f} ms, split {ev['split']:.4f} "
+            f"ms; bound_ms={b_ms:.5f} ({b_by})")
 
 
 def scan_inputs(rng, shape, dtype):
@@ -3513,6 +3692,24 @@ class DryRun:
                         f"({rl['bottleneck']}), kernel calls "
                         f"{json.dumps(h['kernel_calls'])}, refused "
                         f"{json.dumps(r['refused_ops'])}")
+        # decode cells: the cache sharded over its slots is attended where
+        # it lies, so no model with attention is bound by its links
+        for arch in SERVED:
+            for shape in ("decode_32k", "long_500k"):
+                for mesh in ("single", "multi"):
+                    path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+                    r = json.loads(path.read_text()) if path.exists() else {}
+                    if r.get("status") != "run":
+                        continue
+                    h, rl = r["hlo_counts"], r["roofline"]
+                    attn = "flash_decode" in h["kernel_calls"]
+                    log(f"dryrun decode cell {arch} x {shape} x {mesh}: link "
+                        f"bytes {h['collective_link_bytes']:.4e} "
+                        f"({json.dumps(h['collective_counts'])}), bottleneck "
+                        f"{rl['bottleneck']}, flash_decode calls "
+                        f"{h['kernel_calls'].get('flash_decode', 0)}")
+                    if attn and rl["bottleneck"] == "collective":
+                        failed.append((arch, shape, mesh, "collective-bound"))
         log(f"dryrun: {n_ok} cells OK and {n_skip} the reference's skips of "
             f"{len(SERVED) * len(SHAPES) * 2}, all done {wall:.1f} s after "
             f"they started ({self.width} at a time at nice 19, beside the "
@@ -3570,12 +3767,15 @@ def main() -> int:
               "flash_decode": check_flash_decode(),
               "selective_scan": check_selective_scan(),
               "moe_gmm": check_moe_gmm()}
+    check_flash_decode_lse()
+    check_slot_split()
     # timed before the fleets: after both models' profiles, one run of this
     # script recorded kernels at 0.6 of their true time; the newest kernel
     # first, while the profiler is fresh
     gmm = time_moe_gmm()
     kernels = [time_flash_attention(), time_flash_decode(), time_selective_scan(),
                gmm]
+    time_slot_split()
     # the scenario engine's own path: checked, counted and timed in its phase
     scenario = phase_scenario()
     phase_profiles()

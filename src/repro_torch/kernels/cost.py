@@ -65,13 +65,16 @@ def flash_attention_work(B: int, H: int, Kv: int, Sq: int, Skv: int, D: int,
 
 
 def flash_decode_work(B: int, H: int, Kv: int, S: int, D: int, itemsize: int,
-                      n_valid: Optional[int] = None) -> Work:
+                      n_valid: Optional[int] = None, lse: bool = False) -> Work:
     """One query token per head against ``n_valid`` valid slots (all S when
     not given): q and the output, the (B, S) one-byte mask, and the K and V
-    rows of the valid slots."""
+    rows of the valid slots.  With ``lse`` (a slot shard's partial) the
+    output is written in fp32 and each row's log-sum-exp beside it."""
     n = S if n_valid is None else n_valid
+    out_bytes = (4.0 * B * H * (D + 1) if lse
+                 else float(itemsize) * B * H * D)
     return Work(4.0 * B * H * D * n,
-                float(itemsize) * 2 * B * H * D + B * S
+                float(itemsize) * B * H * D + out_bytes + B * S
                 + float(itemsize) * 2 * B * n * Kv * D)
 
 

@@ -48,6 +48,12 @@
 //   to arrive merges the splits in split order, so the result is the same
 //   every run, and sets the counter back to 0 for the next launch.  The
 //   ticket is the only atomic: no sum goes through one.
+// * Slot shards.  A cache sharded over its slots (context-parallel decode)
+//   is attended shard by shard and merged by the same log-sum-exp rule
+//   across devices.  So the merging block can also write each row's
+//   log-sum-exp, mx + log(sum of l), and the output in fp32, to be cast
+//   once after the cross-shard merge.  Both are written only by the merge:
+//   the tile loop is the same with or without them.
 //
 // Element types: float and bfloat16 (math in fp32).  Head dims: 64, 112,
 // 128.  At 112 (zamba2-7b) a bf16 row of 14 chunks lies in a shared-memory
@@ -103,6 +109,8 @@ struct Params {
   long long valid_sb;           // the S stride is 1
   long long o_sb, o_sh;
   float scale;
+  float* lse;                   // (B, H) log-sum-exp of the scaled scores, or null
+  int o_f32;                    // the output in fp32 (else T)
 };
 
 // Elements per K/V row in shared memory: D, or for bf16 D rounded up to
@@ -480,6 +488,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    // the row's log-sum-exp in the units of the scaled scores: a row with
+    // no valid slot gives -1e30 + log(count) = -1e30, finite, so a merge
+    // over slot shards weighs it exp(-1e30 - m) = 0 beside any valid shard
+    if (p.lse != nullptr && lane == 0) p.lse[row0 + g] = mx + logf(ls);
     const float inv = 1.f / fmaxf(ls, 1e-20f);
     for (int s = lane; s < active; s += 32) sw[g * active + s] *= inv;
   }
@@ -521,7 +533,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < N4; ++i) {
     const int j = tid + i * THREADS, g = j / (D / 4), d = 4 * (j % (D / 4));
-    if (g < G) {
+    if (g < G && p.o_f32) {     // a partial of a slot shard: cast once, after the merge
+      float* o = static_cast<float*>(p.o) + b * p.o_sb + (kvh * G + g) * p.o_sh + d;
+      o[0] = out[i].x;
+      o[1] = out[i].y;
+      o[2] = out[i].z;
+      o[3] = out[i].w;
+    } else if (g < G) {
       T* o = static_cast<T*>(p.o) + b * p.o_sb + (kvh * G + g) * p.o_sh + d;
       o[0] = from_float<T>(out[i].x);
       o[1] = from_float<T>(out[i].y);
@@ -553,7 +571,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  part: B * H * splits * (D + 2) floats
 // of scratch, 16-byte aligned; tickets: B * Kv ints, zero before the launch and zero after it.
-// Returns a cudaError_t (0 = launched).
+// lse: null, or (B, H) contiguous floats that receive each row's log-sum-exp
+// of its scaled, masked scores.  out_f32: o holds floats (strides in
+// floats) whatever the input dtype.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_decode_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, const void* valid, void* o,
@@ -563,7 +583,7 @@ extern "C" int flash_decode_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long valid_sb, long long o_sb, long long o_sh,
-    float scale, void* stream) {
+    float scale, void* stream, void* lse, int out_f32) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.valid = static_cast<const uint8_t*>(valid);
@@ -579,6 +599,8 @@ extern "C" int flash_decode_fwd(
   p.valid_sb = valid_sb;
   p.o_sb = o_sb; p.o_sh = o_sh;
   p.scale = scale;
+  p.lse = static_cast<float*>(lse);
+  p.o_f32 = out_f32;
   if (H % Kv != 0 || H / Kv > MAX_G || S <= 0 || splits <= 0 || B > 65535 ||
       Kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -36,7 +36,7 @@ def _kernel_fn():
             + [ctypes.c_void_p] * 7
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 11
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -58,13 +58,41 @@ def plain(
     k_cache: torch.Tensor,        # (B, S, Kv, D)
     v_cache: torch.Tensor,
     kv_valid: torch.Tensor,       # (B, S)
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The plain version in the model layout: ``ref.flash_decode_ref`` on
-    transposed views."""
+    transposed views.  With ``return_lse``: (the output in fp32, each
+    row's log-sum-exp (B, H) fp32), the partial of one slot shard."""
     out = ref.flash_decode_ref(
-        q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), kv_valid
+        q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), kv_valid,
+        return_lse=return_lse,
     )
+    if return_lse:
+        return out[0][:, None], out[1]
     return out[:, None]
+
+
+def merge_decode_partials(outs, lses, dtype: torch.dtype = torch.float32):
+    """One output from the partials of disjoint slot shards of one cache:
+    ``outs`` (B, 1, H, D) fp32 and ``lses`` (B, H), each from ``plain`` or
+    ``launch`` with ``return_lse``.  The weights are exp(lse - max lse),
+    the sums run in the shards' order, and the result is cast to
+    ``dtype`` once.  A shard with no valid slot has lse = -1e30 (its
+    scores' finite mask value), so it weighs exactly 0 beside a shard that
+    has one.  Where no shard has a valid slot, every lse is -1e30 and the
+    row is the mean of the shards' means, each the mean of V over its
+    slots: over shards of equal size, the mean over all slots, which is
+    what the whole cache gives (the reference's ``decode_attention``)."""
+    m = lses[0]
+    for lse in lses[1:]:
+        m = torch.maximum(m, lse)
+    num = den = None
+    for o, lse in zip(outs, lses):
+        w = torch.exp(lse - m)
+        term = o.float() * w[:, None, :, None]
+        num = term if num is None else num + term
+        den = w if den is None else den + w
+    return (num / den[:, None, :, None]).to(dtype)
 
 
 def launch(
@@ -72,9 +100,12 @@ def launch(
     k_cache: torch.Tensor,        # (B, S, Kv, D)
     v_cache: torch.Tensor,
     kv_valid: torch.Tensor,       # (B, S) bool / int8 / uint8
-) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns (B, 1, H, D).
-    Raises on inputs the kernel does not take and on a refused launch."""
+    return_lse: bool = False,
+):
+    """Launch the kernel on the current stream; returns (B, 1, H, D) in
+    q's dtype, or with ``return_lse`` (the output in fp32, each row's
+    log-sum-exp (B, H) fp32).  Raises on inputs the kernel does not take
+    and on a refused launch."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     B, _, H, D = q.shape
@@ -107,9 +138,13 @@ def launch(
             raise ValueError("cache rows must be 16-byte aligned")
     if S == 0:
         raise ValueError("the cache has no slots")
-    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, 1, H, D),
+                      dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     splits = num_splits(B, Kv, S, sm_count(q.device.index or 0))
     part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
@@ -129,7 +164,8 @@ def launch(
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             kv_valid.stride(0), out.stride(0), out.stride(2),
             1.0 / math.sqrt(D), stream,
+            lse.data_ptr() if return_lse else None, int(return_lse),
         )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if return_lse else out

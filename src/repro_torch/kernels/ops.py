@@ -17,7 +17,10 @@ its main path went through the kernels, and its meta calls apart, in
 ``<wrapper>.meta_calls``.  On a mesh (DTensors with meta shards, the dry
 run's) a model wrapper takes its meta route on one device's shards
 (``on_mesh``): the kernel computes rows, heads, channels or experts apart,
-so those stay sharded and anything else is gathered first.
+so those stay sharded and anything else is gathered first.  A decode
+cache sharded over its slots is the exception: each device attends its own
+slots and the shards merge by their log-sum-exp
+(``slot_parallel_decode``), on meta or real shards alike.
 
 The kernels have no backward, and a launch writes its output through
 ctypes, outside autograd.  So a model wrapper refuses, on any device, an
@@ -125,6 +128,90 @@ def attention_on_mesh(fn, tensors, **kw):
     return on_mesh(fn, list(tensors), splits, HEADS, **kw)
 
 
+def shard_offset(t, dim: int) -> int:
+    """Where this device's shard of the DTensor ``t`` starts along tensor
+    dimension ``dim``: DTensor cuts the dimension as ``torch.chunk`` does,
+    once per mesh dimension that shards it, the first of them outermost."""
+    mesh, start, size = t.device_mesh, 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            at = min(mesh.get_local_rank(i) * chunk, size)
+            start, size = start + at, min(chunk, size - at)
+    return start
+
+
+def slot_sharded(cache) -> bool:
+    """``cache`` (B, S, Kv, D) is a DTensor whose slots some mesh
+    dimension shards: the ``decode_cp`` rules' context-parallel cache."""
+    return _is_dtensor(cache) and any(p.is_shard(1) for p in cache.placements)
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dim: int) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, mesh.get_group(dim))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+def slot_parallel_decode(fn, q, k_cache, v_cache, kv_valid):
+    """Decode attention over a cache sharded over its slots, attended where
+    it lies (the reference gets this from XLA's partitioner; DTensor cannot
+    partition a softmax over a sharded axis).
+
+    ``fn(q, k, v, valid)`` (a decode attention that returns its output in
+    fp32 and each row's log-sum-exp) runs on each device's shards: its
+    batch rows and slots of the cache and of ``kv_valid`` (cut by
+    ``shard_offset``; a plain mask is whole on every device), and q with
+    its heads gathered over the slot-sharding mesh dimensions (B_l x H x D,
+    small).  The partials merge as ``flash_decode.merge_decode_partials``
+    does, through functional collectives on each slot-sharding mesh
+    dimension: an all-reduce max of the log-sum-exp M, then one all-reduce
+    sum of (w * o, w) with w = exp(lse - M); the output is the sum over
+    the weights, cast once to q's dtype.  A shard without a valid slot
+    weighs 0 beside one with a valid slot; where none has one, the row is
+    the mean of the shards' means (over DTensor's equal shards, the mean
+    over every slot, as on one device).
+
+    The cache's batch (and kv heads, where a mesh dimension shards them)
+    stay sharded; the output is a DTensor sharded so, replicated on every
+    other mesh dimension."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = k_cache.device_mesh
+    qp, cp = [], []
+    for i, p in enumerate(k_cache.placements):
+        if p.is_shard(1):
+            cp.append(i)
+        elif not (p.is_replicate() or p.is_shard(0) or p.is_shard(2)):
+            raise ValueError(f"a slot-sharded cache placed {p} on mesh "
+                             f"dimension {i}")
+        qp.append(Replicate() if p.is_shard(1) else p)
+    if tuple(q.placements) != tuple(qp):
+        q = q.redistribute(mesh, qp)
+    k_l, v_l = k_cache.to_local(), v_cache.to_local()
+    if _is_dtensor(kv_valid):
+        kv_valid = kv_valid.redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+    b0, s0 = shard_offset(k_cache, 0), shard_offset(k_cache, 1)
+    valid_l = kv_valid[b0:b0 + k_l.shape[0], s0:s0 + k_l.shape[1]]
+    o, lse = fn(q.to_local(), k_l, v_l, valid_l)
+    m = lse
+    for i in cp:
+        m = _all_reduce(m, "max", mesh, i)
+    w = torch.exp(lse - m)
+    packed = torch.cat([o[:, 0] * w[..., None], w[..., None]], dim=-1)
+    for i in cp:
+        packed = _all_reduce(packed, "sum", mesh, i)
+    D = o.shape[-1]
+    out = (packed[..., :D] / packed[..., D:])[:, None].to(q.dtype)
+    # the global strides given: inferred from the local ones, the size-1
+    # token axis gets one that the output projection's reshape cannot view
+    B, _, H, _ = q.shape
+    return DTensor.from_local(out, mesh, qp, run_check=False, shape=q.shape,
+                              stride=(H * D, H * D, D, 1))
+
+
 def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
@@ -174,22 +261,40 @@ def flash_decode(
     v_cache: torch.Tensor,
     *,
     kv_valid: torch.Tensor,       # (B, S)
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Decode attention, (B, 1, H, D) in q's dtype; with ``return_lse``
+    (the output in fp32, each row's log-sum-exp (B, H) fp32).  A cache
+    sharded over its slots (a DTensor under ``decode_cp``) is attended
+    where it lies and the shards merged (``slot_parallel_decode``); any
+    other DTensor runs on one device's rows and heads (``on_mesh``)."""
     _refuse_grad("flash_decode", q, k_cache, v_cache)
-    if _is_dtensor(q):
+    if _is_dtensor(q) or slot_sharded(k_cache):
+        if return_lse:
+            raise ValueError("flash_decode: return_lse gives one device's "
+                             "partial; it takes no DTensor")
+        if slot_sharded(k_cache):
+            return slot_parallel_decode(
+                lambda q, k, v, valid: flash_decode(q, k, v, kv_valid=valid,
+                                                    return_lse=True),
+                q, k_cache, v_cache, kv_valid)
         return attention_on_mesh(
             lambda q, k, v, valid: flash_decode(q, k, v, kv_valid=valid),
             (q, k_cache, v_cache, kv_valid))
     route = _route(q, k_cache, v_cache, kv_valid)
     if route == "cpu":
-        return _fd.plain(q, k_cache, v_cache, kv_valid)
+        return _fd.plain(q, k_cache, v_cache, kv_valid, return_lse=return_lse)
     if route == "meta":
         B, _, H, D = q.shape
         cost.record("flash_decode", cost.flash_decode_work(
-            B, H, k_cache.shape[2], k_cache.shape[1], D, q.element_size()))
+            B, H, k_cache.shape[2], k_cache.shape[1], D, q.element_size(),
+            lse=return_lse))
         flash_decode.meta_calls += 1
+        if return_lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty((B, H), dtype=torch.float32, device="meta"))
         return torch.empty(q.shape, dtype=q.dtype, device="meta")
-    out = _fd.launch(q, k_cache, v_cache, kv_valid)
+    out = _fd.launch(q, k_cache, v_cache, kv_valid, return_lse=return_lse)
     flash_decode.launches += 1
     return out
 

@@ -50,7 +50,12 @@ def flash_decode_ref(
     k: torch.Tensor,              # (B, Kv, S, D)
     v: torch.Tensor,
     valid: torch.Tensor,          # (B, S) int8 / bool
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Softmax attention of one query row per head over the valid slots.
+    With ``return_lse``: (the output (B, H, D) in fp32, the log-sum-exp of
+    each row's masked, scaled scores (B, H)); a row with no valid slot has
+    -1e30, the mask's finite value."""
     B, H, D = q.shape
     Kv = k.shape[1]
     G = H // Kv
@@ -61,6 +66,8 @@ def flash_decode_ref(
     )
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgm,bkmd->bkgd", w, v.float())
+    if return_lse:
+        return out.reshape(B, H, D), torch.logsumexp(s, dim=-1).reshape(B, H)
     return out.reshape(B, H, D).to(q.dtype)
 
 

@@ -18,7 +18,15 @@ step itself on ``meta`` tensors (shapes, no data) under a
   which its wrapper's ``meta`` route adds (``kernels.cost``).
 * **Bytes**: every op reads its inputs and writes its outputs once, which
   is what eager PyTorch moves on the card: there is no fusion.  Views move
-  nothing; ``empty`` writes nothing.  This replaces the reference's TPU
+  nothing; ``empty`` writes nothing.  An indexed op moves only the rows it
+  touches: a gather (``index_select``, advanced indexing, ``gather``,
+  ``embedding``) reads its indices and as many bytes of its source as it
+  writes (at most the whole source); an indexed write in place
+  (``index_copy_``, ``index_put_``, ``scatter_`` and their ``add`` forms)
+  reads its indices and values and writes the values' bytes into its
+  target (the ``add`` forms also read them there; at most the whole
+  target), never the whole target: a decode step's one-slot cache write
+  moves one slot, as on the card.  This replaces the reference's TPU
   fusion model (``hlo_count.py``, which counts only the ops XLA:TPU would
   not fuse).
 * **Collectives** per kind (``all-reduce``, ``all-gather``,
@@ -68,6 +76,11 @@ _COLLECTIVES = {
 _NOT_COUNTED = {"wait_tensor", "_wrap_tensor_autograd"}
 _NO_WRITE = {"empty", "empty_strided", "empty_like", "new_empty",
              "new_empty_strided"}
+# indexed ops, by the rows they touch (their first argument is the source
+# or the target)
+_GATHERS = {"index_select", "index", "gather", "embedding"}
+_SCATTERS = {"index_copy_": 1, "index_put_": 1, "scatter_": 1,
+             "index_add_": 2, "scatter_add_": 2}   # target passes: write, read
 
 
 @dataclasses.dataclass
@@ -175,7 +188,18 @@ class OpCounter(TorchDispatchMode):
             packet = func._overloadpacket
             if packet in flop_registry:
                 c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-            if not func.is_view:
+            if func.is_view:
+                pass
+            elif name in _GATHERS:
+                written = sum(t.nbytes for t in outs)
+                c.bytes += (written + min(written, ins[0].nbytes)
+                            + sum(t.nbytes for t in ins[1:]))
+            elif name in _SCATTERS:
+                target, rest = ins[0], ins[1:]
+                values = sum(t.nbytes for t in rest if t.dtype == target.dtype)
+                c.bytes += (sum(t.nbytes for t in rest)
+                            + _SCATTERS[name] * min(values, target.nbytes))
+            else:
                 if name not in _NO_WRITE:
                     c.bytes += sum(t.nbytes for t in outs)
                 c.bytes += sum(t.nbytes for t in ins)

@@ -134,9 +134,27 @@ def decode_attention(
     v_cache: torch.Tensor,
     *,
     kv_valid: torch.Tensor,  # (B, S_cache) bool — slot validity
-) -> torch.Tensor:
-    if type(q).__name__ == "DTensor":       # a mesh: each device's heads
-        return ops.attention_on_mesh(
+    return_lse: bool = False,
+):
+    """With ``return_lse``: (the output in fp32, the log-sum-exp of each
+    row's masked, scaled scores (B, H)), the partial of one slot shard.
+
+    On a mesh a cache sharded over its slots is attended where it lies and
+    the shards merged by their log-sum-exp (``ops.slot_parallel_decode``),
+    as the reference's partitioned einsum does; where no shard holds a
+    valid slot the row is the mean of the shards' means, which over
+    DTensor's equal shards is this function's mean over every slot.  Any
+    other DTensor runs on each device's rows and heads."""
+    if type(q).__name__ == "DTensor" or ops.slot_sharded(k_cache):
+        if return_lse:
+            raise ValueError("decode_attention: return_lse gives one "
+                             "device's partial; it takes no DTensor")
+        if ops.slot_sharded(k_cache):
+            return ops.slot_parallel_decode(
+                lambda q, k, v, valid: decode_attention(
+                    q, k, v, kv_valid=valid, return_lse=True),
+                q, k_cache, v_cache, kv_valid)
+        return ops.attention_on_mesh(        # each device's rows and heads
             lambda q, k, v, valid: decode_attention(q, k, v, kv_valid=valid),
             (q, k_cache, v_cache, kv_valid))
     B, _, H, D = q.shape
@@ -147,6 +165,9 @@ def decode_attention(
     s = torch.where(kv_valid.bool()[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgm,bmkd->bkgd", w, v_cache.float())
+    if return_lse:
+        return (out.reshape(B, 1, H, D),
+                torch.logsumexp(s, dim=-1).reshape(B, H))
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -317,10 +338,7 @@ def write_slot(cache: torch.Tensor, slot: torch.Tensor,
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh, local = cache.device_mesh, cache.to_local()
-    offset = 0
-    for i, p in enumerate(cache.placements):
-        if isinstance(p, Shard) and p.dim == 1:
-            offset += mesh.get_local_rank(i) * local.shape[1]
+    offset = ops.shard_offset(cache, 1)
     new_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
               for p in cache.placements]
     new_l = new.redistribute(mesh, new_pl).to_local()

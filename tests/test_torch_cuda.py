@@ -503,6 +503,94 @@ def test_moe_ffn_kernel_matches_plain(card):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+# (B, H, Kv, S, D, mask) for flash_decode's log-sum-exp: a row with no
+# valid slot beside a partial one, one valid slot, llama3.2-1b's decode
+# shape, no valid slot at all, a ring at qwen3-moe-30b's heads and
+# zamba2-7b's head width
+LSE_CASES = [
+    (2, 32, 8, 2048, 64, "empty beside 600"),
+    (1, 32, 8, 2048, 64, "last"),
+    (1, 32, 8, 2048, 64, "600"),
+    (1, 32, 8, 2048, 64, "empty"),
+    (2, 32, 4, 1000, 128, "ring"),
+    (1, 32, 32, 2048, 112, "empty beside 600"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LSE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_lse_matches_plain(card, case, dtype):
+    """With ``return_lse`` the kernel writes its output in fp32 and each
+    row's log-sum-exp: the plain version's within 1e-5 relative (float32)
+    or 2e-3 absolute (bf16); a row with no valid slot holds -1e30 in both.
+    Without it the output is q's dtype, as before."""
+    B, H, Kv, S, D, mask = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(900 + LSE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, S, Kv, D), tdt, card)
+    v = _randn(rng, (B, S, Kv, D), tdt, card)
+    valid = decode_mask(B, S, mask, card)
+    before = ops.flash_decode.launches
+    got, lse = ops.flash_decode(q, k, v, kv_valid=valid, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    want, want_lse = tfd.plain(q, k, v, valid, return_lse=True)
+    assert got.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    empty = want_lse == -1e30
+    assert torch.equal(lse == -1e30, empty)
+    if tdt == torch.float32:
+        torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=0,
+                                   rtol=1e-5)
+    else:
+        torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=2e-3,
+                                   rtol=0)
+    # without it, the same launch but for the epilogue's store: the fp32
+    # output cast to q's dtype, to the bit
+    plain_out = ops.flash_decode(q, k, v, kv_valid=valid)
+    assert plain_out.dtype == tdt and torch.equal(plain_out, got.to(tdt))
+
+
+SPLIT_S, SPLIT_VIEWS = 32_768, 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["600", "32768", "every view"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_slot_split_on_one_card(card, mask, dtype):
+    """llama3.2-1b's decode heads over a 32,768-slot cache cut into 4 slot
+    views (multiples of 64 slots, 16-byte aligned), the kernel on each with
+    its log-sum-exp, merged: one whole-cache launch's output and the plain
+    version's, under 600 valid slots (three views empty), all valid and
+    valid slots in every view."""
+    B, H, Kv, D = 2, 32, 8, 64
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(950)
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, SPLIT_S, Kv, D), tdt, card)
+    v = _randn(rng, (B, SPLIT_S, Kv, D), tdt, card)
+    if mask == "every view":
+        pos = torch.arange(SPLIT_S, device=card)
+        valid = ((pos % (SPLIT_S // SPLIT_VIEWS)) < 3000)[None].expand(B, SPLIT_S)
+        valid = valid.to(torch.int8).contiguous()
+    else:
+        valid = decode_mask(B, SPLIT_S, mask, card)
+    n = SPLIT_S // SPLIT_VIEWS
+    parts = [tfd.launch(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                        valid[:, i * n:(i + 1) * n], return_lse=True)
+             for i in range(SPLIT_VIEWS)]
+    got = tfd.merge_decode_partials([o for o, _ in parts],
+                                    [lse for _, lse in parts], dtype=tdt)
+    whole = tfd.launch(q, k, v, valid)
+    want = tfd.plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt
+    torch.testing.assert_close(got.float(), whole.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
