@@ -176,6 +176,16 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    batch (B = 2, S = 64): loss and every parameter within 1e-5 relative;
    (c) the train CLI in-process, 6 smoke steps with a checkpoint every 3
    into ``chiprun_out/train`` and then 9, which must resume from step 6;
+   (d) the ~100M trainer (``python -m repro_torch.launch.train_100m``, the
+   reference's ``examples/train_100m.py``: llama-100m at full width, 30
+   steps of B = 4, S = 128, a checkpoint every 10 under
+   ``artifacts/chip_smoke_train_100m/``, removed after): once
+   uninterrupted (its ``main`` in-process), in a fresh directory as a
+   subprocess (started at nice 19 before (a), beside (a)–(c)) killed with
+   SIGKILL once it has printed its step-10 checkpoint, and then again
+   in-process, which must resume from step 10 (or 20) and finish; its
+   lines, the parameter count, s/step, peak memory and both final losses
+   with their difference (within 1e-3 of the loss) printed;
 5g. the mesh on the card (``phase_mesh``): a 1x1 mesh over an NCCL process
    group of one rank; full-width llama3.2-1b's parameters placed under the
    ``tp`` rules and its cache under ``decode_cp`` (DTensors), every local
@@ -194,6 +204,11 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    with attention (its cache sharded over its slots, attended where it
    lies and merged by log-sum-exp) must not be bound by its collectives,
    and a line per decode cell gives its link bytes and bottleneck;
+5i. the port's static checker (``Analysis``, started at the beginning of
+   the train phase at nice 19, collected at its end): ``python -m
+   repro_torch.analysis --out -`` in a subprocess must exit 0 and end with
+   ``analysis: OK``; its findings and summary line (files scanned,
+   findings, exempted) are printed;
 6. serves five full-width models, one after the other, with seeded random
    bf16 weights, through the same helpers: llama3.2-1b (flash_attention in
    prefill, flash_decode in decode), falcon-mamba-7b (64 Mamba-1 layers,
@@ -3330,9 +3345,237 @@ def train_cli() -> None:
         raise AssertionError("the train CLI did not resume from step 6")
 
 
-def phase_train() -> None:
-    """Training on the card: (a), (b), (c) above."""
+TRAIN_100M_OUT = ROOT / "artifacts" / "chip_smoke_train_100m"
+TRAIN_100M_STEPS = 30
+TRAIN_100M_TOKENS = 4 * 128               # B x S a step
+# the trainer's last line before "done": the last step's loss and grad norm,
+# the loop's wall, the part of it in checkpoints, s/step without them, peak
+FINAL_RE = re.compile(
+    r"final step (\d+) loss (\S+) gnorm (\S+); (\d+) steps in (\S+) s, "
+    r"(\S+) s of it in checkpoints, the first step (\S+) s, (\S+) s/step"
+    r"(?:, peak (\S+) GiB)?")
+
+
+def subprocess_env(**extra) -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+
+
+def train_100m_argv(ckpt_dir: Path) -> list:
+    """``examples/train_100m.py``'s arguments, on the port: full width, 30
+    steps of B = 4, S = 128, a checkpoint every 10 steps."""
+    return ["--steps", str(TRAIN_100M_STEPS), "--batch", "4", "--seq", "128",
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "10"]
+
+
+def train_100m_command(ckpt_dir: Path) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.train_100m",
+            *train_100m_argv(ckpt_dir)]
+
+
+def train_100m_final(lines, where: str) -> dict:
+    for line in lines:
+        m = FINAL_RE.fullmatch(line)
+        if m:
+            keys = ("step", "loss", "gnorm", "steps", "wall_s", "ckpt_s",
+                    "first_s", "s_per_step", "peak_gib")
+            return dict(zip(keys, (float(v or "nan") for v in m.groups())))
+    raise AssertionError(f"train_100m {where}: no final line in {lines[-3:]}")
+
+
+class Background:
+    """A subprocess this script starts beside its phases; ``stop`` kills it
+    if it still runs (registered with ``atexit``: a failed run leaves no
+    process behind)."""
+
+    proc = None
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class KilledRun(Background):
+    """(d)'s second run: the trainer's command in a fresh directory, in a
+    subprocess at nice 19 started beside (a)–(c) (a fresh process spends
+    ≈ 7–9 s of its first step setting up on an H100), killed with
+    SIGKILL once it has printed its step-10 checkpoint."""
+
+    def start(self, ckpt_dir: Path) -> None:
+        import os
+        import subprocess
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.lines, self.killed_at = [], None
+        self.proc = subprocess.Popen(
+            train_100m_command(ckpt_dir), cwd=ROOT,
+            env=subprocess_env(PYTHONUNBUFFERED="1"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19))
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+
+    def _watch(self) -> None:
+        try:
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                if line.startswith("checkpointed -> ") and line.rstrip(
+                        "\n").endswith("step_00000010"):
+                    self.proc.kill()         # SIGKILL: no handler runs
+                    self.killed_at = line
+                    break
+        finally:
+            self.stop()
+            self.proc.stdout.close()
+            self.wall = time.perf_counter() - self.t0
+
+    def finish(self, card: str) -> float:
+        """Wait for the kill; print the run's lines; return its wall."""
+        self.thread.join(timeout=600)
+        for line in self.lines:
+            log(f"train_100m [{card}] | killed: {line}")
+        if self.thread.is_alive() or self.killed_at is None or (
+                self.proc.returncode != -9):
+            raise AssertionError(
+                f"train_100m: the run was not killed after its step-10 "
+                f"checkpoint (exit {self.proc.returncode})")
+        return self.wall
+
+
+def train_100m(killed: KilledRun) -> None:
+    """(d) The ~100M trainer (``python -m repro_torch.launch.train_100m``,
+    the reference's ``examples/train_100m.py``) at full width: one run of
+    30 steps, uninterrupted, in-process (``main``); the same command in a
+    fresh directory, killed (``KilledRun``, started before (a)); then that
+    command again in-process, which must resume from step 10 (or 20, had
+    the killed run got that far) and finish.  Each trainer line is printed;
+    then the parameter count, s/step, peak memory and the two final losses
+    with their difference, which must be within 1e-3 of the loss."""
+    import shutil
+
+    from repro_torch.launch import train_100m as trainer
+    from repro_torch.models.registry import build_model
+
     t0 = time.perf_counter()
+    card = card_line()
+    n_params = build_model(trainer.config(), impl="blockwise",
+                           device="meta").num_params()
+    walls = {}
+
+    def run(name: str, ckpt_dir: Path) -> list:
+        t = time.perf_counter()
+        lines = in_process(trainer.main, train_100m_argv(ckpt_dir),
+                           "train_100m").splitlines()
+        walls[name] = time.perf_counter() - t
+        for line in lines:
+            log(f"train_100m [{card}] | {name}: {line}")
+        if lines[-1:] != ["done"]:
+            raise AssertionError(f"train_100m {name}: no 'done' line")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return lines
+
+    whole = run("uninterrupted", TRAIN_100M_OUT / "uninterrupted")
+    walls["killed"] = killed.finish(card)
+    resumed = run("resumed", TRAIN_100M_OUT / "killed")
+    m = [re.fullmatch(r"resumed from checkpoint step (\d+)", line)
+         for line in resumed]
+    starts = [int(x.group(1)) for x in m if x]
+    if len(starts) != 1 or starts[0] not in (10, 20):
+        raise AssertionError(f"train_100m: the rerun resumed from {starts}, "
+                             "want step 10 or 20")
+    a, b = train_100m_final(whole, "uninterrupted"), train_100m_final(
+        resumed, "resumed")
+    printed = f"model llama-100m: {n_params / 1e6:.1f}M params"
+    if whole[0] != printed or resumed[0] != printed:
+        raise AssertionError(f"train_100m: {whole[0]!r}, want {printed!r}")
+
+    def step_lines(lines):         # "step N loss X gnorm Y", no timing
+        return {line.rsplit(" (", 1)[0] for line in lines
+                if line.startswith("step ")}
+
+    same = step_lines(whole) & step_lines(resumed)
+    diff = b["loss"] - a["loss"]
+
+    def rest(r):                    # s/step of the steps after the first
+        return (r["wall_s"] - r["ckpt_s"] - r["first_s"]) / (r["steps"] - 1)
+
+    log(f"train_100m [{card}] llama-100m {n_params:,} params fp32, "
+        f"{TRAIN_100M_STEPS} steps B=4 S=128, a checkpoint every 10: "
+        f"uninterrupted final loss {a['loss']:.7f} grad_norm {a['gnorm']:.6f}, "
+        f"{a['s_per_step']:.4f} s/step without its {a['ckpt_s']:.3f} s of "
+        f"checkpoints ({a['steps']:.0f} steps; without the first step's "
+        f"{a['first_s']:.3f} s {rest(a):.4f}), {TRAIN_100M_TOKENS / rest(a):.1f} "
+        f"tokens/s, peak_GiB {a['peak_gib']:.3f}; killed by SIGKILL after "
+        f"its step-10 checkpoint, resumed from step "
+        f"{starts[0]}: final loss {b['loss']:.7f} grad_norm {b['gnorm']:.6f}, "
+        f"{b['s_per_step']:.4f} s/step ({b['steps']:.0f} steps; without the "
+        f"first {rest(b):.4f}), peak_GiB {b['peak_gib']:.3f}; "
+        f"final loss difference {diff:.3g} (tol 1e-3 x loss), step lines "
+        f"printed alike by both runs {len(same)}; walls uninterrupted "
+        f"{walls['uninterrupted']:.1f} s (in-process), killed "
+        f"{walls['killed']:.1f} s (subprocess, beside (a)–(c)), resumed "
+        f"{walls['resumed']:.1f} s (in-process); part after (c) "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TRAIN_100M_OUT, ignore_errors=True)
+    if not (math.isfinite(a["loss"]) and abs(diff) <= 1e-3 * abs(a["loss"])):
+        raise AssertionError("train_100m: the resumed run's final loss "
+                             "differs from the uninterrupted run's")
+
+
+class Analysis(Background):
+    """Step 5i: the port's static checker, ``python -m repro_torch.analysis
+    --out -``, in a subprocess beside the train phase (host work, at nice
+    19, no card): it must exit 0; its findings and summary are printed."""
+
+    def start(self) -> None:
+        import os
+        import subprocess
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", "--out", "-"],
+            cwd=ROOT, env=subprocess_env(CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19))
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self) -> None:
+        self.out, _ = self.proc.communicate()
+        self.wall = time.perf_counter() - self.t0
+
+    def finish(self) -> None:
+        self.thread.join(timeout=300)
+        if self.thread.is_alive():
+            raise AssertionError("python -m repro_torch.analysis hangs")
+        wall, lines = self.wall, self.out.splitlines()
+        for line in lines:
+            log(f"analysis | {line}")
+        summary = [line for line in lines if " files scanned, rules " in line]
+        log(f"analysis [{card_line()}] python -m repro_torch.analysis --out -: "
+            f"exit {self.proc.returncode}, {summary[-1] if summary else '?'}, "
+            f"{lines[-1] if lines else ''}; subprocess {wall:.1f} s wall, "
+            f"started beside the train phase")
+        if self.proc.returncode != 0 or lines[-1:] != ["analysis: OK"]:
+            raise AssertionError("python -m repro_torch.analysis failed")
+
+
+def phase_train() -> None:
+    """Training on the card: (a), (b), (c), (d) above, with the static
+    checker (step 5i) and (d)'s killed run beside them."""
+    import shutil
+
+    t0 = time.perf_counter()
+    analysis, killed = Analysis(), KilledRun()
+    atexit.register(analysis.stop)
+    atexit.register(killed.stop)
+    analysis.start()
+    shutil.rmtree(TRAIN_100M_OUT, ignore_errors=True)
+    killed.start(TRAIN_100M_OUT / "killed")
     train_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3340,6 +3583,10 @@ def phase_train() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_100m(killed)
+    analysis.finish()
     log(f"train phase {time.perf_counter() - t0:.1f} s wall")
 
 

@@ -254,9 +254,16 @@ def build_service(
     except KeyError as e:
         raise SpecError(f"model: {e.args[0]}") from None
     o = spec.observability
+    burn = o.slo_burn
     obs = ObsRecorder(
         detail=o.detail, window_s=o.window_s, trace_sample=o.trace_sample,
-        slo_burn=SLOBurnConfig(**dataclasses.asdict(o.slo_burn)))
+        slo_burn=SLOBurnConfig(
+            target=burn.target,
+            fast_window_s=burn.fast_window_s,
+            slow_window_s=burn.slow_window_s,
+            fast_threshold=burn.fast_threshold,
+            slow_threshold=burn.slow_threshold,
+        ))
     # the run's registry takes the factory's counters (the profile
     # fallback), not a process-wide one
     with use_registry(obs.registry):

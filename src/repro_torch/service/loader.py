@@ -161,6 +161,16 @@ def _sweep_from_dict(d: Mapping[str, Any]) -> SweepSpec:
     )
 
 
+def _observability_from_dict(d: Mapping[str, Any]) -> ObservabilitySpec:
+    """Build the observability section: detail / out_dir / jsonl /
+    chrome_trace / window_s / trace_sample plus the nested ``slo_burn``
+    mapping (target / fast_window_s / slow_window_s / fast_threshold /
+    slow_threshold — see :class:`SLOBurnSpec`)."""
+    return ObservabilitySpec(**_nested(
+        _pick(d, ObservabilitySpec, "observability"), "slo_burn", SLOBurnSpec,
+        "observability"))
+
+
 def spec_from_dict(d: Mapping[str, Any]) -> ServiceSpec:
     """Build and validate a ``ServiceSpec`` from a plain dict."""
     if not isinstance(d, Mapping):
@@ -194,10 +204,8 @@ def spec_from_dict(d: Mapping[str, Any]) -> ServiceSpec:
         kw["serving"] = ServingSpec(**_nested(
             _pick(serving, ServingSpec, "serving"), "slo", SLOSpec, "serving"))
         if d.get("observability") is not None:
-            kw["observability"] = ObservabilitySpec(**_nested(
-                _pick(_section(d, "observability"), ObservabilitySpec,
-                      "observability"), "slo_burn", SLOBurnSpec,
-                "observability"))
+            kw["observability"] = _observability_from_dict(
+                _section(d, "observability"))
         sim_kw = _pick(_section(d, "sim"), SimSpec, "sim")
         if serving_rm is not None:
             if sim_kw.get("replica_model", serving_rm) != serving_rm:

@@ -537,3 +537,62 @@ def test_train_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batch(cfg, 1, 4)
     assert make_batch(cfg, 1, 4, device="cpu")["tokens"].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the static checker and the ~100M trainer
+# ---------------------------------------------------------------------------
+
+ANALYSIS_MODULES = (
+    "repro_torch.analysis",
+    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.astutil",
+    "repro_torch.analysis.core",
+    "repro_torch.analysis.exemptions",
+    "repro_torch.analysis.report",
+    "repro_torch.analysis.runner",
+    "repro_torch.analysis.passes",
+    "repro_torch.analysis.passes.determinism",
+    "repro_torch.analysis.passes.engine_parity",
+    "repro_torch.analysis.passes.silent_fallback",
+    "repro_torch.analysis.passes.spec_drift",
+    "repro_torch.analysis.passes.tracing",
+    "repro_torch.launch.train_100m",
+)
+
+
+def test_analysis_and_trainer_modules_fall_under_the_import_rule():
+    import pkgutil
+
+    import repro_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")}
+    assert set(ANALYSIS_MODULES) - {"repro_torch.analysis",
+                                    "repro_torch.analysis.passes"} <= walked
+    scanned = {os.path.relpath(f, SRC) for f in _sources()}
+    for mod in ANALYSIS_MODULES:
+        path = mod.replace(".", os.sep)
+        assert (path + ".py" in scanned
+                or os.path.join(path, "__init__.py") in scanned), mod
+
+
+_ANALYSIS_CLI = r"""
+import sys
+from repro_torch.analysis.__main__ import main
+rc = main(["--out", "-"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("loaded:", bad)
+sys.exit(rc or (1 if bad else 0))
+"""
+
+
+def test_analysis_cli_is_clean_and_loads_no_jax():
+    """``python -m repro_torch.analysis --out -`` on this checkout: exit 0,
+    ``analysis: OK``, and neither JAX nor the reference loaded."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _ANALYSIS_CLI], env=env,
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "analysis: OK" in out.stdout and "loaded: []" in out.stdout
