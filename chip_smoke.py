@@ -14,12 +14,19 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    1e-4 in float32), including the main paths' shapes, flash_decode's
    masks (an all-masked row, one valid slot in the last tile, a ring),
    both attention kernels at zamba2-7b's head width 112 (H = Kv = 32) in
-   bf16 and float32, whisper-medium's attention (H = Kv = 16, D = 64) in
+   bf16 and float32, at h2o-danube3-4b's 120 (H = 32, Kv = 8) and
+   paligemma-3b's 256 (H = 8, Kv = 1) in both dtypes under the causal,
+   sliding-window and prefix-LM masks (with paligemma's 256-patch prefix
+   before 1024 text tokens and danube's 4,600-token prompt under its
+   4,096-token window), flash_decode at both widths under the tile masks
+   and danube's full 4,096-slot ring, whisper-medium's attention (H = Kv = 16, D = 64) in
    both dtypes: flash_attention bidirectional over 1500 encoder frames,
    cross with 1, 4, 63, 65 and 224 queries against 1500 keys, causal at
    224, and flash_decode over a 1500-slot cross cache all valid and 600
    valid, and the grouped matmul with the occupancy ``rows``
-   (0, 8 and 128 of 128 experts; nonzero x past the rows);
+   (0, 8 and 128 of 128 experts; nonzero x past the rows) and at
+   phi3.5-moe-42b's experts (E = 16, D = 4096, F = 6400: prefill, wo,
+   decode, rows of 2 occupied experts);
    flash_decode's log-sum-exp (``return_lse``: the output in fp32 and each
    row's log-sum-exp, a slot shard's partial) against the plain version's
    in both dtypes (1e-5 relative in float32, 2e-3 absolute in bf16), rows
@@ -35,9 +42,10 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    plain version, one PyTorch library call where one computes the same
    function (a yardstick the port never calls), and the card's bound;
    flash_attention and flash_decode also at qwen3-moe-30b's shape (H=32,
-   Kv=4, D=128), zamba2-7b's (H=32, Kv=32, D=112) and whisper-medium's
+   Kv=4, D=128), zamba2-7b's (H=32, Kv=32, D=112), whisper-medium's
    (H=Kv=16, D=64: the encoder's bidirectional S=1500, the cross cache's
-   1500 valid slots), and moe_gmm with the
+   1500 valid slots), h2o-danube3-4b's (H=32, Kv=8, D=120) and
+   paligemma-3b's (H=8, Kv=1, D=256), and moe_gmm with the
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
@@ -64,7 +72,8 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    recorded result; and one ``run_cells`` call on the card at a queue pool
    of one cell a slot overflows lanes (none is a failure), each rerun on
    the oracle and equal to the oracle's result field for field;
-5. profiles the kernels of the five served models on the ``h100``
+5. profiles the kernels of every arch (``--models all``: the ten of
+   ``ARCH_IDS``) on the ``h100``
    instance (``repro_torch.profiles``, the kernels timed with CUDA events),
    writes ``chiprun_out/profiles/cuda-compiled.json``, reloads it with the
    port's schema and prints each row; ``mfu_prefill`` and ``mbu_decode``
@@ -246,6 +255,18 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    logits of the kernel path are compared with the plain path (for MoE,
    with a count of the routing choices on which the two paths differ), and
    one prefill plus eight decode steps, eager and replayed, are profiled.
+   (6b) Then, through the same helpers, the four dense archs at full width:
+   paligemma-3b (18 layers, head width 256, one KV head; each request
+   carries 256 seeded image patches, prefilled under the prefix-LM mask and
+   carried on its retry), h2o-danube3-4b (24 layers, head width 120, a
+   4,096-token window; one further request of 4,600 tokens prefilled into
+   a 4,096-slot ring, so the prefill writes it wrapped, then 32 eager steps
+   and 32 replays, which keep wrapping it, tokens equal), qwen2.5-3b (36
+   layers, QKV bias, G = 8) and command-r-35b (40 layers of width 8192,
+   the parallel attention + MLP block, 56.4 GiB of weights), each with its
+   parameter count, fleet, launch counts, replay, prefill step, accounting
+   and logits as above, and the K and V bytes of a cached token against
+   the token model's.
    (6c) The dry run's accounting against these steps: the serve and
    prefill steps built by ``build_mesh_serve_step`` /
    ``build_mesh_prefill_step`` at the fleet's shapes (one device,
@@ -300,6 +321,13 @@ ZAMBA_H, ZAMBA_KV, ZAMBA_D = 32, 32, 112
 # whisper-medium's attention, and its 1500 encoder frames (30 s of audio)
 WHISPER_H, WHISPER_KV, WHISPER_D = 16, 16, 64
 ENC_S = 1500
+# h2o-danube3-4b's attention (head width 120) and its 4,096-token window;
+# paligemma-3b's (head width 256, one kv head) and its 256-patch image prefix
+DANUBE_H, DANUBE_KV, DANUBE_D, DANUBE_WINDOW = 32, 8, 120, 4096
+PALI_H, PALI_KV, PALI_D, PALI_PREFIX = 8, 1, 256, 256
+# danube's ring request: a prompt longer than its window, into a cache of
+# one window of slots
+RING_PROMPT = 4600
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -323,6 +351,26 @@ FA_CASES = [
       for S, window, prefix in ((1, None, 0), (63, None, 0), (65, None, 0),
                                 (975, None, 0), (512, 96, 0), (512, None, 37))),
     (torch.bfloat16, 2, 8, 2, 192, 112, False, None, 0),     # D=112, GQA, bidirectional
+    # the head widths 120 (h2o-danube3-4b: H=32, Kv=8; the tile code of 128
+    # with one zero chunk in Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; Q read
+    # from shared memory, two m64n128 products in P.V), in both dtypes, at
+    # ragged lengths and under the three masks (tests/test_torch_cuda.py
+    # WIDE_ATTN_CASES), then each model's own prefill: paligemma's 256
+    # patches under the prefix-LM mask before 1024 text tokens, danube's
+    # ring request of 4600 tokens under its 4,096-token window
+    *((dtype, B, H, Kv, S, D, causal, window, prefix)
+      for dtype in (torch.bfloat16, torch.float32)
+      for B, H, Kv, S, D, causal, window, prefix in (
+          *((1, H, Kv, S, D, True, window, prefix)
+            for H, Kv, D in ((DANUBE_H, DANUBE_KV, DANUBE_D),
+                             (PALI_H, PALI_KV, PALI_D))
+            for S, window, prefix in ((1, None, 0), (63, None, 0), (65, None, 0),
+                                      (975, None, 0), (512, 96, 0),
+                                      (512, None, 37))),
+          (2, 8, 2, 192, 120, False, None, 0),
+          (2, 8, 2, 192, 256, False, None, 0),
+          (1, PALI_H, PALI_KV, PALI_PREFIX + 1024, PALI_D, True, None, PALI_PREFIX),
+          (1, DANUBE_H, DANUBE_KV, RING_PROMPT, DANUBE_D, True, DANUBE_WINDOW, 0))),
 ]
 
 # whisper-medium's attention (tests/test_torch_cuda.py WHISPER_ATTN_CASES),
@@ -354,6 +402,17 @@ CARD_DECODE_CASES = [
     (2, 32, 32, 2048, 112, "empty beside 600"),
     (1, 32, 32, 2048, 112, "last"),
     (2, 32, 32, 1000, 112, "ring"),
+    # the head widths 120 (h2o-danube3-4b: H=32, Kv=8, and its full
+    # 4,096-slot ring) and 256 (paligemma-3b: H=8, Kv=1, G=8 = MAX_G)
+    (1, 32, 8, 2048, 120, "600"),
+    (2, 32, 8, 2048, 120, "empty beside 600"),
+    (1, 32, 8, 2048, 120, "last"),
+    (2, 32, 8, 1000, 120, "ring"),
+    (1, 32, 8, 4096, 120, "4096"),
+    (1, 8, 1, 2048, 256, "600"),
+    (2, 8, 1, 2048, 256, "empty beside 600"),
+    (1, 8, 1, 2048, 256, "last"),
+    (2, 8, 1, 1000, 256, "ring"),
 ]
 
 # whisper-medium's decode caches (tests/test_torch_cuda.py
@@ -424,7 +483,16 @@ GMM_CASES = [
     ("qwen3 prefill S=975", torch.bfloat16, 128, 77, 2048, 768, "dispatch"),
     ("qwen3 prefill S=975", torch.float32, 128, 77, 2048, 768, "dispatch"),
     ("qwen3 wo product", torch.bfloat16, 128, 77, 768, 2048, "contiguous"),
+    # phi3.5-moe-42b's experts (E=16, D=4096, F=6400; top-2): the S = 975
+    # prefill's capacity, its wo product, the decode buffer, and rows with
+    # 2 of the 16 experts occupied
     ("phi3.5-moe prefill S=975", torch.bfloat16, 16, 153, 4096, 6400, "contiguous"),
+    ("phi3.5-moe wo product", torch.bfloat16, 16, 153, 6400, 4096, "contiguous"),
+    *((f"phi3.5-moe {label}", dtype, 16, C, 4096, 6400, layout)
+      for label, C, layout in (("decode", 1, "dispatch"),
+                               ("rows, 2 experts occupied, C=1", 1, "occupied:2"),
+                               ("rows, 2 experts occupied, C=153", 153, "occupied:2"))
+      for dtype in (torch.bfloat16, torch.float32)),
     ("small C, F not a multiple of 4", torch.bfloat16, 8, 5, 200, 102, "dispatch"),
     ("small C, F not a multiple of 4", torch.float32, 8, 3, 130, 66, "contiguous"),
     ("C=12, one 16-row tile", torch.float32, 8, 12, 200, 64, "dispatch"),
@@ -766,6 +834,8 @@ LSE_CASES = [
     (1, 32, 8, 2048, 64, "empty"),
     (2, 32, 4, 1000, 128, "ring"),
     (1, 32, 32, 2048, 112, "empty beside 600"),
+    (2, 32, 8, 2048, 120, "empty beside 600"),
+    (2, 8, 1, 1000, 256, "ring"),
 ]
 LSE_TOL = {torch.float32: ("relative", 1e-5), torch.bfloat16: ("absolute", 2e-3)}
 NEG_INF = -1e30
@@ -1002,10 +1072,11 @@ def check_moe_gmm() -> float:
     for label, dtype, E, C, D, F, layout in GMM_CASES:
         x, rows = gmm_x(rng, E, C, D, dtype, layout)
         w = randn(rng, (E, D, F), dtype)
-        if rows is not None:
+        if rows is not None or (dtype == torch.float32 and D >= 4096):
             # fan-in scale, as the model's weights: with unit-normal ones an
             # fp32 sum of 2048 products is O(100), and two correct fp32 orders
-            # of it (cuBLAS's, the kernel's) differ by ~2e-4
+            # of it (cuBLAS's, the kernel's) differ by ~2e-4 (at phi3.5-moe's
+            # D = 4096, 7.2e-4 at |y| up to 281)
             w = w / math.sqrt(D)
         got = gmm.launch(x, w, rows)
         want = gmm.plain(x, w, rows)
@@ -1075,7 +1146,9 @@ def expected_launches(model, res) -> dict:
 # full-width parameter counts (the reference's blueprint counts)
 FULL_PARAMS = {"llama3.2-1b": 1_235_814_400, "falcon-mamba-7b": 7_272_665_088,
                "qwen3-moe-30b": 30_532_646_912, "zamba2-7b": 5_622_728_000,
-               "whisper-medium": 758_255_616}
+               "whisper-medium": 758_255_616, "paligemma-3b": 2_508_793_856,
+               "h2o-danube3-4b": 3_838_959_360, "qwen2.5-3b": 3_086_200_832,
+               "command-r-35b": 30_283_210_752}
 CARD_BYTES = 80e9
 
 # the fleet's prompt lengths and cache slots per request: (min, max, slots);
@@ -1087,8 +1160,9 @@ DEFAULT_FLEET_SHAPE = (128, 1024, 2048)
 
 class Fleet:
     """A served model and its requests: prompts (id -> 1-D tokens), for an
-    encoder-decoder model their audio frames (id -> (1, S_enc, d_model)),
-    and the cache slots a request gets."""
+    encoder-decoder model their audio frames and for a prefix-LM their
+    image prefixes (id -> (1, frontend_seq, d_model)), and the cache slots
+    a request gets."""
 
     def __init__(self, model, prompts: Dict[int, torch.Tensor],
                  frames: Optional[Dict[int, torch.Tensor]], max_len: int) -> None:
@@ -1098,19 +1172,28 @@ class Fleet:
     def longest(self) -> int:
         return max(self.prompts, key=lambda rid: len(self.prompts[rid]))
 
+    def prefix(self) -> int:
+        """Cache positions a prefix-LM's image prefix takes before the
+        prompt (0 for other models)."""
+        cfg = self.model.cfg
+        return cfg.frontend_seq if cfg.frontend and not cfg.is_encdec else 0
+
     def prefill(self, rid: int, cache, dtype=torch.bfloat16):
         """``model.prefill`` of request ``rid`` into ``cache`` (its frames
-        first, for an encoder-decoder model)."""
-        tokens = self.prompts[rid][None]
-        inputs = (tokens,) if self.frames is None else (self.frames[rid], tokens)
-        return self.model.prefill(*inputs, cache, dtype=dtype)
+        first, for an encoder-decoder model; its image prefix as
+        ``prefix_embed``, for a prefix-LM)."""
+        from repro_torch.serving.live import prefill_request
+
+        return prefill_request(self.model, self.prompts[rid][None], cache,
+                               None if self.frames is None else self.frames[rid],
+                               dtype)
 
 
 def build_served_model(arch: str) -> Fleet:
     """Full-width ``arch`` with random bf16 weights (seed 0) on the card,
     and the fleet's eight prompts (numpy seed 7; 128-1024 tokens, or
-    ``FLEET_SHAPES``'), with 1500 frames each for whisper-medium (numpy
-    seed 8)."""
+    ``FLEET_SHAPES``'), with 1500 frames each for whisper-medium and 256
+    image patches each for paligemma-3b (numpy seed 8)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
     from repro_torch.serving.live import make_frames, make_prompts
@@ -1131,10 +1214,11 @@ def build_served_model(arch: str) -> Fleet:
     prompts = make_prompts(cfg, n=8, min_len=lo, max_len=hi, seed=7,
                            device="cuda")
     frames = (make_frames(cfg, prompts, seed=8, device="cuda")
-              if cfg.is_encdec else None)
+              if cfg.frontend else None)
+    kind = "audio frames" if cfg.is_encdec else "image patches (prefix-LM)"
     log("prompt lengths:", [len(p) for p in prompts.values()],
         f"cache slots per request {slots}" + (
-            f", {cfg.frontend_seq} audio frames each" if frames else ""))
+            f", {cfg.frontend_seq} {kind} each" if frames else ""))
     return Fleet(model, prompts, frames, slots)
 
 
@@ -1148,7 +1232,7 @@ def phase_serve(fleet: Fleet) -> dict:
     name = model.cfg.name
     # warm up (cuBLAS handles, allocator) before the measured run
     serve_fleet(model, {0: prompts[0][:64]}, replicas=1, out_tokens=2,
-                max_len=128, kill_step=0, log=lambda s: None,
+                max_len=128 + fleet.prefix(), kill_step=0, log=lambda s: None,
                 frames=None if fleet.frames is None else {0: fleet.frames[0]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1237,7 +1321,8 @@ def _prefill_logits(fleet: Fleet, rid: int, impl, dtype):
     model.impl = impl
     try:
         with recorded_routing() as routes:
-            cache = model.init_cache(1, len(fleet.prompts[rid]), dtype=dtype)
+            cache = model.init_cache(1, fleet.prefix() + len(fleet.prompts[rid]),
+                                     dtype=dtype)
             logits = fleet.prefill(rid, cache, dtype=dtype)[0].float()
         return logits[..., :model.cfg.vocab_size], routes
     finally:
@@ -1515,13 +1600,16 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
 
 def time_flash_attention() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112) and whisper-medium's
-    encoder (H=Kv=16, D=64, bidirectional over 1500 frames) are logged
-    beside it."""
+    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112), whisper-medium's
+    encoder (H=Kv=16, D=64, bidirectional over 1500 frames),
+    h2o-danube3-4b's (H=32, Kv=8, D=120) and paligemma-3b's (H=8, Kv=1,
+    D=256) are logged beside it."""
     time_flash_attention_at(QWEN_H, QWEN_KV, QWEN_D)
     time_flash_attention_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
     time_flash_attention_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=ENC_S,
                             causal=False)
+    time_flash_attention_at(DANUBE_H, DANUBE_KV, DANUBE_D)
+    time_flash_attention_at(PALI_H, PALI_KV, PALI_D)
     return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1574,15 +1662,18 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
 
 def time_flash_decode() -> dict:
     """llama3.2-1b's shape goes on the kernels line; qwen3-moe-30b's (H=32,
-    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112) and whisper-medium's cross
+    Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112), whisper-medium's cross
     cache (H=Kv=16, D=64, 1500 slots, all valid) and self cache (448
-    slots, the first 212 valid) are logged beside it."""
+    slots, the first 212 valid), h2o-danube3-4b's (H=32, Kv=8, D=120) and
+    paligemma-3b's (H=8, Kv=1, D=256) are logged beside it."""
     time_flash_decode_at(QWEN_H, QWEN_KV, QWEN_D)
     time_flash_decode_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
     time_flash_decode_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=ENC_S,
                          n_valid=ENC_S)
     time_flash_decode_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=WHISPER_SELF_S,
                          n_valid=212)
+    time_flash_decode_at(DANUBE_H, DANUBE_KV, DANUBE_D)
+    time_flash_decode_at(PALI_H, PALI_KV, PALI_D)
     return time_flash_decode_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1965,28 +2056,35 @@ def phase_scenario() -> dict:
 
 SERVED = ("llama3.2-1b", "falcon-mamba-7b", "qwen3-moe-30b", "zamba2-7b",
           "whisper-medium")
+# the dense archs at the head widths 256 and 120, and the two at 128 with
+# their own paths (QKV bias, the parallel block), served after SERVED; the
+# dry run keeps to SERVED
+WIDE_SERVED = ("paligemma-3b", "h2o-danube3-4b", "qwen2.5-3b", "command-r-35b")
 PROFILE_OUT = ROOT / "chiprun_out" / "profiles" / "cuda-compiled.json"
 # the fleets whose KV cache the token model's bytes are held against
-KV_CHECKED = ("llama3.2-1b", "qwen3-moe-30b")
+KV_CHECKED = ("llama3.2-1b", "qwen3-moe-30b", *WIDE_SERVED)
 
 
 def phase_profiles() -> None:
-    """The step-time profiles of the five served models on the ``h100``
-    instance, through the port's CLI (the reference's cases: prefill 256,
-    cache 512, batch 1; each kernel call timed with CUDA events, best of
-    the repeats), written to ``PROFILE_OUT`` and reloaded with the port's
-    schema.  Both shares must lie in (0, 1.05]."""
+    """The step-time profiles of every arch the repo has (``--models
+    all``: the ten of ``ARCH_IDS``, phi3.5-moe-42b's kernels too, though
+    the model does not fit one card) on the ``h100`` instance, through the
+    port's CLI (the reference's cases: prefill 256, cache 512, batch 1;
+    each kernel call timed with CUDA events, best of the repeats), written
+    to ``PROFILE_OUT`` and reloaded with the port's schema.  Both shares
+    must lie in (0, 1.05]."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.profiles import run as profiles_run
     from repro_torch.profiles.schema import ProfileTable
 
     if PROFILE_OUT.exists():
         PROFILE_OUT.unlink()          # this run's rows only, none merged in
-    rc = profiles_run.main(["--models", *SERVED, "--itype", "h100",
+    rc = profiles_run.main(["--models", "all", "--itype", "h100",
                             "--device", "cuda", "--out", str(PROFILE_OUT)])
     if rc:
         raise AssertionError(f"repro_torch.profiles.run exited {rc}")
     table = ProfileTable.load(str(PROFILE_OUT))
-    want = sorted(f"{m}|H100" for m in SERVED)
+    want = sorted(f"{m}|H100" for m in ARCH_IDS)
     if sorted(table.entries) != want:
         raise AssertionError(f"profile rows {sorted(table.entries)} != {want}")
     for key, e in sorted(table.entries.items()):
@@ -3606,6 +3704,7 @@ def check_prefill_step(fleet: Fleet):
     walls printed side by side (3 of each, host clock around a sync).
     Returns the launches per replay and the shortest replay wall in ms."""
     from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.serving.live import prefill_request
 
     model, cfg = fleet.model, fleet.model.cfg
     S = PREFILL_STEP_S.get(cfg.name, PREFILL_S)
@@ -3614,7 +3713,8 @@ def check_prefill_step(fleet: Fleet):
     frames = None
     if fleet.frames is not None:
         frames = next(iter(fleet.frames.values())).to(torch.bfloat16)
-    inputs = dict(frames=frames) if frames is not None else {}
+    inputs = ({} if frames is None else dict(frames=frames) if cfg.is_encdec
+              else dict(patches=frames))
     t0 = time.perf_counter()
     step = build_prefill_step(model, model.init_cache(1, fleet.max_len), S)
     capture_s = time.perf_counter() - t0
@@ -3625,8 +3725,7 @@ def check_prefill_step(fleet: Fleet):
                              f"{step.launches}, want {want}")
 
     def eager(cache):
-        args = (frames, tokens) if frames is not None else (tokens,)
-        return model.prefill(*args, cache)[0]
+        return prefill_request(model, tokens, cache, frames)[0]
 
     eager_cache = model.init_cache(1, fleet.max_len)
     want_logits = eager(eager_cache)
@@ -3715,8 +3814,11 @@ def check_accounting(fleet: Fleet, decode, prefill) -> None:
     real_params = sum(p.nbytes for p in model.parameters())
     real_cache = cache_bytes(model.init_cache(1, fleet.max_len))
     S = PREFILL_STEP_S.get(cfg.name, PREFILL_S)
+    # a prefix-LM's cache holds its image prefix too: the builders add
+    # frontend_seq slots to the shape's length, as the reference's do
     for kind, shape, builder, (launches, measured_ms) in (
-            ("decode", ShapeSpec("fleet", fleet.max_len, 1, "decode"),
+            ("decode", ShapeSpec("fleet", fleet.max_len - fleet.prefix(), 1,
+                                 "decode"),
              build_mesh_serve_step, decode),
             ("prefill", ShapeSpec("fleet", S, 1, "prefill"),
              build_mesh_prefill_step, prefill)):
@@ -3965,6 +4067,64 @@ class DryRun:
             raise AssertionError(f"dry-run cells failed: {failed}")
 
 
+@torch.inference_mode()
+def check_ring(fleet: Fleet, steps: int = 32) -> None:
+    """h2o-danube3-4b's ring request: a prompt of RING_PROMPT tokens (numpy
+    seed 29), longer than the 4,096-token window, prefilled into a cache
+    of one window of slots, so the prefill writes the ring wrapped
+    (``attention_apply`` keeps the last 4,096 positions at their slots mod
+    4,096) and flash_attention runs under the window; then ``steps`` eager
+    decode steps on one copy of the cache and ``steps`` replays of a
+    captured serve step on another, which keep wrapping it.  The tokens
+    must be equal, and the kernels must have launched once per layer for
+    the prefill and once per layer for each eager step and replay."""
+    from repro_torch.launch.steps import build_serve_step
+
+    model, cfg = fleet.model, fleet.model.cfg
+    slots, L = cfg.sliding_window, cfg.num_layers
+    tokens = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (1, RING_PROMPT))).cuda()
+    graph_cache = model.init_cache(1, slots)
+    step = build_serve_step(model, graph_cache)   # hands the cache back empty
+    eager_cache = model.init_cache(1, slots)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(tokens, eager_cache)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    copy_cache(graph_cache, eager_cache)
+    tok = logits.argmax(-1)
+    step.tokens.copy_(tok)
+    eager, replayed, worst = [], [], 0.0
+    for _ in range(steps):
+        logits, _ = model.decode_step(tok, eager_cache)
+        tok = logits.argmax(-1)
+        eager.append(int(tok[0, 0]))
+        replayed.append(int(step()[0, 0]))
+        worst = max(worst, (step.logits.float() - logits.float()).abs().max().item())
+    after = launch_counts()
+    added = {k: after[k] - before[k] for k in after}
+    want = dict.fromkeys(added, 0)
+    want.update(flash_attention=L, flash_decode=2 * steps * L)
+    length = int(eager_cache["len"])
+    log(f"{cfg.name} ring request [{card_line()}] (S={RING_PROMPT} into "
+        f"{eager_cache['kv']['k'].shape[2]} slots, window {cfg.sliding_window}; "
+        f"prefill {prefill_ms:.1f} ms wall; {steps} eager steps and {steps} "
+        f"replays, length {length}, last slot written {(length - 1) % slots}): "
+        f"tokens equal {sum(a == b for a, b in zip(eager, replayed))}/{steps}, "
+        f"largest |logit difference| {worst:.4g}; launches "
+        f"{json.dumps(added)} (want {json.dumps(want)})")
+    if eager_cache["kv"]["k"].shape[2] != slots or RING_PROMPT <= slots:
+        raise AssertionError(f"{cfg.name}: the ring request does not wrap")
+    if eager != replayed:
+        raise AssertionError(f"{cfg.name} ring: replayed tokens {replayed} != "
+                             f"eager {eager}")
+    if added != want or length != RING_PROMPT + steps:
+        raise AssertionError(f"{cfg.name} ring: launches {added}, length "
+                             f"{length}; want {want}, {RING_PROMPT + steps}")
+    del step, graph_cache, eager_cache
+
+
 def serve_path(arch: str) -> dict:
     """Phase 4 for one model: build, serve, compare logits, profile, free.
     Returns the launches of the fleet run."""
@@ -3974,6 +4134,8 @@ def serve_path(arch: str) -> dict:
         check_kv_bytes(fleet)
     gc.collect()          # the fleet's replicas: their caches and graphs
     torch.cuda.empty_cache()
+    if fleet.model.cfg.sliding_window is not None:
+        check_ring(fleet)
     decode = check_replay(fleet)
     prefill = check_prefill_step(fleet)
     check_accounting(fleet, decode, prefill)
@@ -4035,6 +4197,8 @@ def main() -> int:
     phase_mesh()
     # each path's kernels, counted in that path's own fleet run
     llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
+    for arch in WIDE_SERVED:
+        serve_path(arch)
     dryrun.finish()
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],

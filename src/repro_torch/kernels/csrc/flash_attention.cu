@@ -44,7 +44,8 @@
 // tolerance (tests/test_torch_kernels.py emulates the rounding).  The query
 // tile is the grid's slowest axis, last tile first, so the long causal blocks
 // start first.  Registers (ptxas, sm_90a): 163 a thread at D = 64 (three blocks
-// per SM) and 240 at D = 128 (two), no spill.  What is left between this kernel
+// per SM), 234 / 238 / 240 at 112 / 120 / 128 (two) and 207 at 256 (one,
+// by its shared memory), no spill.  What is left between this kernel
 // and SDPA is the per-tile softmax, which only other blocks' products overlap:
 // two consumer warpgroups per block, ping-ponging, fed by a TMA producer warp,
 // are the next step.
@@ -55,16 +56,24 @@
 // reference's fp32 tolerance of 2e-5; fp32 attention only carries the
 // fp32 logits check, not the served path.
 //
-// Head dims: 64, 112, 128.  At 112 (zamba2-7b) the bf16 kernel runs the
-// tile code of 128: each row's 14 chunks of 16 bytes are copied from global
-// memory, the two chunks past them are zero in shared memory and never
-// read from global memory, Q.K^T takes only the 7 k16 steps that hold data,
-// P.V keeps the m64n128 product (its last 16 columns are zeros times P and
-// are never stored), and the stores stop at 112.  That keeps the SW128
-// layout the descriptors name, at 1/7 more tensor-core work in P.V and no
-// more bytes from HBM.  The fp32 kernel takes 112 as it is (7 columns a
-// thread).  The bf16 kernel needs 16-byte-aligned rows (the wrapper checks
-// the base pointers and strides before the launch); 224-byte rows are.
+// Head dims: 64, 112, 120, 128, 256.  At 112 (zamba2-7b) and 120
+// (h2o-danube3-4b) the bf16 kernel runs the tile code of 128: each row's
+// 14 or 15 chunks of 16 bytes are copied from global memory, the chunks
+// past them are zero in shared memory and never read from global memory,
+// Q.K^T takes the k16 steps that hold data (7 at 112; 8 at 120, whose last
+// half reads the zero chunk of Q and K), P.V keeps the m64n128 product (its
+// last columns are zeros times P and are never stored), and the stores stop
+// at the head width.  That keeps the SW128 layout the descriptors name, at
+// 1/7 or 1/15 more tensor-core work in P.V and no more bytes from HBM.
+// At 256 (paligemma-3b) the 64 x 256 fp32 output accumulator alone takes
+// 128 registers a thread, so Q is not held in registers: Q.K^T reads it
+// from shared memory as the wgmma's A operand, one score tile is in flight
+// (no software pipeline), the K/V ring has two stages (160 KiB of shared
+// memory in all), and P.V runs as two m64n128 products, one per half of V's
+// columns.  The fp32 kernel gives each thread the columns tx + 16 j below
+// the head width (ceil(D / 16) of them).  The bf16 kernel needs
+// 16-byte-aligned rows (the wrapper checks the base pointers and strides
+// before the launch); 224- and 240-byte rows are.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,13 +144,21 @@ struct VisibleKeys {
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps x 16 query rows
-constexpr int STAGES = 3;         // K/V tiles in the cp.async ring
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Tiles up to 128 wide keep Q in registers and pipeline the next tile's
+// Q.K^T under this tile's softmax, over a 3-stage K/V ring; wider tiles
+// read Q from shared memory, one score tile at a time, over 2 stages.
+template <int D>
+__host__ __device__ constexpr bool pipelined() { return D <= 128; }
+
+template <int D>
+__host__ __device__ constexpr int kv_stages() { return pipelined<D>() ? 3 : 2; }
 
 template <int D>
 constexpr int mma_smem_bytes() {
-  // the Q tile, then STAGES tiles of K and STAGES of V, all bf16
-  return static_cast<int>(sizeof(bf16)) * (BQ * D + 2 * STAGES * BK * D);
+  // the Q tile, then the stages' tiles of K and of V, all bf16
+  return static_cast<int>(sizeof(bf16)) * (BQ * D + 2 * kv_stages<D>() * BK * D);
 }
 
 // 2^x on the special-function unit; -1e30 gives 0
@@ -151,15 +168,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// D: the tile width (64 or 128); DT <= D: the head width, a multiple of 16.
+// D: the tile width (64, 128 or 256); DT <= D: the head width, a multiple
+// of 8.
 template <int D, int DT = D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const Params p) {
   using namespace mma_sm90;
-  static_assert(DT % 16 == 0 && DT <= D && D - DT < 64, "head width");
+  static_assert(DT % 8 == 0 && DT <= D && D - DT < 64, "head width");
+  constexpr bool PIPE = pipelined<D>();
+  constexpr int STAGES = kv_stages<D>();
   constexpr int RC = D / 8;     // 16-byte chunks per tile row
   constexpr int RT = DT / 8;    // chunks per row that hold data
-  constexpr int KD = DT / 16;   // k16 steps of Q.K^T
+  constexpr int KD = (DT + 15) / 16;   // k16 steps of Q.K^T
   constexpr int ND = D / 8;     // n8 blocks of the output tile
   constexpr int NT = DT / 8;    // n8 blocks of the output that are stored
   constexpr int NK = BK / 8;    // n8 blocks of the scores
@@ -204,27 +224,41 @@ flash_attention_mma(const Params p) {
     load_rows(vs + st * BK * D, v, p.v_ss, k0, p.Skv);
   };
 
-  // Q fragments, in registers for the whole KV loop
-  uint32_t qf[KD][4];
+  // Q fragments, in registers for the whole KV loop (pipelined widths)
+  uint32_t qf[PIPE ? KD : 1][4];
   // issue s = Q K^T of the tile in stage st: the warpgroup's 64 rows x 64
-  // keys, K a K-major operand, 16 of D per product
+  // keys, K a K-major operand, 16 of D per product; Q from registers, or
+  // (wide tiles) a K-major operand in shared memory like K
   auto issue_qk = [&](int st, float s[NK * 4]) {
     const bf16* kt = ks + st * BK * D;
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-      wgmma_m64n64_kmajor(
-          s, qf[kd], sw128_desc(kt + (kd / 4) * BK * 64 + (kd % 4) * 16, 16),
-          kd > 0);
+    for (int kd = 0; kd < KD; ++kd) {
+      const int at = (kd / 4) * 64 * 64 + (kd % 4) * 16;
+      if constexpr (PIPE)
+        wgmma_m64n64_kmajor(s, qf[kd], sw128_desc(kt + at, 16), kd > 0);
+      else
+        wgmma_m64n64_ss_kmajor(s, sw128_desc(qs + at, 16),
+                               sw128_desc(kt + at, 16), kd > 0);
+    }
   };
 
   if constexpr (RT < RC) {
-    // the V columns past DT, zero once for every stage: load_rows never
-    // writes them, and P.V reads them (Q's and K's are never read)
-    for (int i = tid; i < STAGES * 64 * (RC - RT); i += MMA_THREADS) {
-      const int st = i / (64 * (RC - RT)), r = i / (RC - RT) % 64;
-      const int c = RT + i % (RC - RT);
+    // the columns past DT, zero once: load_rows never writes them.  P.V
+    // reads V's in every stage; Q.K^T reads Q's and K's up to 16 KD (at
+    // 120 one chunk; at 112 none)
+    constexpr int ZV = RC - RT, ZQ = 2 * KD - RT;
+    for (int i = tid; i < STAGES * 64 * ZV; i += MMA_THREADS) {
+      const int st = i / (64 * ZV), r = i / ZV % 64, c = RT + i % ZV;
       *reinterpret_cast<uint4*>(vs + st * BK * D + sw128_index<64>(r, c)) =
           make_uint4(0u, 0u, 0u, 0u);
+    }
+    if constexpr (ZQ > 0) {
+      for (int i = tid; i < (STAGES + 1) * 64 * ZQ; i += MMA_THREADS) {
+        const int st = i / (64 * ZQ), r = i / ZQ % 64, c = RT + i % ZQ;
+        bf16* tile = st == STAGES ? qs : ks + st * BK * D;
+        *reinterpret_cast<uint4*>(tile + sw128_index<64>(r, c)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
   load_rows(qs, q, p.q_ss, q_start, p.Sq);
@@ -242,38 +276,30 @@ flash_attention_mma(const Params p) {
   const float scale_log2 = p.scale * LOG2E;
   const int w_q0 = q_start + warp * 16;
 
-  // Software pipeline: the scores of tile t + 1 are multiplied on the
-  // tensor cores while the softmax of tile t runs.
+  // Software pipeline (tiles up to 128 wide): the scores of tile t + 1 are
+  // multiplied on the tensor cores while the softmax of tile t runs.
   float s[NK * 4];
   cp_async_wait<STAGES - 2>();
   fence_proxy_async();
   __syncthreads();              // Q and tile 0 landed
+  if constexpr (PIPE) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldmatrix_x4(qf[kd], qs + sw128_index<64>(warp * 16 + (lane & 15),
-                                             kd * 2 + (lane >> 4)));
-  if (tiles.n > 0) {
-    wgmma_fence();
-    issue_qk(0, s);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_registers<NK * 4>(s);
+    for (int kd = 0; kd < KD; ++kd)
+      ldmatrix_x4(qf[kd], qs + sw128_index<64>(warp * 16 + (lane & 15),
+                                               kd * 2 + (lane >> 4)));
+    if (tiles.n > 0) {
+      wgmma_fence();
+      issue_qk(0, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers<NK * 4>(s);
+    }
   }
 
-  // one KV tile: s holds its scores, sn receives the next tile's
-  auto step = [&](int t, float s[NK * 4], float sn[NK * 4]) {
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();            // tile t+1 landed; tile t-1 is read by all
-    if (t + STAGES - 1 < tiles.n) load_kv(t + STAGES - 1);
-    cp_async_commit();
+  // the softmax and P.V of tile t, whose scores s holds (P.V's wait also
+  // ends any Q.K^T still in flight)
+  auto softmax_pv = [&](int t, float s[NK * 4]) {
     const int k_start = tiles.tile(t) * BK;
-
-    // the next tile's scores, in flight during this tile's softmax (its
-    // stage holds stale data after the last tile; they are then never read)
-    wgmma_fence();
-    issue_qk((t + 1) % STAGES, sn);
-    wgmma_commit();
 
     // scale to the log2 domain; mask only where a key of this tile can be
     // invisible to a row of this warp (the diagonal tile of a causal walk, a
@@ -339,26 +365,66 @@ flash_attention_mma(const Params p) {
       pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
     }
 
-    // O += P V: V an MN-major operand, 16 keys per product; at D = 128 its
-    // two 64-column blocks lie BK * 64 elements apart
+    // O += P V: V an MN-major operand, 16 keys per product; its 64-column
+    // blocks lie BK * 64 elements apart; at D = 256 the second m64n128
+    // product takes columns 128-255 into acc[64..127]
     const bf16* vt = vs + (t % STAGES) * BK * D;
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < NK / 2; ++c) {
       const uint64_t dv = sw128_desc(vt + c * 16 * 64, BK * 64 * sizeof(bf16));
-      if constexpr (D == 64) wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
-      else wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
+      if constexpr (D == 64) {
+        wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
+      } else {
+        wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
+        if constexpr (D == 256)
+          wgmma_m64n128_mnmajor(
+              acc + 64, pf[c],
+              sw128_desc(vt + 2 * BK * 64 + c * 16 * 64, BK * 64 * sizeof(bf16)), 1);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_registers<ND * 4>(acc);
-    fence_registers<NK * 4>(sn);
   };
-  // two steps per pass, so the score buffers swap roles without a copy
-  float s2[NK * 4];
-  for (int t = 0; t < tiles.n; t += 2) {
-    step(t, s, s2);
-    if (t + 1 < tiles.n) step(t + 1, s2, s);
+
+  if constexpr (PIPE) {
+    // one KV tile: s holds its scores, sn receives the next tile's
+    auto step = [&](int t, float s[NK * 4], float sn[NK * 4]) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();          // tile t+1 landed; tile t-1 is read by all
+      if (t + STAGES - 1 < tiles.n) load_kv(t + STAGES - 1);
+      cp_async_commit();
+      // the next tile's scores, in flight during this tile's softmax (its
+      // stage holds stale data after the last tile; they are then never
+      // read)
+      wgmma_fence();
+      issue_qk((t + 1) % STAGES, sn);
+      wgmma_commit();
+      softmax_pv(t, s);
+      fence_registers<NK * 4>(sn);
+    };
+    // two steps per pass, so the score buffers swap roles without a copy
+    float s2[NK * 4];
+    for (int t = 0; t < tiles.n; t += 2) {
+      step(t, s, s2);
+      if (t + 1 < tiles.n) step(t + 1, s2, s);
+    }
+  } else {
+    for (int t = 0; t < tiles.n; ++t) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();          // tile t landed; tile t-1 is read by all
+      if (t + 1 < tiles.n) load_kv(t + 1);
+      cp_async_commit();
+      wgmma_fence();
+      issue_qk(t % STAGES, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers<NK * 4>(s);
+      softmax_pv(t, s);
+    }
   }
   cp_async_wait<0>();
 
@@ -396,7 +462,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_f32(const Params p) {
   constexpr int DP = D + 1;     // padded rows: column reads hit 16 banks
   constexpr int PP = BK + 1;
-  constexpr int NJ = D / 16;    // output columns per thread
+  constexpr int NJ = (D + 15) / 16;   // output columns per thread (below D)
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + BQ * DP;
@@ -503,7 +569,8 @@ flash_attention_f32(const Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * PP + c];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = vs[c * D + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j)
+        vv[j] = D % 16 == 0 || tx + 16 * j < D ? vs[c * D + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -519,7 +586,8 @@ flash_attention_f32(const Params p) {
       const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
+        if (D % 16 == 0 || tx + 16 * j < D)
+          o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
     }
   }
 }
@@ -573,9 +641,13 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, s);
   if (dtype == 0 && head_dim == 112) return launch_f32<112>(p, s);
+  if (dtype == 0 && head_dim == 120) return launch_f32<120>(p, s);
   if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, s);
+  if (dtype == 0 && head_dim == 256) return launch_f32<256>(p, s);
   if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, s);
   if (dtype == 1 && head_dim == 112) return launch_mma<128, 112>(p, s);
+  if (dtype == 1 && head_dim == 120) return launch_mma<128, 120>(p, s);
   if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, s);
+  if (dtype == 1 && head_dim == 256) return launch_mma<256>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -56,12 +56,21 @@
 //   the tile loop is the same with or without them.
 //
 // Element types: float and bfloat16 (math in fp32).  Head dims: 64, 112,
-// 128.  At 112 (zamba2-7b) a bf16 row of 14 chunks lies in a shared-memory
-// row of 16 (the swizzle permutes chunks within groups of 8): the last two
-// chunks are neither loaded nor read.  The fp32 path gives each lane the
-// columns lane + 32 j below D, so D need not be a multiple of 32.  Query
-// heads per kv head: at most MAX_G.  K and V rows must be 16-byte aligned
-// (the wrapper checks; 224-byte rows are).
+// 120, 128, 256.  At 112 (zamba2-7b) and 120 (h2o-danube3-4b) a bf16 row of
+// 14 or 15 chunks lies in a shared-memory row of 16 (the swizzle permutes
+// chunks within groups of 8).  The chunks past the row are never loaded;
+// at 120 the k16 steps of Q.K^T and P.V take 8 chunks of 16 columns, the
+// last half past the row: Q's fragment is zero there and K's chunk is set
+// to zero once, so the scores stay exact, and P.V's last 8 columns land in
+// an accumulator block that is never written out.  At 256 (paligemma-3b)
+// the fp32 ring takes one stage (two would pass the 200 KiB this kernel
+// allows itself), so the next tile is loaded after this one is done; the
+// bf16 kernel there takes 255 registers and spills 16 bytes (ptxas), its
+// accumulator holding the 8 padding rows of the m16n8k16 tile too.  The
+// fp32 path gives each lane the columns lane + 32 j below D, so D need not
+// be a multiple of 32.  Query heads per kv head: at most MAX_G.  K and V
+// rows must be 16-byte aligned (the wrapper checks; 224- and 240-byte rows
+// are).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,10 +129,21 @@ __host__ __device__ constexpr int row_pitch() {
   return std::is_same<T, bf16>::value ? (D + 63) / 64 * 64 : D;
 }
 
+// Stages of the K/V ring: two, or one where two tiles of K and V would
+// pass 160 KiB (fp32 at D = 256).
+template <typename T, int D>
+__host__ __device__ constexpr int ring_stages() {
+  return STAGES * 2 * TILE * row_pitch<T, D>() * static_cast<int>(sizeof(T)) >
+                 160 * 1024
+             ? 1
+             : STAGES;
+}
+
 // Dynamic shared memory: the K/V ring, then the tile bitmap and the list.
 template <typename T, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return STAGES * 2 * TILE * row_pitch<T, D>() * static_cast<int>(sizeof(T));
+  return ring_stages<T, D>() * 2 * TILE * row_pitch<T, D>() *
+         static_cast<int>(sizeof(T));
 }
 
 inline size_t smem_bytes(int ring, int n_tiles) {
@@ -140,6 +160,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   constexpr int DP = row_pitch<T, D>();                      // shared row pitch
   constexpr int SW = BF16 ? DP / EPC : 8;                    // swizzled row chunks
   constexpr int NJ = (D + 31) / 32;                          // fp32: columns per lane
+  constexpr int KQ = (D + 15) / 16;                          // bf16: k16 steps
+  constexpr int ST = ring_stages<T, D>();                    // K/V ring stages
   extern __shared__ __align__(128) unsigned char fd_smem[];
   T* ring = reinterpret_cast<T*>(fd_smem);
   uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, D>());
@@ -163,18 +185,20 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 
   // The query rows: bf16 as mma A fragments (rows g < G, the rest zero),
   // fp32 into shared memory.  Issued first, so they arrive during the scan.
-  uint32_t qa[BF16 ? D / 16 : 1][4];
+  uint32_t qa[BF16 ? KQ : 1][4];
   if constexpr (BF16) {
     const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KQ; ++kk) {
       float f[4] = {0.f, 0.f, 0.f, 0.f};
       if (g < G) {
         const T* qr = q + g * p.q_sh + kk * 16 + c;
         f[0] = to_float(qr[0]);
         f[1] = to_float(qr[1]);
-        f[2] = to_float(qr[8]);
-        f[3] = to_float(qr[9]);
+        if (D % 16 == 0 || kk * 16 + 8 < D) {   // columns past D stay zero
+          f[2] = to_float(qr[8]);
+          f[3] = to_float(qr[9]);
+        }
       }
       qa[kk][0] = pack_bf16x2(f[0], f[1]);
       qa[kk][1] = 0u;
@@ -252,10 +276,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     // per-warp online softmax state: bf16 in mma C layout (row lane / 4),
     // fp32 warp-uniform per row with the columns split over the lanes
     float m_b = NEG_INF, l_b = 0.f;
-    float acc_b[BF16 ? D / 8 : 1][4];
+    float acc_b[BF16 ? 2 * KQ : 1][4];
     float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : NJ];
 #pragma unroll
-    for (int i = 0; i < (BF16 ? D / 8 : 1); ++i)
+    for (int i = 0; i < (BF16 ? 2 * KQ : 1); ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc_b[i][j] = 0.f;
 #pragma unroll
@@ -266,22 +290,29 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
       for (int j = 0; j < (BF16 ? 1 : NJ); ++j) acc_f[BF16 ? 0 : g][j] = 0.f;
     }
 
+    if constexpr (BF16 && CH < 2 * KQ) {
+      // K's chunk past a 15-chunk row, read by the last k16 step against
+      // Q's zero columns: zero in every stage, so 0 x 0 and never NaN
+      for (int i = tid; i < ST * TILE; i += THREADS)
+        *reinterpret_cast<uint4*>(ring + (i / TILE) * 2 * TILE * DP +
+                                  swizzle<SW>(i % TILE, CH)) = make_uint4(0u, 0u, 0u, 0u);
+    }
     load_tile(0, list[r0]);
     cp_async_commit();
     for (int i = 0; i < r1 - r0; ++i) {
-      if (r0 + i + 1 < r1) load_tile((i + 1) % STAGES, list[r0 + i + 1]);
+      if (ST > 1 && r0 + i + 1 < r1) load_tile((i + 1) % ST, list[r0 + i + 1]);
       cp_async_commit();
-      cp_async_wait<1>();
+      cp_async_wait<ST - 1>();
       __syncthreads();                        // tile i landed
       const int tile = list[r0 + i];
-      const T* ks = ring + (i % STAGES) * 2 * TILE * DP;
+      const T* ks = ring + (i % ST) * 2 * TILE * DP;
       const T* vs = ks + TILE * DP;
 
       if constexpr (BF16) {
         // scores of this warp's 16 slots, rows = query heads
         float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < KQ; ++kk) {
           uint32_t r[4];
           ldmatrix_x4(r, ks + swizzle<SW>(
                                   warp * WARP_KEYS + (lane & 7) + ((lane >> 4) << 3),
@@ -316,12 +347,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         const uint32_t a[4] = {pack_bf16x2(pr[0][0], pr[0][1]), 0u,
                                pack_bf16x2(pr[1][0], pr[1][1]), 0u};
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
+        for (int nb = 0; nb < 2 * KQ; ++nb) {
           acc_b[nb][0] *= corr;
           acc_b[nb][1] *= corr;
         }
 #pragma unroll
-        for (int db = 0; db < D / 16; ++db) {
+        for (int db = 0; db < KQ; ++db) {
           uint32_t r[4];
           ldmatrix_x4_trans(r, vs + swizzle<SW>(
                                         warp * WARP_KEYS + (lane & 7) + (((lane >> 3) & 1) << 3),
@@ -390,7 +421,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         }
         __syncwarp();
       }
-      __syncthreads();                        // stage i % STAGES is free
+      __syncthreads();                        // stage i % ST is free
+      if (ST == 1 && r0 + i + 1 < r1) load_tile(0, list[r0 + i + 1]);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -607,9 +639,13 @@ extern "C" int flash_decode_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
   if (dtype == 0 && head_dim == 112) return launch<float, 112>(p, s);
+  if (dtype == 0 && head_dim == 120) return launch<float, 120>(p, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
+  if (dtype == 0 && head_dim == 256) return launch<float, 256>(p, s);
   if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, s);
   if (dtype == 1 && head_dim == 112) return launch<bf16, 112>(p, s);
+  if (dtype == 1 && head_dim == 120) return launch<bf16, 120>(p, s);
   if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, s);
+  if (dtype == 1 && head_dim == 256) return launch<bf16, 256>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

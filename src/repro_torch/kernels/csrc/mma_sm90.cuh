@@ -110,11 +110,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // ---------------------------------------------------------------------------
 // Warpgroup products (wgmma): the 4 warps of a warpgroup multiply a 64 x 16
 // bf16 A, held in registers in the mma.sync A layout (warp w holds rows
-// 16 w .. 16 w + 15), by a 16 x N B read from shared memory through a
-// descriptor, into a 64 x N fp32 accumulator in the mma.sync C layout over
-// N / 8 blocks (d[4 j + e] is C fragment e of columns 8 j ..).  The product
-// runs asynchronously: fence before it, commit, and wait before the
-// accumulator or A registers are touched again.
+// 16 w .. 16 w + 15) or read from shared memory through a descriptor, by a
+// 16 x N B read from shared memory through a descriptor, into a 64 x N fp32
+// accumulator in the mma.sync C layout over N / 8 blocks (d[4 j + e] is C
+// fragment e of columns 8 j ..).  The product runs asynchronously: fence
+// before it, commit, and wait before the accumulator or A registers are
+// touched again.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -176,6 +177,27 @@ __device__ __forceinline__ void wgmma_m64n64_kmajor(
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
         "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A . B, A a K-major (64 m, 16 k) block and B a K-major
+// (64 n, 16 k) block, both in shared memory (sw128_desc).
+__device__ __forceinline__ void wgmma_m64n64_ss_kmajor(
+    float d[32], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
 // d (64 x 64) (+)= a (64 x 16) . B, B an MN-major (16 k, 64 n) block.

@@ -524,7 +524,12 @@ __global__ void __launch_bounds__(WARP) scenario_scan_kernel(Args a) {
   int cur_win = -1, pre_win = -1, nready = 0;
   unsigned char pre_rdy = 0;
   int a_ptr = 0;
-  unsigned rr_cur = 0;
+  // the round-robin cursor, int64 as the reference's.  Its 64-bit modulo
+  // costs about 1 % on a least-loaded matrix and 3 % on round-robin lanes;
+  // a 32-bit path while the high word is zero, or the cursor kept as two
+  // 32-bit words, measured no faster (the kernel's time moves with its
+  // register layout)
+  unsigned long long rr_cur = 0;
   long long n_retried = 0;
   bool overflow = false;
 

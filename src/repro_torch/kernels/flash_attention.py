@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None

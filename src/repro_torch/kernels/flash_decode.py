@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.grid import arrival_counters, sm_count
 
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_G = 8                 # query heads per kv head (csrc MAX_G)
 TILE = 64                 # cache slots per tile (csrc TILE); a split takes whole tiles

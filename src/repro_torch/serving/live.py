@@ -17,6 +17,11 @@ requests are dropped and retried client-side, re-prefilled on a survivor
     python -m repro_torch.serving.live --arch zamba2-7b --smoke --device cpu
     python -m repro_torch.serving.live --arch whisper-medium
     python -m repro_torch.serving.live --arch whisper-medium --smoke --device cpu
+    python -m repro_torch.serving.live --arch paligemma-3b
+    python -m repro_torch.serving.live --arch paligemma-3b --smoke --device cpu
+    python -m repro_torch.serving.live --arch h2o-danube3-4b
+    python -m repro_torch.serving.live --arch qwen2.5-3b
+    python -m repro_torch.serving.live --arch command-r-35b
 
 The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
 ``reset_cache`` and decode through the serve step
@@ -24,8 +29,11 @@ The replicas are model-agnostic: they call ``init_cache`` / ``prefill`` /
 for attention, dense or MoE, conv and SSM states for Mamba-1, both for
 zamba2's hybrid, self and cross K/V for Whisper).  A request to an
 encoder-decoder model carries its audio frames (1, S_enc, d_model) beside
-its decoder prompt; the replica hands them to ``prefill``, and a retry
-after the preemption re-prefills with the same frames.  A replica
+its decoder prompt, and a request to a prefix-LM (paligemma-3b) its image
+prefix, the stub frontend's (1, frontend_seq, d_model) patch embeddings,
+before its text prompt; the replica hands them to ``prefill`` (the frames
+first, the patches as ``prefix_embed``), and a retry after the preemption
+re-prefills with the same frames or patches.  A replica
 owns a fixed set of cache slots, each a cache with its serve step, made
 when the replica is built: on the card each step is captured once there
 as a CUDA graph (capturing writes into its cache, so it cannot wait for a
@@ -45,6 +53,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.launch.steps import ServeStep, build_serve_step
+
+
+def prefill_request(model, tokens: torch.Tensor, cache: Dict[str, Any],
+                    frames: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.bfloat16):
+    """``model.prefill`` of one request's (B, S) ``tokens`` into ``cache``:
+    an encoder-decoder model takes its audio ``frames`` first, a prefix-LM
+    its image patches (passed as ``frames`` too) as ``prefix_embed``."""
+    if frames is None:
+        return model.prefill(tokens, cache, dtype=dtype)
+    if model.cfg.is_encdec:
+        return model.prefill(frames, tokens, cache, dtype=dtype)
+    return model.prefill(tokens, cache, prefix_embed=frames, dtype=dtype)
 
 
 @dataclasses.dataclass
@@ -83,21 +104,24 @@ class LiveReplica:
     def submit(self, req_id: int, prompt: torch.Tensor, out_tokens: int,
                frames: Optional[torch.Tensor] = None) -> None:
         """Prefill ``prompt`` (1-D tokens) into a free cache slot; an
-        encoder-decoder model also takes the request's ``frames``."""
+        encoder-decoder model also takes the request's audio ``frames``, a
+        prefix-LM its image prefix (passed as ``frames`` too)."""
         if not self.free:
             raise RuntimeError(f"{self.name}: all {len(self.inflight)} cache "
                                "slots are in flight")
         t0 = time.perf_counter()
         cache, step = slot = self.free.pop()
         self.model.reset_cache(cache)
-        inputs = (prompt[None],) if frames is None else (frames, prompt[None])
-        logits, cache = self.model.prefill(*inputs, cache, dtype=self.dtype)
+        logits, cache = prefill_request(self.model, prompt[None], cache,
+                                        frames, self.dtype)
+        length = int(prompt.shape[0])
+        if frames is not None and not self.model.cfg.is_encdec:
+            length += frames.shape[1]                  # the image prefix
         step.tokens.copy_(logits.argmax(-1))           # (1, 1)
         out = [int(step.tokens[0, 0])]                 # waits for the device
         self.prefill_s.append(time.perf_counter() - t0)
         self.prefill_lens.append(int(prompt.shape[0]))
-        self.inflight.append(_Request(req_id, slot, int(prompt.shape[0]),
-                                      out_tokens, out))
+        self.inflight.append(_Request(req_id, slot, length, out_tokens, out))
 
     @torch.inference_mode()
     def step(self):
@@ -161,7 +185,8 @@ def serve_fleet(
     """Serve ``prompts`` (id -> 1-D token tensor on the model's device) on
     ``replicas`` replicas sharing ``model``; replica 0 is preempted after
     step ``kill_step``.  An encoder-decoder model takes each request's
-    ``frames`` too (id -> (1, S_enc, d_model), ``make_frames``).  Each
+    audio ``frames`` too, a prefix-LM each request's image prefix under the
+    same name (id -> (1, frontend_seq, d_model), ``make_frames``).  Each
     replica has one cache slot per prompt (a survivor may end up holding
     every request); building them (and capturing their steps) is set-up,
     outside ``wall_s``."""
@@ -222,9 +247,10 @@ def make_prompts(cfg, *, n: int, min_len: int, max_len: int, seed: int,
 
 def make_frames(cfg, prompts: Dict[int, Any], *, seed: int,
                 device="cuda") -> Dict[int, torch.Tensor]:
-    """Audio frames for each request of ``prompts``: the stub frontend's
-    (1, frontend_seq, d_model) embeddings, unit normal in float32 from a
-    numpy seed (the reference's smoke tests draw theirs unit normal)."""
+    """The stub frontend's embeddings for each request of ``prompts``: an
+    encoder-decoder's audio frames or a prefix-LM's image patches, (1,
+    frontend_seq, d_model), unit normal in float32 from a numpy seed (the
+    reference's smoke tests draw theirs unit normal)."""
     rng = np.random.default_rng(seed)
     shape = (1, cfg.frontend_seq, cfg.d_model)
     return {i: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
@@ -254,7 +280,7 @@ def main(argv=None) -> None:
     prompts = make_prompts(cfg, n=8, min_len=12, max_len=12, seed=7,
                            device=device)
     frames = (make_frames(cfg, prompts, seed=8, device=device)
-              if cfg.is_encdec else None)
+              if cfg.frontend else None)
     res = serve_fleet(model, prompts, replicas=args.replicas, dtype=dtype,
                       frames=frames)
     n_tok = sum(len(v) for v in res.completed.values())

@@ -51,6 +51,30 @@ GMM_CASES = [
     (2, 256, 512, 512),
 ]
 
+# test_torch_kernels.py's cases at the head widths 120 (h2o-danube3-4b:
+# H=32, Kv=8; the tensor-core kernel's tile of 128 with one zero chunk in
+# Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; Q read from shared memory), under
+# the causal, sliding-window and prefix-LM masks, and bidirectional
+WIDE_ATTN_CASES = [
+    (1, 32, 8, 128, 128, 120, True, None, 0),
+    (1, 32, 8, 192, 192, 120, True, 48, 0),
+    (1, 32, 8, 128, 128, 120, True, None, 40),
+    (2, 8, 2, 64, 64, 120, False, None, 0),
+    (1, 8, 1, 128, 128, 256, True, None, 0),
+    (1, 8, 1, 192, 192, 256, True, 48, 0),
+    (1, 8, 1, 160, 160, 256, True, None, 64),
+    (2, 8, 2, 64, 64, 256, False, None, 0),
+]
+
+# (B, H, Kv, S, D, mask) at the same widths: "prefix", the first 137 and
+# 300 slots of rows 0 and 1; "ring", 230 live slots wrapping past the end
+WIDE_DECODE_CASES = [
+    (2, 32, 8, 256, 120, "prefix"),
+    (2, 32, 8, 256, 120, "ring"),
+    (2, 8, 1, 256, 256, "prefix"),
+    (2, 8, 1, 256, 256, "ring"),
+]
+
 # qwen3-moe-30b's attention (H=32, Kv=4, D=128) in bf16, in the layout of
 # ATTN_CASES: ragged lengths around the tensor-core kernel's 64-row tiles,
 # each with the causal, sliding-window and prefix-LM masks
@@ -177,6 +201,47 @@ def test_flash_decode_kernel_matches_plain(card, case, dtype):
     k = _randn(rng, (B, S, Kv, D), tdt, card)
     v = _randn(rng, (B, S, Kv, D), tdt, card)
     valid = (torch.arange(S, device=card) < n_valid)[None].expand(B, S)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    want = tfd.plain(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_at_wide_heads(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(950 + WIDE_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_at_wide_heads(card, case, dtype):
+    B, H, Kv, S, D, kind = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(970 + WIDE_DECODE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, D), tdt, card)
+    k = _randn(rng, (B, S, Kv, D), tdt, card)
+    v = _randn(rng, (B, S, Kv, D), tdt, card)
+    pos = np.arange(S)[None, :].repeat(B, 0)
+    valid = (pos < np.array([[137], [300]])[:B] if kind == "prefix"
+             else (pos - (S - 100)) % S < 230)
+    valid = torch.from_numpy(valid.astype(np.int8)).to(card)
     before = ops.flash_decode.launches
     got = ops.flash_decode(q, k, v, kv_valid=valid)
     torch.cuda.synchronize()

@@ -12,7 +12,9 @@ shards, and a cache sharded over its slots attended where it lies
   ``decode_cp`` on the ``"fake"`` (2, 4) mesh do not grow with the cache
   (the cache was gathered to every device each layer and step before);
   full-width llama3.2-1b at ``decode_32k`` is bound by reading its own
-  slots.
+  slots; a 14-layer zamba2's decode step gathers the new Mamba-2 states'
+  heads into the cache exactly as many bytes as the reference's
+  partitioner does on the same (2, 4) mesh.
 * Four gloo ranks on a (2, 2) mesh under ``tp`` + ``decode_cp`` decode a
   smoke llama (the reference's weights) for 8 steps: the reference's
   greedy tokens, its logits within tolerance, each rank's cache shard the
@@ -270,6 +272,81 @@ def test_llama_decode_32k_reads_its_own_slots(node_mesh, tmp_path, monkeypatch):
     assert round(ma["argument_size_in_bytes"] / 2**30, 3) == 16.576
     assert h["kernel_calls"] == {"flash_decode": 16}
     assert rec["refused_ops"] == {}
+
+
+# the reference's zamba2 decode step lowered on a (2, 4) host mesh (its own
+# build_serve_step, tp weights, decode_cp cache), in a process of 8 host
+# devices: the all-gathers of the Mamba-2 state (float32, trailing dims
+# (ssm_head_dim, ssm_state)) and of everything, in result bytes
+_REF_ZAMBA_GATHERS = r"""
+import json, re
+import jax
+from repro.configs import ShapeSpec, get_config
+from repro.launch.hlo_count import analyze_hlo
+from repro.launch.steps import build_serve_step
+
+cfg = get_config("zamba2-7b").scaled(num_layers=14)
+mesh = jax.make_mesh((2, 4), ("data", "model"))
+built = build_serve_step(cfg, mesh, ShapeSpec("decode", 1024, 4, "decode"))
+with mesh:
+    hlo = built.jitted().lower(*built.abstract_args).compile().as_text()
+state = 0
+tail = [cfg.ssm_head_dim, cfg.ssm_state]
+for m in re.finditer(r"= f32\[([0-9,]+)\]\S* all-gather\(", hlo):
+    dims = [int(d) for d in m.group(1).split(",")]
+    if dims[-2:] == tail:
+        state += 4 * int(__import__("math").prod(dims))
+print(json.dumps({"state": state, "link": analyze_hlo(hlo).coll_bytes}))
+"""
+
+
+def test_zamba2_decode_gathers_its_states_as_the_reference(node_mesh,
+                                                           monkeypatch):
+    """The new Mamba-2 state leaves the ``tp`` projections with its heads
+    sharded, and the ``decode_cp`` cache keeps them replicated (the
+    reference's rule): both the reference's partitioner and the port gather
+    the heads to write the cache.  A 14-layer zamba2 (2 prelude layers, 2
+    super-blocks, d_model 128) at batch 4 and 1024 slots: the state's
+    all-gather bytes a device are equal (the reference gathers the stacked
+    states once a step, the port each layer's)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_count
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", _REF_ZAMBA_GATHERS], env=env,
+                         capture_output=True, text=True, timeout=600, check=True)
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+
+    cfg = get_config("zamba2-7b").scaled(num_layers=14)
+    tail = (cfg.ssm_head_dim, cfg.ssm_state)
+    gathered = []
+    dispatch = op_count.OpCounter.__torch_dispatch__
+
+    def recording(self, func, types, args=(), kwargs=None):
+        out = dispatch(self, func, types, args, kwargs)
+        if (out is not NotImplemented and func.namespace == "_c10d_functional"
+                and func._overloadpacket.__name__ == "all_gather_into_tensor"
+                and out.dtype == torch.float32 and tuple(out.shape[-2:]) == tail):
+            gathered.append(out.nbytes)
+        return out
+
+    monkeypatch.setattr(op_count.OpCounter, "__torch_dispatch__", recording)
+    shape = ShapeSpec("decode", 1024, 4, "decode")
+    dryrun._count(cfg, shape, node_mesh, {"impl": "blockwise"})   # warm-up
+    gathered.clear()
+    _, refused, _ = dryrun._count(cfg, shape, node_mesh, {"impl": "blockwise"})
+    assert refused == {}
+    n_mamba = cfg.hybrid_prelude + cfg.hybrid_blocks * (cfg.hybrid_attn_every - 1)
+    assert len(gathered) == n_mamba
+    assert ref["state"] > 0 and sum(gathered) == ref["state"]
 
 
 # ---------------------------------------------------------------------------

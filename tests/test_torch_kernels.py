@@ -36,6 +36,30 @@ from test_kernels import (  # noqa: E402
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
+# the head widths of h2o-danube3-4b (120: H=32, Kv=8) and paligemma-3b (256:
+# H=8, Kv=1), in the layout of ATTN_CASES, under the causal, sliding-window
+# and prefix-LM masks, and bidirectional; test_torch_cuda.py holds the CUDA
+# kernels to the same cases
+WIDE_ATTN_CASES = [
+    (1, 32, 8, 128, 128, 120, True, None, 0),
+    (1, 32, 8, 192, 192, 120, True, 48, 0),
+    (1, 32, 8, 128, 128, 120, True, None, 40),
+    (2, 8, 2, 64, 64, 120, False, None, 0),
+    (1, 8, 1, 128, 128, 256, True, None, 0),
+    (1, 8, 1, 192, 192, 256, True, 48, 0),
+    (1, 8, 1, 160, 160, 256, True, None, 64),
+    (2, 8, 2, 64, 64, 256, False, None, 0),
+]
+
+# (B, H, Kv, S, D, mask: see _decode_mask) at the same widths: cache
+# occupancy, and a sliding window's ring of live slots wrapping past the end
+WIDE_DECODE_CASES = [
+    (2, 32, 8, 256, 120, "prefix"),
+    (2, 32, 8, 256, 120, "ring"),
+    (2, 8, 1, 256, 256, "prefix"),
+    (2, 8, 1, 256, 256, "ring"),
+]
+
 
 def _pair(rng, shape, dtype_name):
     """The same values as a jnp array and a torch tensor (bf16 rounding of
@@ -51,12 +75,12 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
     B, H, Kv, Sq, Skv, D, causal, window, prefix = case
     tol = DTYPES[dtype][2]
-    rng = np.random.default_rng(ATTN_CASES.index(case))
+    rng = np.random.default_rng((ATTN_CASES + WIDE_ATTN_CASES).index(case))
     jq, tq = _pair(rng, (B, H, Sq, D), dtype)
     jk, tk = _pair(rng, (B, Kv, Skv, D), dtype)
     jv, tv = _pair(rng, (B, Kv, Skv, D), dtype)
@@ -97,13 +121,13 @@ def _attention_with_p_in_bf16(q, k, v, *, causal, window, prefix_len):
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
 def test_bf16_rounding_of_p_stays_within_the_reference_tolerance(case):
     """The bf16 CUDA kernel rounds P to bf16 before P.V, where the Pallas
     kernel keeps it in fp32; with that rounding the result stays within the
     reference's bf16 tolerance (2e-2) of the Pallas kernel."""
     B, H, Kv, Sq, Skv, D, causal, window, prefix = case
-    rng = np.random.default_rng(ATTN_CASES.index(case))
+    rng = np.random.default_rng((ATTN_CASES + WIDE_ATTN_CASES).index(case))
     jq, tq = _pair(rng, (B, H, Sq, D), "bfloat16")
     jk, tk = _pair(rng, (B, Kv, Skv, D), "bfloat16")
     jv, tv = _pair(rng, (B, Kv, Skv, D), "bfloat16")
@@ -155,6 +179,28 @@ def _decode_mask(kind, B, S):
     else:
         raise ValueError(kind)
     return valid.astype(np.int8)
+
+
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_pallas_and_ref_at_wide_heads(case, dtype):
+    """Decode at head widths 120 and 256 (h2o-danube3-4b's and
+    paligemma-3b's heads) under an occupancy mask and a ring."""
+    B, H, Kv, S, D, kind = case
+    tol = DTYPES[dtype][2]
+    rng = np.random.default_rng(170 + WIDE_DECODE_CASES.index(case))
+    jq, tq = _pair(rng, (B, H, D), dtype)
+    jk, tk = _pair(rng, (B, Kv, S, D), dtype)
+    jv, tv = _pair(rng, (B, Kv, S, D), dtype)
+    valid = _decode_mask(kind, B, S)
+    pallas = flash_decode_bhd(jq, jk, jv, jnp.asarray(valid), block_kv=128,
+                              interpret=True)
+    oracle = jref.flash_decode_ref(jq, jk, jv, jnp.asarray(valid))
+    got = ops.flash_decode(tq[:, None], tk.transpose(1, 2), tv.transpose(1, 2),
+                           kv_valid=torch.from_numpy(valid))[:, 0]
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
 
 
 def _decode_over_listed_tiles(q, k, v, valid, splits, tile):
@@ -348,11 +394,14 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
 
 def test_card_test_cases_are_the_reference_cases():
     """``test_torch_cuda.py`` runs on the card, where JAX is absent, so it
-    keeps its own copy of the reference's kernel test cases."""
+    keeps its own copy of the reference's kernel test cases and of this
+    file's cases at the wide head widths."""
     import test_torch_cuda
 
     assert test_torch_cuda.ATTN_CASES == ATTN_CASES
     assert test_torch_cuda.DECODE_CASES == DECODE_CASES
+    assert test_torch_cuda.WIDE_ATTN_CASES == WIDE_ATTN_CASES
+    assert test_torch_cuda.WIDE_DECODE_CASES == WIDE_DECODE_CASES
     assert test_torch_cuda.SCAN_CASES == SCAN_CASES
     assert test_torch_cuda.GMM_CASES == GMM_CASES
 
