@@ -37,6 +37,12 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    (``merge_decode_partials``), against one whole-cache launch and the
    plain version (2e-2 bf16, 2e-5 float32) under three masks: 600 valid
    slots (three views empty), every slot valid, valid slots in every view;
+   and paligemma-3b's head width 256 (``check_head_width_256``, the cases
+   of ``tests/test_torch_cuda.py``): the warp-specialised prefill under
+   causal, prefix-LM (256 patches before 1024 tokens), window, Sq != Skv,
+   ragged, B > 1 and 1:1 cases (bf16, 2e-2), the unpadded decode in both
+   dtypes with its log-sum-exp (5.4e-7 of max(|lse|, 1) in float32) and
+   the same slot split at D = 256;
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
@@ -45,7 +51,10 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    Kv=4, D=128), zamba2-7b's (H=32, Kv=32, D=112), whisper-medium's
    (H=Kv=16, D=64: the encoder's bidirectional S=1500, the cross cache's
    1500 valid slots), h2o-danube3-4b's (H=32, Kv=8, D=120) and
-   paligemma-3b's (H=8, Kv=1, D=256), and moe_gmm with the
+   paligemma-3b's (H=8, Kv=1, D=256; flash_attention also at its own
+   prefill, 256 patches under the prefix-LM mask before 1024 text tokens,
+   SDPA given the mask), each line with the card's name and power limit,
+   and moe_gmm with the
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
@@ -352,8 +361,8 @@ FA_CASES = [
                                 (975, None, 0), (512, 96, 0), (512, None, 37))),
     (torch.bfloat16, 2, 8, 2, 192, 112, False, None, 0),     # D=112, GQA, bidirectional
     # the head widths 120 (h2o-danube3-4b: H=32, Kv=8; the tile code of 128
-    # with one zero chunk in Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; Q read
-    # from shared memory, two m64n128 products in P.V), in both dtypes, at
+    # with one zero chunk in Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; the
+    # warp-specialised kernel in bf16), in both dtypes, at
     # ragged lengths and under the three masks (tests/test_torch_cuda.py
     # WIDE_ATTN_CASES), then each model's own prefill: paligemma's 256
     # patches under the prefix-LM mask before 1024 text tokens, danube's
@@ -439,6 +448,38 @@ FD_CASES = [
     *((dtype, *case) for case in CARD_DECODE_CASES + WHISPER_DECODE_CASES
       for dtype in (torch.bfloat16, torch.float32)),
 ]
+
+# paligemma-3b's head width 256 in bf16 (tests/test_torch_cuda.py
+# PALI_ATTN_CASES and PALI_DECODE_CASES): the warp-specialised prefill,
+# (B, H, Kv, Sq, Skv, causal, window, prefix), causal at GQA 8:1, the
+# 256-patch prefix before 1024 text tokens, a window, Sq != Skv, ragged
+# lengths, B > 1 and GQA 1:1; the unpadded decode, (B, H, Kv, S, mask)
+# (make_valid), in both dtypes with its log-sum-exp, the fp32 one within
+# PALI_LSE_RTOL of max(|lse|, 1) (lse_error's measure; the worst across the
+# head widths before the redesign)
+PALI_FA_CASES = [
+    (1, 8, 1, 1024, 1024, True, None, 0),
+    (1, 8, 1, 1280, 1280, True, None, 256),
+    (1, 8, 1, 512, 512, True, 96, 0),
+    (1, 8, 1, 100, 700, False, None, 0),
+    (1, 8, 1, 975, 975, True, None, 0),
+    (1, 8, 1, 1, 1, True, None, 0),
+    (1, 8, 1, 130, 130, True, None, 0),
+    (2, 8, 1, 333, 333, True, None, 37),
+    (2, 4, 4, 200, 200, True, None, 0),
+    (2, 4, 4, 192, 192, False, None, 0),
+]
+PALI_FD_CASES = [
+    (2, 8, 1, 2048, "600"),
+    (2, 8, 1, 2048, "empty beside 600"),
+    (2, 8, 1, 1000, "ring"),
+    (1, 8, 1, 2048, "2048"),
+    (1, 8, 1, 2048, "last"),
+    (2, 8, 1, 1001, "700"),
+    (2, 8, 8, 512, "300"),
+    (1, 8, 2, 2048, "empty"),
+]
+PALI_LSE_RTOL = 5.4e-7
 
 # falcon-mamba-7b's scan: d_inner 8192, ssm_state 16, 256-step chunks
 SCAN_C, SCAN_N, SCAN_Q = 8192, 16, 256
@@ -959,6 +1000,94 @@ def check_slot_split() -> float:
                 raise AssertionError("the merged slot split disagrees with "
                                      "the whole cache")
             worst = max(worst, *errs)
+    return worst
+
+
+def check_head_width_256() -> dict:
+    """Step 2, paligemma-3b's head width: PALI_FA_CASES through the
+    warp-specialised prefill and PALI_FD_CASES through the unpadded decode
+    (output, then the fp32 output and log-sum-exp), each against its plain
+    version, and the slot split at D = 256 (SPLIT_VIEWS views of a
+    SPLIT_S-slot cache, merged) against the whole-cache launch and plain.
+    Returns each kernel's largest output error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(19)
+    worst = {"flash_attention": 0.0, "flash_decode": 0.0}
+    tol = TOL[torch.bfloat16]
+    for B, H, Kv, Sq, Skv, causal, window, prefix in PALI_FA_CASES:
+        q = randn(rng, (B, Sq, H, PALI_D), torch.bfloat16)
+        k = randn(rng, (B, Skv, Kv, PALI_D), torch.bfloat16)
+        v = randn(rng, (B, Skv, Kv, PALI_D), torch.bfloat16)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        got = fa.launch(q, k, v, **kw)
+        want = fa.plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (torch.isfinite(got).all().item()
+              and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+        log(f"flash_attention D=256 bf16 B={B} H={H} Kv={Kv} Sq={Sq} Skv={Skv} "
+            f"causal={causal} window={window} prefix={prefix}: "
+            f"max_abs_err={err:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_attention at D=256 disagrees with its "
+                                 "plain version")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, Kv, S, mask in PALI_FD_CASES:
+            q = randn(rng, (B, 1, H, PALI_D), dtype)
+            k = randn(rng, (B, S, Kv, PALI_D), dtype)
+            v = randn(rng, (B, S, Kv, PALI_D), dtype)
+            valid = make_valid(B, S, mask, rng)
+            got = fd.launch(q, k, v, valid)
+            out, lse = fd.launch(q, k, v, valid, return_lse=True)
+            want, want_lse = fd.plain(q, k, v, valid, return_lse=True)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            err = max((got.float() - want.float()).abs().max().item(),
+                      (out - want).abs().max().item())
+            lerr = lse_error(lse, want_lse, dtype)
+            kind, ltol = LSE_TOL[dtype]
+            if dtype == torch.float32:
+                ltol = PALI_LSE_RTOL
+            ok = (torch.isfinite(got).all().item()
+                  and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+                  and torch.allclose(out, want, atol=tol, rtol=tol)
+                  and lerr <= ltol)
+            log(f"flash_decode D=256 {str(dtype)[6:]} B={B} H={H} Kv={Kv} S={S} "
+                f"valid={mask}: max_abs_err={err:.3g} tol={tol}, lse {kind} "
+                f"err={lerr:.3g} tol={ltol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_decode at D=256 disagrees with its "
+                                     "plain version")
+            worst["flash_decode"] = max(worst["flash_decode"], err)
+    tol = TOL[torch.bfloat16]
+    for mask in SPLIT_MASKS:
+        B = 2
+        q = randn(rng, (B, 1, PALI_H, PALI_D), torch.bfloat16)
+        k = randn(rng, (B, SPLIT_S, PALI_KV, PALI_D), torch.bfloat16)
+        v = randn(rng, (B, SPLIT_S, PALI_KV, PALI_D), torch.bfloat16)
+        if mask == "every view":
+            pos = torch.arange(SPLIT_S, device="cuda")
+            valid = ((pos % (SPLIT_S // SPLIT_VIEWS)) < 3000)[None].expand(B, SPLIT_S)
+            valid = valid.to(torch.int8).contiguous()
+        else:
+            valid = make_valid(B, SPLIT_S, mask, rng)
+        got = split_decode(q, k, v, valid)
+        whole = fd.launch(q, k, v, valid)
+        want = fd.plain(q, k, v, valid)
+        torch.cuda.synchronize()
+        errs = [(got.float() - w.float()).abs().max().item() for w in (whole, want)]
+        ok = all(torch.allclose(got.float(), w.float(), atol=tol, rtol=tol)
+                 for w in (whole, want))
+        log(f"flash_decode D=256 slot split bf16 B={B} H={PALI_H} Kv={PALI_KV} "
+            f"S={SPLIT_S} in {SPLIT_VIEWS} views, valid={mask}: max_abs_err vs "
+            f"the whole-cache launch {errs[0]:.3g}, vs plain {errs[1]:.3g} "
+            f"tol={tol} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the merged slot split at D=256 disagrees")
+        worst["flash_decode"] = max(worst["flash_decode"], *errs)
     return worst
 
 
@@ -1554,12 +1683,13 @@ def profile_serving(fleet: Fleet, decode_steps: int = 8) -> None:
 
 
 def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
-                            causal: bool = True) -> dict:
-    """flash_attention, bf16, B=1, S tokens (causal or bidirectional), at H
-    query and Kv kv heads of width D: kernel, plain, SDPA (the library
-    yardstick, never called by the port) and the bound (the larger of the
-    unmasked pairs' products over the bf16 tensor-core peak and the bytes
-    over the HBM rate)."""
+                            causal: bool = True, prefix: int = 0) -> dict:
+    """flash_attention, bf16, B=1, S tokens (causal or bidirectional, the
+    first ``prefix`` seen by every row under prefix-LM), at H query and Kv
+    kv heads of width D: kernel, plain, SDPA (the library yardstick, never
+    called by the port; a prefix-LM mask goes to it as a bool mask) and the
+    bound (the larger of the unmasked pairs' products over the bf16
+    tensor-core peak and the bytes over the HBM rate)."""
     from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
 
@@ -1569,20 +1699,26 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
     k = randn(rng, (B, S, Kv, D), torch.bfloat16)
     v = randn(rng, (B, S, Kv, D), torch.bfloat16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix)
     calls = {
-        "kernel": lambda: fa.launch(q, k, v, causal=causal),
-        "plain": lambda: fa.plain(q, k, v, causal=causal),
-        "library": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True),
+        "kernel": lambda: fa.launch(q, k, v, causal=causal, prefix_len=prefix),
+        "plain": lambda: fa.plain(q, k, v, causal=causal, prefix_len=prefix),
+        "library": (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)) if prefix else
+        (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)),
     }
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
     queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
-    work = cost.flash_attention_work(B, H, Kv, S, S, D, 2, causal=causal)
+    work = cost.flash_attention_work(B, H, Kv, S, S, D, 2, causal=causal,
+                                     prefix=prefix)
     flops, nbytes = work.flops, work.bytes
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"flash_attention timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
-        f"{'causal' if causal else 'bidirectional'}: "
+    log(f"flash_attention timing [{card_line()}] bf16 B={B} H={H} Kv={Kv} S={S} "
+        f"D={D} {'causal' if causal else 'bidirectional'}"
+        f"{f' prefix={prefix}' if prefix else ''}: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(SDPA) kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} "
         f"({b_by}) achieved {flops / ms / 1e9:.1f} TFLOP/s [device time, "
@@ -1603,13 +1739,18 @@ def time_flash_attention() -> dict:
     Kv=4, D=128), zamba2-7b's (H=Kv=32, D=112), whisper-medium's
     encoder (H=Kv=16, D=64, bidirectional over 1500 frames),
     h2o-danube3-4b's (H=32, Kv=8, D=120) and paligemma-3b's (H=8, Kv=1,
-    D=256) are logged beside it."""
+    D=256; at S = 1024 causal and at its own prefill, 256 patches under the
+    prefix-LM mask before 1024 tokens) are logged beside it."""
     time_flash_attention_at(QWEN_H, QWEN_KV, QWEN_D)
     time_flash_attention_at(ZAMBA_H, ZAMBA_KV, ZAMBA_D)
     time_flash_attention_at(WHISPER_H, WHISPER_KV, WHISPER_D, S=ENC_S,
                             causal=False)
     time_flash_attention_at(DANUBE_H, DANUBE_KV, DANUBE_D)
     time_flash_attention_at(PALI_H, PALI_KV, PALI_D)
+    # paligemma's own prefill: its 256 image patches under the prefix-LM
+    # mask before 1024 text tokens
+    time_flash_attention_at(PALI_H, PALI_KV, PALI_D, S=PALI_PREFIX + PREFILL_S,
+                            prefix=PALI_PREFIX)
     return time_flash_attention_at(MAIN_H, MAIN_KV, MAIN_D)
 
 
@@ -1644,7 +1785,7 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     queued = {k: queued_ms(calls[k], iters=20) for k in ("kernel", "library")}
     work = cost.flash_decode_work(B, H, Kv, S, D, 2, n_valid)
     b_ms, b_by = bound_ms(work.flops, work.bytes)
-    log(f"flash_decode timing bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
+    log(f"flash_decode timing [{card_line()}] bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
         f"valid={n_valid}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} (SDPA) kernel/library="
         f"{ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}) [device time, "
@@ -4168,38 +4309,53 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card_and_build()
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, then a line with its host wall and the script's
+        so far (the script must end inside its 1,200 s)."""
+        t = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t:.1f} s, {now - t0:.1f} s since the start")
+        return out
+
+    timed("build", phase_card_and_build)
     dryrun = DryRun()
     atexit.register(dryrun.stop)
     dryrun.start()
-    errors = {"flash_attention": check_flash_attention(),
-              "flash_decode": check_flash_decode(),
-              "selective_scan": check_selective_scan(),
-              "moe_gmm": check_moe_gmm()}
-    check_flash_decode_lse()
-    check_slot_split()
+    errors = timed("kernels against plain", lambda: {
+        "flash_attention": check_flash_attention(),
+        "flash_decode": check_flash_decode(),
+        "selective_scan": check_selective_scan(),
+        "moe_gmm": check_moe_gmm()})
+    timed("flash_decode lse and slot split",
+          lambda: (check_flash_decode_lse(), check_slot_split()))
+    for name, err in timed("head width 256", check_head_width_256).items():
+        errors[name] = max(errors[name], err)
     # timed before the fleets: after both models' profiles, one run of this
     # script recorded kernels at 0.6 of their true time; the newest kernel
     # first, while the profiler is fresh
-    gmm = time_moe_gmm()
-    kernels = [time_flash_attention(), time_flash_decode(), time_selective_scan(),
-               gmm]
-    time_slot_split()
+    gmm = timed("moe_gmm timing", time_moe_gmm)
+    kernels = timed("kernel timing", lambda: [
+        time_flash_attention(), time_flash_decode(), time_selective_scan(), gmm])
+    timed("slot split timing", time_slot_split)
     # the scenario engine's own path: checked, counted and timed in its phase
-    scenario = phase_scenario()
-    phase_profiles()
-    phase_service()
-    phase_token()
-    phase_obs()
-    forecast = phase_forecast()
+    scenario = timed("scenario", phase_scenario)
+    timed("profiles", phase_profiles)
+    timed("service", phase_service)
+    timed("token", phase_token)
+    timed("obs", phase_obs)
+    forecast = timed("forecast", phase_forecast)
     stop_worker_servers()
-    phase_train()
-    phase_mesh()
+    timed("train", phase_train)
+    timed("mesh", phase_mesh)
     # each path's kernels, counted in that path's own fleet run
-    llama, mamba, qwen, _, _ = (serve_path(arch) for arch in SERVED)
+    llama, mamba, qwen, _, _ = (timed(f"serve {arch}", serve_path, arch)
+                                for arch in SERVED)
     for arch in WIDE_SERVED:
-        serve_path(arch)
-    dryrun.finish()
+        timed(f"serve {arch}", serve_path, arch)
+    timed("dry run (the rest)", dryrun.finish)
     launches = {"flash_attention": llama["flash_attention"],
                 "flash_decode": llama["flash_decode"],
                 "selective_scan": mamba["selective_scan"],

@@ -44,11 +44,36 @@
 // tolerance (tests/test_torch_kernels.py emulates the rounding).  The query
 // tile is the grid's slowest axis, last tile first, so the long causal blocks
 // start first.  Registers (ptxas, sm_90a): 163 a thread at D = 64 (three blocks
-// per SM), 234 / 238 / 240 at 112 / 120 / 128 (two) and 207 at 256 (one,
-// by its shared memory), no spill.  What is left between this kernel
-// and SDPA is the per-tile softmax, which only other blocks' products overlap:
-// two consumer warpgroups per block, ping-ponging, fed by a TMA producer warp,
-// are the next step.
+// per SM), 234 / 238 / 240 at 112 / 120 / 128 (two), no spill.  What is left
+// between this kernel and SDPA is the per-tile softmax, which only other
+// blocks' products overlap.
+//
+// bf16 at D = 256 (paligemma-3b): a warp-specialised kernel.  The 64 x 256
+// fp32 output accumulator alone takes 128 registers a thread, so Q cannot
+// stay in registers beside it, and a 64 x 256 K or V tile is 32 KiB.  A
+// block is three warpgroups on one 64-row query tile: two consumers and a
+// producer of which one thread issues TMA loads.  The tensor maps are
+// built on the host from the model-layout strides (B, S, heads, D), one
+// 64 x 64 box per 128-byte row chunk, so there is still no transposed
+// copy, and TMA zero-fills rows past S.  Q (32 KiB) is loaded once; K and
+// V tiles of BK = 64 keys stream through a 3-stage ring (64 KiB a stage:
+// 224 KiB in all with Q, under the 227 KiB a block may use) guarded by
+// full and empty mbarriers.  setmaxnreg moves registers from the producer
+// (40) to the consumers (232): each keeps its 128-register accumulator,
+// its score tile and P in registers and reads Q by descriptor (the SS form
+// of wgmma, as K).  The walk's tiles alternate between the two consumers,
+// each with its own running (m, l, acc) of the same rows, so one's softmax
+// overlaps the other's products on the SM's tensor cores, and a causal
+// block's longest walk is split in two; at the end the second hands its
+// partial over through shared memory and the first merges them by
+// log-sum-exp.  Consumers owning different query tiles (the short and the
+// long end of the causal triangle paired in one block, so every block had
+// the same work) measured slower at paligemma's prefill: the long tile's
+// consumer then walked most of its tiles alone, with nothing to overlap its
+// softmax.  Issuing the next tile's Q.K^T before this tile's softmax (a
+// second score buffer) also measured slower: at 232-240 registers a thread
+// there is no room for it beside the accumulator.  Registers (ptxas,
+// sm_90a): 168 at entry, no spill.
 //
 // fp32: the scalar form (a 16 x 16 thread grid, each thread a 4 x 4 score
 // tile and a 4 x D/16 output tile, fp32 FMAs from shared memory).  TF32
@@ -65,16 +90,12 @@
 // last columns are zeros times P and are never stored), and the stores stop
 // at the head width.  That keeps the SW128 layout the descriptors name, at
 // 1/7 or 1/15 more tensor-core work in P.V and no more bytes from HBM.
-// At 256 (paligemma-3b) the 64 x 256 fp32 output accumulator alone takes
-// 128 registers a thread, so Q is not held in registers: Q.K^T reads it
-// from shared memory as the wgmma's A operand, one score tile is in flight
-// (no software pipeline), the K/V ring has two stages (160 KiB of shared
-// memory in all), and P.V runs as two m64n128 products, one per half of V's
-// columns.  The fp32 kernel gives each thread the columns tx + 16 j below
-// the head width (ceil(D / 16) of them).  The bf16 kernel needs
-// 16-byte-aligned rows (the wrapper checks the base pointers and strides
-// before the launch); 224- and 240-byte rows are.
+// The fp32 kernel gives each thread the columns tx + 16 j below the head
+// width (ceil(D / 16) of them).  The bf16 kernels need 16-byte-aligned rows
+// (the wrapper checks the base pointers and strides before the launch);
+// 224- and 240-byte rows are.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -144,21 +165,13 @@ struct VisibleKeys {
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_THREADS = 128;  // one warpgroup: 4 warps x 16 query rows
+constexpr int STAGES = 3;         // the one-warpgroup kernel's K/V ring
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Tiles up to 128 wide keep Q in registers and pipeline the next tile's
-// Q.K^T under this tile's softmax, over a 3-stage K/V ring; wider tiles
-// read Q from shared memory, one score tile at a time, over 2 stages.
-template <int D>
-__host__ __device__ constexpr bool pipelined() { return D <= 128; }
-
-template <int D>
-__host__ __device__ constexpr int kv_stages() { return pipelined<D>() ? 3 : 2; }
 
 template <int D>
 constexpr int mma_smem_bytes() {
   // the Q tile, then the stages' tiles of K and of V, all bf16
-  return static_cast<int>(sizeof(bf16)) * (BQ * D + 2 * kv_stages<D>() * BK * D);
+  return static_cast<int>(sizeof(bf16)) * (BQ * D + 2 * STAGES * BK * D);
 }
 
 // 2^x on the special-function unit; -1e30 gives 0
@@ -168,15 +181,138 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// D: the tile width (64, 128 or 256); DT <= D: the head width, a multiple
-// of 8.
+// The online softmax and P.V of one KV tile for one warp's 16 query rows
+// [w_q0, w_q0 + 16) of its warpgroup's 64: s holds the warp's scores (mma C
+// layout) against keys [k_start, k_start + BK), vt the tile's V in shared
+// memory (64-column SW128 blocks, BK * 64 elements apart), acc the 64 x D
+// output (D / 8 n8 blocks), m and l the rows' running max and this thread's
+// share of their sums (rows g and g + 8).  P.V's wait ends every product of
+// the warpgroup still in flight.
+template <int D>
+__device__ __forceinline__ void softmax_pv(const Params& p, int k_start, int w_q0,
+                                           float s[BK / 2], float acc[D / 2],
+                                           float m[2], float l[2], const bf16* vt) {
+  using namespace mma_sm90;
+  constexpr int NK = BK / 8;    // n8 blocks of the scores
+  constexpr int ND = D / 8;     // n8 blocks of the output tile
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const float scale_log2 = p.scale * LOG2E;
+
+  // scale to the log2 domain; mask only where a key of this tile can be
+  // invisible to a row of this warp (the diagonal tile of a causal walk, a
+  // window's edge, the ragged end): a per-element test compiled into every
+  // tile was the kernel's largest cost after the products
+#pragma unroll
+  for (int j = 0; j < NK * 4; ++j) s[j] *= scale_log2;
+  const bool need_mask =
+      k_start + BK > p.Skv ||
+      (p.causal && k_start + BK - 1 > w_q0 && k_start + BK > p.prefix_len) ||
+      (p.window > 0 && w_q0 + 15 - k_start >= p.window);
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const VisibleKeys visible(p, w_q0 + g + i * 8);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!visible(k_start + j * 8 + t4 * 2 + e)) s[j * 4 + 2 * i + e] = NEG_INF;
+    }
+  }
+
+  // running max of each row: a tree over this thread's 16 scores, then
+  // over the 4 lanes of the quad holding the row
+  float mx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float r[NK];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) r[j] = fmaxf(s[j * 4 + 2 * i], s[j * 4 + 2 * i + 1]);
+#pragma unroll
+    for (int w = NK / 2; w > 0; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) r[j] = fmaxf(r[j], r[j + w]);
+    mx[i] = fmaxf(m[i], r[0]);
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+  const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
+  m[0] = mx[0];
+  m[1] = mx[1];
+  l[0] *= corr[0];
+  l[1] *= corr[1];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    acc[j * 4 + 0] *= corr[0];
+    acc[j * 4 + 1] *= corr[0];
+    acc[j * 4 + 2] *= corr[1];
+    acc[j * 4 + 3] *= corr[1];
+  }
+
+  // P = exp2(S - m) packed to bf16 as the A fragments of P.V: keys
+  // [16 c, 16 c + 16) are score blocks 2c and 2c + 1
+  uint32_t pf[NK / 2][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float p0 = fast_exp2(s[j * 4 + 0] - mx[0]), p1 = fast_exp2(s[j * 4 + 1] - mx[0]);
+    const float p2 = fast_exp2(s[j * 4 + 2] - mx[1]), p3 = fast_exp2(s[j * 4 + 3] - mx[1]);
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    pf[j / 2][(j & 1) * 2] = pack_bf16x2(p0, p1);
+    pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+  }
+
+  // O += P V: V an MN-major operand, 16 keys per product; its 64-column
+  // blocks lie BK * 64 elements apart; at D = 256 the second m64n128
+  // product takes columns 128-255 into acc[64..127]
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NK / 2; ++c) {
+    const uint64_t dv = sw128_desc(vt + c * 16 * 64, BK * 64 * sizeof(bf16));
+    if constexpr (D == 64) {
+      wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
+    } else {
+      wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
+      if constexpr (D == 256)
+        wgmma_m64n128_mnmajor(
+            acc + 64, pf[c],
+            sw128_desc(vt + 2 * BK * 64 + c * 16 * 64, BK * 64 * sizeof(bf16)), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_registers<ND * 4>(acc);
+}
+
+// The warp's 16 output rows from w_q0, normalised by max(l, 1e-20): the
+// first NT n8 blocks of acc, rows past Sq not written.
+template <int NT>
+__device__ __forceinline__ void store_rows(const Params& p, bf16* o, int w_q0,
+                                           const float* acc, float l[2]) {
+  using namespace mma_sm90;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qpos = w_q0 + g + i * 8;
+    if (qpos < p.Sq) {
+      const float denom = fmaxf(l[i], 1e-20f);
+      bf16* orow = o + qpos * p.o_ss + t4 * 2;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+    }
+  }
+}
+
+// D: the tile width (64 or 128); DT <= D: the head width, a multiple of 8.
 template <int D, int DT = D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const Params p) {
   using namespace mma_sm90;
-  static_assert(DT % 8 == 0 && DT <= D && D - DT < 64, "head width");
-  constexpr bool PIPE = pipelined<D>();
-  constexpr int STAGES = kv_stages<D>();
+  static_assert(D <= 128 && DT % 8 == 0 && DT <= D && D - DT < 64, "head width");
   constexpr int RC = D / 8;     // 16-byte chunks per tile row
   constexpr int RT = DT / 8;    // chunks per row that hold data
   constexpr int KD = (DT + 15) / 16;   // k16 steps of Q.K^T
@@ -192,7 +328,6 @@ flash_attention_mma(const Params p) {
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int kvh = h / (p.H / p.Kv);
@@ -224,22 +359,17 @@ flash_attention_mma(const Params p) {
     load_rows(vs + st * BK * D, v, p.v_ss, k0, p.Skv);
   };
 
-  // Q fragments, in registers for the whole KV loop (pipelined widths)
-  uint32_t qf[PIPE ? KD : 1][4];
+  // Q fragments, in registers for the whole KV loop
+  uint32_t qf[KD][4];
   // issue s = Q K^T of the tile in stage st: the warpgroup's 64 rows x 64
-  // keys, K a K-major operand, 16 of D per product; Q from registers, or
-  // (wide tiles) a K-major operand in shared memory like K
+  // keys, K a K-major operand, 16 of D per product
   auto issue_qk = [&](int st, float s[NK * 4]) {
     const bf16* kt = ks + st * BK * D;
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      const int at = (kd / 4) * 64 * 64 + (kd % 4) * 16;
-      if constexpr (PIPE)
-        wgmma_m64n64_kmajor(s, qf[kd], sw128_desc(kt + at, 16), kd > 0);
-      else
-        wgmma_m64n64_ss_kmajor(s, sw128_desc(qs + at, 16),
-                               sw128_desc(kt + at, 16), kd > 0);
-    }
+    for (int kd = 0; kd < KD; ++kd)
+      wgmma_m64n64_kmajor(s, qf[kd],
+                          sw128_desc(kt + (kd / 4) * 64 * 64 + (kd % 4) * 16, 16),
+                          kd > 0);
   };
 
   if constexpr (RT < RC) {
@@ -273,175 +403,251 @@ flash_attention_mma(const Params p) {
   for (int j = 0; j < ND * 4; ++j) acc[j] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};   // rows g and g + 8 of the warp's 16
   float l[2] = {0.f, 0.f};           // this thread's share of the row sums
-  const float scale_log2 = p.scale * LOG2E;
   const int w_q0 = q_start + warp * 16;
 
-  // Software pipeline (tiles up to 128 wide): the scores of tile t + 1 are
-  // multiplied on the tensor cores while the softmax of tile t runs.
+  // Software pipeline: the scores of tile t + 1 are multiplied on the
+  // tensor cores while the softmax of tile t runs.
   float s[NK * 4];
   cp_async_wait<STAGES - 2>();
   fence_proxy_async();
   __syncthreads();              // Q and tile 0 landed
-  if constexpr (PIPE) {
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-      ldmatrix_x4(qf[kd], qs + sw128_index<64>(warp * 16 + (lane & 15),
-                                               kd * 2 + (lane >> 4)));
-    if (tiles.n > 0) {
-      wgmma_fence();
-      issue_qk(0, s);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_registers<NK * 4>(s);
-    }
-  }
-
-  // the softmax and P.V of tile t, whose scores s holds (P.V's wait also
-  // ends any Q.K^T still in flight)
-  auto softmax_pv = [&](int t, float s[NK * 4]) {
-    const int k_start = tiles.tile(t) * BK;
-
-    // scale to the log2 domain; mask only where a key of this tile can be
-    // invisible to a row of this warp (the diagonal tile of a causal walk, a
-    // window's edge, the ragged end): a per-element test compiled into every
-    // tile was the kernel's largest cost after the products
-#pragma unroll
-    for (int j = 0; j < NK * 4; ++j) s[j] *= scale_log2;
-    const bool need_mask =
-        k_start + BK > p.Skv ||
-        (p.causal && k_start + BK - 1 > w_q0 && k_start + BK > p.prefix_len) ||
-        (p.window > 0 && w_q0 + 15 - k_start >= p.window);
-    if (need_mask) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const VisibleKeys visible(p, w_q0 + g + i * 8);
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (!visible(k_start + j * 8 + t4 * 2 + e)) s[j * 4 + 2 * i + e] = NEG_INF;
-      }
-    }
-
-    // running max of each row: a tree over this thread's 16 scores, then
-    // over the 4 lanes of the quad holding the row
-    float mx[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float r[NK];
-#pragma unroll
-      for (int j = 0; j < NK; ++j) r[j] = fmaxf(s[j * 4 + 2 * i], s[j * 4 + 2 * i + 1]);
-#pragma unroll
-      for (int w = NK / 2; w > 0; w /= 2)
-#pragma unroll
-        for (int j = 0; j < w; ++j) r[j] = fmaxf(r[j], r[j + w]);
-      mx[i] = fmaxf(m[i], r[0]);
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
-    m[0] = mx[0];
-    m[1] = mx[1];
-    l[0] *= corr[0];
-    l[1] *= corr[1];
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      acc[j * 4 + 0] *= corr[0];
-      acc[j * 4 + 1] *= corr[0];
-      acc[j * 4 + 2] *= corr[1];
-      acc[j * 4 + 3] *= corr[1];
-    }
-
-    // P = exp2(S - m) packed to bf16 as the A fragments of P.V: keys
-    // [16 c, 16 c + 16) are score blocks 2c and 2c + 1
-    uint32_t pf[NK / 2][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const float p0 = fast_exp2(s[j * 4 + 0] - mx[0]), p1 = fast_exp2(s[j * 4 + 1] - mx[0]);
-      const float p2 = fast_exp2(s[j * 4 + 2] - mx[1]), p3 = fast_exp2(s[j * 4 + 3] - mx[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[j / 2][(j & 1) * 2] = pack_bf16x2(p0, p1);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
-    }
-
-    // O += P V: V an MN-major operand, 16 keys per product; its 64-column
-    // blocks lie BK * 64 elements apart; at D = 256 the second m64n128
-    // product takes columns 128-255 into acc[64..127]
-    const bf16* vt = vs + (t % STAGES) * BK * D;
+  for (int kd = 0; kd < KD; ++kd)
+    ldmatrix_x4(qf[kd], qs + sw128_index<64>(warp * 16 + (lane & 15),
+                                             kd * 2 + (lane >> 4)));
+  if (tiles.n > 0) {
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < NK / 2; ++c) {
-      const uint64_t dv = sw128_desc(vt + c * 16 * 64, BK * 64 * sizeof(bf16));
-      if constexpr (D == 64) {
-        wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
-      } else {
-        wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
-        if constexpr (D == 256)
-          wgmma_m64n128_mnmajor(
-              acc + 64, pf[c],
-              sw128_desc(vt + 2 * BK * 64 + c * 16 * 64, BK * 64 * sizeof(bf16)), 1);
-      }
-    }
+    issue_qk(0, s);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_registers<ND * 4>(acc);
-  };
+    fence_registers<NK * 4>(s);
+  }
 
-  if constexpr (PIPE) {
-    // one KV tile: s holds its scores, sn receives the next tile's
-    auto step = [&](int t, float s[NK * 4], float sn[NK * 4]) {
-      cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();          // tile t+1 landed; tile t-1 is read by all
-      if (t + STAGES - 1 < tiles.n) load_kv(t + STAGES - 1);
-      cp_async_commit();
-      // the next tile's scores, in flight during this tile's softmax (its
-      // stage holds stale data after the last tile; they are then never
-      // read)
-      wgmma_fence();
-      issue_qk((t + 1) % STAGES, sn);
-      wgmma_commit();
-      softmax_pv(t, s);
-      fence_registers<NK * 4>(sn);
-    };
-    // two steps per pass, so the score buffers swap roles without a copy
-    float s2[NK * 4];
-    for (int t = 0; t < tiles.n; t += 2) {
-      step(t, s, s2);
-      if (t + 1 < tiles.n) step(t + 1, s2, s);
-    }
-  } else {
-    for (int t = 0; t < tiles.n; ++t) {
-      cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();          // tile t landed; tile t-1 is read by all
-      if (t + 1 < tiles.n) load_kv(t + 1);
-      cp_async_commit();
-      wgmma_fence();
-      issue_qk(t % STAGES, s);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_registers<NK * 4>(s);
-      softmax_pv(t, s);
-    }
+  // one KV tile: s holds its scores, sn receives the next tile's
+  auto step = [&](int t, float s[NK * 4], float sn[NK * 4]) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();          // tile t+1 landed; tile t-1 is read by all
+    if (t + STAGES - 1 < tiles.n) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    // the next tile's scores, in flight during this tile's softmax (its
+    // stage holds stale data after the last tile; they are then never
+    // read)
+    wgmma_fence();
+    issue_qk((t + 1) % STAGES, sn);
+    wgmma_commit();
+    softmax_pv<D>(p, tiles.tile(t) * BK, w_q0, s, acc, m, l,
+                  vs + (t % STAGES) * BK * D);
+    fence_registers<NK * 4>(sn);
+  };
+  // two steps per pass, so the score buffers swap roles without a copy
+  float s2[NK * 4];
+  for (int t = 0; t < tiles.n; t += 2) {
+    step(t, s, s2);
+    if (t + 1 < tiles.n) step(t + 1, s2, s);
   }
   cp_async_wait<0>();
+  store_rows<NT>(p, o, w_q0, acc, l);
+}
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 256: warp-specialised (two consumer warpgroups, a TMA
+// producer, an mbarrier ring)
+// ---------------------------------------------------------------------------
+
+constexpr int WS_D = 256;
+constexpr int WS_STAGES = 3;          // K/V ring stages: 64 KiB each
+constexpr int WS_CONSUMERS = 2;       // warpgroups on one 64-row query tile
+constexpr int WS_THREADS = 128 * (WS_CONSUMERS + 1);   // and the producer's
+constexpr int WS_PRODUCER_REGS = 40;  // setmaxnreg: 128 x 40 + 256 x 232 <= 64 Ki
+constexpr int WS_CONSUMER_REGS = 232;
+constexpr int WS_MERGE_BAR = 1;       // named barrier of the consumers' merge
+static_assert(BQ == BK, "a Q tile and a K or V tile are one TMA box shape");
+
+constexpr int ws_smem_bytes() {
+  // the Q tile, then the stages' K and V tiles (bf16), then the full and
+  // empty barriers and Q's
+  return static_cast<int>(sizeof(bf16)) * WS_D * BK * (1 + 2 * WS_STAGES) +
+         8 * (2 * WS_STAGES + 1);
+}
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_attention_ws(const Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv) {
+  using namespace mma_sm90;
+  constexpr int D = WS_D;
+  constexpr int ND = D / 8;     // n8 blocks of the output tile
+  constexpr int NK = BK / 8;    // n8 blocks of the scores
+  constexpr int CB = D / 64;    // 64-column SW128 blocks of a row: TMA boxes
+  extern __shared__ __align__(1024) unsigned char fa_ws_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fa_ws_smem);   // [BQ x D]
+  bf16* ks = qs + BQ * D;                           // [WS_STAGES][BK x D]
+  bf16* vs = ks + WS_STAGES * BK * D;               // [WS_STAGES][BK x D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + WS_STAGES * BK * D);
+  uint64_t* empty = full + WS_STAGES;
+  uint64_t* qfull = empty + WS_STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (p.H / p.Kv);
+  // the query tile is the grid's slowest axis, last tile first: the
+  // longest causal blocks start first
+  const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const TileRange tiles(p, q_start, BQ);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WS_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * WS_CONSUMERS);
+    }
+    mbar_init(qfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WS_CONSUMERS) {
+    // the producer: one thread keeps the ring full
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (warp == 4 * WS_CONSUMERS && lane == 0) {
+      mbar_arrive_expect_tx(qfull, BQ * D * sizeof(bf16));
+      for (int j = 0; j < CB; ++j)
+        tma_load_4d(qs + j * BQ * 64, &tq, qfull, j * 64, h, q_start, b);
+      for (int i = 0; i < tiles.n; ++i) {
+        const int st = i % WS_STAGES, k0 = tiles.tile(i) * BK;
+        mbar_wait(&empty[st], ((i / WS_STAGES) & 1) ^ 1);   // both consumers done
+        mbar_arrive_expect_tx(&full[st], 2 * BK * D * sizeof(bf16));
+        for (int j = 0; j < CB; ++j) {
+          tma_load_4d(ks + st * BK * D + j * BK * 64, &tk, &full[st], j * 64, kvh, k0, b);
+          tma_load_4d(vs + st * BK * D + j * BK * 64, &tv, &full[st], j * 64, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    // a consumer: the walk's tiles alternate between the two, each with
+    // its own running (m, l, acc) of the same 64 rows.  Both wait for every
+    // stage and hand every stage back (a parity wait tells a phase only
+    // from the one before it, so no consumer may let a stage's phases run
+    // ahead of it); only the tile's own consumer computes on it.
+    setmaxnreg_inc<WS_CONSUMER_REGS>();
+    const int w_q0 = q_start + (warp % 4) * 16;
+    float acc[ND * 4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int qpos = w_q0 + g + i * 8;
-    if (qpos < p.Sq) {
-      const float denom = fmaxf(l[i], 1e-20f);
-      bf16* orow = o + qpos * p.o_ss + t4 * 2;
+    for (int j = 0; j < ND * 4; ++j) acc[j] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
+    float s[NK * 4];
+    mbar_wait(qfull, 0);
+    for (int i = 0; i < tiles.n; ++i) {
+      const int st = i % WS_STAGES;
+      mbar_wait(&full[st], (i / WS_STAGES) & 1);
+      if (i % WS_CONSUMERS == wg) {
+        // s = Q K^T: both K-major operands in shared memory, 16 of D per
+        // product
+        const bf16* kt = ks + st * BK * D;
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        *reinterpret_cast<uint32_t*>(orow + j * 8) =
-            pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+        for (int kd = 0; kd < D / 16; ++kd) {
+          const int at = (kd / 4) * 64 * 64 + (kd % 4) * 16;
+          wgmma_m64n64_ss_kmajor(s, sw128_desc(qs + at, 16), sw128_desc(kt + at, 16),
+                                 kd > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_registers<NK * 4>(s);
+        softmax_pv<D>(p, tiles.tile(i) * BK, w_q0, s, acc, m, l, vs + st * BK * D);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    // merge the consumers' partials of the same rows: the second hands its
+    // (acc, m, l) over through the ring, free once both walks are done
+    // ([ND * 4 + 4][128] floats, a column per thread), the first combines
+    // them by log-sum-exp and writes the rows
+    float* xch = reinterpret_cast<float*>(ks);
+    const int tid = threadIdx.x % 128;
+    fence_proxy_async();
+    bar_sync(WS_MERGE_BAR, 128 * WS_CONSUMERS);
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < ND * 4; ++j) xch[j * 128 + tid] = acc[j];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xch[(ND * 4 + r) * 128 + tid] = m[r];
+        xch[(ND * 4 + 2 + r) * 128 + tid] = l[r];
+      }
+    }
+    bar_sync(WS_MERGE_BAR, 128 * WS_CONSUMERS);
+    if (wg == 0) {
+      float c0[2], c1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = xch[(ND * 4 + r) * 128 + tid];
+        const float mx = fmaxf(m[r], m1);
+        c0[r] = fast_exp2(m[r] - mx);
+        c1[r] = fast_exp2(m1 - mx);
+        l[r] = l[r] * c0[r] + xch[(ND * 4 + 2 + r) * 128 + tid] * c1[r];
+      }
+#pragma unroll
+      for (int j = 0; j < ND * 4; ++j) {
+        const int r = (j % 4) / 2;      // C fragment e: row g (e < 2) or g + 8
+        acc[j] = acc[j] * c0[r] + xch[j * 128 + tid] * c1[r];
+      }
+      bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+      store_rows<ND>(p, o, w_q0, acc, l);
     }
   }
+}
+
+// cuTensorMapEncodeTiled, from libcuda through the runtime's entry-point
+// query (the library links the runtime alone); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The tensor map of a (B, S, heads, WS_D) bf16 tensor (strides in elements,
+// D's 1) in 64 x 64 boxes (one row chunk of 128 bytes, 64 rows of one head
+// and batch) under the 128-byte swizzle, rows past S zero-filled; false
+// where libcuda refuses it.  A dimension of extent 1 is never stepped:
+// it gets a stride TMA accepts whatever the tensor's own.
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+              long long sb, long long ss, long long sh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dims[4] = {WS_D, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3];
+  strides[0] = heads > 1 ? sh * e : WS_D * e;
+  strides[1] = S > 1 ? ss * e : strides[0] * heads;
+  strides[2] = B > 1 ? sb * e : strides[1] * S;
+  const cuuint32_t box[4] = {64, 1, BK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -592,9 +798,12 @@ flash_attention_f32(const Params p) {
   }
 }
 
+// `asked`: the wrapper's number (flash_attention.py smem_bytes); a launch
+// whose number is not the kernel's is refused.
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, int asked,
                    const Params& p, cudaStream_t stream) {
+  if (asked != smem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -603,23 +812,40 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 template <int D>
-cudaError_t launch_f32(const Params& p, cudaStream_t s) {
+cudaError_t launch_f32(const Params& p, int asked, cudaStream_t s) {
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
   return launch(flash_attention_f32<D>, grid, THREADS,
-                static_cast<int>(smem_bytes<D>()), p, s);
+                static_cast<int>(smem_bytes<D>()), asked, p, s);
 }
 
 template <int D, int DT = D>
-cudaError_t launch_mma(const Params& p, cudaStream_t s) {
+cudaError_t launch_mma(const Params& p, int asked, cudaStream_t s) {
   const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
   return launch(flash_attention_mma<D, DT>, grid, MMA_THREADS,
-                mma_smem_bytes<D>(), p, s);
+                mma_smem_bytes<D>(), asked, p, s);
+}
+
+cudaError_t launch_ws(const Params& p, int asked, cudaStream_t s) {
+  if (asked != ws_smem_bytes()) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tile_map(&tq, p.q, p.B, p.Sq, p.H, p.q_sb, p.q_ss, p.q_sh) ||
+      !tile_map(&tk, p.k, p.B, p.Skv, p.Kv, p.k_sb, p.k_ss, p.k_sh) ||
+      !tile_map(&tv, p.v, p.B, p.Skv, p.Kv, p.v_sb, p.v_ss, p.v_sh))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_ws, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ws_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
+  flash_attention_ws<<<grid, WS_THREADS, ws_smem_bytes(), s>>>(p, tq, tk, tv);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).  Returns
-// a cudaError_t (0 = launched).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).  smem:
+// the dynamic shared memory the wrapper computed.  Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attention_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, void* o,
@@ -628,7 +854,8 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int causal, int window, int prefix_len, float scale, void* stream) {
+    int causal, int window, int prefix_len, float scale, void* stream,
+    int smem) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.H = H; p.Kv = Kv; p.Sq = Sq; p.Skv = Skv;
@@ -639,15 +866,15 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.window = window; p.prefix_len = prefix_len;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, s);
-  if (dtype == 0 && head_dim == 112) return launch_f32<112>(p, s);
-  if (dtype == 0 && head_dim == 120) return launch_f32<120>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, s);
-  if (dtype == 0 && head_dim == 256) return launch_f32<256>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, s);
-  if (dtype == 1 && head_dim == 112) return launch_mma<128, 112>(p, s);
-  if (dtype == 1 && head_dim == 120) return launch_mma<128, 120>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, s);
-  if (dtype == 1 && head_dim == 256) return launch_mma<256>(p, s);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, smem, s);
+  if (dtype == 0 && head_dim == 112) return launch_f32<112>(p, smem, s);
+  if (dtype == 0 && head_dim == 120) return launch_f32<120>(p, smem, s);
+  if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, smem, s);
+  if (dtype == 0 && head_dim == 256) return launch_f32<256>(p, smem, s);
+  if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, smem, s);
+  if (dtype == 1 && head_dim == 112) return launch_mma<128, 112>(p, smem, s);
+  if (dtype == 1 && head_dim == 120) return launch_mma<128, 120>(p, smem, s);
+  if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, smem, s);
+  if (dtype == 1 && head_dim == 256) return launch_ws(p, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -64,10 +64,21 @@
 // to zero once, so the scores stay exact, and P.V's last 8 columns land in
 // an accumulator block that is never written out.  At 256 (paligemma-3b)
 // the fp32 ring takes one stage (two would pass the 200 KiB this kernel
-// allows itself), so the next tile is loaded after this one is done; the
-// bf16 kernel there takes 255 registers and spills 16 bytes (ptxas), its
-// accumulator holding the 8 padding rows of the m16n8k16 tile too.  The
-// fp32 path gives each lane the columns lane + 32 j below D, so D need not
+// allows itself), so the next tile is loaded after this one is done.  The
+// bf16 kernel at 256 turns both products around so that no accumulator row
+// is padding: S^T = K Q^T puts a warp's 16 slots on the m16 rows and the
+// G <= 8 heads on the n8 columns (Q^T's B fragments, 32 registers for all
+// of D), and O^T = V^T P^T puts the head width on the rows (V^T through
+// ldmatrix.trans), P^T's B fragments coming from the score fragments by one
+// movmatrix transpose per 8 slots.  The padded form's accumulator took 128
+// registers, half of them padding, and the thread 255 with a 16-byte spill;
+// the transposed one takes 64 (a warp's 16 slots into all 256 columns).
+// Its query rows reach shared memory by 16-byte asynchronous copies that
+// the mask scan does not wait for (so they must be 16-byte aligned), where
+// 64 scalar loads a thread had held the scan up.  Tiles stay 64 slots: 32-slot tiles (two warps' column halves per group
+// of 16 slots) give 19 blocks instead of 10 at 600 valid slots of 2048, but
+// measured slower on the H100, the last block merging twice the partials.
+// The fp32 path gives each lane the columns lane + 32 j below D, so D need not
 // be a multiple of 32.  Query heads per kv head: at most MAX_G.  K and V
 // rows must be 16-byte aligned (the wrapper checks; 224- and 240-byte rows
 // are).
@@ -162,6 +173,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   constexpr int NJ = (D + 31) / 32;                          // fp32: columns per lane
   constexpr int KQ = (D + 15) / 16;                          // bf16: k16 steps
   constexpr int ST = ring_stages<T, D>();                    // K/V ring stages
+  // bf16 at D = 256: the transposed products (no padding rows)
+  constexpr bool WIDE = BF16 && D == 256;
+  constexpr int WIDE_MT = D / 16;                            // m16 tiles of P.V
   extern __shared__ __align__(128) unsigned char fd_smem[];
   T* ring = reinterpret_cast<T*>(fd_smem);
   uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, D>());
@@ -173,6 +187,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   __shared__ float qs[BF16 ? 1 : MAX_G][D];                 // fp32: the query rows
   __shared__ float ps[BF16 ? 1 : WARPS][MAX_G][WARP_KEYS];  // fp32: a warp's P
   __shared__ float rowc[BF16 ? 1 : WARPS][3][MAX_G];        // fp32: m, corr, sum
+  // bf16 at D = 256: the G <= 8 query rows, each padded by 16 bytes so the
+  // eight rows one ldmatrix matrix reads lie in distinct bank groups
+  __shared__ __align__(16) bf16 qw[WIDE ? MAX_G : 1][WIDE ? D + 8 : 8];
   __shared__ int s_n, s_last;
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -183,10 +200,21 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const uint8_t* valid = p.valid + b * p.valid_sb;
 
-  // The query rows: bf16 as mma A fragments (rows g < G, the rest zero),
-  // fp32 into shared memory.  Issued first, so they arrive during the scan.
-  uint32_t qa[BF16 ? KQ : 1][4];
-  if constexpr (BF16) {
+  // The query rows: bf16 as mma A fragments (rows g < G, the rest zero), fp32
+  // into shared memory; issued first, so they arrive during the scan.  Wide,
+  // into shared memory by 16-byte asynchronous copies (rows g >= G zero),
+  // which the scan does not wait for; the B fragments of Q^T are read from
+  // there once the first tile has landed.
+  uint32_t qa[BF16 && !WIDE ? KQ : 1][4];
+  uint32_t qb[WIDE ? KQ : 1][2];
+  if constexpr (WIDE) {
+    for (int i = tid; i < MAX_G * CH; i += THREADS) {
+      const int g = i / CH, c = i % CH;
+      cp_async16(&qw[g][c * EPC], g < G ? q + g * p.q_sh + c * EPC : q,
+                 g < G ? 16 : 0);
+    }
+    cp_async_commit();
+  } else if constexpr (BF16) {
     const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
     for (int kk = 0; kk < KQ; ++kk) {
@@ -276,10 +304,19 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     // per-warp online softmax state: bf16 in mma C layout (row lane / 4),
     // fp32 warp-uniform per row with the columns split over the lanes
     float m_b = NEG_INF, l_b = 0.f;
-    float acc_b[BF16 ? 2 * KQ : 1][4];
+    float acc_b[BF16 && !WIDE ? 2 * KQ : 1][4];
+    // wide: per warp the heads 2 (lane % 4) and + 1 over its 16 slots, and
+    // the P.V accumulator of its WIDE_MT x 16 columns (C layout: column
+    // lane / 4 (+ 8) of each m16 tile, heads 2 (lane % 4) ..)
+    float m_w[2] = {NEG_INF, NEG_INF}, l_w[2] = {0.f, 0.f};
+    float acc_w[WIDE ? WIDE_MT : 1][4];
+#pragma unroll
+    for (int i = 0; i < (WIDE ? WIDE_MT : 1); ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_w[i][j] = 0.f;
     float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : NJ];
 #pragma unroll
-    for (int i = 0; i < (BF16 ? 2 * KQ : 1); ++i)
+    for (int i = 0; i < (BF16 && !WIDE ? 2 * KQ : 1); ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc_b[i][j] = 0.f;
 #pragma unroll
@@ -299,6 +336,21 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     }
     load_tile(0, list[r0]);
     cp_async_commit();
+    if constexpr (WIDE) {
+      cp_async_wait<1>();                     // Q landed (tile 0 may not have)
+      __syncthreads();
+      // ldmatrix.x4 of rows 0-7 at chunks 2 kk .. 2 kk + 3: the b0, b1 of
+      // k16 steps kk and kk + 1
+#pragma unroll
+      for (int kk = 0; kk < KQ; kk += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, &qw[lane & 7][(kk * 2 + (lane >> 3)) * EPC]);
+        qb[kk][0] = r[0];
+        qb[kk][1] = r[1];
+        qb[kk + 1][0] = r[2];
+        qb[kk + 1][1] = r[3];
+      }
+    }
     for (int i = 0; i < r1 - r0; ++i) {
       if (ST > 1 && r0 + i + 1 < r1) load_tile((i + 1) % ST, list[r0 + i + 1]);
       cp_async_commit();
@@ -308,7 +360,60 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
       const T* ks = ring + (i % ST) * 2 * TILE * DP;
       const T* vs = ks + TILE * DP;
 
-      if constexpr (BF16) {
+      if constexpr (WIDE) {
+        // S^T = K Q^T: this warp's 16 slots (its key group) are the rows,
+        // the G <= 8 heads the n8 columns, over all of D
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < KQ; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, ks + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
+                                              (((lane >> 3) & 1) << 3),
+                                          kk * 2 + (lane >> 4)));
+          mma_bf16(c, a, qb[kk][0], qb[kk][1]);
+        }
+        // c[e]: slot g (e < 2) or g + 8, head 2 (lane % 4) + (e & 1)
+        const int key0 = tile * TILE + warp * WARP_KEYS + lane / 4;
+        float s[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + (e >> 1) * 8;
+          // slots past S do not exist: weight exactly 0, even in a row
+          // with no valid slot
+          s[e] = key >= p.S ? -CUDART_INF_F
+                 : __ldg(valid + key) ? c[e] * p.scale : NEG_INF;
+        }
+        float corr[2], pr[4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float mt = fmaxf(s[hh], s[hh + 2]);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+          const float m_new = fmaxf(m_w[hh], mt);
+          corr[hh] = expf(m_w[hh] - m_new);
+          pr[hh] = expf(s[hh] - m_new);
+          pr[hh + 2] = expf(s[hh + 2] - m_new);
+          l_w[hh] = l_w[hh] * corr[hh] + pr[hh] + pr[hh + 2];
+          m_w[hh] = m_new;
+        }
+        // P^T as the B fragments of O^T = V^T P^T: each 8 x 8 block of P
+        // (rows slots, columns heads) transposed in registers
+        const uint32_t b0 = movmatrix_trans(pack_bf16x2(pr[0], pr[1]));
+        const uint32_t b1 = movmatrix_trans(pack_bf16x2(pr[2], pr[3]));
+#pragma unroll
+        for (int mt = 0; mt < WIDE_MT; ++mt) {
+          acc_w[mt][0] *= corr[0];
+          acc_w[mt][1] *= corr[1];
+          acc_w[mt][2] *= corr[0];
+          acc_w[mt][3] *= corr[1];
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, vs + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
+                                                    ((lane >> 4) << 3),
+                                                mt * 2 + ((lane >> 3) & 1)));
+          mma_bf16(acc_w[mt], a, b0, b1);
+        }
+      } else if constexpr (BF16) {
         // scores of this warp's 16 slots, rows = query heads
         float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -428,7 +533,29 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     __syncthreads();
 
     // 3. Merge the warps of this block; write the split's partials.
-    if constexpr (BF16) {
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          l_w[hh] += __shfl_xor_sync(0xffffffffu, l_w[hh], off);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int g = 2 * (lane % 4) + hh;
+        if (g < G && lane < 4) {
+          wm[warp][g] = m_w[hh];
+          wl[warp][g] = l_w[hh];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < WIDE_MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int g = 2 * (lane % 4) + (e & 1);
+          const int d = mt * 16 + lane / 4 + (e >> 1) * 8;
+          if (g < G) wacc[(warp * MAX_G + g) * D + d] = acc_w[mt][e];
+        }
+    } else if constexpr (BF16) {
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
       const int g = lane / 4;
@@ -461,28 +588,60 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     }
     __syncthreads();
     const long long n_rows = (long long)p.B * p.H * p.splits;
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D, d = i % D;
-      float mx = NEG_INF;
+    if constexpr (WIDE) {
+      // the split's partial, 4 columns a step: each warp's weight in a
+      // row, exp(m_w - max m), once a step (G x D is 8 times the narrow
+      // widths' at most); the row's max and sum go out with its first
+      // columns
+      for (int i = tid; i < G * D / 4; i += THREADS) {
+        const int g = i / (D / 4), d = 4 * (i % (D / 4));
+        float mx = NEG_INF;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
-      float ls = 0.f, as = 0.f;
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+        float ls = 0.f;
+        float4 as = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const float wt = expf(wm[w][g] - mx);
-        ls += wl[w][g] * wt;
-        as += wacc[(w * MAX_G + g) * D + d] * wt;
+        for (int w = 0; w < WARPS; ++w) {
+          const float wt = expf(wm[w][g] - mx);
+          const float4 a = *reinterpret_cast<const float4*>(wacc + (w * MAX_G + g) * D + d);
+          ls += wl[w][g] * wt;
+          as.x += a.x * wt;
+          as.y += a.y * wt;
+          as.z += a.z * wt;
+          as.w += a.w * wt;
+        }
+        const long long row = (long long)(row0 + g) * p.splits + split;
+        *reinterpret_cast<float4*>(p.part + row * D + d) = as;
+        if (d == 0) {
+          p.part[n_rows * D + row] = mx;
+          p.part[n_rows * (D + 1) + row] = ls;
+        }
       }
-      const long long row = (long long)(row0 + g) * p.splits + split;
-      p.part[row * D + d] = as;
-      if (d == 0) {
-        p.part[n_rows * D + row] = mx;
-        p.part[n_rows * (D + 1) + row] = ls;
+    } else {
+      for (int i = tid; i < G * D; i += THREADS) {
+        const int g = i / D, d = i % D;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+        float ls = 0.f, as = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const float wt = expf(wm[w][g] - mx);
+          ls += wl[w][g] * wt;
+          as += wacc[(w * MAX_G + g) * D + d] * wt;
+        }
+        const long long row = (long long)(row0 + g) * p.splits + split;
+        p.part[row * D + d] = as;
+        if (d == 0) {
+          p.part[n_rows * D + row] = mx;
+          p.part[n_rows * (D + 1) + row] = ls;
+        }
       }
     }
   }
 
   // 4. The last block of this (batch, kv head) merges the splits in order.
+  if constexpr (WIDE) cp_async_wait<0>();     // a block without a tile: Q's copy
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -498,6 +657,26 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   const long long n_rows = (long long)p.B * p.H * p.splits;
   const float* pm = p.part + n_rows * D;
   const float* pl = pm + n_rows;
+  // the accumulators, MERGE splits at a time (4 columns per thread,
+  // 16-byte loads); wide, the first MERGE are fetched before the weights
+  // are known, so their round trip overlaps (a)'s
+  constexpr int N4 = (MAX_G * D / 4 + THREADS - 1) / THREADS;   // float4 per thread
+  constexpr int MERGE = 8;
+  const float4* pacc = reinterpret_cast<const float4*>(p.part) +
+                       (long long)row0 * p.splits * (D / 4);
+  float4 a[MERGE][N4];
+  auto fetch = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < MERGE; ++u)
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        const int j = tid + i * THREADS, g = j / (D / 4), d4 = j % (D / 4);
+        a[u][i] = s0 + u < active && g < G
+                      ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * (D / 4) + d4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+  };
+  if constexpr (WIDE) fetch(0);
   float* sw = reinterpret_cast<float*>(fd_smem);            // [MAX_G][active]
   float* sl = sw + MAX_G * active;
   for (int g = warp; g < G; g += WARPS) {
@@ -529,25 +708,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   }
   __syncthreads();
   // (b) the output: 4 columns per thread and MERGE splits' accumulators in
-  //     flight at once (16-byte loads), added in split order
-  constexpr int N4 = (MAX_G * D / 4 + THREADS - 1) / THREADS;   // float4 per thread
-  constexpr int MERGE = 8;
+  //     flight at once, added in split order
   float4 out[N4];
 #pragma unroll
   for (int i = 0; i < N4; ++i) out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4* pacc = reinterpret_cast<const float4*>(p.part) +
-                       (long long)row0 * p.splits * (D / 4);
   for (int s0 = 0; s0 < active; s0 += MERGE) {
-    float4 a[MERGE][N4];
-#pragma unroll
-    for (int u = 0; u < MERGE; ++u)
-#pragma unroll
-      for (int i = 0; i < N4; ++i) {
-        const int j = tid + i * THREADS, g = j / (D / 4), d4 = j % (D / 4);
-        a[u][i] = s0 + u < active && g < G
-                      ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * (D / 4) + d4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+    if (!WIDE || s0 > 0) fetch(s0);
 #pragma unroll
     for (int u = 0; u < MERGE; ++u)
 #pragma unroll
@@ -582,11 +748,16 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   if (tid == 0) p.tickets[b * p.Kv + kvh] = 0;
 }
 
+// `tile` and `smem` are the wrapper's numbers (flash_decode.py TILE and
+// smem_bytes): a launch whose numbers are not the kernel's is refused.
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(Params p, int tile, int smem_asked, cudaStream_t stream) {
   static size_t attr_bytes = 0;   // the dynamic shared memory allowed so far
+  if (tile != TILE) return cudaErrorInvalidValue;
+  p.n_tiles = (p.S + TILE - 1) / TILE;
   const size_t smem = smem_bytes(ring_bytes<T, D>(), p.n_tiles);
-  if (smem > 200 * 1024) return cudaErrorInvalidValue;
+  if (smem != static_cast<size_t>(smem_asked) || smem > 200 * 1024)
+    return cudaErrorInvalidValue;
   if (smem > attr_bytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -605,7 +776,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // of scratch, 16-byte aligned; tickets: B * Kv ints, zero before the launch and zero after it.
 // lse: null, or (B, H) contiguous floats that receive each row's log-sum-exp
 // of its scaled, masked scores.  out_f32: o holds floats (strides in
-// floats) whatever the input dtype.  Returns a cudaError_t (0 = launched).
+// floats) whatever the input dtype.  tile: cache slots per tile and smem:
+// the dynamic shared memory, as the wrapper computed them.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_decode_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, const void* valid, void* o,
@@ -615,7 +788,7 @@ extern "C" int flash_decode_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long valid_sb, long long o_sb, long long o_sh,
-    float scale, void* stream, void* lse, int out_f32) {
+    float scale, void* stream, void* lse, int out_f32, int tile, int smem) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.valid = static_cast<const uint8_t*>(valid);
@@ -623,7 +796,6 @@ extern "C" int flash_decode_fwd(
   p.part = static_cast<float*>(part);
   p.tickets = static_cast<int*>(tickets);
   p.B = B; p.H = H; p.Kv = Kv; p.S = S; p.splits = splits;
-  p.n_tiles = (S + TILE - 1) / TILE;
   p.vec_mask = vec_mask;
   p.q_sb = q_sb; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
@@ -637,15 +809,15 @@ extern "C" int flash_decode_fwd(
       Kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 112) return launch<float, 112>(p, s);
-  if (dtype == 0 && head_dim == 120) return launch<float, 120>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, s);
-  if (dtype == 0 && head_dim == 256) return launch<float, 256>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, s);
-  if (dtype == 1 && head_dim == 112) return launch<bf16, 112>(p, s);
-  if (dtype == 1 && head_dim == 120) return launch<bf16, 120>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, s);
-  if (dtype == 1 && head_dim == 256) return launch<bf16, 256>(p, s);
+  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, tile, smem, s);
+  if (dtype == 0 && head_dim == 112) return launch<float, 112>(p, tile, smem, s);
+  if (dtype == 0 && head_dim == 120) return launch<float, 120>(p, tile, smem, s);
+  if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, tile, smem, s);
+  if (dtype == 0 && head_dim == 256) return launch<float, 256>(p, tile, smem, s);
+  if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, tile, smem, s);
+  if (dtype == 1 && head_dim == 112) return launch<bf16, 112>(p, tile, smem, s);
+  if (dtype == 1 && head_dim == 120) return launch<bf16, 120>(p, tile, smem, s);
+  if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, tile, smem, s);
+  if (dtype == 1 && head_dim == 256) return launch<bf16, 256>(p, tile, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

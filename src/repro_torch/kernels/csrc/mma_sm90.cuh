@@ -1,8 +1,10 @@
-// Tensor-core building blocks shared by flash_attention.cu and moe_gmm.cu:
-// asynchronous 16-byte copies into shared memory, ldmatrix, the bf16
-// mma.sync m16n8k16 with fp32 accumulation, swizzled tile indices, bf16
-// packing, and the warpgroup products (wgmma) with A in registers and B
-// described in shared memory.
+// Tensor-core building blocks shared by flash_attention.cu, flash_decode.cu
+// and moe_gmm.cu: asynchronous 16-byte copies into shared memory, ldmatrix,
+// movmatrix, the bf16 mma.sync m16n8k16 with fp32 accumulation, swizzled
+// tile indices, bf16 packing, the warpgroup products (wgmma) with A in
+// registers or shared memory and B described in shared memory, and the
+// pieces of a warp-specialised pipeline: mbarriers, TMA tile loads and
+// warpgroup register reallocation (setmaxnreg).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4), two bf16 per 32-bit register, the lower column first:
@@ -63,6 +65,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) 
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p))
       : "memory");
+}
+
+// The transpose of the 8 x 8 bf16 matrix whose rows the warp holds in
+// the ldmatrix layout (lane l: row l / 4, columns 2 (l % 4) ..), in the
+// same layout: lane l receives column l / 4, rows 2 (l % 4) ...
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // c += a (16 x 16) * b (16 x 8), bf16 products summed in fp32.
@@ -248,6 +259,89 @@ __device__ __forceinline__ void wgmma_m64n128_mnmajor(
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
         "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// A warp-specialised pipeline: producer and consumer warpgroups meet at
+// mbarriers in shared memory.  A TMA load (one thread issues a whole tile,
+// the copy engine computes the addresses, swizzles into shared memory and
+// zero-fills rows past the tensor's edge) completes its bytes on a
+// barrier; consumers wait on a barrier's phase parity and arrive on
+// another to hand a stage back.
+// ---------------------------------------------------------------------------
+
+// A barrier that completes a phase when `count` threads have arrived (and
+// the bytes an arrival announced have landed).  One thread initialises;
+// fence, then synchronise the block, before any use.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive, and announce `bytes` of TMA copies that complete on this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// is in phase 0: waiting on parity 1 returns at once).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra MBAR_WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box of a 4-d tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at dst (1024-byte aligned under the 128-byte swizzle),
+// completing its bytes on `bar`.  `map` is a CUtensorMap in parameter,
+// constant or global memory (a __grid_constant__ kernel parameter).
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Synchronise `count` threads (a multiple of 32) at named barrier `id`
+// (1..15: 0 is __syncthreads'); their shared-memory writes before it are
+// visible to each other after it.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Warpgroup register reallocation: every warp of the warpgroup executes it,
+// on a path that never rejoins the other warpgroups' (else ptxas ignores
+// it).  A producer gives registers back; consumers take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace mma_sm90

@@ -18,6 +18,9 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (64, 112, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BQ = BK = 64              # query rows and keys per tile (csrc BQ, BK)
+STAGES = 3                # bf16 up to D = 128: the K/V ring (csrc STAGES)
+WS_STAGES = 3             # bf16 at D = 256: the K/V ring (csrc WS_STAGES)
 
 _fn = None
 
@@ -32,11 +35,27 @@ def _kernel_fn():
             + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def smem_bytes(dtype: torch.dtype, D: int) -> int:
+    """The kernel's dynamic shared memory at head width D.  fp32: the Q, K,
+    V and P tiles, rows padded by one float.  bf16 up to 128: the Q tile
+    and ``STAGES`` K and V tiles at the tile width (64, or 128 for 112 and
+    120).  bf16 at 256 (the warp-specialised kernel): the Q tile and
+    ``WS_STAGES`` K and V tiles, then the full, empty and Q mbarriers (8
+    bytes each).  The launch passes it; the kernel refuses a
+    number that is not its own."""
+    if dtype == torch.float32:
+        return 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1))
+    if D == 256:
+        return 2 * D * BK * (1 + 2 * WS_STAGES) + 8 * (2 * WS_STAGES + 1)
+    width = 64 if D == 64 else 128
+    return 2 * (BQ * width + 2 * STAGES * BK * width)
 
 
 def plain(
@@ -114,6 +133,7 @@ def launch(
             out.stride(0), out.stride(1), out.stride(2),
             int(causal), -1 if window is None else int(window),
             int(prefix_len), 1.0 / math.sqrt(D), stream,
+            smem_bytes(q.dtype, D),
         )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

@@ -23,6 +23,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_G = 8                 # query heads per kv head (csrc MAX_G)
 TILE = 64                 # cache slots per tile (csrc TILE); a split takes whole tiles
 BLOCKS_PER_SM = 2         # grid size the split count aims for
+STAGES = 2                # the K/V ring's stages (csrc STAGES)
+RING_LIMIT = 160 * 1024   # a ring past it takes one stage (csrc ring_stages)
 
 _fn = None
 
@@ -36,11 +38,26 @@ def _kernel_fn():
             + [ctypes.c_void_p] * 7
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 11
-            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int] * 3
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def smem_bytes(dtype: torch.dtype, D: int, S: int) -> int:
+    """The kernel's dynamic shared memory for a cache of S slots: the K/V
+    ring (two stages of a K and a V tile, one where two would pass
+    ``RING_LIMIT``; bf16 rows padded to whole 64-element swizzle groups),
+    then a bit per tile and the list of tiles.  The launch passes it; the
+    kernel refuses a number that is not its own."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    pitch = -(-D // 64) * 64 if dtype == torch.bfloat16 else D
+    stage = 2 * TILE * pitch * itemsize
+    ring = stage * (1 if STAGES * stage > RING_LIMIT else STAGES)
+    n_tiles = -(-S // TILE)
+    return ring + 4 * (-(-n_tiles // 32) + n_tiles)
 
 
 def num_splits(B: int, Kv: int, S: int, sms: int) -> int:
@@ -136,6 +153,10 @@ def launch(
     for t in (k_cache, v_cache):      # rows move in 16-byte copies
         if t.data_ptr() % 16 or any(st % per_chunk for st in t.stride()[:3]):
             raise ValueError("cache rows must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and D == 256 and (q.data_ptr() % 16 or any(
+            q.stride(i) % per_chunk for i in (0, 2) if q.shape[i] > 1)):
+        raise ValueError("bf16 q rows at head_dim 256 must be 16-byte aligned: "
+                         "the kernel copies them in 16-byte pieces")
     if S == 0:
         raise ValueError("the cache has no slots")
     out = torch.empty((B, 1, H, D),
@@ -165,6 +186,7 @@ def launch(
             kv_valid.stride(0), out.stride(0), out.stride(2),
             1.0 / math.sqrt(D), stream,
             lse.data_ptr() if return_lse else None, int(return_lse),
+            TILE, smem_bytes(q.dtype, D, S),
         )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")

@@ -754,6 +754,39 @@ def build_mesh_prefill_step(
     )
 
 
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """``logits.argmax(-1)``.  On a mesh the logits are sharded over the
+    vocabulary, and the pick is reduced where they lie, as the reference's
+    partitioner reduces its argmax: each device takes its shard's largest
+    logit of a row and that logit's index, then over each mesh dimension
+    that shards the vocabulary an all-reduce max of the values and an
+    all-reduce min of the indices that hold the maximum (the lowest index
+    of a tie, which ``argmax`` picks).  A row moves two numbers, never its
+    V logits.  The tokens keep the logits' batch placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(logits, DTensor):
+        return logits.argmax(-1)
+    from repro_torch.kernels.ops import _all_reduce, shard_offset
+
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    whole = [p if isinstance(p, Shard) else Replicate()
+             for p in logits.placements]
+    if whole != list(logits.placements):      # a partial sum is summed first
+        logits = logits.redistribute(mesh, whole)
+    val, idx = logits.to_local().max(-1)
+    idx = idx + shard_offset(logits, vdim)
+    for i, p in enumerate(whole):
+        if p.is_shard(vdim):
+            top = _all_reduce(val, "max", mesh, i)
+            at = torch.where(val == top, idx, torch.full_like(idx, 2**62))
+            val, idx = top, _all_reduce(at, "min", mesh, i)
+    out = [Replicate() if p.is_shard(vdim) else p for p in whole]
+    shape = logits.shape[:-1]
+    return DTensor.from_local(idx, mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def build_mesh_serve_step(
     cfg,
     mesh,
@@ -767,8 +800,6 @@ def build_mesh_serve_step(
 ) -> BuiltStep:
     """One-token decode step against a cache of ``shape.seq_len`` tokens,
     then the greedy next token (serving returns tokens, not logits)."""
-    from repro_torch.distributed.sharding import constrain
-
     model, params, cache = _serving_parts(cfg, mesh, shape, rules_name,
                                           cache_rules_name, dtype,
                                           kv_dtype or dtype, impl)
@@ -778,10 +809,7 @@ def build_mesh_serve_step(
 
     def fn(params, tokens, cache):
         logits, cache = model.decode_step(tokens, cache, dtype=dtype)
-        # on a mesh the logits are sharded over the vocabulary: gathered
-        # whole first, the greedy pick reads every entry of a row
-        logits = constrain(logits, "batch", None, None)
-        return logits.argmax(-1), cache
+        return greedy_tokens(logits), cache
 
     args = (params, tokens, cache)
     return BuiltStep(
@@ -821,4 +849,4 @@ def input_specs(arch: str, shape_name: str, mesh, **kwargs):
 __all__ = ["BuiltStep", "PrefillStep", "ServeStep", "TrainStep",
            "build_mesh_prefill_step", "build_mesh_serve_step",
            "build_mesh_train_step", "build_prefill_step", "build_serve_step",
-           "build_step", "build_train_step", "input_specs"]
+           "build_step", "build_train_step", "greedy_tokens", "input_specs"]

@@ -182,8 +182,18 @@ def residual_layout(x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
                  dtype: Any) -> torch.Tensor:
-    # gather then cast: the same values as the reference's cast-then-gather
-    # without casting the whole table
+    """Gather then cast: the same values as the reference's cast-then-gather
+    without casting the whole table.  On a mesh (a DTensor table sharded
+    over the vocabulary), a table that takes no gradient is looked up by
+    ``F.embedding``, for which DTensor looks up each device's shard and
+    sums (its rowwise rule) into the residual layout at once, where
+    indexing gathers the whole table to every device (torch 2.11's DTensor
+    refuses to add the lookup's masked partial sum to a replicated tensor,
+    whisper's positions); a trained table keeps indexing, since DTensor's
+    embedding backward does not take the partial-sum gradient that rule
+    leaves."""
+    if type(embedding).__name__ == "DTensor" and not embedding.requires_grad:
+        return residual_layout(F.embedding(tokens, embedding)).to(dtype)
     return embedding[tokens].to(dtype)
 
 

@@ -331,7 +331,7 @@ class TransformerLM(nn.Module):
             # command-r: attn and FFN read the SAME normed input, summed
             f, aux_l = self._ffn(lp, h, aux)
             return x + a + f, aux_l
-        x = x + a
+        x = residual_layout(x + a)
         f, aux_l = self._ffn(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux)
         return x + f, aux_l
 
@@ -463,7 +463,8 @@ class TransformerLM(nn.Module):
         )
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
+        return rms_norm(residual_layout(x), self.final_norm,
+                        self.cfg.norm_eps), aux
 
     def forward(
         self,
@@ -520,7 +521,8 @@ class TransformerLM(nn.Module):
             x, positions=positions, mode="full", cache=cache,
             prefix_len=prefix_len if self.cfg.prefix_lm else 0,
         )
-        x = rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
+        x = rms_norm(residual_layout(x[:, -1:]), self.final_norm,
+                     self.cfg.norm_eps)
         cache["len"].fill_(positions.shape[0])
         return self.logits(x), cache
 
@@ -539,7 +541,7 @@ class TransformerLM(nn.Module):
         x, _ = self._run_stack(
             x, positions=positions, mode="decode", cache=cache, prefix_len=0,
         )
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        x = rms_norm(residual_layout(x), self.final_norm, self.cfg.norm_eps)
         cache["len"].add_(1)
         return self.logits(x), cache
 

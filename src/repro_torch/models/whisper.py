@@ -240,7 +240,7 @@ class EncDecLM(nn.Module):
         h = layer_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attn.attention_apply(lp["attn"], cfg, h, positions=positions,
                                     mode="full", causal=False, impl=self.impl)
-        x = x + a
+        x = residual_layout(x + a)
         return x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -253,7 +253,7 @@ class EncDecLM(nn.Module):
         positions = torch.arange(S, device=x.device)
         for lp in self.encoder:
             x = self._layer(self._enc_layer, lp, x, positions)
-        return layer_norm(x, self.enc_norm, cfg.norm_eps)
+        return layer_norm(residual_layout(x), self.enc_norm, cfg.norm_eps)
 
     def _cross_kv(self, p, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, S, d = enc_out.shape
@@ -304,9 +304,10 @@ class EncDecLM(nn.Module):
         a, _ = attn.attention_apply(
             lp["self_attn"], cfg, h, positions=positions, mode=mode,
             layer_cache=layer_kv, impl=self.impl, decode_at=decode_at)
-        x = x + a
+        x = residual_layout(x + a)
         hx = layer_norm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + self._cross_attend(lp["cross_attn"], hx, ck, cv, valid)
+        x = residual_layout(x + self._cross_attend(lp["cross_attn"], hx, ck, cv,
+                                                   valid))
         return x + mlp_apply(lp["mlp"], cfg, layer_norm(x, lp["ln2"], cfg.norm_eps))
 
     def _run_decoder(self, x, *, positions, mode, cache, enc_out=None):
@@ -356,7 +357,7 @@ class EncDecLM(nn.Module):
         positions = torch.arange(tokens.shape[1], device=x.device)
         x = self._run_decoder(x, positions=positions, mode="full", cache=None,
                               enc_out=enc_out)
-        x = layer_norm(x, self.dec_norm, self.cfg.norm_eps)
+        x = layer_norm(residual_layout(x), self.dec_norm, self.cfg.norm_eps)
         return chunked_ce(x, labels, self.cfg, embedding=self.embed,
                           unembed=None, chunk=ce_chunk)
 
@@ -405,6 +406,6 @@ class EncDecLM(nn.Module):
         x = embed_tokens(self.embed, tokens, dtype)
         x = x + sinusoid_at(positions, self.cfg.d_model).to(dtype)
         x = self._run_decoder(x, positions=positions, mode="decode", cache=cache)
-        x = layer_norm(x, self.dec_norm, self.cfg.norm_eps)
+        x = layer_norm(residual_layout(x), self.dec_norm, self.cfg.norm_eps)
         cache["len"].add_(1)
         return self.logits(x), cache

@@ -53,7 +53,7 @@ GMM_CASES = [
 
 # test_torch_kernels.py's cases at the head widths 120 (h2o-danube3-4b:
 # H=32, Kv=8; the tensor-core kernel's tile of 128 with one zero chunk in
-# Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; Q read from shared memory), under
+# Q.K^T) and 256 (paligemma-3b: H=8, Kv=1; the warp-specialised kernel), under
 # the causal, sliding-window and prefix-LM masks, and bidirectional
 WIDE_ATTN_CASES = [
     (1, 32, 8, 128, 128, 120, True, None, 0),
@@ -652,6 +652,130 @@ def test_flash_decode_slot_split_on_one_card(card, mask, dtype):
     want = tfd.plain(q, k, v, valid)
     torch.cuda.synchronize()
     assert got.dtype == tdt
+    torch.testing.assert_close(got.float(), whole.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# paligemma-3b's head width 256 in bf16: the warp-specialised prefill
+# (B, H, Kv, Sq, Skv, causal, window, prefix): causal at GQA 8:1, the
+# 256-patch prefix before 1024 text tokens, a window, Sq != Skv, ragged
+# lengths (one 64-row tile, an odd and an even count of tiles), B > 1 and
+# GQA 1:1
+PALI_ATTN_CASES = [
+    (1, 8, 1, 1024, 1024, True, None, 0),
+    (1, 8, 1, 1280, 1280, True, None, 256),
+    (1, 8, 1, 512, 512, True, 96, 0),
+    (1, 8, 1, 100, 700, False, None, 0),
+    (1, 8, 1, 975, 975, True, None, 0),
+    (1, 8, 1, 1, 1, True, None, 0),
+    (1, 8, 1, 130, 130, True, None, 0),
+    (2, 8, 1, 333, 333, True, None, 37),
+    (2, 4, 4, 200, 200, True, None, 0),
+    (2, 4, 4, 192, 192, False, None, 0),
+]
+
+# and the unpadded decode, (B, H, Kv, S, mask) (decode_mask): B > 1, a row
+# with no valid slot beside a partial one, a ring, every slot valid, one
+# slot, S off the 64-slot tile, and 1:1 and 4:1 heads
+PALI_DECODE_CASES = [
+    (2, 8, 1, 2048, "600"),
+    (2, 8, 1, 2048, "empty beside 600"),
+    (2, 8, 1, 1000, "ring"),
+    (1, 8, 1, 2048, "2048"),
+    (1, 8, 1, 2048, "last"),
+    (2, 8, 1, 1001, "700"),
+    (2, 8, 8, 512, "300"),
+    (1, 8, 2, 2048, "empty"),
+]
+PALI_D = 256
+# the log-sum-exp's measured worst relative error of the fp32 kernel
+# across the head widths before the redesign (the one-slot row)
+LSE_RTOL_F32 = 5.4e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PALI_ATTN_CASES)
+def test_flash_attention_kernel_at_head_width_256(card, case):
+    B, H, Kv, Sq, Skv, causal, window, prefix = case
+    tdt, tol = DTYPES["bfloat16"]
+    rng = np.random.default_rng(1100 + PALI_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, PALI_D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, PALI_D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, PALI_D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tfa.plain(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PALI_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_at_head_width_256(card, case, dtype):
+    """The output against the plain version, then with ``return_lse`` the
+    fp32 output and each row's log-sum-exp: within ``LSE_RTOL_F32`` of
+    max(|lse|, 1) (float32) or 2e-3 absolute (bf16), -1e30 in a row with
+    no valid slot."""
+    B, H, Kv, S, mask = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(1200 + PALI_DECODE_CASES.index(case))
+    q = _randn(rng, (B, 1, H, PALI_D), tdt, card)
+    k = _randn(rng, (B, S, Kv, PALI_D), tdt, card)
+    v = _randn(rng, (B, S, Kv, PALI_D), tdt, card)
+    valid = decode_mask(B, S, mask, card)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, k, v, kv_valid=valid)
+    out, lse = ops.flash_decode(q, k, v, kv_valid=valid, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 2
+    want, want_lse = tfd.plain(q, k, v, valid, return_lse=True)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out, want, atol=tol, rtol=tol)
+    empty = want_lse == -1e30
+    assert torch.equal(lse == -1e30, empty)
+    diff = (lse - want_lse).abs()[~empty]
+    if tdt == torch.float32:
+        # relative to |lse|, absolute below 1 (chip_smoke.py's lse_error):
+        # a one-slot row's lse is that slot's score, which may be near 0
+        rel = diff / want_lse.abs()[~empty].clamp(min=1.0)
+        assert rel.numel() == 0 or rel.max().item() <= LSE_RTOL_F32
+    else:
+        assert diff.numel() == 0 or diff.max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["600", "32768", "every view"])
+def test_flash_decode_slot_split_at_head_width_256(card, mask):
+    """paligemma-3b's decode heads (H=8, Kv=1, D=256, bf16) over a
+    32,768-slot cache cut into 4 slot views, the kernel on each with its
+    log-sum-exp, merged as ``slot_parallel_decode`` merges the shards of
+    its mesh: one whole-cache launch's output and the plain version's."""
+    B, H, Kv = 2, 8, 1
+    tdt, tol = DTYPES["bfloat16"]
+    rng = np.random.default_rng(1300)
+    q = _randn(rng, (B, 1, H, PALI_D), tdt, card)
+    k = _randn(rng, (B, SPLIT_S, Kv, PALI_D), tdt, card)
+    v = _randn(rng, (B, SPLIT_S, Kv, PALI_D), tdt, card)
+    if mask == "every view":
+        pos = torch.arange(SPLIT_S, device=card)
+        valid = ((pos % (SPLIT_S // SPLIT_VIEWS)) < 3000)[None].expand(B, SPLIT_S)
+        valid = valid.to(torch.int8).contiguous()
+    else:
+        valid = decode_mask(B, SPLIT_S, mask, card)
+    n = SPLIT_S // SPLIT_VIEWS
+    parts = [tfd.launch(q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                        valid[:, i * n:(i + 1) * n], return_lse=True)
+             for i in range(SPLIT_VIEWS)]
+    got = tfd.merge_decode_partials([o for o, _ in parts],
+                                    [lse for _, lse in parts], dtype=tdt)
+    whole = tfd.launch(q, k, v, valid)
+    want = tfd.plain(q, k, v, valid)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), whole.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 

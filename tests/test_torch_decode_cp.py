@@ -46,7 +46,7 @@ from repro_torch.configs import ShapeSpec, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import cost, ops  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dryrun, op_count  # noqa: E402
 from repro_torch.launch.op_count import OpCounter  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.registry import build_model as t_build  # noqa: E402
@@ -300,6 +300,54 @@ print(json.dumps({"state": state, "link": analyze_hlo(hlo).coll_bytes}))
 """
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_zamba_gathers():
+    """The reference's counts of its 14-layer zamba2 decode step on the
+    (2, 4) host mesh (``_REF_ZAMBA_GATHERS``): the state's all-gather bytes
+    and every collective's link bytes, a device."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", _REF_ZAMBA_GATHERS], env=env,
+                         capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _zamba_decode_collectives(mesh, monkeypatch):
+    """The port's 14-layer zamba2 decode step (batch 4, 1024 slots,
+    ``build_mesh_serve_step``) counted on ``mesh`` after a warm-up run:
+    (its counts, the functions DTensor refused, each collective's kind,
+    result shape and dtype and result bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_count
+
+    cfg = get_config("zamba2-7b").scaled(num_layers=14)
+    seen = []
+    dispatch = op_count.OpCounter.__torch_dispatch__
+
+    def recording(self, func, types, args=(), kwargs=None):
+        out = dispatch(self, func, types, args, kwargs)
+        name = func._overloadpacket.__name__
+        if (out is not NotImplemented and func.namespace == "_c10d_functional"
+                and name in op_count._COLLECTIVES):
+            seen.append((op_count._COLLECTIVES[name], tuple(out.shape),
+                         out.dtype, out.nbytes))
+        return out
+
+    monkeypatch.setattr(op_count.OpCounter, "__torch_dispatch__", recording)
+    shape = ShapeSpec("decode", 1024, 4, "decode")
+    dryrun._count(cfg, shape, mesh, {"impl": "blockwise"})   # warm-up
+    seen.clear()
+    counts, refused, _ = dryrun._count(cfg, shape, mesh, {"impl": "blockwise"})
+    return cfg, counts, refused, list(seen)
+
+
 def test_zamba2_decode_gathers_its_states_as_the_reference(node_mesh,
                                                            monkeypatch):
     """The new Mamba-2 state leaves the ``tp`` projections with its heads
@@ -309,44 +357,81 @@ def test_zamba2_decode_gathers_its_states_as_the_reference(node_mesh,
     super-blocks, d_model 128) at batch 4 and 1024 slots: the state's
     all-gather bytes a device are equal (the reference gathers the stacked
     states once a step, the port each layer's)."""
-    import json
-    import subprocess
-    import sys
-    from pathlib import Path
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch import op_count
-
-    root = Path(__file__).resolve().parents[1]
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               PYTHONPATH=str(root / "src"))
-    out = subprocess.run([sys.executable, "-c", _REF_ZAMBA_GATHERS], env=env,
-                         capture_output=True, text=True, timeout=600, check=True)
-    ref = json.loads(out.stdout.strip().splitlines()[-1])
-
-    cfg = get_config("zamba2-7b").scaled(num_layers=14)
+    ref = _reference_zamba_gathers()
+    cfg, _, refused, seen = _zamba_decode_collectives(node_mesh, monkeypatch)
     tail = (cfg.ssm_head_dim, cfg.ssm_state)
-    gathered = []
+    gathered = [n for kind, shape, dtype, n in seen
+                if kind == "all-gather" and dtype == torch.float32
+                and shape[-2:] == tail]
+    assert refused == {}
+    n_mamba = cfg.hybrid_prelude + cfg.hybrid_blocks * (cfg.hybrid_attn_every - 1)
+    assert len(gathered) == n_mamba
+    assert ref["state"] > 0 and sum(gathered) == ref["state"]
+
+
+def test_zamba2_decode_link_bytes_are_the_references(node_mesh, monkeypatch):
+    """The same step's link bytes a device are within 10 % of the
+    reference's HLO count (its partitioner keeps every weight where it
+    lies): the shared block's MLP reads its ``model``-sharded weights
+    with the residual stream whole on each device (Megatron's layout,
+    restored after the attention's row-parallel sum), the embedding is
+    looked up in each device's vocabulary shard and summed, and the greedy
+    pick reduces each device's shard of the logits to a value and an
+    index a row.  So no all-gather has the shape of a weight of the shared
+    block's MLP, of the embedding table, or of a row of logits.  The parent
+    counted 1.25e6 B against the reference's 4.81e5."""
+    ref = _reference_zamba_gathers()
+    cfg, counts, refused, seen = _zamba_decode_collectives(node_mesh,
+                                                           monkeypatch)
+    assert refused == {}
+    assert abs(counts.coll_bytes - ref["link"]) <= 0.1 * ref["link"], (
+        counts.coll_bytes, ref["link"])
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    weights = {(d, f), (f, d), (V, d), (d, V)}
+    for kind, shape, dtype, n in seen:
+        if kind != "all-gather":
+            continue
+        assert shape[-2:] not in weights, (shape, n)
+        assert shape[-1] != V, (shape, n)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "paligemma-3b",
+                                  "command-r-35b", "whisper-medium",
+                                  "falcon-mamba-7b"])
+def test_decode_step_gathers_no_weight_table_or_logits(node_mesh, monkeypatch,
+                                                       arch):
+    """Every decoder's greedy step on the (2, 4) mesh (smoke widths, batch 4,
+    1024 slots, ``build_mesh_serve_step``): the embedding is looked up in
+    each device's vocabulary shard, the projections read their sharded
+    weights with the residual stream whole (Megatron's layout), and the
+    greedy pick reduces each device's logits to a value and an index a
+    row, as the reference's partitioner does.  So no all-gather has the
+    shape of a weight matrix (the embedding or unembedding table, an MLP
+    matrix) or of a row of logits; before, the table and the (B, V)
+    logits were gathered to every device each step."""
+    cfg = get_smoke_config(arch)
+    seen = []
     dispatch = op_count.OpCounter.__torch_dispatch__
 
     def recording(self, func, types, args=(), kwargs=None):
         out = dispatch(self, func, types, args, kwargs)
         if (out is not NotImplemented and func.namespace == "_c10d_functional"
-                and func._overloadpacket.__name__ == "all_gather_into_tensor"
-                and out.dtype == torch.float32 and tuple(out.shape[-2:]) == tail):
-            gathered.append(out.nbytes)
+                and func._overloadpacket.__name__ == "all_gather_into_tensor"):
+            seen.append(tuple(out.shape))
         return out
 
     monkeypatch.setattr(op_count.OpCounter, "__torch_dispatch__", recording)
     shape = ShapeSpec("decode", 1024, 4, "decode")
-    dryrun._count(cfg, shape, node_mesh, {"impl": "blockwise"})   # warm-up
-    gathered.clear()
-    _, refused, _ = dryrun._count(cfg, shape, node_mesh, {"impl": "blockwise"})
+    dryrun._count(cfg, shape, node_mesh, {"impl": "kernel"})   # warm-up
+    seen.clear()
+    _, refused, _ = dryrun._count(cfg, shape, node_mesh, {"impl": "kernel"})
     assert refused == {}
-    n_mamba = cfg.hybrid_prelude + cfg.hybrid_blocks * (cfg.hybrid_attn_every - 1)
-    assert len(gathered) == n_mamba
-    assert ref["state"] > 0 and sum(gathered) == ref["state"]
+    d, V = cfg.d_model, cfg.padded_vocab
+    weights = {(V, d), (d, V)}
+    if cfg.d_ff:
+        weights |= {(d, cfg.d_ff), (cfg.d_ff, d)}
+    for gathered in seen:
+        assert gathered[-2:] not in weights and gathered[-1] != V, gathered
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +565,116 @@ def _reference_run():
             tlogs.append(log.numpy())
     return (state, tprompt, np.stack(jtoks), np.stack(jlogs),
             np.stack(ttoks), np.stack(tlogs), cache)
+
+
+ZAMBA_B, ZAMBA_PROMPT, ZAMBA_SLOTS, ZAMBA_STEPS = 2, 10, 32, 6
+
+
+def _zamba_config():
+    from repro_torch.configs import get_config
+
+    return get_config("zamba2-7b").scaled(num_layers=14)
+
+
+def _zamba_rank(rank: int, world: int, port: int, data_dir: str) -> None:
+    """One rank of the sharded zamba2 decode: ``tp`` weights and a
+    ``decode_cp`` cache on a (2, 2) mesh of gloo ranks, the serve step's
+    greedy pick (``launch.steps.greedy_tokens``) on the vocabulary-sharded
+    logits."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.distributed import sharding
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import (
+            ReplicateOnRefusal,
+            batch_placements,
+            cache_logical,
+            greedy_tokens,
+        )
+        from repro_torch.models.registry import build_model
+
+        mesh = make_mesh((2, 2), ("data", "model"))
+        # ties across the vocabulary shards go to the lowest index, as
+        # argmax picks: a row whose maximum is in every shard, one whose
+        # maximum is in the last shard only
+        tied = torch.zeros(ZAMBA_B, 1, 512)
+        tied[0, 0, [3, 200, 300, 511]] = 1.0
+        tied[1, 0, 400] = 2.0
+        placed = distribute_tensor(tied, mesh, [Shard(0), Shard(2)])
+        assert torch.equal(greedy_tokens(placed).full_tensor(),
+                           tied.argmax(-1))
+        model = build_model(_zamba_config(), device="cpu")
+        model.load_state_dict(torch.load(os.path.join(data_dir, "state.pt")))
+        prompt = torch.load(os.path.join(data_dir, "prompt.pt"))
+        cache = model.init_cache(ZAMBA_B, ZAMBA_SLOTS, dtype=torch.float32)
+        with torch.no_grad():
+            logits, cache = model.prefill(prompt, cache, dtype=torch.float32)
+        tok = logits.argmax(-1)
+        sharding.distribute_module_params(model, mesh,
+                                          sharding.make_rules("tp"))
+        cache = sharding.distribute_params(cache, cache_logical(cache), mesh,
+                                           sharding.make_rules("decode_cp"))
+        fallback = ReplicateOnRefusal()
+        toks, vocab_sharded = [], []
+        with torch.no_grad(), implicit_replication(), fallback:
+            for _ in range(ZAMBA_STEPS):
+                t = distribute_tensor(tok, mesh,
+                                      batch_placements(mesh, ZAMBA_B))
+                lg, cache = model.decode_step(t, cache, dtype=torch.float32)
+                vocab_sharded.append(any(p.is_shard(2) for p in lg.placements))
+                nxt = greedy_tokens(lg)
+                assert isinstance(nxt, DTensor)
+                tok = nxt.full_tensor()
+                toks.append(tok.clone())
+        torch.save({"tokens": torch.stack(toks), "refused": dict(fallback.refused),
+                    "vocab_sharded": vocab_sharded},
+                   os.path.join(data_dir, f"zamba_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_gloo_ranks_decode_zamba2_as_one_device(tmp_path):
+    """The 14-layer zamba2 (seeded weights, float32) decoded for 6 greedy
+    steps on a (2, 2) mesh of gloo ranks under ``tp`` weights and a
+    ``decode_cp`` cache, with the residual stream whole before the shared
+    block's MLP, the vocabulary-parallel embedding lookup and the greedy
+    pick reduced where the logits lie: every rank's tokens equal the
+    single-device step's, with no call refused."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.registry import build_model
+
+    model = build_model(_zamba_config(), device="cpu",
+                        generator=torch.Generator().manual_seed(5))
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, (ZAMBA_B, ZAMBA_PROMPT)))
+    cache = model.init_cache(ZAMBA_B, ZAMBA_SLOTS, dtype=torch.float32)
+    with torch.no_grad():
+        logits, cache = model.prefill(prompt, cache, dtype=torch.float32)
+        tok = logits.argmax(-1)
+        want = []
+        for _ in range(ZAMBA_STEPS):
+            logits, cache = model.decode_step(tok, cache, dtype=torch.float32)
+            tok = logits.argmax(-1)
+            want.append(tok)
+    want = torch.stack(want)
+    torch.save(model.state_dict(), tmp_path / "state.pt")
+    torch.save(prompt, tmp_path / "prompt.pt")
+    mp.start_processes(_zamba_rank, args=(4, _free_port(), str(tmp_path)),
+                       nprocs=4, join=True, start_method="spawn")
+    for rank in range(4):
+        got = torch.load(tmp_path / f"zamba_rank{rank}.pt")
+        assert got["refused"] == {}, rank
+        assert all(got["vocab_sharded"]), rank
+        assert torch.equal(got["tokens"], want), (rank, got["tokens"], want)
 
 
 def test_four_gloo_ranks_decode_with_a_slot_sharded_cache(tmp_path):

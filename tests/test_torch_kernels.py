@@ -270,6 +270,32 @@ def test_flash_decode_tile_skip_matches_pallas_and_ref(kind, splits, dtype):
         assert attended[b] == tfd.TILE * (n_valid_tiles or S // tfd.TILE)
 
 
+@pytest.mark.parametrize("kind", ["prefix", "ring", "last", "none",
+                                  "empty beside partial"])
+def test_flash_decode_tile_skip_at_head_width_256(kind):
+    """paligemma-3b's decode heads (H=8, Kv=1, D=256, bf16) over the 64-slot
+    tiles that hold a valid slot, divided among the splits ``num_splits``
+    gives one batch row on 132 SMs, merged as the kernel does: the
+    reference's result."""
+    B, H, Kv, S, D = 2, 8, 1, 512, 256
+    tol = DTYPES["bfloat16"][2]
+    splits = tfd.num_splits(1, Kv, S, 132)
+    assert splits == 8
+    rng = np.random.default_rng(160)
+    jq, tq = _pair(rng, (B, H, D), "bfloat16")
+    jk, tk = _pair(rng, (B, Kv, S, D), "bfloat16")
+    jv, tv = _pair(rng, (B, Kv, S, D), "bfloat16")
+    valid = _decode_mask(kind, B, S)
+    got, attended = _decode_over_listed_tiles(tq, tk, tv, torch.from_numpy(valid),
+                                              splits, tfd.TILE)
+    pallas = flash_decode_bhd(jq, jk, jv, jnp.asarray(valid), block_kv=128,
+                              interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+    for b in range(B):
+        n_valid_tiles = int(np.any(valid[b].reshape(-1, tfd.TILE), 1).sum())
+        assert attended[b] == tfd.TILE * (n_valid_tiles or S // tfd.TILE)
+
+
 def _scan_inputs(rng, B, Q, C, N):
     """a in (0, 1) like exp(delta * A), b small, as ``test_kernels.py``."""
     a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, Q, C, N), dtype=np.float32)))
@@ -363,6 +389,70 @@ def test_decode_splits_fill_the_card():
     assert tfd.num_splits(64, 8, 2048, 132) == 1
     assert tfd.num_splits(1, 8, 40, 132) == 1      # short cache: one tile
     assert tfd.num_splits(1, 8, 100, 132) == 2     # two tiles, two splits
+
+
+def test_head_width_256_card_cases_are_checked_by_chip_smoke():
+    """The card tests of paligemma-3b's head width (the warp-specialised
+    prefill, the unpadded decode) are ``chip_smoke.py``'s D = 256 checks,
+    case for case, at the same log-sum-exp tolerance."""
+    import importlib.util
+    from pathlib import Path
+
+    import test_torch_cuda
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.PALI_FA_CASES == test_torch_cuda.PALI_ATTN_CASES
+    assert smoke.PALI_FD_CASES == test_torch_cuda.PALI_DECODE_CASES
+    assert smoke.PALI_LSE_RTOL == test_torch_cuda.LSE_RTOL_F32
+    assert smoke.PALI_D == test_torch_cuda.PALI_D == 256
+
+
+def test_decode_splits_at_head_width_256():
+    """paligemma-3b's one kv head at batch 1 over 2,048 slots: 32 splits,
+    and 600 valid slots list 10 tiles, one block each; a split never holds
+    a part of a tile."""
+    splits = tfd.num_splits(1, 1, 2048, 132)
+    assert splits == 2048 // tfd.TILE == 32
+    listed = -(-600 // tfd.TILE)
+    per = -(-listed // splits)
+    assert per == 1 and listed == 10
+
+
+@pytest.mark.parametrize("dtype,D,S,want", [
+    # bf16 at 256: two stages of a K and a V tile (32 KiB each), the
+    # bitmap's word and 32 list entries
+    (torch.bfloat16, 256, 2048, 2 * 2 * 64 * 256 * 2 + 4 * (1 + 32)),
+    (torch.bfloat16, 256, 32768, 2 * 2 * 64 * 256 * 2 + 4 * (16 + 512)),
+    # bf16 at 112 and 120: rows padded to 128 elements
+    (torch.bfloat16, 112, 2048, 2 * 2 * 64 * 128 * 2 + 4 * (1 + 32)),
+    (torch.bfloat16, 64, 1000, 2 * 2 * 64 * 64 * 2 + 4 * (1 + 16)),
+    # fp32 at 256: two stages would pass 160 KiB, so one
+    (torch.float32, 256, 2048, 2 * 64 * 256 * 4 + 4 * (1 + 32)),
+    (torch.float32, 120, 2048, 2 * 2 * 64 * 120 * 4 + 4 * (1 + 32)),
+])
+def test_decode_shared_memory_the_wrapper_asks_for(dtype, D, S, want):
+    assert tfd.smem_bytes(dtype, D, S) == want <= 200 * 1024
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    # bf16 at 256, the warp-specialised kernel: the Q tile and three stages
+    # of K and V, 64 x 256 each, and 7 mbarriers: 224 KiB and 56 bytes
+    (torch.bfloat16, 256, 2 * 64 * 256 * 7 + 8 * 7),
+    # bf16 up to 128: a Q tile and three stages at the tile width
+    (torch.bfloat16, 128, 2 * 64 * 128 * 7),
+    (torch.bfloat16, 120, 2 * 64 * 128 * 7),
+    (torch.bfloat16, 112, 2 * 64 * 128 * 7),
+    (torch.bfloat16, 64, 2 * 64 * 64 * 7),
+    (torch.float32, 256, 4 * (64 * 257 * 2 + 64 * 256 + 64 * 65)),
+    (torch.float32, 64, 4 * (64 * 65 * 2 + 64 * 64 + 64 * 65)),
+])
+def test_prefill_shared_memory_the_wrapper_asks_for(dtype, D, want):
+    """What the launch asks for (the kernel refuses a number that is not its
+    own), within the 227 KiB a block may use."""
+    assert tfa.smem_bytes(dtype, D) == want <= 232_448
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
