@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR    # and the A/B of step 3b
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
 
@@ -42,7 +43,14 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    causal, prefix-LM (256 patches before 1024 tokens), window, Sq != Skv,
    ragged, B > 1 and 1:1 cases (bf16, 2e-2), the unpadded decode in both
    dtypes with its log-sum-exp (5.4e-7 of max(|lse|, 1) in float32) and
-   the same slot split at D = 256;
+   the same slot split at D = 256; the published attention shapes of
+   public models the fleets do not cover (``PUBLIC_SHAPES``: phi-2,
+   Phi-3-mini, SigLIP-so400m, Nemotron-4-340B, Llama-3.1-405B, StarCoder,
+   falcon-7b: head widths 72-192, query groups 1-71) in prefill and decode,
+   both dtypes; and a width sweep (``check_width_sweep``): every head width
+   8, 16, ..., 256 in both dtypes, a causal prefill (B 1, H 8, Kv 2, S 256)
+   and a decode of 600 valid slots of 2,048 beside a row with none, a
+   ``width sweep`` line each;
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
@@ -53,11 +61,19 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    1500 valid slots), h2o-danube3-4b's (H=32, Kv=8, D=120) and
    paligemma-3b's (H=8, Kv=1, D=256; flash_attention also at its own
    prefill, 256 patches under the prefix-LM mask before 1024 text tokens,
-   SDPA given the mask), each line with the card's name and power limit,
-   and moe_gmm with the
+   SDPA given the mask), and at ``PUBLIC_SHAPES`` (prefill S = 1,024
+   causal, SigLIP's 729 patches bidirectional; decode 600 of 2,048 slots,
+   the line naming the kv head's group tiles), each line with the card's
+   name and power limit, and moe_gmm with the
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
    expert read; the extra shapes each on a log line;
+3b. with ``--parent DIR`` (a checkout of an earlier commit, of which only
+   ``src/repro_torch/kernels/csrc`` is read), its flash_attention.cu and
+   flash_decode.cu against this tree's (``phase_parent_ab``): both
+   compiled side by side and timed, then at the served models' attention
+   shapes bf16 outputs equal to the bit and times in turns, a ``parent
+   A/B`` line each;
 4. runs the SkyServe scenario engine over the reference benchmark's 96-cell
    matrix (``benchmarks/jax_engine.py``: SpotHedge and even_spread on spot
    trace aws-1, 48 seeds, llama3.2-1b on g5.48xlarge, Poisson at 1
@@ -337,6 +353,25 @@ PALI_H, PALI_KV, PALI_D, PALI_PREFIX = 8, 1, 256, 256
 # danube's ring request: a prompt longer than its window, into a cache of
 # one window of slots
 RING_PROMPT = 4600
+# the published attention shapes of public models the served fleets do not
+# cover, (model, H, Kv, D, prefill S, causal): head widths 80, 96, 72 and
+# 192 and query groups 12, 16, 48 and 71; SigLIP's encoder attends its 729
+# patches (27 x 27 at 384 px) bidirectionally, off the 64-row tiles
+PUBLIC_SHAPES = [
+    ("phi-2", 32, 32, 80, PREFILL_S, True),
+    ("Phi-3-mini", 32, 32, 96, PREFILL_S, True),
+    ("SigLIP-so400m/14-384", 16, 16, 72, 729, False),
+    ("Nemotron-4-340B", 96, 8, 192, PREFILL_S, True),
+    ("Llama-3.1-405B", 128, 8, 128, PREFILL_S, True),
+    ("StarCoder-15.5B", 48, 1, 128, PREFILL_S, True),
+    ("falcon-7b", 71, 1, 64, PREFILL_S, True),
+]
+# the width sweep: every head width the kernels take, a causal prefill
+# (B, H, Kv, S) and a decode of 600 valid slots of 2,048 beside a row with
+# none (B, H, Kv, S, mask), in both dtypes
+SWEEP_WIDTHS = tuple(range(8, 257, 8))
+SWEEP_FA = (1, 8, 2, 256)
+SWEEP_FD = (2, 8, 2, 2048, "empty beside 600")
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -380,6 +415,10 @@ FA_CASES = [
           (2, 8, 2, 192, 256, False, None, 0),
           (1, PALI_H, PALI_KV, PALI_PREFIX + 1024, PALI_D, True, None, PALI_PREFIX),
           (1, DANUBE_H, DANUBE_KV, RING_PROMPT, DANUBE_D, True, DANUBE_WINDOW, 0))),
+    # the public models' prefill shapes (PUBLIC_SHAPES), in both dtypes
+    *((dtype, 1, H, Kv, S, D, causal, None, 0)
+      for dtype in (torch.bfloat16, torch.float32)
+      for _, H, Kv, D, S, causal in PUBLIC_SHAPES),
 ]
 
 # whisper-medium's attention (tests/test_torch_cuda.py WHISPER_ATTN_CASES),
@@ -412,7 +451,7 @@ CARD_DECODE_CASES = [
     (1, 32, 32, 2048, 112, "last"),
     (2, 32, 32, 1000, 112, "ring"),
     # the head widths 120 (h2o-danube3-4b: H=32, Kv=8, and its full
-    # 4,096-slot ring) and 256 (paligemma-3b: H=8, Kv=1, G=8 = MAX_G)
+    # 4,096-slot ring) and 256 (paligemma-3b: H=8, Kv=1, G=8)
     (1, 32, 8, 2048, 120, "600"),
     (2, 32, 8, 2048, 120, "empty beside 600"),
     (1, 32, 8, 2048, 120, "last"),
@@ -422,6 +461,13 @@ CARD_DECODE_CASES = [
     (2, 8, 1, 2048, 256, "empty beside 600"),
     (1, 8, 1, 2048, 256, "last"),
     (2, 8, 1, 1000, 256, "ring"),
+    # the public models' decode shapes (PUBLIC_SHAPES; SigLIP's width 72,
+    # though an encoder does not decode), then their query groups in
+    # several group tiles beside an empty row, in a ring, at the last slot
+    *((1, H, Kv, DECODE_S, D, "600") for _, H, Kv, D, _, _ in PUBLIC_SHAPES),
+    (2, 71, 1, 2048, 64, "empty beside 600"),
+    (2, 96, 8, 1000, 192, "ring"),
+    (2, 48, 1, 2048, 128, "last"),
 ]
 
 # whisper-medium's decode caches (tests/test_torch_cuda.py
@@ -747,7 +793,9 @@ def phase_card_and_build() -> None:
         raise RuntimeError(f"need compute capability >= 9.0, got {cap}")
     t0 = time.perf_counter()
     paths = build.build()
-    log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
+    each = ", ".join(f"{n} {t:.1f} s" for n, t in build.build_seconds.items())
+    log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s, "
+        f"all nvcc at once ({each})")
     for name in paths:
         entry = ""
         for line in build.log_path(name).read_text().splitlines():
@@ -1088,6 +1136,49 @@ def check_head_width_256() -> dict:
         if not ok:
             raise AssertionError("the merged slot split at D=256 disagrees")
         worst["flash_decode"] = max(worst["flash_decode"], *errs)
+    return worst
+
+
+def check_width_sweep() -> dict:
+    """Step 2, every head width the kernels take (SWEEP_WIDTHS) in both
+    dtypes: one causal prefill (SWEEP_FA) and one decode (SWEEP_FD: 600
+    valid slots beside a row with none), each kernel against its plain
+    version at the reference's tolerances; a line per width and dtype.
+    Returns each kernel's largest error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(23)
+    worst = {"flash_attention": 0.0, "flash_decode": 0.0}
+    B, H, Kv, S = SWEEP_FA
+    dB, dH, dKv, dS, mask = SWEEP_FD
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[dtype]
+        for D in SWEEP_WIDTHS:
+            q = randn(rng, (B, S, H, D), dtype)
+            k = randn(rng, (B, S, Kv, D), dtype)
+            v = randn(rng, (B, S, Kv, D), dtype)
+            got, want = fa.launch(q, k, v), fa.plain(q, k, v)
+            qd = randn(rng, (dB, 1, dH, D), dtype)
+            kd = randn(rng, (dB, dS, dKv, D), dtype)
+            vd = randn(rng, (dB, dS, dKv, D), dtype)
+            valid = make_valid(dB, dS, mask, rng)
+            got_d, want_d = fd.launch(qd, kd, vd, valid), fd.plain(qd, kd, vd, valid)
+            torch.cuda.synchronize()
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in ((got, want), (got_d, want_d))]
+            ok = all(torch.isfinite(g).all().item()
+                     and torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                     for g, w in ((got, want), (got_d, want_d)))
+            log(f"width sweep {str(dtype)[6:]} D={D}: flash_attention B={B} H={H} "
+                f"Kv={Kv} S={S} causal max_abs_err={errs[0]:.3g}; flash_decode "
+                f"B={dB} H={dH} Kv={dKv} S={dS} valid={mask} max_abs_err="
+                f"{errs[1]:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"a kernel at head width {D} disagrees "
+                                     "with its plain version")
+            worst["flash_attention"] = max(worst["flash_attention"], errs[0])
+            worst["flash_decode"] = max(worst["flash_decode"], errs[1])
     return worst
 
 
@@ -1683,7 +1774,8 @@ def profile_serving(fleet: Fleet, decode_steps: int = 8) -> None:
 
 
 def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
-                            causal: bool = True, prefix: int = 0) -> dict:
+                            causal: bool = True, prefix: int = 0,
+                            label: str = "") -> dict:
     """flash_attention, bf16, B=1, S tokens (causal or bidirectional, the
     first ``prefix`` seen by every row under prefix-LM), at H query and Kv
     kv heads of width D: kernel, plain, SDPA (the library yardstick, never
@@ -1716,7 +1808,8 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
                                      prefix=prefix)
     flops, nbytes = work.flops, work.bytes
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"flash_attention timing [{card_line()}] bf16 B={B} H={H} Kv={Kv} S={S} "
+    log(f"flash_attention timing{f' {label}' if label else ''} [{card_line()}] "
+        f"bf16 B={B} H={H} Kv={Kv} S={S} "
         f"D={D} {'causal' if causal else 'bidirectional'}"
         f"{f' prefix={prefix}' if prefix else ''}: "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -1755,7 +1848,7 @@ def time_flash_attention() -> dict:
 
 
 def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
-                         n_valid: int = 600) -> dict:
+                         n_valid: int = 600, label: str = "") -> dict:
     """flash_decode, bf16, B=1, S cache slots of which the first
     ``n_valid`` are valid (600 of 2048: the fleet's mid-decode occupancy),
     at H query and Kv kv heads of width D: kernel, plain, SDPA with a bool
@@ -1785,8 +1878,15 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     queued = {k: queued_ms(calls[k], iters=20) for k in ("kernel", "library")}
     work = cost.flash_decode_work(B, H, Kv, S, D, 2, n_valid)
     b_ms, b_by = bound_ms(work.flops, work.bytes)
-    log(f"flash_decode timing [{card_line()}] bf16 B={B} H={H} Kv={Kv} S={S} D={D} "
-        f"valid={n_valid}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    # a kv head's query heads in group tiles, each a block that reads the
+    # head's K/V tiles: the first from HBM (the bound), the rest from L2
+    G = H // Kv
+    tiles = -(-G // fd.group_tile(torch.bfloat16, D, G))
+    log(f"flash_decode timing{f' {label}' if label else ''} [{card_line()}] bf16 "
+        f"B={B} H={H} Kv={Kv} S={S} D={D} "
+        f"valid={n_valid} (G={G}: {tiles} group tile(s) a kv head, its K/V "
+        f"read {tiles} time(s), {tiles - 1} of them from L2 and not in the "
+        f"bound): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} (SDPA) kernel/library="
         f"{ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}) [device time, "
         f"torch.profiler]; back to back behind a spin kernel (CUDA events): "
@@ -1816,6 +1916,123 @@ def time_flash_decode() -> dict:
     time_flash_decode_at(DANUBE_H, DANUBE_KV, DANUBE_D)
     time_flash_decode_at(PALI_H, PALI_KV, PALI_D)
     return time_flash_decode_at(MAIN_H, MAIN_KV, MAIN_D)
+
+
+def time_public_shapes() -> None:
+    """Step 3, each of PUBLIC_SHAPES' attention in bf16: its prefill and a
+    decode over 600 valid slots of 2,048, kernel, plain, SDPA and bound,
+    a line each (logged only: the kernels line keeps llama3.2-1b's)."""
+    for name, H, Kv, D, S, causal in PUBLIC_SHAPES:
+        time_flash_attention_at(H, Kv, D, S=S, causal=causal, label=name)
+        time_flash_decode_at(H, Kv, D, label=name)
+
+
+# the served models' attention shapes (H, Kv, D) the parent A/B times:
+# llama3.2-1b, qwen3-moe-30b, zamba2-7b, h2o-danube3-4b, paligemma-3b
+AB_SHAPES = [(MAIN_H, MAIN_KV, MAIN_D), (QWEN_H, QWEN_KV, QWEN_D),
+             (ZAMBA_H, ZAMBA_KV, ZAMBA_D), (DANUBE_H, DANUBE_KV, DANUBE_D),
+             (PALI_H, PALI_KV, PALI_D)]
+AB_TIME_TOL = 0.03        # the served widths keep their times: at most 3 % slower
+
+
+def phase_parent_ab(parent: Path) -> None:
+    """``--parent DIR`` (a checkout of an earlier commit): its attention
+    kernels against this tree's at the served widths, in one process.
+    First both trees' flash_attention.cu and flash_decode.cu are compiled
+    side by side, four nvcc at once, each timed (the build time before and
+    after).  Then, at AB_SHAPES, bf16 prefill (S = 1,024 causal) and
+    decode (600 of 2,048 slots) and the fp32 pair: bf16 outputs must be
+    equal to the bit (fp32 ones, whose kernels now run their width class,
+    within 2e-5), and each bf16 call is timed in turns (parent, tree,
+    tree, parent; device time, ``torch.profiler``) with the tree's mean
+    over the parent's printed and held to AB_TIME_TOL (logged, not
+    failed: a few microseconds' kernels).  The parent's decode is called
+    with this tree's arguments, of which it reads all but the last."""
+    import ctypes
+    import subprocess
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    out = Path(tempfile.mkdtemp(prefix="parent_ab_"))
+    jobs = {}
+    t0 = time.perf_counter()
+    for who, csrc in (("parent", parent / "src/repro_torch/kernels/csrc"),
+                      ("tree", build.CSRC)):
+        for name in ("flash_attention", "flash_decode"):
+            jobs[who, name] = subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                 str(out / f"{who}_{name}.so"), str(csrc / f"{name}.cu")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    seconds = {}
+    pending = dict(jobs)
+    while pending:
+        for key, proc in list(pending.items()):
+            if proc.poll() is not None:
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed for {key}")
+                seconds[key] = time.perf_counter() - t0
+                del pending[key]
+        time.sleep(0.05)
+    log("parent A/B build (four nvcc at once): " + ", ".join(
+        f"{who} {name} {t:.1f} s" for (who, name), t in seconds.items()))
+    tree_fns = {"flash_attention": fa._kernel_fn(), "flash_decode": fd._kernel_fn()}
+    parent_fns = {}
+    for name, fn in tree_fns.items():
+        pf = getattr(ctypes.CDLL(str(out / f"parent_{name}.so")), f"{name}_fwd")
+        pf.argtypes, pf.restype = fn.argtypes, fn.restype
+        parent_fns[name] = pf
+    mods = {"flash_attention": fa, "flash_decode": fd}
+
+    def use(who):
+        for name, mod in mods.items():
+            mod._fn = (parent_fns if who == "parent" else tree_fns)[name]
+
+    rng = np.random.default_rng(29)
+    try:
+        for H, Kv, D in AB_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                q = randn(rng, (1, PREFILL_S, H, D), dtype)
+                k = randn(rng, (1, PREFILL_S, Kv, D), dtype)
+                v = randn(rng, (1, PREFILL_S, Kv, D), dtype)
+                qd = randn(rng, (1, 1, H, D), dtype)
+                kd = randn(rng, (1, DECODE_S, Kv, D), dtype)
+                vd = randn(rng, (1, DECODE_S, Kv, D), dtype)
+                valid = make_valid(1, DECODE_S, "600", rng)
+                calls = {"flash_attention": lambda: fa.launch(q, k, v),
+                         "flash_decode": lambda: fd.launch(qd, kd, vd, valid)}
+                for name, call in calls.items():
+                    outs = {}
+                    for who in ("parent", "tree"):
+                        use(who)
+                        outs[who] = call()
+                    torch.cuda.synchronize()
+                    same = torch.equal(outs["parent"], outs["tree"])
+                    diff = (outs["parent"].float() - outs["tree"].float()).abs().max()
+                    line = (f"parent A/B {name} {str(dtype)[6:]} H={H} Kv={Kv} "
+                            f"D={D}: outputs equal to the bit {same} (max abs "
+                            f"diff {diff.item():.3g})")
+                    if dtype == torch.bfloat16:
+                        ms = {"parent": [], "tree": []}
+                        for who in ("parent", "tree", "tree", "parent"):
+                            use(who)
+                            ms[who].append(device_ms(call, iters=20))
+                        ratio = sum(ms["tree"]) / sum(ms["parent"])
+                        line += (f"; device ms (torch.profiler) parent "
+                                 f"{ms['parent']} tree {ms['tree']} "
+                                 f"[{card_line()}]: tree / parent {ratio:.4f}, "
+                                 f"at most {AB_TIME_TOL:.0%} slower "
+                                 f"{ratio <= 1 + AB_TIME_TOL}")
+                    log(line)
+                    # the served dtype keeps its code; fp32 runs its width
+                    # class, held to the reference's tolerance
+                    if not (same or dtype == torch.float32 and diff <= TOL[dtype]):
+                        raise AssertionError(f"{name} at D={D} differs from "
+                                             "the parent's kernel")
+    finally:
+        use("tree")
 
 
 def time_selective_scan() -> dict:
@@ -4302,7 +4519,18 @@ def stop_worker_servers() -> None:
         server._stop()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = Path(argv[1]).resolve()
+        if not (parent / "src/repro_torch/kernels/csrc").is_dir():
+            print(f"error: --parent {parent}: no src/repro_torch/kernels/csrc "
+                  "there", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4333,6 +4561,8 @@ def main() -> int:
           lambda: (check_flash_decode_lse(), check_slot_split()))
     for name, err in timed("head width 256", check_head_width_256).items():
         errors[name] = max(errors[name], err)
+    for name, err in timed("width sweep", check_width_sweep).items():
+        errors[name] = max(errors[name], err)
     # timed before the fleets: after both models' profiles, one run of this
     # script recorded kernels at 0.6 of their true time; the newest kernel
     # first, while the profiler is fresh
@@ -4340,6 +4570,9 @@ def main() -> int:
     kernels = timed("kernel timing", lambda: [
         time_flash_attention(), time_flash_decode(), time_selective_scan(), gmm])
     timed("slot split timing", time_slot_split)
+    timed("public shapes timing", time_public_shapes)
+    if parent is not None:
+        timed("parent A/B", phase_parent_ab, parent)
     # the scenario engine's own path: checked, counted and timed in its phase
     scenario = timed("scenario", phase_scenario)
     timed("profiles", phase_profiles)

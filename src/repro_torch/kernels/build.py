@@ -21,6 +21,8 @@ import os
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -35,6 +37,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# wall seconds of each kernel's nvcc in this process's last build (its
+# sources compiled beside the others', all at once)
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -83,6 +88,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     if todo:
         nvcc = nvcc_path()
         procs = []
+        t0 = time.perf_counter()
         for n in todo:
             tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
@@ -90,9 +96,16 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
-        failed = []
-        for n, tmp, proc in procs:
+
+        def finish(proc):       # its output, and when it ended
             out, _ = proc.communicate()
+            return out, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, [proc for _, _, proc in procs]))
+        failed = []
+        for (n, tmp, proc), (out, seconds) in zip(procs, done):
+            build_seconds[n] = seconds
             log_path(n).write_text(out)
             if proc.returncode != 0:
                 failed.append(f"{n} (exit {proc.returncode}):\n{out}")

@@ -81,19 +81,28 @@
 // reference's fp32 tolerance of 2e-5; fp32 attention only carries the
 // fp32 logits check, not the served path.
 //
-// Head dims: 64, 112, 120, 128, 256.  At 112 (zamba2-7b) and 120
-// (h2o-danube3-4b) the bf16 kernel runs the tile code of 128: each row's
-// 14 or 15 chunks of 16 bytes are copied from global memory, the chunks
-// past them are zero in shared memory and never read from global memory,
-// Q.K^T takes the k16 steps that hold data (7 at 112; 8 at 120, whose last
-// half reads the zero chunk of Q and K), P.V keeps the m64n128 product (its
-// last columns are zeros times P and are never stored), and the stores stop
-// at the head width.  That keeps the SW128 layout the descriptors name, at
-// 1/7 or 1/15 more tensor-core work in P.V and no more bytes from HBM.
-// The fp32 kernel gives each thread the columns tx + 16 j below the head
-// width (ceil(D / 16) of them).  The bf16 kernels need 16-byte-aligned rows
-// (the wrapper checks the base pointers and strides before the launch);
-// 224- and 240-byte rows are.
+// Head widths: every multiple of 8 from 8 to 256 (a bf16 row is whole
+// 16-byte chunks for cp.async and TMA; past 256 the O accumulator would no
+// longer fit one warpgroup's registers), in width classes: a class is a
+// tile width, and the head width D rides beside it.  bf16 takes the tile
+// widths 64 (D = 8 .. 64) and 128 (72 .. 128) on the one-warpgroup kernel
+// and 192 (136 .. 192) and 256 (200 .. 256) on the warp-specialised one;
+// fp32 the classes 64, 128 and 256, which size each thread's columns.  The
+// served models' widths (64, 112, 120, 128, 256 in bf16) keep their own
+// instantiations, whose template constants fold every run-time bound into
+// the code they had; any other width runs its class's, which reads D at
+// run time.  The rule that keeps a padded tile exact: each row's D / 8
+// chunks of 16 bytes are copied from global memory (TMA: the tensor map's
+// rows are D long, so the copy engine zero-fills the columns past them);
+// the chunks past them are zero in shared memory, zeroed once where
+// cp.async never writes them; Q.K^T takes the k16 steps that hold data
+// (the last one at D = 8 (mod 16) reads one zero chunk of Q and of K, so
+// 0 x 0 and never NaN); P.V keeps the class's product (its columns past D
+// are zeros times P and never stored); the stores stop at D.  At 112 that
+// is 1/7 more tensor-core work in P.V and no more bytes from HBM.  The
+// bf16 kernels need 16-byte-aligned rows (the wrapper checks the base
+// pointers and strides before the launch).  Query groups: any G = H / Kv;
+// query head h reads kv head h / G.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -115,6 +124,7 @@ struct Params {
   const void* v;
   void* o;
   int B, H, Kv, Sq, Skv;
+  int D;                        // the head width (a multiple of 8, <= 256)
   long long q_sb, q_ss, q_sh;   // strides in elements; the D stride is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -263,8 +273,8 @@ __device__ __forceinline__ void softmax_pv(const Params& p, int k_start, int w_q
   }
 
   // O += P V: V an MN-major operand, 16 keys per product; its 64-column
-  // blocks lie BK * 64 elements apart; at D = 256 the second m64n128
-  // product takes columns 128-255 into acc[64..127]
+  // blocks lie BK * 64 elements apart; at D = 192 and 256 a second product
+  // (m64n64, m64n128) takes columns 128 on into acc[64..]
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < NK / 2; ++c) {
@@ -273,10 +283,10 @@ __device__ __forceinline__ void softmax_pv(const Params& p, int k_start, int w_q
       wgmma_m64n64_mnmajor(acc, pf[c], dv, 1);
     } else {
       wgmma_m64n128_mnmajor(acc, pf[c], dv, 1);
-      if constexpr (D == 256)
-        wgmma_m64n128_mnmajor(
-            acc + 64, pf[c],
-            sw128_desc(vt + 2 * BK * 64 + c * 16 * 64, BK * 64 * sizeof(bf16)), 1);
+      const uint64_t dv2 =
+          sw128_desc(vt + 2 * BK * 64 + c * 16 * 64, BK * 64 * sizeof(bf16));
+      if constexpr (D == 192) wgmma_m64n64_mnmajor(acc + 64, pf[c], dv2, 1);
+      if constexpr (D == 256) wgmma_m64n128_mnmajor(acc + 64, pf[c], dv2, 1);
     }
   }
   wgmma_commit();
@@ -285,10 +295,10 @@ __device__ __forceinline__ void softmax_pv(const Params& p, int k_start, int w_q
 }
 
 // The warp's 16 output rows from w_q0, normalised by max(l, 1e-20): the
-// first NT n8 blocks of acc, rows past Sq not written.
+// first nt (<= NT) n8 blocks of acc, rows past Sq not written.
 template <int NT>
 __device__ __forceinline__ void store_rows(const Params& p, bf16* o, int w_q0,
-                                           const float* acc, float l[2]) {
+                                           const float* acc, float l[2], int nt) {
   using namespace mma_sm90;
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
@@ -301,24 +311,32 @@ __device__ __forceinline__ void store_rows(const Params& p, bf16* o, int w_q0,
       bf16* orow = o + qpos * p.o_ss + t4 * 2;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        *reinterpret_cast<uint32_t*>(orow + j * 8) =
-            pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+        if (j < nt)
+          *reinterpret_cast<uint32_t*>(orow + j * 8) =
+              pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
     }
   }
 }
 
-// D: the tile width (64 or 128); DT <= D: the head width, a multiple of 8.
-template <int D, int DT = D>
+// D: the tile width (64 or 128); DT: the head width (a multiple of 8 in
+// (D - 64, D]), or 0 for the width class, whose head width p.D is read at
+// run time and bounds the same loops.
+template <int D, int DT>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const Params p) {
   using namespace mma_sm90;
-  static_assert(D <= 128 && DT % 8 == 0 && DT <= D && D - DT < 64, "head width");
+  static_assert((D == 64 || D == 128) && DT % 8 == 0 && DT <= D &&
+                (DT == 0 || D - DT < 64), "head width");
   constexpr int RC = D / 8;     // 16-byte chunks per tile row
-  constexpr int RT = DT / 8;    // chunks per row that hold data
-  constexpr int KD = (DT + 15) / 16;   // k16 steps of Q.K^T
+  // k16 steps of Q.K^T: a width's own (at 120 the last reads one zero
+  // chunk); a class's all of the tile, the chunks past the row zero-filled
+  // by every copy (no run-time bound around a product: ptxas then
+  // serialises the wgmma)
+  constexpr int KD = DT ? (DT + 15) / 16 : D / 16;
   constexpr int ND = D / 8;     // n8 blocks of the output tile
-  constexpr int NT = DT / 8;    // n8 blocks of the output that are stored
   constexpr int NK = BK / 8;    // n8 blocks of the scores
+  const int rt = (DT ? DT : p.D) / 8;   // chunks per row that hold data
+  const int per_row = DT ? rt : RC;     // the copy loop's chunks a row
   // 64-row tiles in 64-column SW128 blocks (sw128_index), each 1024-byte
   // aligned: the layout the wgmma descriptors name
   extern __shared__ __align__(1024) unsigned char fa_mma_smem[];
@@ -341,13 +359,15 @@ flash_attention_mma(const Params p) {
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   // rows [start, start + 64) of an (S, DT) operand into a tile; rows at or
-  // past `limit` are zero-filled
+  // past `limit` are zero-filled, and in a class every chunk past the head
+  // width (the copy reads nothing there), so the copies are the same
+  // instructions whatever the width
   auto load_rows = [&](bf16* dst, const bf16* src, long long ss, int start,
                        int limit) {
-    for (int i = tid; i < 64 * RT; i += MMA_THREADS) {
-      const int r = i / RT, c = i % RT;
+    for (int i = tid; i < 64 * per_row; i += MMA_THREADS) {
+      const int r = i / per_row, c = i % per_row;
       const int s = start + r;
-      const bool in = s < limit;
+      const bool in = s < limit && (DT != 0 || c < rt);
       cp_async16(dst + sw128_index<64>(r, c), src + (in ? s * ss + c * 8 : 0),
                  in ? 16 : 0);
     }
@@ -372,19 +392,19 @@ flash_attention_mma(const Params p) {
                           kd > 0);
   };
 
-  if constexpr (RT < RC) {
-    // the columns past DT, zero once: load_rows never writes them.  P.V
-    // reads V's in every stage; Q.K^T reads Q's and K's up to 16 KD (at
-    // 120 one chunk; at 112 none)
-    constexpr int ZV = RC - RT, ZQ = 2 * KD - RT;
-    for (int i = tid; i < STAGES * 64 * ZV; i += MMA_THREADS) {
-      const int st = i / (64 * ZV), r = i / ZV % 64, c = RT + i % ZV;
+  if (DT != 0 && rt < RC) {
+    // the columns past the head width, zero once: load_rows never writes
+    // them.  P.V reads V's in every stage; Q.K^T reads Q's and K's up to
+    // 16 KD (at 120 one chunk; at 112 none)
+    const int zv = RC - rt, zq = 2 * KD - rt;
+    for (int i = tid; i < STAGES * 64 * zv; i += MMA_THREADS) {
+      const int st = i / (64 * zv), r = i / zv % 64, c = rt + i % zv;
       *reinterpret_cast<uint4*>(vs + st * BK * D + sw128_index<64>(r, c)) =
           make_uint4(0u, 0u, 0u, 0u);
     }
-    if constexpr (ZQ > 0) {
-      for (int i = tid; i < (STAGES + 1) * 64 * ZQ; i += MMA_THREADS) {
-        const int st = i / (64 * ZQ), r = i / ZQ % 64, c = RT + i % ZQ;
+    if (zq > 0) {
+      for (int i = tid; i < (STAGES + 1) * 64 * zq; i += MMA_THREADS) {
+        const int st = i / (64 * zq), r = i / zq % 64, c = rt + i % zq;
         bf16* tile = st == STAGES ? qs : ks + st * BK * D;
         *reinterpret_cast<uint4*>(tile + sw128_index<64>(r, c)) =
             make_uint4(0u, 0u, 0u, 0u);
@@ -447,16 +467,15 @@ flash_attention_mma(const Params p) {
     if (t + 1 < tiles.n) step(t + 1, s2, s);
   }
   cp_async_wait<0>();
-  store_rows<NT>(p, o, w_q0, acc, l);
+  store_rows<ND>(p, o, w_q0, acc, l, rt);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 256: warp-specialised (two consumer warpgroups, a TMA
+// bf16 past D = 128: warp-specialised (two consumer warpgroups, a TMA
 // producer, an mbarrier ring)
 // ---------------------------------------------------------------------------
 
-constexpr int WS_D = 256;
-constexpr int WS_STAGES = 3;          // K/V ring stages: 64 KiB each
+constexpr int WS_STAGES = 3;          // K/V ring stages: 64 KiB each at 256
 constexpr int WS_CONSUMERS = 2;       // warpgroups on one 64-row query tile
 constexpr int WS_THREADS = 128 * (WS_CONSUMERS + 1);   // and the producer's
 constexpr int WS_PRODUCER_REGS = 40;  // setmaxnreg: 128 x 40 + 256 x 232 <= 64 Ki
@@ -464,22 +483,30 @@ constexpr int WS_CONSUMER_REGS = 232;
 constexpr int WS_MERGE_BAR = 1;       // named barrier of the consumers' merge
 static_assert(BQ == BK, "a Q tile and a K or V tile are one TMA box shape");
 
+template <int D>
 constexpr int ws_smem_bytes() {
   // the Q tile, then the stages' K and V tiles (bf16), then the full and
   // empty barriers and Q's
-  return static_cast<int>(sizeof(bf16)) * WS_D * BK * (1 + 2 * WS_STAGES) +
+  return static_cast<int>(sizeof(bf16)) * D * BK * (1 + 2 * WS_STAGES) +
          8 * (2 * WS_STAGES + 1);
 }
 
+// D: the tile width (192 or 256); DT: the head width, or 0 for the width
+// class, whose head width p.D (in (D - 64, D]) is read at run time.  The
+// tensor maps' rows are the head width, so TMA zero-fills the tile's
+// columns past it: Q.K^T's k16 steps past it add 0 x 0 and P.V's columns
+// past it are zeros, never stored.
+template <int D, int DT>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_attention_ws(const Params p, const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv) {
   using namespace mma_sm90;
-  constexpr int D = WS_D;
+  static_assert((D == 192 || D == 256) && (DT == 0 || DT == D), "head width");
   constexpr int ND = D / 8;     // n8 blocks of the output tile
   constexpr int NK = BK / 8;    // n8 blocks of the scores
   constexpr int CB = D / 64;    // 64-column SW128 blocks of a row: TMA boxes
+  const int nt = (DT ? DT : p.D) / 8;      // n8 blocks of the output stored
   extern __shared__ __align__(1024) unsigned char fa_ws_smem[];
   bf16* qs = reinterpret_cast<bf16*>(fa_ws_smem);   // [BQ x D]
   bf16* ks = qs + BQ * D;                           // [WS_STAGES][BK x D]
@@ -595,7 +622,7 @@ flash_attention_ws(const Params p, const __grid_constant__ CUtensorMap tq,
         acc[j] = acc[j] * c0[r] + xch[j * 128 + tid] * c1[r];
       }
       bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-      store_rows<ND>(p, o, w_q0, acc, l);
+      store_rows<ND>(p, o, w_q0, acc, l, nt);
     }
   }
 }
@@ -626,20 +653,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (B, S, heads, WS_D) bf16 tensor (strides in elements,
+// The tensor map of a (B, S, heads, D) bf16 tensor (strides in elements,
 // D's 1) in 64 x 64 boxes (one row chunk of 128 bytes, 64 rows of one head
-// and batch) under the 128-byte swizzle, rows past S zero-filled; false
-// where libcuda refuses it.  A dimension of extent 1 is never stepped:
-// it gets a stride TMA accepts whatever the tensor's own.
-bool tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+// and batch) under the 128-byte swizzle, rows past S and columns past D
+// zero-filled; false where libcuda refuses it.  A dimension of extent 1 is
+// never stepped: it gets a stride TMA accepts whatever the tensor's own.
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
               long long sb, long long ss, long long sh) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t dims[4] = {WS_D, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3];
-  strides[0] = heads > 1 ? sh * e : WS_D * e;
+  strides[0] = heads > 1 ? sh * e : D * e;
   strides[1] = S > 1 ? ss * e : strides[0] * heads;
   strides[2] = B > 1 ? sb * e : strides[1] * S;
   const cuuint32_t box[4] = {64, 1, BK, 1};
@@ -656,19 +683,21 @@ bool tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 
 constexpr int THREADS = 256;    // 16 x 16 thread grid
 
-template <int D>
-constexpr size_t smem_bytes() {
+inline size_t smem_bytes(int D) {
   // qs [BQ][D+1], ks [BK][D+1], vs [BK][D], ps [BQ][BK+1], all fp32
   return sizeof(float) *
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <int D>
+// DC: the width class (64, 128 or 256) that sizes each thread's output
+// columns; the head width p.D <= DC bounds every loop at run time.
+template <int DC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_f32(const Params p) {
-  constexpr int DP = D + 1;     // padded rows: column reads hit 16 banks
+  const int D = p.D;
+  const int DP = D + 1;         // padded rows: column reads hit 16 banks
   constexpr int PP = BK + 1;
-  constexpr int NJ = (D + 15) / 16;   // output columns per thread (below D)
+  constexpr int NJ = DC / 16;   // output columns per thread (below D)
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + BQ * DP;
@@ -776,7 +805,7 @@ flash_attention_f32(const Params p) {
       for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * PP + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        vv[j] = D % 16 == 0 || tx + 16 * j < D ? vs[c * D + tx + 16 * j] : 0.f;
+        vv[j] = tx + 16 * j < D ? vs[c * D + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -792,8 +821,7 @@ flash_attention_f32(const Params p) {
       const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        if (D % 16 == 0 || tx + 16 * j < D)
-          o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
+        if (tx + 16 * j < D) o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
     }
   }
 }
@@ -811,41 +839,42 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, int asked,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DC>
 cudaError_t launch_f32(const Params& p, int asked, cudaStream_t s) {
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  return launch(flash_attention_f32<D>, grid, THREADS,
-                static_cast<int>(smem_bytes<D>()), asked, p, s);
+  return launch(flash_attention_f32<DC>, grid, THREADS,
+                static_cast<int>(smem_bytes(p.D)), asked, p, s);
 }
 
-template <int D, int DT = D>
+template <int D, int DT>
 cudaError_t launch_mma(const Params& p, int asked, cudaStream_t s) {
   const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
   return launch(flash_attention_mma<D, DT>, grid, MMA_THREADS,
                 mma_smem_bytes<D>(), asked, p, s);
 }
 
+template <int D, int DT>
 cudaError_t launch_ws(const Params& p, int asked, cudaStream_t s) {
-  if (asked != ws_smem_bytes()) return cudaErrorInvalidValue;
+  constexpr int smem = ws_smem_bytes<D>();
+  if (asked != smem) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(&tq, p.q, p.B, p.Sq, p.H, p.q_sb, p.q_ss, p.q_sh) ||
-      !tile_map(&tk, p.k, p.B, p.Skv, p.Kv, p.k_sb, p.k_ss, p.k_sh) ||
-      !tile_map(&tv, p.v, p.B, p.Skv, p.Kv, p.v_sb, p.v_ss, p.v_sh))
+  if (!tile_map(&tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh) ||
+      !tile_map(&tk, p.k, p.B, p.Skv, p.Kv, p.D, p.k_sb, p.k_ss, p.k_sh) ||
+      !tile_map(&tv, p.v, p.B, p.Skv, p.Kv, p.D, p.v_sb, p.v_ss, p.v_sh))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_ws, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      ws_smem_bytes());
+      flash_attention_ws<D, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
-  flash_attention_ws<<<grid, WS_THREADS, ws_smem_bytes(), s>>>(p, tq, tk, tv);
+  flash_attention_ws<D, DT><<<grid, WS_THREADS, smem, s>>>(p, tq, tk, tv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).  smem:
-// the dynamic shared memory the wrapper computed.  Returns a cudaError_t
-// (0 = launched).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).
+// head_dim: a multiple of 8 from 8 to 256.  smem: the dynamic shared memory
+// the wrapper computed.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, void* o,
@@ -859,6 +888,7 @@ extern "C" int flash_attention_fwd(
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.H = H; p.Kv = Kv; p.Sq = Sq; p.Skv = Skv;
+  p.D = head_dim;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -866,15 +896,24 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.window = window; p.prefix_len = prefix_len;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_f32<64>(p, smem, s);
-  if (dtype == 0 && head_dim == 112) return launch_f32<112>(p, smem, s);
-  if (dtype == 0 && head_dim == 120) return launch_f32<120>(p, smem, s);
-  if (dtype == 0 && head_dim == 128) return launch_f32<128>(p, smem, s);
-  if (dtype == 0 && head_dim == 256) return launch_f32<256>(p, smem, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, smem, s);
-  if (dtype == 1 && head_dim == 112) return launch_mma<128, 112>(p, smem, s);
-  if (dtype == 1 && head_dim == 120) return launch_mma<128, 120>(p, smem, s);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, smem, s);
-  if (dtype == 1 && head_dim == 256) return launch_ws(p, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim < 8 || head_dim > 256 || head_dim % 8 != 0 || Kv <= 0 || H % Kv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (head_dim <= 64) return launch_f32<64>(p, smem, s);
+    if (head_dim <= 128) return launch_f32<128>(p, smem, s);
+    return launch_f32<256>(p, smem, s);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {   // the served models' widths keep their own code
+    case 64: return launch_mma<64, 64>(p, smem, s);
+    case 112: return launch_mma<128, 112>(p, smem, s);
+    case 120: return launch_mma<128, 120>(p, smem, s);
+    case 128: return launch_mma<128, 128>(p, smem, s);
+    case 256: return launch_ws<256, 256>(p, smem, s);
+    default: break;
+  }
+  if (head_dim <= 64) return launch_mma<64, 0>(p, smem, s);
+  if (head_dim <= 128) return launch_mma<128, 0>(p, smem, s);
+  if (head_dim <= 192) return launch_ws<192, 0>(p, smem, s);
+  return launch_ws<256, 0>(p, smem, s);
 }

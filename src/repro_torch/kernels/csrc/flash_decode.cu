@@ -9,10 +9,11 @@
 //
 // Translation.  The Pallas grid (B, H, nKV) reduced the KV axis in order on
 // one core, one query head per program, so each K/V block was read G = H/Kv
-// times.  Here one block owns (batch, kv head, split) and holds the G query
-// heads that share that kv head, so each K/V row is read once.  At batch 1
-// with 8 kv heads there would be only 8 blocks for 132 SMs, so the work is
-// split; the splits are merged by log-sum-exp in the same launch.  The cache
+// times.  Here one block owns (batch, kv head, split) and holds the query
+// heads that share that kv head (up to a group tile of them), so each K/V
+// row is read once a tile.  At batch 1 with 8 kv heads there would be only
+// 8 blocks for 132 SMs, so the work is split; the splits are merged by
+// log-sum-exp in the same launch.  The cache
 // is read in the model layout (B, S, Kv, D) through strides, so there is no
 // per-step transposed copy of the cache.
 //
@@ -39,10 +40,11 @@
 //   16-byte cp.async, double-buffered, so tile t + 1 is in flight while tile
 //   t is computed.  Each warp takes 16 slots of a tile and keeps its own
 //   online softmax (one max and one rescale per 16 slots, not per key).  In
-//   bf16 the G <= 8 query heads are the rows of mma.sync.m16n8k16, padded to
-//   16, for both Q.K^T (K through ldmatrix) and P.V (V through
-//   ldmatrix.trans; P rounded to bf16, l summed from the unrounded P, as the
-//   prefill kernel does).  fp32 stays on scalar FMAs from shared memory.
+//   bf16 a block's query heads (a group tile, below) are the rows of
+//   mma.sync.m16n8k16, padded to 16, for both Q.K^T (K through ldmatrix) and
+//   P.V (V through ldmatrix.trans; P rounded to bf16, l summed from the
+//   unrounded P, as the prefill kernel does).  fp32 stays on scalar FMAs
+//   from shared memory.
 // * One launch.  Each block writes its split's (m, l, acc) to fp32 scratch
 //   and takes a ticket from a per-(batch, kv head) counter; the last block
 //   to arrive merges the splits in split order, so the result is the same
@@ -55,33 +57,46 @@
 //   once after the cross-shard merge.  Both are written only by the merge:
 //   the tile loop is the same with or without them.
 //
-// Element types: float and bfloat16 (math in fp32).  Head dims: 64, 112,
-// 120, 128, 256.  At 112 (zamba2-7b) and 120 (h2o-danube3-4b) a bf16 row of
-// 14 or 15 chunks lies in a shared-memory row of 16 (the swizzle permutes
-// chunks within groups of 8).  The chunks past the row are never loaded;
-// at 120 the k16 steps of Q.K^T and P.V take 8 chunks of 16 columns, the
-// last half past the row: Q's fragment is zero there and K's chunk is set
-// to zero once, so the scores stay exact, and P.V's last 8 columns land in
-// an accumulator block that is never written out.  At 256 (paligemma-3b)
-// the fp32 ring takes one stage (two would pass the 200 KiB this kernel
-// allows itself), so the next tile is loaded after this one is done.  The
-// bf16 kernel at 256 turns both products around so that no accumulator row
-// is padding: S^T = K Q^T puts a warp's 16 slots on the m16 rows and the
-// G <= 8 heads on the n8 columns (Q^T's B fragments, 32 registers for all
-// of D), and O^T = V^T P^T puts the head width on the rows (V^T through
-// ldmatrix.trans), P^T's B fragments coming from the score fragments by one
-// movmatrix transpose per 8 slots.  The padded form's accumulator took 128
-// registers, half of them padding, and the thread 255 with a 16-byte spill;
-// the transposed one takes 64 (a warp's 16 slots into all 256 columns).
-// Its query rows reach shared memory by 16-byte asynchronous copies that
-// the mask scan does not wait for (so they must be 16-byte aligned), where
-// 64 scalar loads a thread had held the scan up.  Tiles stay 64 slots: 32-slot tiles (two warps' column halves per group
-// of 16 slots) give 19 blocks instead of 10 at 600 valid slots of 2048, but
-// measured slower on the H100, the last block merging twice the partials.
-// The fp32 path gives each lane the columns lane + 32 j below D, so D need not
-// be a multiple of 32.  Query heads per kv head: at most MAX_G.  K and V
-// rows must be 16-byte aligned (the wrapper checks; 224- and 240-byte rows
-// are).
+// Element types: float and bfloat16 (math in fp32).  Head widths: every
+// multiple of 8 from 8 to 256, in width classes (a class is the shared
+// row pitch and the most k16 steps; the head width D rides beside it):
+// bf16 rows in 64, 128, 192 or 256 elements (whole 8-chunk swizzle
+// groups), fp32 the classes 64, 128 and 256 of each lane's columns lane +
+// 32 j below D.  The served models' bf16 widths (64, 112, 120, 128, 256)
+// at G <= 8 keep their own instantiations, whose constants fold the
+// run-time bounds into the code they had; any other shape runs its
+// class's, which reads D at run time.  The chunks past a row are never
+// loaded; where D / 8 is odd, the last k16 step of Q.K^T takes one chunk
+// past the row: Q's fragment is zero there and K's chunk is set to zero
+// once, so the scores stay exact, and P.V's last 8 columns land in an
+// accumulator block that is never written out.  fp32 rows wider than 128
+// take one ring stage (two would pass the 200 KiB this kernel allows
+// itself at 256), so the next tile is loaded after this one is done.  The
+// bf16 kernels past 192 (the class of 256) turn both products around so
+// that no accumulator row is padding: S^T = K Q^T puts a warp's 16 slots
+// on the m16 rows and 8 heads on the n8 columns (Q^T's B fragments, 32
+// registers for all of D), and O^T = V^T P^T puts the head width on the
+// rows (V^T through ldmatrix.trans), P^T's B fragments coming from the
+// score fragments by one movmatrix transpose per 8 slots.  The padded
+// form's accumulator took 128 registers at 256, half of them padding, and
+// the thread 255 with a 16-byte spill; the transposed one takes 64 (a
+// warp's 16 slots into all 256 columns).  Its query rows reach shared
+// memory by 16-byte asynchronous copies that the mask scan does not wait
+// for (so they must be 16-byte aligned), where 64 scalar loads a thread had
+// held the scan up.  Tiles stay 64 slots: 32-slot tiles (two warps'
+// column halves per group of 16 slots) give 19 blocks instead of 10 at 600
+// valid slots of 2048, but measured slower on the H100, the last block
+// merging twice the partials.
+//
+// Query groups: any G = H / Kv.  A block holds a group tile of one kv
+// head's query heads, and a kv head's G heads take ceil(G / tile) blocks
+// (the grid's second coordinate is kv head x group tile), each with its
+// own splits, partials and arrival counter; every tile re-reads the head's
+// K/V tiles, from L2 after the first.  The tile is 16 heads on the bf16
+// classes up to 192 (the 16 rows of mma.sync.m16n8k16), and 8 elsewhere:
+// the served widths' own kernels, the class of 256 (8 n8 columns) and fp32
+// (two 16-lane halves of 4 heads).  K and V rows must be 16-byte aligned
+// (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,7 +116,6 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 64;                  // cache slots per tile
 constexpr int WARP_KEYS = TILE / WARPS;   // slots of a tile per warp
 constexpr int STAGES = 2;
-constexpr int MAX_G = 8;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -121,8 +135,8 @@ struct Params {
   const uint8_t* valid;         // (B, S), nonzero = valid
   void* o;                      // (B, 1, H, D)
   float* part;                  // (B * H, splits, D) acc, then (B * H, splits) m, then l
-  int* tickets;                 // (B * Kv), zero between launches
-  int B, H, Kv, S, splits, n_tiles, vec_mask;
+  int* tickets;                 // (B * Kv * group tiles), zero between launches
+  int B, H, Kv, S, D, splits, n_tiles, vec_mask;
   long long q_sb, q_sh;         // strides in elements; the D stride is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -133,93 +147,142 @@ struct Params {
   int o_f32;                    // the output in fp32 (else T)
 };
 
-// Elements per K/V row in shared memory: D, or for bf16 D rounded up to
-// whole 8-chunk swizzle groups.
-template <typename T, int D>
-__host__ __device__ constexpr int row_pitch() {
-  return std::is_same<T, bf16>::value ? (D + 63) / 64 * 64 : D;
+// The kernel of element type T, width class DC and head width DT (0: the
+// class's, read from p.D at run time).  bf16 at DC = 256 is the wide form.
+template <typename T, int DC>
+__host__ __device__ constexpr bool wide() {
+  return std::is_same<T, bf16>::value && DC == 256;
 }
 
-// Stages of the K/V ring: two, or one where two tiles of K and V would
-// pass 160 KiB (fp32 at D = 256).
-template <typename T, int D>
+// Query heads of one kv head a block holds: the served widths' kernels 8,
+// the narrow bf16 classes 16 (the m16 rows of the products), the wide form
+// 8 (its n8 columns), fp32 8 (two halves of a warp, 4 each).
+template <typename T, int DC, int DT>
+__host__ __device__ constexpr int group_tile() {
+  return std::is_same<T, bf16>::value && !wide<T, DC>() && DT == 0 ? 16 : 8;
+}
+
+// Stages of the K/V ring: two, or one for fp32 rows past 128 (two tiles of
+// K and V would pass 160 KiB at 256).
+template <typename T, int DC>
 __host__ __device__ constexpr int ring_stages() {
-  return STAGES * 2 * TILE * row_pitch<T, D>() * static_cast<int>(sizeof(T)) >
-                 160 * 1024
-             ? 1
-             : STAGES;
+  return std::is_same<T, float>::value && DC > 128 ? 1 : STAGES;
 }
 
-// Dynamic shared memory: the K/V ring, then the tile bitmap and the list.
-template <typename T, int D>
-__host__ __device__ constexpr int ring_bytes() {
-  return ring_stages<T, D>() * 2 * TILE * row_pitch<T, D>() *
-         static_cast<int>(sizeof(T));
+// The K/V ring's bytes at head width D: bf16 rows take the class width (whole
+// 8-chunk swizzle groups), fp32 rows D.
+template <typename T, int DC>
+__host__ __device__ int ring_bytes(int D) {
+  const int pitch = std::is_same<T, bf16>::value ? DC : D;
+  return ring_stages<T, DC>() * 2 * TILE * pitch * static_cast<int>(sizeof(T));
 }
 
-inline size_t smem_bytes(int ring, int n_tiles) {
+// Dynamic shared memory: the K/V ring, then the tile bitmap and the list,
+// and at least the last block's per-split weights and sums ([group tile]
+// [splits] each), which reuse the ring and the list once the tiles are done.
+template <typename T, int DC, int DT>
+size_t smem_bytes(int D, int splits, int n_tiles) {
+  const int merge = 8 * group_tile<T, DC, DT>() * splits;
+  const int ring = ring_bytes<T, DC>(D);
   const int n_words = (n_tiles + 31) / 32;
-  return static_cast<size_t>(ring) + 4 * static_cast<size_t>(n_words + n_tiles);
+  return static_cast<size_t>(ring > merge ? ring : merge) +
+         4 * static_cast<size_t>(n_words + n_tiles);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
+// Blocks an SM must hold: three for the narrow bf16 kernels up to 128 (at
+// most 168 registers a thread), so a grid of up to 396 blocks (zamba2-7b's
+// 32 kv heads x 9 splits) runs in one wave.
+template <typename T, int DC, int DT>
+__host__ __device__ constexpr int min_blocks() {
+  return std::is_same<T, bf16>::value && !wide<T, DC>() && DC <= 128 ? 3 : 1;
+}
+
+// The last block's merge: N4 float4 of the output a thread, MERGE splits'
+// accumulators in flight at once, at most 32 float4 (the served widths'
+// kernels), at most 16 in a class (registers for its three blocks an SM).
+template <int N4, int DT>
+__host__ __device__ constexpr int merge_depth() {
+  return DT ? (N4 <= 4 ? 8 : 32 / N4) : (N4 >= 16 ? 1 : 16 / N4 > 8 ? 8 : 16 / N4);
+}
+
+template <typename T, int DC, int DT>
+__global__ void __launch_bounds__(THREADS, (min_blocks<T, DC, DT>()))
+flash_decode_kernel(const Params p) {
   using namespace mma_sm90;
-  constexpr int CH = D * static_cast<int>(sizeof(T)) / 16;   // chunks per row
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));      // elements per chunk
   constexpr bool BF16 = std::is_same<T, bf16>::value;
-  constexpr int DP = row_pitch<T, D>();                      // shared row pitch
-  constexpr int SW = BF16 ? DP / EPC : 8;                    // swizzled row chunks
-  constexpr int NJ = (D + 31) / 32;                          // fp32: columns per lane
-  constexpr int KQ = (D + 15) / 16;                          // bf16: k16 steps
-  constexpr int ST = ring_stages<T, D>();                    // K/V ring stages
-  // bf16 at D = 256: the transposed products (no padding rows)
-  constexpr bool WIDE = BF16 && D == 256;
-  constexpr int WIDE_MT = D / 16;                            // m16 tiles of P.V
+  constexpr bool WIDE = wide<T, DC>();                       // the transposed products
+  // a class's narrow bf16 kernel: Q by cp.async and ldmatrix (16 rows of
+  // scalar loads a thread would hold the mask scan up)
+  constexpr bool QN = BF16 && !WIDE && DT == 0;
+  constexpr int GT = group_tile<T, DC, DT>();                // heads a block holds
+  constexpr int RH = BF16 && !WIDE ? GT / 8 : 1;             // narrow: row halves held
+  constexpr int SW = DC / 8;                                 // bf16: swizzled row chunks
+  constexpr int NJ = DC / 32;                                // fp32: columns per lane, at most
+  // bf16 k16 steps: a width's own (at 120 the last reads one zero chunk);
+  // a class's all of the row, its chunks past the head width zero
+  constexpr int KQ = DT ? (DT + 15) / 16 : DC / 16;
+  constexpr int ST = ring_stages<T, DC>();                   // K/V ring stages
+  constexpr int WIDE_MT = DC / 16;                           // wide: m16 tiles of P.V
+  const int D = DT ? DT : p.D;                               // the head width
+  const int CH = D * static_cast<int>(sizeof(T)) / 16;       // chunks per row
+  const int DP = BF16 ? DC : D;                              // shared row pitch
+  // the loops over a row's chunks and a block's columns step by the class
+  // (constant divisors), the rest masked
+  const int row_chunks = DT ? CH : DC * static_cast<int>(sizeof(T)) / 16;
+  const int row_cols = DT ? D : DC;
   extern __shared__ __align__(128) unsigned char fd_smem[];
   T* ring = reinterpret_cast<T*>(fd_smem);
-  uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, D>());
+  uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, DC>(D));
   const int n_words = (p.n_tiles + 31) / 32;
   int* list = reinterpret_cast<int*>(words + n_words);
   // the merge of the warps reuses the ring once the tiles are done
-  float* wacc = reinterpret_cast<float*>(fd_smem);          // [WARPS][MAX_G][D]
-  __shared__ float wm[WARPS][MAX_G], wl[WARPS][MAX_G];
-  __shared__ float qs[BF16 ? 1 : MAX_G][D];                 // fp32: the query rows
-  __shared__ float ps[BF16 ? 1 : WARPS][MAX_G][WARP_KEYS];  // fp32: a warp's P
-  __shared__ float rowc[BF16 ? 1 : WARPS][3][MAX_G];        // fp32: m, corr, sum
-  // bf16 at D = 256: the G <= 8 query rows, each padded by 16 bytes so the
-  // eight rows one ldmatrix matrix reads lie in distinct bank groups
-  __shared__ __align__(16) bf16 qw[WIDE ? MAX_G : 1][WIDE ? D + 8 : 8];
+  float* wacc = reinterpret_cast<float*>(fd_smem);          // [WARPS][GT][D]
+  __shared__ float wm[WARPS][GT], wl[WARPS][GT];
+  __shared__ float qs[BF16 ? 1 : GT][BF16 ? 1 : DC];        // fp32: the query rows
+  __shared__ float ps[BF16 ? 1 : WARPS][GT][WARP_KEYS];     // fp32: a warp's P
+  __shared__ float rowc[BF16 ? 1 : WARPS][3][GT];           // fp32: m, corr, sum
+  // wide: the GT query rows, each padded by 16 bytes so the eight rows one
+  // ldmatrix matrix reads lie in distinct bank groups; a class's narrow
+  // kernel the same for its A fragments
+  __shared__ __align__(16) bf16 qw[WIDE || QN ? GT : 1][WIDE || QN ? DC + 8 : 8];
   __shared__ int s_n, s_last;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: a kv head's group tiles, GT of its G query heads each (the
+  // served widths' kernels run at G <= GT: one tile)
+  const int split = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = p.H / p.Kv;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (kvh * G) * p.q_sh;
+  const int n_gt = DT ? 1 : (G + GT - 1) / GT;
+  const int kvh = blockIdx.y / n_gt, g0 = (blockIdx.y % n_gt) * GT;
+  const int Gt = min(GT, G - g0);             // query heads of this block
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (kvh * G + g0) * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const uint8_t* valid = p.valid + b * p.valid_sb;
 
-  // The query rows: bf16 as mma A fragments (rows g < G, the rest zero), fp32
-  // into shared memory; issued first, so they arrive during the scan.  Wide,
-  // into shared memory by 16-byte asynchronous copies (rows g >= G zero),
-  // which the scan does not wait for; the B fragments of Q^T are read from
-  // there once the first tile has landed.
+  // The query rows: bf16 as mma A fragments (rows g < Gt, the rest zero), fp32
+  // into shared memory; issued first, so they arrive during the scan.  Wide
+  // and a class's narrow kernel, into shared memory by 16-byte asynchronous
+  // copies (rows g >= Gt and the chunks past the row zero), which the scan
+  // does not wait for; the B fragments of Q^T (wide) or the A fragments are
+  // read from there once the first tile has landed.
   uint32_t qa[BF16 && !WIDE ? KQ : 1][4];
   uint32_t qb[WIDE ? KQ : 1][2];
-  if constexpr (WIDE) {
-    for (int i = tid; i < MAX_G * CH; i += THREADS) {
-      const int g = i / CH, c = i % CH;
-      cp_async16(&qw[g][c * EPC], g < G ? q + g * p.q_sh + c * EPC : q,
-                 g < G ? 16 : 0);
+  if constexpr (WIDE || QN) {
+    constexpr int QCH = 2 * KQ;
+    for (int i = tid; i < GT * QCH; i += THREADS) {
+      const int g = i / QCH, c = i % QCH;
+      const bool in = g < Gt && c < CH;
+      cp_async16(&qw[g][c * EPC], in ? q + g * p.q_sh + c * EPC : q, in ? 16 : 0);
     }
     cp_async_commit();
-  } else if constexpr (BF16) {
+  } else if constexpr (BF16) {     // the served widths: rows g < 8
     const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
     for (int kk = 0; kk < KQ; ++kk) {
       float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (g < G) {
+      if (g < Gt) {
         const T* qr = q + g * p.q_sh + kk * 16 + c;
         f[0] = to_float(qr[0]);
         f[1] = to_float(qr[1]);
@@ -234,9 +297,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
       qa[kk][3] = 0u;
     }
   } else {
-    for (int i = tid; i < MAX_G * D; i += THREADS) {
-      const int g = i / D, d = i % D;
-      qs[g][d] = g < G ? to_float(q[g * p.q_sh + d]) : 0.f;
+    for (int i = tid; i < GT * DC; i += THREADS) {
+      const int g = i / DC, d = i % DC;
+      if (d < D) qs[g][d] = g < Gt ? to_float(q[g * p.q_sh + d]) : 0.f;
     }
   }
 
@@ -285,25 +348,31 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   const int per = (n + p.splits - 1) / p.splits;
   const int active = (n + per - 1) / per;     // splits that hold a tile
   const int r0 = split * per, r1 = min(n, r0 + per);
-  const int row0 = b * p.H + kvh * G;         // first (b, h) row of this kv head
+  const int row0 = b * p.H + kvh * G + g0;    // first (b, h) row of this block
 
   if (r0 < r1) {
     auto load_tile = [&](int st, int tile) {
       T* ks = ring + st * 2 * TILE * DP;
       T* vs = ks + TILE * DP;
-      for (int i = tid; i < TILE * CH; i += THREADS) {
-        const int r = i / CH, c = i % CH;
+      // bf16 classes copy every chunk of the shared row, zero-filling
+      // those past the head width (so K's add 0 x 0 against Q's zero
+      // columns and V's land in columns never stored); fp32 rows are D long
+      for (int i = tid; i < TILE * row_chunks; i += THREADS) {
+        const int r = i / row_chunks, c = i % row_chunks;
         const int s = tile * TILE + r;
-        const bool in = s < p.S;
+        const bool in = s < p.S && (DT != 0 || c < CH);
         const int dst = BF16 ? swizzle<SW>(r, c) : r * DP + c * EPC;
-        cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
-        cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
+        if (BF16 || c < CH) {
+          cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
+          cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
+        }
       }
     };
 
-    // per-warp online softmax state: bf16 in mma C layout (row lane / 4),
-    // fp32 warp-uniform per row with the columns split over the lanes
-    float m_b = NEG_INF, l_b = 0.f;
+    // per-warp online softmax state: narrow bf16 in mma C layout (rows
+    // lane / 4 and + 8), fp32 warp-uniform per row with the columns split
+    // over the lanes
+    float m_b[2] = {NEG_INF, NEG_INF}, l_b[2] = {0.f, 0.f};
     float acc_b[BF16 && !WIDE ? 2 * KQ : 1][4];
     // wide: per warp the heads 2 (lane % 4) and + 1 over its 16 slots, and
     // the P.V accumulator of its WIDE_MT x 16 columns (C layout: column
@@ -314,28 +383,39 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     for (int i = 0; i < (WIDE ? WIDE_MT : 1); ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc_w[i][j] = 0.f;
-    float m_f[MAX_G], l_f[MAX_G], acc_f[BF16 ? 1 : MAX_G][BF16 ? 1 : NJ];
+    float m_f[GT], l_f[GT], acc_f[BF16 ? 1 : GT][BF16 ? 1 : NJ];
 #pragma unroll
     for (int i = 0; i < (BF16 && !WIDE ? 2 * KQ : 1); ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc_b[i][j] = 0.f;
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       m_f[g] = NEG_INF;
       l_f[g] = 0.f;
 #pragma unroll
       for (int j = 0; j < (BF16 ? 1 : NJ); ++j) acc_f[BF16 ? 0 : g][j] = 0.f;
     }
 
-    if constexpr (BF16 && CH < 2 * KQ) {
-      // K's chunk past a 15-chunk row, read by the last k16 step against
-      // Q's zero columns: zero in every stage, so 0 x 0 and never NaN
-      for (int i = tid; i < ST * TILE; i += THREADS)
-        *reinterpret_cast<uint4*>(ring + (i / TILE) * 2 * TILE * DP +
-                                  swizzle<SW>(i % TILE, CH)) = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (BF16 && DT != 0) {      // a class's copies zero-fill instead
+      if (CH < 2 * KQ) {
+        // K's chunk past an odd row of chunks, read by the last k16 step
+        // against Q's zero columns: zero in every stage, so 0 x 0 and never NaN
+        for (int i = tid; i < ST * TILE; i += THREADS)
+          *reinterpret_cast<uint4*>(ring + (i / TILE) * 2 * TILE * DP +
+                                    swizzle<SW>(i % TILE, CH)) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
     load_tile(0, list[r0]);
     cp_async_commit();
+
+    if constexpr (QN) {
+      cp_async_wait<1>();                     // Q landed (tile 0 may not have)
+      __syncthreads();
+      // ldmatrix.x4 of rows 0-15 at chunks 2 kk, 2 kk + 1: A's a0..a3
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+        ldmatrix_x4(qa[kk], &qw[lane & 15][(kk * 2 + (lane >> 4)) * EPC]);
+    }
     if constexpr (WIDE) {
       cp_async_wait<1>();                     // Q landed (tile 0 may not have)
       __syncthreads();
@@ -362,7 +442,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 
       if constexpr (WIDE) {
         // S^T = K Q^T: this warp's 16 slots (its key group) are the rows,
-        // the G <= 8 heads the n8 columns, over all of D
+        // the GT heads the n8 columns, over all of D
         float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) {
@@ -414,7 +494,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
           mma_bf16(acc_w[mt], a, b0, b1);
         }
       } else if constexpr (BF16) {
-        // scores of this warp's 16 slots, rows = query heads
+        // scores of this warp's 16 slots, rows = query heads (c[j][0..1]
+        // row lane / 4, c[j][2..3] row lane / 4 + 8)
         float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) {
@@ -426,7 +507,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
           mma_bf16(c[1], qa[kk], r[2], r[3]);
         }
         const int key0 = tile * TILE + warp * WARP_KEYS + 2 * (lane % 4);
-        float s[2][2], mt = -CUDART_INF_F;
+        float s[2][2][2], mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -434,27 +515,41 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
             const int key = key0 + j * 8 + e;
             // slots past S do not exist: weight exactly 0, even in a row
             // with no valid slot
-            s[j][e] = key >= p.S ? -CUDART_INF_F
-                      : __ldg(valid + key) ? c[j][e] * p.scale : NEG_INF;
-            mt = fmaxf(mt, s[j][e]);
+            const bool in = key < p.S, ok = in && __ldg(valid + key);
+#pragma unroll
+            for (int h = 0; h < RH; ++h) {
+              s[h][j][e] = !in ? -CUDART_INF_F : ok ? c[j][2 * h + e] * p.scale : NEG_INF;
+              mt[h] = fmaxf(mt[h], s[h][j][e]);
+            }
           }
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float m_new = fmaxf(m_b, mt);
-        const float corr = expf(m_b - m_new);
-        float pr[2][2];
+        float corr[2], pr[2][2][2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int h = 0; h < RH; ++h) {
+          mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+          mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+          const float m_new = fmaxf(m_b[h], mt[h]);
+          corr[h] = expf(m_b[h] - m_new);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) pr[j][e] = expf(s[j][e] - m_new);
-        l_b = l_b * corr + pr[0][0] + pr[0][1] + pr[1][0] + pr[1][1];
-        m_b = m_new;
-        const uint32_t a[4] = {pack_bf16x2(pr[0][0], pr[0][1]), 0u,
-                               pack_bf16x2(pr[1][0], pr[1][1]), 0u};
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) pr[h][j][e] = expf(s[h][j][e] - m_new);
+          l_b[h] = l_b[h] * corr[h] + pr[h][0][0] + pr[h][0][1] + pr[h][1][0] +
+                   pr[h][1][1];
+          m_b[h] = m_new;
+        }
+        const uint32_t a[4] = {
+            pack_bf16x2(pr[0][0][0], pr[0][0][1]),
+            RH > 1 ? pack_bf16x2(pr[1][0][0], pr[1][0][1]) : 0u,
+            pack_bf16x2(pr[0][1][0], pr[0][1][1]),
+            RH > 1 ? pack_bf16x2(pr[1][1][0], pr[1][1][1]) : 0u};
 #pragma unroll
         for (int nb = 0; nb < 2 * KQ; ++nb) {
-          acc_b[nb][0] *= corr;
-          acc_b[nb][1] *= corr;
+          acc_b[nb][0] *= corr[0];
+          acc_b[nb][1] *= corr[0];
+          if (RH > 1) {
+            acc_b[nb][2] *= corr[1];
+            acc_b[nb][3] *= corr[1];
+          }
         }
 #pragma unroll
         for (int db = 0; db < KQ; ++db) {
@@ -474,8 +569,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int i2 = 0; i2 < 4; ++i2) s[i2] = 0.f;
         for (int dd = 0; dd < D; ++dd) {
-          // rotated by the slot: no bank conflict on K (kk < 16 <= D)
-          const int d = dd + kk < D ? dd + kk : dd + kk - D;
+          // rotated by the slot: no bank conflict on K (kk < 16 < 3 D)
+          int d = dd + kk;
+          d -= d >= D ? D : 0;
+          d -= d >= D ? D : 0;
           const float kv = kr[d];
 #pragma unroll
           for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
@@ -485,7 +582,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int i2 = 0; i2 < 4; ++i2) {
           const int g = half * 4 + i2;
-          float x = !in || g >= G ? -CUDART_INF_F : ok ? s[i2] * p.scale : NEG_INF;
+          float x = !in || g >= Gt ? -CUDART_INF_F : ok ? s[i2] * p.scale : NEG_INF;
           float mt = x;
 #pragma unroll
           for (int off = 8; off > 0; off >>= 1)
@@ -507,15 +604,15 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         __syncwarp();
         const float* vr = reinterpret_cast<const float*>(vs) + warp * WARP_KEYS * DP;
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {                        // uniform across the warp
+        for (int g = 0; g < GT; ++g) {
+          if (g < Gt) {                       // uniform across the warp
             const float corr = rowc[warp][1][g];
             m_f[g] = rowc[warp][0][g];
             l_f[g] = l_f[g] * corr + rowc[warp][2][g];
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
               const int col = lane + 32 * j;
-              if (D % 32 != 0 && col >= D) break;
+              if (col >= D) break;
               float a = acc_f[BF16 ? 0 : g][j] * corr;
 #pragma unroll
               for (int kk2 = 0; kk2 < WARP_KEYS; ++kk2)
@@ -542,7 +639,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int g = 2 * (lane % 4) + hh;
-        if (g < G && lane < 4) {
+        if (g < Gt && lane < 4) {
           wm[warp][g] = m_w[hh];
           wl[warp][g] = l_w[hh];
         }
@@ -553,62 +650,92 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         for (int e = 0; e < 4; ++e) {
           const int g = 2 * (lane % 4) + (e & 1);
           const int d = mt * 16 + lane / 4 + (e >> 1) * 8;
-          if (g < G) wacc[(warp * MAX_G + g) * D + d] = acc_w[mt][e];
+          if (g < Gt && (DT != 0 || d < D)) wacc[(warp * GT + g) * D + d] = acc_w[mt][e];
         }
     } else if constexpr (BF16) {
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-      const int g = lane / 4;
-      if (g < G) {
-        if (lane % 4 == 0) {
-          wm[warp][g] = m_b;
-          wl[warp][g] = l_b;
-        }
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
-          float* dst = wacc + (warp * MAX_G + g) * D + nb * 8 + 2 * (lane % 4);
-          dst[0] = acc_b[nb][0];
-          dst[1] = acc_b[nb][1];
+      for (int h = 0; h < RH; ++h) {
+        l_b[h] += __shfl_xor_sync(0xffffffffu, l_b[h], 1);
+        l_b[h] += __shfl_xor_sync(0xffffffffu, l_b[h], 2);
+        const int g = lane / 4 + 8 * h;
+        if (g < Gt) {
+          if (lane % 4 == 0) {
+            wm[warp][g] = m_b[h];
+            wl[warp][g] = l_b[h];
+          }
+#pragma unroll
+          for (int nb = 0; nb < 2 * KQ; ++nb) {
+            if (nb < D / 8) {
+              float* dst = wacc + (warp * GT + g) * D + nb * 8 + 2 * (lane % 4);
+              dst[0] = acc_b[nb][2 * h];
+              dst[1] = acc_b[nb][2 * h + 1];
+            }
+          }
         }
       }
     } else {
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
+      for (int g = 0; g < GT; ++g) {
+        if (g < Gt) {
           if (lane == 0) {
             wm[warp][g] = m_f[g];
             wl[warp][g] = l_f[g];
           }
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
-            if (D % 32 == 0 || lane + 32 * j < D)
-              wacc[(warp * MAX_G + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
+            if (lane + 32 * j < D)
+              wacc[(warp * GT + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
         }
       }
     }
     __syncthreads();
+    if constexpr (DT == 0) {
+      // a class: each row's max, sum and warp weights exp(m_w - max m) once
+      // (in wm; the max and sum in wl's first two rows), not per column
+      if (tid < Gt) {
+        float mx = NEG_INF, ls = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][tid]);
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const float wt = expf(wm[w][tid] - mx);
+          wm[w][tid] = wt;
+          ls += wl[w][tid] * wt;
+        }
+        wl[0][tid] = mx;
+        wl[1][tid] = ls;
+      }
+      __syncthreads();
+    }
     const long long n_rows = (long long)p.B * p.H * p.splits;
     if constexpr (WIDE) {
       // the split's partial, 4 columns a step: each warp's weight in a
-      // row, exp(m_w - max m), once a step (G x D is 8 times the narrow
+      // row, exp(m_w - max m), once a step (GT x D is 8 times the narrow
       // widths' at most); the row's max and sum go out with its first
       // columns
-      for (int i = tid; i < G * D / 4; i += THREADS) {
-        const int g = i / (D / 4), d = 4 * (i % (D / 4));
+      for (int i = tid; i < (DT ? Gt : GT) * row_cols / 4; i += THREADS) {
+        const int g = i / (row_cols / 4), d = 4 * (i % (row_cols / 4));
+        if (DT == 0 && (g >= Gt || d >= D)) continue;
         float mx = NEG_INF;
+        if constexpr (DT != 0) {
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+          for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+        }
         float ls = 0.f;
         float4 as = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) {
-          const float wt = expf(wm[w][g] - mx);
-          const float4 a = *reinterpret_cast<const float4*>(wacc + (w * MAX_G + g) * D + d);
-          ls += wl[w][g] * wt;
+          const float wt = DT ? expf(wm[w][g] - mx) : wm[w][g];
+          const float4 a = *reinterpret_cast<const float4*>(wacc + (w * GT + g) * D + d);
+          if (DT != 0) ls += wl[w][g] * wt;
           as.x += a.x * wt;
           as.y += a.y * wt;
           as.z += a.z * wt;
           as.w += a.w * wt;
+        }
+        if constexpr (DT == 0) {
+          mx = wl[0][g];
+          ls = wl[1][g];
         }
         const long long row = (long long)(row0 + g) * p.splits + split;
         *reinterpret_cast<float4*>(p.part + row * D + d) = as;
@@ -618,17 +745,24 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         }
       }
     } else {
-      for (int i = tid; i < G * D; i += THREADS) {
-        const int g = i / D, d = i % D;
+      for (int i = tid; i < (DT ? Gt : GT) * row_cols; i += THREADS) {
+        const int g = i / row_cols, d = i % row_cols;
+        if (DT == 0 && (g >= Gt || d >= D)) continue;
         float mx = NEG_INF;
+        if constexpr (DT != 0) {
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+          for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][g]);
+        }
         float ls = 0.f, as = 0.f;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) {
-          const float wt = expf(wm[w][g] - mx);
-          ls += wl[w][g] * wt;
-          as += wacc[(w * MAX_G + g) * D + d] * wt;
+          const float wt = DT ? expf(wm[w][g] - mx) : wm[w][g];
+          if (DT != 0) ls += wl[w][g] * wt;
+          as += wacc[(w * GT + g) * D + d] * wt;
+        }
+        if constexpr (DT == 0) {
+          mx = wl[0][g];
+          ls = wl[1][g];
         }
         const long long row = (long long)(row0 + g) * p.splits + split;
         p.part[row * D + d] = as;
@@ -640,12 +774,14 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
     }
   }
 
-  // 4. The last block of this (batch, kv head) merges the splits in order.
-  if constexpr (WIDE) cp_async_wait<0>();     // a block without a tile: Q's copy
+  // 4. The last block of this (batch, kv head, group tile) merges the
+  //    splits in order.
+  if constexpr (WIDE || QN) cp_async_wait<0>();   // a block without a tile: Q's copy
+  int* ticket_at = p.tickets + b * p.Kv * n_gt + blockIdx.y;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    const int ticket = atomicAdd(p.tickets + b * p.Kv + kvh, 1);
+    const int ticket = atomicAdd(ticket_at, 1);
     s_last = ticket == p.splits - 1;
   }
   __syncthreads();
@@ -658,34 +794,54 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
   const float* pm = p.part + n_rows * D;
   const float* pl = pm + n_rows;
   // the accumulators, MERGE splits at a time (4 columns per thread,
-  // 16-byte loads); wide, the first MERGE are fetched before the weights
-  // are known, so their round trip overlaps (a)'s
-  constexpr int N4 = (MAX_G * D / 4 + THREADS - 1) / THREADS;   // float4 per thread
-  constexpr int MERGE = 8;
+  // 16-byte loads, at most 32 in flight); wide, the first MERGE are
+  // fetched before the weights are known, so their round trip overlaps (a)'s
+  constexpr int N4 = (GT * DC / 4 + THREADS - 1) / THREADS;   // float4 per thread
+  constexpr int MERGE = merge_depth<N4, DT>();
+  // thread tid + i THREADS takes float4 d4 of row g: rows of row4 float4
+  // (the class's, constant, in a class), those past Gt or D idle
+  const int D4 = D / 4, row4 = row_cols / 4;
   const float4* pacc = reinterpret_cast<const float4*>(p.part) +
-                       (long long)row0 * p.splits * (D / 4);
+                       (long long)row0 * p.splits * D4;
   float4 a[MERGE][N4];
   auto fetch = [&](int s0) {
 #pragma unroll
     for (int u = 0; u < MERGE; ++u)
 #pragma unroll
       for (int i = 0; i < N4; ++i) {
-        const int j = tid + i * THREADS, g = j / (D / 4), d4 = j % (D / 4);
-        a[u][i] = s0 + u < active && g < G
-                      ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * (D / 4) + d4)
+        const int j = tid + i * THREADS, g = j / row4, d4 = j % row4;
+        a[u][i] = s0 + u < active && g < Gt && (DT != 0 || d4 < D4)
+                      ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * D4 + d4)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
   };
-  if constexpr (WIDE) fetch(0);
-  float* sw = reinterpret_cast<float*>(fd_smem);            // [MAX_G][active]
-  float* sl = sw + MAX_G * active;
-  for (int g = warp; g < G; g += WARPS) {
+  constexpr bool PREFETCH = WIDE || DT == 0;
+  if constexpr (PREFETCH) fetch(0);
+  float* sw = reinterpret_cast<float*>(fd_smem);            // [GT][active]
+  float* sl = sw + GT * active;
+  if constexpr (DT == 0) {
+    // a class: every row's m and l in one round trip, all threads at once
+    for (int i = tid; i < Gt * active; i += THREADS) {
+      const int g = i / active, s = i % active;
+      const long long row = (long long)(row0 + g) * p.splits;
+      sw[g * active + s] = __ldcg(pm + row + s);
+      sl[g * active + s] = __ldcg(pl + row + s);
+    }
+    __syncthreads();
+  }
+  for (int g = warp; g < Gt; g += WARPS) {
     const long long row = (long long)(row0 + g) * p.splits;
     float mx = NEG_INF;
     for (int s = lane; s < active; s += 32) {
-      const float m = __ldcg(pm + row + s), l = __ldcg(pl + row + s);
-      sw[g * active + s] = m;
-      sl[g * active + s] = l;
+      float m;
+      if constexpr (DT == 0) {
+        m = sw[g * active + s];
+      } else {
+        m = __ldcg(pm + row + s);
+        const float l = __ldcg(pl + row + s);
+        sw[g * active + s] = m;
+        sl[g * active + s] = l;
+      }
       mx = fmaxf(mx, m);
     }
 #pragma unroll
@@ -713,13 +869,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < N4; ++i) out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < active; s0 += MERGE) {
-    if (!WIDE || s0 > 0) fetch(s0);
+    if (!PREFETCH || s0 > 0) fetch(s0);
 #pragma unroll
     for (int u = 0; u < MERGE; ++u)
 #pragma unroll
       for (int i = 0; i < N4; ++i) {
-        const int g = (tid + i * THREADS) / (D / 4);
-        if (s0 + u < active && g < G) {
+        const int g = (tid + i * THREADS) / row4;
+        if (s0 + u < active && g < Gt) {
           const float wt = sw[g * active + s0 + u];
           out[i].x = fmaf(a[u][i].x, wt, out[i].x);
           out[i].y = fmaf(a[u][i].y, wt, out[i].y);
@@ -728,57 +884,66 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const Params p) {
         }
       }
   }
+  const int head0 = kvh * G + g0;
 #pragma unroll
   for (int i = 0; i < N4; ++i) {
-    const int j = tid + i * THREADS, g = j / (D / 4), d = 4 * (j % (D / 4));
-    if (g < G && p.o_f32) {     // a partial of a slot shard: cast once, after the merge
-      float* o = static_cast<float*>(p.o) + b * p.o_sb + (kvh * G + g) * p.o_sh + d;
+    const int j = tid + i * THREADS, g = j / row4, d = 4 * (j % row4);
+    if (DT == 0 && d >= D) continue;
+    if (g < Gt && p.o_f32) {    // a partial of a slot shard: cast once, after the merge
+      float* o = static_cast<float*>(p.o) + b * p.o_sb + (head0 + g) * p.o_sh + d;
       o[0] = out[i].x;
       o[1] = out[i].y;
       o[2] = out[i].z;
       o[3] = out[i].w;
-    } else if (g < G) {
-      T* o = static_cast<T*>(p.o) + b * p.o_sb + (kvh * G + g) * p.o_sh + d;
+    } else if (g < Gt) {
+      T* o = static_cast<T*>(p.o) + b * p.o_sb + (head0 + g) * p.o_sh + d;
       o[0] = from_float<T>(out[i].x);
       o[1] = from_float<T>(out[i].y);
       o[2] = from_float<T>(out[i].z);
       o[3] = from_float<T>(out[i].w);
     }
   }
-  if (tid == 0) p.tickets[b * p.Kv + kvh] = 0;
+  if (tid == 0) *ticket_at = 0;
 }
 
-// `tile` and `smem` are the wrapper's numbers (flash_decode.py TILE and
-// smem_bytes): a launch whose numbers are not the kernel's is refused.
-template <typename T, int D>
-cudaError_t launch(Params p, int tile, int smem_asked, cudaStream_t stream) {
+// `tile`, `group` and `smem` are the wrapper's numbers (flash_decode.py
+// TILE, group_tile and smem_bytes): a launch whose numbers are not the
+// kernel's is refused.
+template <typename T, int DC, int DT>
+cudaError_t launch(Params p, int tile, int group, int smem_asked, cudaStream_t stream) {
   static size_t attr_bytes = 0;   // the dynamic shared memory allowed so far
-  if (tile != TILE) return cudaErrorInvalidValue;
+  constexpr int GT = group_tile<T, DC, DT>();
+  if (tile != TILE || group != GT) return cudaErrorInvalidValue;
+  const int n_gt = (p.H / p.Kv + GT - 1) / GT;
+  if (static_cast<long long>(p.Kv) * n_gt > 65535 || (DT != 0 && n_gt > 1))
+    return cudaErrorInvalidValue;
   p.n_tiles = (p.S + TILE - 1) / TILE;
-  const size_t smem = smem_bytes(ring_bytes<T, D>(), p.n_tiles);
+  const size_t smem = smem_bytes<T, DC, DT>(p.D, p.splits, p.n_tiles);
   if (smem != static_cast<size_t>(smem_asked) || smem > 200 * 1024)
     return cudaErrorInvalidValue;
   if (smem > attr_bytes) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_kernel<T, DC, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     attr_bytes = smem;
   }
-  const dim3 grid(p.splits, p.Kv, p.B);
-  flash_decode_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid(p.splits, p.Kv * n_gt, p.B);
+  flash_decode_kernel<T, DC, DT><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  part: B * H * splits * (D + 2) floats
-// of scratch, 16-byte aligned; tickets: B * Kv ints, zero before the launch and zero after it.
-// lse: null, or (B, H) contiguous floats that receive each row's log-sum-exp
-// of its scaled, masked scores.  out_f32: o holds floats (strides in
-// floats) whatever the input dtype.  tile: cache slots per tile and smem:
-// the dynamic shared memory, as the wrapper computed them.  Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 8 from 8 to
+// 256.  part: B * H * splits * (D + 2) floats of scratch, 16-byte aligned;
+// tickets: B * Kv * ceil(G / group) ints, zero before the launch and zero
+// after it.  lse: null, or (B, H) contiguous floats that receive each row's
+// log-sum-exp of its scaled, masked scores.  out_f32: o holds floats
+// (strides in floats) whatever the input dtype.  tile: cache slots per
+// tile, group: query heads a block holds, and smem: the dynamic shared
+// memory, as the wrapper computed them.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_decode_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, const void* valid, void* o,
@@ -788,14 +953,15 @@ extern "C" int flash_decode_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long valid_sb, long long o_sb, long long o_sh,
-    float scale, void* stream, void* lse, int out_f32, int tile, int smem) {
+    float scale, void* stream, void* lse, int out_f32, int tile, int smem,
+    int group) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.valid = static_cast<const uint8_t*>(valid);
   p.o = o;
   p.part = static_cast<float*>(part);
   p.tickets = static_cast<int*>(tickets);
-  p.B = B; p.H = H; p.Kv = Kv; p.S = S; p.splits = splits;
+  p.B = B; p.H = H; p.Kv = Kv; p.S = S; p.D = head_dim; p.splits = splits;
   p.vec_mask = vec_mask;
   p.q_sb = q_sb; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
@@ -805,19 +971,28 @@ extern "C" int flash_decode_fwd(
   p.scale = scale;
   p.lse = static_cast<float*>(lse);
   p.o_f32 = out_f32;
-  if (H % Kv != 0 || H / Kv > MAX_G || S <= 0 || splits <= 0 || B > 65535 ||
-      Kv > 65535)
+  if (Kv <= 0 || H % Kv != 0 || S <= 0 || splits <= 0 || B > 65535 ||
+      head_dim < 8 || head_dim > 256 || head_dim % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, tile, smem, s);
-  if (dtype == 0 && head_dim == 112) return launch<float, 112>(p, tile, smem, s);
-  if (dtype == 0 && head_dim == 120) return launch<float, 120>(p, tile, smem, s);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(p, tile, smem, s);
-  if (dtype == 0 && head_dim == 256) return launch<float, 256>(p, tile, smem, s);
-  if (dtype == 1 && head_dim == 64) return launch<bf16, 64>(p, tile, smem, s);
-  if (dtype == 1 && head_dim == 112) return launch<bf16, 112>(p, tile, smem, s);
-  if (dtype == 1 && head_dim == 120) return launch<bf16, 120>(p, tile, smem, s);
-  if (dtype == 1 && head_dim == 128) return launch<bf16, 128>(p, tile, smem, s);
-  if (dtype == 1 && head_dim == 256) return launch<bf16, 256>(p, tile, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (head_dim <= 64) return launch<float, 64, 0>(p, tile, group, smem, s);
+    if (head_dim <= 128) return launch<float, 128, 0>(p, tile, group, smem, s);
+    return launch<float, 256, 0>(p, tile, group, smem, s);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (H / Kv <= 8) {    // the served models' widths keep their own code
+    switch (head_dim) {
+      case 64: return launch<bf16, 64, 64>(p, tile, group, smem, s);
+      case 112: return launch<bf16, 128, 112>(p, tile, group, smem, s);
+      case 120: return launch<bf16, 128, 120>(p, tile, group, smem, s);
+      case 128: return launch<bf16, 128, 128>(p, tile, group, smem, s);
+      case 256: return launch<bf16, 256, 256>(p, tile, group, smem, s);
+      default: break;
+    }
+  }
+  if (head_dim <= 64) return launch<bf16, 64, 0>(p, tile, group, smem, s);
+  if (head_dim <= 128) return launch<bf16, 128, 0>(p, tile, group, smem, s);
+  if (head_dim <= 192) return launch<bf16, 192, 0>(p, tile, group, smem, s);
+  return launch<bf16, 256, 0>(p, tile, group, smem, s);
 }

@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 112, 120, 128, 256)
+MAX_HEAD_DIM = 256        # one warpgroup's O accumulator in registers
+HEAD_DIM_STEP = 8         # a bf16 row of whole 16-byte chunks (cp.async, TMA)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BQ = BK = 64              # query rows and keys per tile (csrc BQ, BK)
 STAGES = 3                # bf16 up to D = 128: the K/V ring (csrc STAGES)
-WS_STAGES = 3             # bf16 at D = 256: the K/V ring (csrc WS_STAGES)
+WS_STAGES = 3             # bf16 past D = 128: the K/V ring (csrc WS_STAGES)
 
 _fn = None
 
@@ -42,19 +43,32 @@ def _kernel_fn():
     return _fn
 
 
+def supports(D: int) -> bool:
+    """The head widths both attention kernels take: a multiple of
+    ``HEAD_DIM_STEP`` from 8 to ``MAX_HEAD_DIM``, in fp32 and bf16."""
+    return D % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= D <= MAX_HEAD_DIM
+
+
+def check_head_dim(D: int) -> None:
+    """Raise ``ValueError`` naming the rule where ``supports(D)`` is false."""
+    if not supports(D):
+        raise ValueError(f"head_dim {D}: the kernels take a multiple of "
+                         f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM}")
+
+
 def smem_bytes(dtype: torch.dtype, D: int) -> int:
     """The kernel's dynamic shared memory at head width D.  fp32: the Q, K,
     V and P tiles, rows padded by one float.  bf16 up to 128: the Q tile
-    and ``STAGES`` K and V tiles at the tile width (64, or 128 for 112 and
-    120).  bf16 at 256 (the warp-specialised kernel): the Q tile and
-    ``WS_STAGES`` K and V tiles, then the full, empty and Q mbarriers (8
-    bytes each).  The launch passes it; the kernel refuses a
-    number that is not its own."""
+    and ``STAGES`` K and V tiles at the tile width (64 or 128).  bf16 past
+    128 (the warp-specialised kernel, tile width 192 or 256): the Q tile
+    and ``WS_STAGES`` K and V tiles, then the full, empty and Q mbarriers
+    (8 bytes each).  The launch passes it; the kernel refuses a number
+    that is not its own."""
     if dtype == torch.float32:
         return 4 * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1))
-    if D == 256:
-        return 2 * D * BK * (1 + 2 * WS_STAGES) + 8 * (2 * WS_STAGES + 1)
-    width = 64 if D == 64 else 128
+    width = next(w for w in (64, 128, 192, 256) if D <= w)   # the tile width
+    if width > 128:
+        return 2 * width * BK * (1 + 2 * WS_STAGES) + 8 * (2 * WS_STAGES + 1)
     return 2 * (BQ * width + 2 * STAGES * BK * width)
 
 
@@ -103,8 +117,7 @@ def launch(
         raise ValueError(f"shape mismatch q {q.shape} k {k.shape} v {v.shape}")
     if H % Kv:
         raise ValueError(f"heads {H} not divisible by kv heads {Kv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    check_head_dim(D)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; need one of "
                         f"{list(DTYPES)} for all three")

@@ -16,15 +16,16 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import check_head_dim
 from repro_torch.kernels.grid import arrival_counters, sm_count
 
-HEAD_DIMS = (64, 112, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_G = 8                 # query heads per kv head (csrc MAX_G)
 TILE = 64                 # cache slots per tile (csrc TILE); a split takes whole tiles
 BLOCKS_PER_SM = 2         # grid size the split count aims for
 STAGES = 2                # the K/V ring's stages (csrc STAGES)
-RING_LIMIT = 160 * 1024   # a ring past it takes one stage (csrc ring_stages)
+# bf16 widths whose kernels keep their own code at up to 8 query heads a kv
+# head (csrc flash_decode_fwd); every other shape runs its width class
+SERVED_WIDTHS = (64, 112, 120, 128, 256)
 
 _fn = None
 
@@ -39,23 +40,37 @@ def _kernel_fn():
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 11
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 3
+            + [ctypes.c_int] * 4
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def smem_bytes(dtype: torch.dtype, D: int, S: int) -> int:
+def group_tile(dtype: torch.dtype, D: int, G: int) -> int:
+    """Query heads of one kv head that a block holds (csrc group_tile): 16
+    on the bf16 kernels that put the heads on the 16 rows of their products
+    (the width classes up to 192), else 8 (the served widths' own kernels
+    at G <= 8, the D > 192 form with the heads on 8 columns, fp32).  A kv
+    head's G heads take ceil(G / group_tile) blocks, each reading the kv
+    head's K and V tiles."""
+    if dtype == torch.bfloat16 and D <= 192 and not (D in SERVED_WIDTHS and G <= 8):
+        return 16
+    return 8
+
+
+def smem_bytes(dtype: torch.dtype, D: int, S: int, group: int = 8,
+               splits: int = 1) -> int:
     """The kernel's dynamic shared memory for a cache of S slots: the K/V
-    ring (two stages of a K and a V tile, one where two would pass
-    ``RING_LIMIT``; bf16 rows padded to whole 64-element swizzle groups),
-    then a bit per tile and the list of tiles.  The launch passes it; the
-    kernel refuses a number that is not its own."""
+    ring (two stages of a K and a V tile, one for fp32 rows wider than 128;
+    bf16 rows padded to whole 64-element swizzle groups), at least the
+    last block's per-split weights and sums (2 x ``group`` x ``splits``
+    floats), then a bit per tile and the list of tiles.  The launch passes
+    it; the kernel refuses a number that is not its own."""
     itemsize = 2 if dtype == torch.bfloat16 else 4
     pitch = -(-D // 64) * 64 if dtype == torch.bfloat16 else D
-    stage = 2 * TILE * pitch * itemsize
-    ring = stage * (1 if STAGES * stage > RING_LIMIT else STAGES)
+    stages = 1 if dtype == torch.float32 and D > 128 else STAGES
+    ring = max(stages * 2 * TILE * pitch * itemsize, 8 * group * splits)
     n_tiles = -(-S // TILE)
     return ring + 4 * (-(-n_tiles // 32) + n_tiles)
 
@@ -63,9 +78,9 @@ def smem_bytes(dtype: torch.dtype, D: int, S: int) -> int:
 def num_splits(B: int, Kv: int, S: int, sms: int) -> int:
     """Splits of each (batch, kv head) so that B * Kv * splits blocks fill
     the SMs about ``BLOCKS_PER_SM`` times over, and no more splits than S
-    has tiles.  Chosen from shapes alone: the kernel divides the tiles that
-    hold a valid slot among the splits on the card, so the mask is never
-    read back to the host."""
+    has tiles (``Kv``: the kv heads times their group tiles).  Chosen from
+    shapes alone: the kernel divides the tiles that hold a valid slot among
+    the splits on the card, so the mask is never read back to the host."""
     want = -(-BLOCKS_PER_SM * sms // max(B * Kv, 1))
     return max(1, min(want, -(-S // TILE)))
 
@@ -131,11 +146,9 @@ def launch(
     S, Kv = k_cache.shape[1], k_cache.shape[2]
     if v_cache.shape != k_cache.shape:
         raise ValueError("k_cache and v_cache differ in shape")
-    if H % Kv or H // Kv > MAX_G:
-        raise ValueError(f"need heads % kv heads == 0 and at most {MAX_G} "
-                         f"query heads per kv head; got H={H}, Kv={Kv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if Kv == 0 or H % Kv:
+        raise ValueError(f"need heads % kv heads == 0; got H={H}, Kv={Kv}")
+    check_head_dim(D)
     if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}; "
                         f"need one of {list(DTYPES)} for all three")
@@ -153,10 +166,13 @@ def launch(
     for t in (k_cache, v_cache):      # rows move in 16-byte copies
         if t.data_ptr() % 16 or any(st % per_chunk for st in t.stride()[:3]):
             raise ValueError("cache rows must be 16-byte aligned")
-    if q.dtype == torch.bfloat16 and D == 256 and (q.data_ptr() % 16 or any(
+    # bf16 q goes in 16-byte copies but on the served narrow widths' kernels
+    copies_q = q.dtype == torch.bfloat16 and not (
+        D in SERVED_WIDTHS and D <= 128 and H // Kv <= 8)
+    if copies_q and (q.data_ptr() % 16 or any(
             q.stride(i) % per_chunk for i in (0, 2) if q.shape[i] > 1)):
-        raise ValueError("bf16 q rows at head_dim 256 must be 16-byte aligned: "
-                         "the kernel copies them in 16-byte pieces")
+        raise ValueError("bf16 q rows must be 16-byte aligned here: the kernel "
+                         "copies them in 16-byte pieces")
     if S == 0:
         raise ValueError("the cache has no slots")
     out = torch.empty((B, 1, H, D),
@@ -166,7 +182,9 @@ def launch(
            if return_lse else None)
     if B == 0:
         return (out, lse) if return_lse else out
-    splits = num_splits(B, Kv, S, sm_count(q.device.index or 0))
+    group = group_tile(q.dtype, D, H // Kv)
+    blocks = Kv * -(-(H // Kv) // group)       # (kv head, group tile) pairs
+    splits = num_splits(B, blocks, S, sm_count(q.device.index or 0))
     part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
     vec_mask = int(kv_valid.data_ptr() % 16 == 0
@@ -178,7 +196,7 @@ def launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_valid.data_ptr(), out.data_ptr(), part.data_ptr(),
             arrival_counters("flash_decode", q.device, stream,
-                             B * Kv).data_ptr(),
+                             B * blocks).data_ptr(),
             B, H, Kv, S, splits, vec_mask,
             q.stride(0), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
@@ -186,7 +204,7 @@ def launch(
             kv_valid.stride(0), out.stride(0), out.stride(2),
             1.0 / math.sqrt(D), stream,
             lse.data_ptr() if return_lse else None, int(return_lse),
-            TILE, smem_bytes(q.dtype, D, S),
+            TILE, smem_bytes(q.dtype, D, S, group, splits), group,
         )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")

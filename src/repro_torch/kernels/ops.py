@@ -240,6 +240,7 @@ def flash_attention(
                          prefix_len=prefix_len)
     if route == "meta":
         B, Sq, H, D = q.shape
+        _fa.check_head_dim(D)           # what the kernel would refuse
         cost.record("flash_attention", cost.flash_attention_work(
             B, H, k.shape[2], Sq, k.shape[1], D, q.element_size(),
             causal=causal, window=window, prefix=prefix_len))
@@ -286,6 +287,7 @@ def flash_decode(
         return _fd.plain(q, k_cache, v_cache, kv_valid, return_lse=return_lse)
     if route == "meta":
         B, _, H, D = q.shape
+        _fa.check_head_dim(D)
         cost.record("flash_decode", cost.flash_decode_work(
             B, H, k_cache.shape[2], k_cache.shape[1], D, q.element_size(),
             lse=return_lse))

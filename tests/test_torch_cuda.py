@@ -75,6 +75,39 @@ WIDE_DECODE_CASES = [
     (2, 8, 1, 256, 256, "ring"),
 ]
 
+# test_torch_kernels.py's cases at the widths and query groups the served
+# models do not use (public models' attention: 32, SigLIP's 72, phi-2's 80,
+# Phi-3-mini's 96, 160, Nemotron-4-340B's 192 at G = 12, Llama-3.1-405B's
+# G = 16, StarCoder's 48, falcon-7b's 71), kernel against plain
+ANY_ATTN_CASES = [
+    (1, 4, 2, 128, 128, 32, True, None, 0),
+    (2, 4, 4, 100, 100, 72, False, None, 0),
+    (1, 4, 4, 192, 192, 72, True, 48, 0),
+    (1, 4, 4, 128, 128, 80, True, None, 40),
+    (1, 4, 4, 128, 128, 96, True, None, 0),
+    (1, 4, 2, 192, 192, 160, True, 48, 0),
+    (1, 12, 1, 128, 128, 192, True, None, 0),
+    (1, 24, 2, 64, 64, 192, False, None, 0),
+    (1, 16, 1, 128, 128, 128, True, None, 0),
+    (1, 48, 1, 64, 64, 128, True, None, 0),
+    (1, 71, 1, 64, 64, 64, True, None, 0),
+]
+
+# (B, H, Kv, S, D, mask) at the same widths and groups: "prefix", the first
+# 137 and 300 slots of rows 0 and 1; "ring", 230 live slots wrapping past
+# the end; "none", no valid slot
+ANY_DECODE_CASES = [
+    (2, 4, 2, 256, 32, "prefix"),
+    (2, 4, 4, 256, 72, "ring"),
+    (2, 4, 4, 128, 80, "none"),
+    (2, 4, 2, 192, 96, "prefix"),
+    (2, 4, 2, 256, 160, "ring"),
+    (2, 12, 1, 256, 192, "prefix"),
+    (2, 16, 1, 256, 128, "ring"),
+    (2, 48, 1, 128, 128, "none"),
+    (1, 71, 1, 64, 64, "prefix"),
+]
+
 # qwen3-moe-30b's attention (H=32, Kv=4, D=128) in bf16, in the layout of
 # ATTN_CASES: ragged lengths around the tensor-core kernel's 64-row tiles,
 # each with the causal, sliding-window and prefix-LM masks
@@ -140,6 +173,31 @@ CARD_DECODE_CASES = [
     (2, 32, 32, 2048, 112, "empty beside 600"),
     (1, 32, 32, 2048, 112, "last"),
     (2, 32, 32, 1000, 112, "ring"),
+    # public models' decode shapes (chip_smoke.py PUBLIC_SHAPES): phi-2,
+    # Phi-3-mini, SigLIP's width, Nemotron-4-340B, Llama-3.1-405B,
+    # StarCoder, falcon-7b; then their groups in several group tiles
+    (1, 32, 32, 2048, 80, "600"),
+    (1, 32, 32, 2048, 96, "600"),
+    (1, 16, 16, 2048, 72, "600"),
+    (1, 96, 8, 2048, 192, "600"),
+    (1, 128, 8, 2048, 128, "600"),
+    (1, 48, 1, 2048, 128, "600"),
+    (1, 71, 1, 2048, 64, "600"),
+    (2, 71, 1, 2048, 64, "empty beside 600"),
+    (2, 96, 8, 1000, 192, "ring"),
+    (2, 48, 1, 2048, 128, "last"),
+]
+
+# the public models' prefill shapes (chip_smoke.py PUBLIC_SHAPES), in the
+# layout of ATTN_CASES: causal at S = 1,024, SigLIP bidirectional at 729
+PUBLIC_ATTN_CASES = [
+    (1, 32, 32, 1024, 1024, 80, True, None, 0),
+    (1, 32, 32, 1024, 1024, 96, True, None, 0),
+    (1, 16, 16, 729, 729, 72, False, None, 0),
+    (1, 96, 8, 1024, 1024, 192, True, None, 0),
+    (1, 128, 8, 1024, 1024, 128, True, None, 0),
+    (1, 48, 1, 1024, 1024, 128, True, None, 0),
+    (1, 71, 1, 1024, 1024, 64, True, None, 0),
 ]
 
 # (E, C, D, F, layout of x) for the grouped matmul with rows at qwen3's
@@ -229,17 +287,50 @@ def test_flash_attention_kernel_at_wide_heads(card, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("case", ANY_ATTN_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_decode_kernel_at_wide_heads(card, case, dtype):
+def test_flash_attention_kernel_at_any_width_and_group(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(990 + ANY_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PUBLIC_ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_at_public_shapes(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(1010 + PUBLIC_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _check_decode(card, case, dtype, seed):
     B, H, Kv, S, D, kind = case
     tdt, tol = DTYPES[dtype]
-    rng = np.random.default_rng(970 + WIDE_DECODE_CASES.index(case))
+    rng = np.random.default_rng(seed)
     q = _randn(rng, (B, 1, H, D), tdt, card)
     k = _randn(rng, (B, S, Kv, D), tdt, card)
     v = _randn(rng, (B, S, Kv, D), tdt, card)
     pos = np.arange(S)[None, :].repeat(B, 0)
     valid = (pos < np.array([[137], [300]])[:B] if kind == "prefix"
+             else np.zeros((B, S), bool) if kind == "none"
              else (pos - (S - 100)) % S < 230)
     valid = torch.from_numpy(valid.astype(np.int8)).to(card)
     before = ops.flash_decode.launches
@@ -248,6 +339,20 @@ def test_flash_decode_kernel_at_wide_heads(card, case, dtype):
     assert ops.flash_decode.launches == before + 1
     want = tfd.plain(q, k, v, valid)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_at_wide_heads(card, case, dtype):
+    _check_decode(card, case, dtype, 970 + WIDE_DECODE_CASES.index(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ANY_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_at_any_width_and_group(card, case, dtype):
+    _check_decode(card, case, dtype, 1030 + ANY_DECODE_CASES.index(case))
 
 
 def decode_mask(B, S, mask, device, seed=0):
@@ -813,8 +918,8 @@ CAPTURE_ARCHS = ["llama3.2-1b", "qwen3-moe-30b", "falcon-mamba-7b",
 
 
 def _card_model(arch, card):
-    """``arch`` at d_model 256 (head_dim 64, a width the kernels take; the
-    smoke configs' 32 is not), bf16, random weights from seed 0."""
+    """``arch`` at d_model 256 (head_dim 64), bf16, random weights from
+    seed 0."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
@@ -853,6 +958,40 @@ def test_captured_step_replays_the_eager_tokens(card, arch):
             tok = logits.argmax(-1)
             assert torch.equal(step(), tok), f"step {i}"
     assert int(graph_cache["len"]) == int(eager_cache["len"]) == 72
+
+
+@pytest.mark.cuda
+def test_captured_step_at_the_smoke_head_width(card):
+    """llama3.2-1b's smoke config as it is (head_dim 32, G = 4: the width
+    class of 64 and a group tile of 16 in decode): 16 replays pick the
+    tokens of 16 eager steps, every step through both kernels."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config("llama3.2-1b")
+    assert cfg.resolved_head_dim == 32
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = build_model(cfg, device=card, dtype=torch.bfloat16, generator=gen)
+    graph_cache = model.init_cache(1, 64)
+    step = build_serve_step(model, graph_cache)
+    assert step.launches["flash_decode"] == cfg.num_layers
+    eager_cache = model.init_cache(1, 64)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits, _ = model.prefill(_prompt(model, 20, card), eager_cache)
+        assert ops.flash_attention.launches == cfg.num_layers
+        for name, t in eager_cache["kv"].items():
+            graph_cache["kv"][name].copy_(t)
+        graph_cache["len"].copy_(eager_cache["len"])
+        tok = logits.argmax(-1)
+        step.tokens.copy_(tok)
+        for i in range(16):
+            logits, _ = model.decode_step(tok, eager_cache)
+            tok = logits.argmax(-1)
+            assert torch.equal(step(), tok), f"step {i}"
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == 2 * 16 * cfg.num_layers
 
 
 @pytest.mark.cuda

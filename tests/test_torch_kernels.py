@@ -60,6 +60,41 @@ WIDE_DECODE_CASES = [
     (2, 8, 1, 256, 256, "ring"),
 ]
 
+# Head widths and query-group sizes the served models do not use, from
+# public models' attention: the smoke configs' 32, SigLIP-so400m's 72,
+# phi-2's 80, Phi-3-mini's 96, 160, Nemotron-4-340B's 192 at G = 12,
+# Llama-3.1-405B's G = 16, StarCoder's multi-query G = 48 and falcon-7b's
+# G = 71, under the causal, sliding-window, prefix-LM and bidirectional
+# masks (layout of ATTN_CASES); test_torch_cuda.py holds the CUDA kernels
+# to the same cases
+ANY_ATTN_CASES = [
+    (1, 4, 2, 128, 128, 32, True, None, 0),
+    (2, 4, 4, 100, 100, 72, False, None, 0),
+    (1, 4, 4, 192, 192, 72, True, 48, 0),
+    (1, 4, 4, 128, 128, 80, True, None, 40),
+    (1, 4, 4, 128, 128, 96, True, None, 0),
+    (1, 4, 2, 192, 192, 160, True, 48, 0),
+    (1, 12, 1, 128, 128, 192, True, None, 0),
+    (1, 24, 2, 64, 64, 192, False, None, 0),
+    (1, 16, 1, 128, 128, 128, True, None, 0),
+    (1, 48, 1, 64, 64, 128, True, None, 0),
+    (1, 71, 1, 64, 64, 64, True, None, 0),
+]
+
+# the same widths and groups in decode (layout of WIDE_DECODE_CASES):
+# cache occupancy, a ring, and no valid slot at all
+ANY_DECODE_CASES = [
+    (2, 4, 2, 256, 32, "prefix"),
+    (2, 4, 4, 256, 72, "ring"),
+    (2, 4, 4, 128, 80, "none"),
+    (2, 4, 2, 192, 96, "prefix"),
+    (2, 4, 2, 256, 160, "ring"),
+    (2, 12, 1, 256, 192, "prefix"),
+    (2, 16, 1, 256, 128, "ring"),
+    (2, 48, 1, 128, 128, "none"),
+    (1, 71, 1, 64, 64, "prefix"),
+]
+
 
 def _pair(rng, shape, dtype_name):
     """The same values as a jnp array and a torch tensor (bf16 rounding of
@@ -75,12 +110,13 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
+def _check_attention(case, dtype, seed):
+    """The port's wrapper on the CPU (its plain version) against the Pallas
+    kernel in interpret mode and the reference's oracle, on the same
+    seeded inputs."""
     B, H, Kv, Sq, Skv, D, causal, window, prefix = case
     tol = DTYPES[dtype][2]
-    rng = np.random.default_rng((ATTN_CASES + WIDE_ATTN_CASES).index(case))
+    rng = np.random.default_rng(seed)
     jq, tq = _pair(rng, (B, H, Sq, D), dtype)
     jk, tk = _pair(rng, (B, Kv, Skv, D), dtype)
     jv, tv = _pair(rng, (B, Kv, Skv, D), dtype)
@@ -97,6 +133,18 @@ def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(
         _np(tref.flash_attention_ref(tq, tk, tv, **kw)), _np(oracle),
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_ref(case, dtype):
+    _check_attention(case, dtype, (ATTN_CASES + WIDE_ATTN_CASES).index(case))
+
+
+@pytest.mark.parametrize("case", ANY_ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_at_any_width_and_group(case, dtype):
+    _check_attention(case, dtype, 300 + ANY_ATTN_CASES.index(case))
 
 
 def _attention_with_p_in_bf16(q, k, v, *, causal, window, prefix_len):
@@ -121,13 +169,9 @@ def _attention_with_p_in_bf16(q, k, v, *, causal, window, prefix_len):
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
-def test_bf16_rounding_of_p_stays_within_the_reference_tolerance(case):
-    """The bf16 CUDA kernel rounds P to bf16 before P.V, where the Pallas
-    kernel keeps it in fp32; with that rounding the result stays within the
-    reference's bf16 tolerance (2e-2) of the Pallas kernel."""
+def _check_p_in_bf16(case, seed):
     B, H, Kv, Sq, Skv, D, causal, window, prefix = case
-    rng = np.random.default_rng((ATTN_CASES + WIDE_ATTN_CASES).index(case))
+    rng = np.random.default_rng(seed)
     jq, tq = _pair(rng, (B, H, Sq, D), "bfloat16")
     jk, tk = _pair(rng, (B, Kv, Skv, D), "bfloat16")
     jv, tv = _pair(rng, (B, Kv, Skv, D), "bfloat16")
@@ -137,6 +181,19 @@ def test_bf16_rounding_of_p_stays_within_the_reference_tolerance(case):
     got = _attention_with_p_in_bf16(tq, tk, tv, **kw)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + WIDE_ATTN_CASES)
+def test_bf16_rounding_of_p_stays_within_the_reference_tolerance(case):
+    """The bf16 CUDA kernel rounds P to bf16 before P.V, where the Pallas
+    kernel keeps it in fp32; with that rounding the result stays within the
+    reference's bf16 tolerance (2e-2) of the Pallas kernel."""
+    _check_p_in_bf16(case, (ATTN_CASES + WIDE_ATTN_CASES).index(case))
+
+
+@pytest.mark.parametrize("case", ANY_ATTN_CASES)
+def test_bf16_rounding_of_p_at_any_width_and_group(case):
+    _check_p_in_bf16(case, 300 + ANY_ATTN_CASES.index(case))
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -181,14 +238,10 @@ def _decode_mask(kind, B, S):
     return valid.astype(np.int8)
 
 
-@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_decode_plain_matches_pallas_and_ref_at_wide_heads(case, dtype):
-    """Decode at head widths 120 and 256 (h2o-danube3-4b's and
-    paligemma-3b's heads) under an occupancy mask and a ring."""
+def _check_decode(case, dtype, seed):
     B, H, Kv, S, D, kind = case
     tol = DTYPES[dtype][2]
-    rng = np.random.default_rng(170 + WIDE_DECODE_CASES.index(case))
+    rng = np.random.default_rng(seed)
     jq, tq = _pair(rng, (B, H, D), dtype)
     jk, tk = _pair(rng, (B, Kv, S, D), dtype)
     jv, tv = _pair(rng, (B, Kv, S, D), dtype)
@@ -201,6 +254,21 @@ def test_flash_decode_plain_matches_pallas_and_ref_at_wide_heads(case, dtype):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
     np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_pallas_and_ref_at_wide_heads(case, dtype):
+    """Decode at head widths 120 and 256 (h2o-danube3-4b's and
+    paligemma-3b's heads) under an occupancy mask and a ring."""
+    _check_decode(case, dtype, 170 + WIDE_DECODE_CASES.index(case))
+
+
+@pytest.mark.parametrize("case", ANY_DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_pallas_at_any_width_and_group(case, dtype):
+    """Decode at the widths and query groups of ANY_DECODE_CASES."""
+    _check_decode(case, dtype, 400 + ANY_DECODE_CASES.index(case))
 
 
 def _decode_over_listed_tiles(q, k, v, valid, splits, tile):
@@ -362,8 +430,18 @@ def test_kernel_launch_refuses_cpu_tensors():
         tfa.launch(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), dtype=torch.bool))
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.launch(q[..., :32], q[..., :32], q[..., :32])
+    # past the largest width, and not a multiple of 8: refused by rule,
+    # before the device is looked at
+    for D in (264, 36):
+        x = torch.zeros((1, 8, 4, D))
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            tfa.launch(x, x, x)
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            tfd.launch(x[:, :1], x, x, torch.ones((1, 8), dtype=torch.bool))
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+            ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
+        assert not tfa.supports(D)
+    assert all(tfa.supports(D) for D in range(8, 257, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tss.launch(q, q, q[:, 0])
     with pytest.raises(ValueError, match="h0"):
@@ -429,6 +507,13 @@ def test_decode_splits_at_head_width_256():
     # bf16 at 112 and 120: rows padded to 128 elements
     (torch.bfloat16, 112, 2048, 2 * 2 * 64 * 128 * 2 + 4 * (1 + 32)),
     (torch.bfloat16, 64, 1000, 2 * 2 * 64 * 64 * 2 + 4 * (1 + 16)),
+    # the width classes: rows padded to 64 (D = 8, 32), 192 (160, 192)
+    (torch.bfloat16, 8, 2048, 2 * 2 * 64 * 64 * 2 + 4 * (1 + 32)),
+    (torch.bfloat16, 160, 2048, 2 * 2 * 64 * 192 * 2 + 4 * (1 + 32)),
+    (torch.bfloat16, 200, 2048, 2 * 2 * 64 * 256 * 2 + 4 * (1 + 32)),
+    # fp32 rows wider than 128 take one stage; narrower ones two
+    (torch.float32, 136, 2048, 2 * 64 * 136 * 4 + 4 * (1 + 32)),
+    (torch.float32, 8, 2048, 2 * 2 * 64 * 8 * 4 + 4 * (1 + 32)),
     # fp32 at 256: two stages would pass 160 KiB, so one
     (torch.float32, 256, 2048, 2 * 64 * 256 * 4 + 4 * (1 + 32)),
     (torch.float32, 120, 2048, 2 * 2 * 64 * 120 * 4 + 4 * (1 + 32)),
@@ -446,13 +531,57 @@ def test_decode_shared_memory_the_wrapper_asks_for(dtype, D, S, want):
     (torch.bfloat16, 120, 2 * 64 * 128 * 7),
     (torch.bfloat16, 112, 2 * 64 * 128 * 7),
     (torch.bfloat16, 64, 2 * 64 * 64 * 7),
+    # the width classes: 64 (D = 8 .. 64), 128 (72 .. 128), then the
+    # warp-specialised kernel's 192 (136 .. 192) and 256 (200 .. 256)
+    (torch.bfloat16, 8, 2 * 64 * 64 * 7),
+    (torch.bfloat16, 72, 2 * 64 * 128 * 7),
+    (torch.bfloat16, 136, 2 * 64 * 192 * 7 + 8 * 7),
+    (torch.bfloat16, 192, 2 * 64 * 192 * 7 + 8 * 7),
+    (torch.bfloat16, 200, 2 * 64 * 256 * 7 + 8 * 7),
     (torch.float32, 256, 4 * (64 * 257 * 2 + 64 * 256 + 64 * 65)),
+    (torch.float32, 72, 4 * (64 * 73 * 2 + 64 * 72 + 64 * 65)),
     (torch.float32, 64, 4 * (64 * 65 * 2 + 64 * 64 + 64 * 65)),
 ])
 def test_prefill_shared_memory_the_wrapper_asks_for(dtype, D, want):
     """What the launch asks for (the kernel refuses a number that is not its
     own), within the 227 KiB a block may use."""
     assert tfa.smem_bytes(dtype, D) == want <= 232_448
+
+
+@pytest.mark.parametrize("dtype,D,G,want", [
+    # the served widths' own kernels hold 8 heads (qwen3-moe-30b's G = 8)
+    (torch.bfloat16, 128, 8, 8),
+    (torch.bfloat16, 64, 4, 8),
+    (torch.bfloat16, 256, 8, 8),
+    # their width classes past G = 8, and the other widths: the 16 rows
+    # of the products, up to 192; 8 heads on the columns past it; fp32 8
+    (torch.bfloat16, 128, 16, 16),
+    (torch.bfloat16, 64, 71, 16),
+    (torch.bfloat16, 192, 12, 16),
+    (torch.bfloat16, 80, 1, 16),
+    (torch.bfloat16, 256, 16, 8),
+    (torch.bfloat16, 200, 2, 8),
+    (torch.float32, 128, 48, 8),
+    (torch.float32, 72, 1, 8),
+])
+def test_decode_group_tile(dtype, D, G, want):
+    assert tfd.group_tile(dtype, D, G) == want
+
+
+def test_decode_merge_weights_fit_the_shared_memory_asked_for():
+    """The last block's per-split weights and sums (2 x group x splits
+    floats) reuse the K/V ring, and the launch asks for more where they
+    pass it: fp32 at D = 8 over 32,768 slots, 264 splits (one kv head on
+    132 SMs, two blocks each) of 8 heads."""
+    S, splits = 32768, tfd.num_splits(1, 1, 32768, 132)
+    assert splits == 264
+    ring = 2 * 2 * 64 * 8 * 4
+    want = 8 * 8 * splits + 4 * (16 + 512)
+    assert 8 * 8 * splits > ring
+    assert tfd.smem_bytes(torch.float32, 8, S, 8, splits) == want
+    # the served shapes: the ring, as before
+    assert (tfd.smem_bytes(torch.bfloat16, 64, 2048, 8, 33)
+            == tfd.smem_bytes(torch.bfloat16, 64, 2048))
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
@@ -492,14 +621,17 @@ def test_card_test_cases_are_the_reference_cases():
     assert test_torch_cuda.DECODE_CASES == DECODE_CASES
     assert test_torch_cuda.WIDE_ATTN_CASES == WIDE_ATTN_CASES
     assert test_torch_cuda.WIDE_DECODE_CASES == WIDE_DECODE_CASES
+    assert test_torch_cuda.ANY_ATTN_CASES == ANY_ATTN_CASES
+    assert test_torch_cuda.ANY_DECODE_CASES == ANY_DECODE_CASES
     assert test_torch_cuda.SCAN_CASES == SCAN_CASES
     assert test_torch_cuda.GMM_CASES == GMM_CASES
 
 
 def test_card_only_cases_are_checked_by_chip_smoke():
     """The card-only cases (the tensor-core kernels at qwen3-moe-30b's
-    shapes, flash_decode's tile skipping, the grouped matmul with rows) are
-    also among ``chip_smoke.py``'s checks, run on every chip run."""
+    shapes and at public models' attention shapes, flash_decode's tile
+    skipping, the grouped matmul with rows) are also among
+    ``chip_smoke.py``'s checks, run on every chip run."""
     import importlib.util
     from pathlib import Path
 
@@ -513,6 +645,8 @@ def test_card_only_cases_are_checked_by_chip_smoke():
           for dt, B, H, Kv, S, D, causal, window, prefix in smoke.FA_CASES
           if dt == torch.bfloat16}
     assert set(test_torch_cuda.QWEN_ATTN_CASES) <= fa
+    assert set(test_torch_cuda.PUBLIC_ATTN_CASES) <= fa
+    assert len(test_torch_cuda.PUBLIC_ATTN_CASES) == len(smoke.PUBLIC_SHAPES)
     gmm = {(E, C, D, F, layout)
            for _, dt, E, C, D, F, layout in smoke.GMM_CASES
            if dt == torch.bfloat16}
