@@ -47,10 +47,18 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    public models the fleets do not cover (``PUBLIC_SHAPES``: phi-2,
    Phi-3-mini, SigLIP-so400m, Nemotron-4-340B, Llama-3.1-405B, StarCoder,
    falcon-7b: head widths 72-192, query groups 1-71) in prefill and decode,
-   both dtypes; and a width sweep (``check_width_sweep``): every head width
-   8, 16, ..., 256 in both dtypes, a causal prefill (B 1, H 8, Kv 2, S 256)
-   and a decode of 600 valid slots of 2,048 beside a row with none, a
-   ``width sweep`` line each;
+   both dtypes; a width sweep (``check_width_sweep``): every head width
+   from 1 to 264 and 272, 288, 320, 384, 512, 576 and 1,024 in both
+   dtypes, a causal prefill (B 1, H 8, Kv 2, S 256) and a decode of 600
+   valid slots of 2,048 beside a row with none, a ``width sweep`` line
+   each naming the rows' alignment and the kernel form; and the served
+   widths on views sliced out of a fused buffer one element in
+   (``check_unaligned_views``: 2-byte aligned rows in bf16, 4-byte in
+   float32), an ``unaligned view`` line each;
+2b. llama3.2-1b's config with head_dim 100 and 288 at 2 layers, otherwise
+   full width (``check_head_width_model``): prefill logits of the kernel
+   route against the plain route and 16 captured replays against eager
+   steps;
 3. times each kernel at its main path's shapes (device time from
    ``torch.profiler``, with its clock held against CUDA events): kernel,
    plain version, one PyTorch library call where one computes the same
@@ -63,7 +71,10 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
    prefill, 256 patches under the prefix-LM mask before 1024 text tokens,
    SDPA given the mask), and at ``PUBLIC_SHAPES`` (prefill S = 1,024
    causal, SigLIP's 729 patches bidirectional; decode 600 of 2,048 slots,
-   the line naming the kv head's group tiles), each line with the card's
+   the line naming the kv head's group tiles), at ``WIDE_PUBLIC_SHAPES``
+   (OpenLLaMA-3B's head width 100, a width of 512 at G = 4, DeepSeek-V3's
+   absorbed-MLA decode at 576), every attention line naming the backend
+   SDPA picked, each line with the card's
    name and power limit, and moe_gmm with the
    rows of a real routing of one token
    (decode) and of 975 (the S=975 prefill), beside its time with every
@@ -71,9 +82,10 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``.  It:
 3b. with ``--parent DIR`` (a checkout of an earlier commit, of which only
    ``src/repro_torch/kernels/csrc`` is read), its flash_attention.cu and
    flash_decode.cu against this tree's (``phase_parent_ab``): both
-   compiled side by side and timed, then at the served models' attention
-   shapes bf16 outputs equal to the bit and times in turns, a ``parent
-   A/B`` line each;
+   compiled side by side and timed, the served instantiations' ptxas
+   register counts equal, then at the served models' attention shapes
+   bf16 and float32 outputs equal to the bit and bf16 times in turns, a
+   ``parent A/B`` line each;
 4. runs the SkyServe scenario engine over the reference benchmark's 96-cell
    matrix (``benchmarks/jax_engine.py``: SpotHedge and even_spread on spot
    trace aws-1, 48 seeds, llama3.2-1b on g5.48xlarge, Poisson at 1
@@ -366,12 +378,34 @@ PUBLIC_SHAPES = [
     ("StarCoder-15.5B", 48, 1, 128, PREFILL_S, True),
     ("falcon-7b", 71, 1, 64, PREFILL_S, True),
 ]
-# the width sweep: every head width the kernels take, a causal prefill
-# (B, H, Kv, S) and a decode of 600 valid slots of 2,048 beside a row with
-# none (B, H, Kv, S, mask), in both dtypes
-SWEEP_WIDTHS = tuple(range(8, 257, 8))
+# the width sweep: every head width from 1 to 264 (odd ones and those off a
+# multiple of 8 copy at any alignment) and widths past it up to 1,024 (the
+# sliced kernels), a causal prefill (B, H, Kv, S) and a decode of 600 valid
+# slots of 2,048 beside a row with none (B, H, Kv, S, mask), in both dtypes
+SWEEP_WIDTHS = (*range(1, 265), 272, 288, 320, 384, 512, 576, 1024)
 SWEEP_FA = (1, 8, 2, 256)
 SWEEP_FD = (2, 8, 2, 2048, "empty beside 600")
+# the served widths on views sliced out of one fused projection buffer at
+# an odd element offset (rows 2-byte aligned), (name, H, Kv, D)
+UNALIGNED_SHAPES = [
+    ("llama3.2-1b", MAIN_H, MAIN_KV, MAIN_D),
+    ("zamba2-7b", ZAMBA_H, ZAMBA_KV, ZAMBA_D),
+    ("h2o-danube3-4b", DANUBE_H, DANUBE_KV, DANUBE_D),
+    ("qwen3-moe-30b", QWEN_H, QWEN_KV, QWEN_D),
+    ("paligemma-3b", PALI_H, PALI_KV, PALI_D),
+]
+# public attention shapes past the served widths' rules, timed in step 3:
+# (name, H, Kv, D, prefill S or 0 for decode only).  OpenLLaMA-3B's 3,200
+# hidden over 32 heads (D = 100: 200-byte rows, 8-byte aligned); a head
+# width of 512 at G = 4; DeepSeek-V3's absorbed-MLA decode, 128 heads on
+# one latent kv head of score width 576 (a shape only: v is given k's width)
+WIDE_PUBLIC_SHAPES = [
+    ("OpenLLaMA-3B", 32, 32, 100, PREFILL_S),
+    ("D=512 G=4", 32, 8, 512, PREFILL_S),
+    ("DeepSeek-V3 absorbed MLA", 128, 1, 576, 0),
+]
+# llama3.2-1b's config with head_dim set so, at 2 layers (step 2b)
+HEAD_WIDTH_MODELS = (100, 288)
 
 FA_CASES = [
     # (dtype, B, H, Kv, S, D, causal, window, prefix)
@@ -1140,11 +1174,13 @@ def check_head_width_256() -> dict:
 
 
 def check_width_sweep() -> dict:
-    """Step 2, every head width the kernels take (SWEEP_WIDTHS) in both
-    dtypes: one causal prefill (SWEEP_FA) and one decode (SWEEP_FD: 600
-    valid slots beside a row with none), each kernel against its plain
-    version at the reference's tolerances; a line per width and dtype.
-    Returns each kernel's largest error."""
+    """Step 2, the head widths of SWEEP_WIDTHS in both dtypes: one causal
+    prefill (SWEEP_FA) and one decode (SWEEP_FD: 600 valid slots beside a
+    row with none), each kernel against its plain version at the
+    reference's tolerances; a line per width and dtype, naming the copies'
+    alignment.  The inputs of a width are the leading elements of seeded
+    buffers made once per dtype (contiguous, at the width's own row
+    alignment).  Returns each kernel's largest error."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
 
@@ -1152,17 +1188,21 @@ def check_width_sweep() -> dict:
     worst = {"flash_attention": 0.0, "flash_decode": 0.0}
     B, H, Kv, S = SWEEP_FA
     dB, dH, dKv, dS, mask = SWEEP_FD
+    wmax = max(SWEEP_WIDTHS)
+    valid = make_valid(dB, dS, mask, rng)
+
+    def lead(buf, shape):
+        return buf[:math.prod(shape)].view(shape)
+
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
+        bufs = [randn(rng, (n * wmax,), dtype) for n in (
+            B * S * H, B * S * Kv, B * S * Kv, dB * dH, dB * dS * dKv, dB * dS * dKv)]
         for D in SWEEP_WIDTHS:
-            q = randn(rng, (B, S, H, D), dtype)
-            k = randn(rng, (B, S, Kv, D), dtype)
-            v = randn(rng, (B, S, Kv, D), dtype)
+            q, k, v = (lead(b, (B, S, h, D)) for b, h in zip(bufs, (H, Kv, Kv)))
             got, want = fa.launch(q, k, v), fa.plain(q, k, v)
-            qd = randn(rng, (dB, 1, dH, D), dtype)
-            kd = randn(rng, (dB, dS, dKv, D), dtype)
-            vd = randn(rng, (dB, dS, dKv, D), dtype)
-            valid = make_valid(dB, dS, mask, rng)
+            qd = lead(bufs[3], (dB, 1, dH, D))
+            kd, vd = (lead(b, (dB, dS, dKv, D)) for b in bufs[4:])
             got_d, want_d = fd.launch(qd, kd, vd, valid), fd.plain(qd, kd, vd, valid)
             torch.cuda.synchronize()
             errs = [(g.float() - w.float()).abs().max().item()
@@ -1170,13 +1210,63 @@ def check_width_sweep() -> dict:
             ok = all(torch.isfinite(g).all().item()
                      and torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
                      for g, w in ((got, want), (got_d, want_d)))
-            log(f"width sweep {str(dtype)[6:]} D={D}: flash_attention B={B} H={H} "
+            log(f"width sweep {str(dtype)[6:]} D={D} (rows {fa.row_alignment(q, k, v)}-"
+                f"byte aligned, {fa.kernel_form(dtype, D, fa.row_alignment(q, k, v))}): "
+                f"flash_attention B={B} H={H} "
                 f"Kv={Kv} S={S} causal max_abs_err={errs[0]:.3g}; flash_decode "
                 f"B={dB} H={dH} Kv={dKv} S={dS} valid={mask} max_abs_err="
                 f"{errs[1]:.3g} tol={tol} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"a kernel at head width {D} disagrees "
                                      "with its plain version")
+            worst["flash_attention"] = max(worst["flash_attention"], errs[0])
+            worst["flash_decode"] = max(worst["flash_decode"], errs[1])
+    return worst
+
+
+def check_unaligned_views() -> dict:
+    """Step 2, the served widths (UNALIGNED_SHAPES) in both dtypes on views
+    sliced out of one fused buffer at an odd element offset, as a fused
+    QKV projection's output is: a causal prefill (B 1, S 320) of q, k and v
+    views of one (B, S, 1 + (H + 2 Kv) D) buffer, and a decode (B 2, 1,100
+    slots, 600 and 77 valid) of cache views of one (B, S, 1 + 2 Kv D)
+    buffer and a q view of one (B, 1, 1 + H D) buffer, each against its
+    plain version; the wrappers read the views where they lie (no copy).
+    Returns each kernel's largest error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(31)
+    worst = {"flash_attention": 0.0, "flash_decode": 0.0}
+    S, dB, dS = 320, 2, 1100
+    valid = make_valid(dB, dS, "600,77", rng)
+    for name, H, Kv, D in UNALIGNED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TOL[dtype]
+            fused = randn(rng, (1, S, 1 + (H + 2 * Kv) * D), dtype)
+            q = fused[..., 1:1 + H * D].view(1, S, H, D)
+            k = fused[..., 1 + H * D:1 + (H + Kv) * D].view(1, S, Kv, D)
+            v = fused[..., 1 + (H + Kv) * D:].view(1, S, Kv, D)
+            cache = randn(rng, (dB, dS, 1 + 2 * Kv * D), dtype)
+            kd = cache[..., 1:1 + Kv * D].view(dB, dS, Kv, D)
+            vd = cache[..., 1 + Kv * D:].view(dB, dS, Kv, D)
+            qd = randn(rng, (dB, 1, 1 + H * D), dtype)[..., 1:].view(dB, 1, H, D)
+            align = (fa.row_alignment(q, k, v), fa.row_alignment(qd[:, 0], kd, vd))
+            pairs = ((fa.launch(q, k, v), fa.plain(q, k, v)),
+                     (fd.launch(qd, kd, vd, valid), fd.plain(qd, kd, vd, valid)))
+            torch.cuda.synchronize()
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in pairs]
+            ok = all(torch.isfinite(g).all().item()
+                     and torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                     for g, w in pairs)
+            log(f"unaligned view {name} {str(dtype)[6:]} H={H} Kv={Kv} D={D}, one "
+                f"element into a fused buffer (rows {align[0]}- / {align[1]}-byte "
+                f"aligned): flash_attention S={S} causal max_abs_err={errs[0]:.3g}; "
+                f"flash_decode B={dB} S={dS} valid=600,77 max_abs_err={errs[1]:.3g} "
+                f"tol={tol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: a kernel on unaligned views "
+                                     "disagrees with its plain version")
             worst["flash_attention"] = max(worst["flash_attention"], errs[0])
             worst["flash_decode"] = max(worst["flash_decode"], errs[1])
     return worst
@@ -1717,6 +1807,46 @@ def check_replay(fleet: Fleet, steps: int = 32):
 
 
 @torch.inference_mode()
+def check_head_width_model(head_dim: int) -> dict:
+    """Step 2b: llama3.2-1b's config with ``head_dim`` set (its 32 query and
+    8 kv heads, so the projections are 32 x head_dim wide), at 2 layers and
+    otherwise full width, random bf16 weights (seed 0), on the card through
+    ``TransformerLM.prefill`` and the captured decode step: the kernel
+    route's prefill logits against the plain route's
+    (``compare_prefill_logits``: 1e-3 in float32, the bf16 rule) and 16
+    replays of ``build_serve_step`` against 16 eager steps
+    (``check_replay``: tokens equal, a replay launches one decode step's
+    kernels).  No config is added to a registry.  Returns the kernel
+    launches of the run, counted from zero just before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.live import make_prompts
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
+                              head_dim=head_dim, name=f"llama3.2-1b@head_dim={head_dim}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_model(cfg, impl="kernel", device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+    prompts = make_prompts(cfg, n=2, min_len=200, max_len=700, seed=7, device="cuda")
+    fleet = Fleet(model, prompts, None, 1024)
+    ops.reset_launch_counts()
+    compare_prefill_logits(fleet, n=2)
+    check_replay(fleet, steps=16)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_decode": ops.flash_decode.launches}
+    log(f"{cfg.name}: 2 layers, d_model {cfg.d_model}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads, {model.num_params():,} params; kernel launches "
+        f"in its prefills and eager steps {json.dumps(launches)}")
+    if not all(launches.values()):
+        raise AssertionError(f"{cfg.name}: a kernel of the path was not launched")
+    del fleet, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+@torch.inference_mode()
 def profile_serving(fleet: Fleet, decode_steps: int = 8) -> None:
     """Where a request's time goes: one prefill of the longest prompt and
     ``decode_steps`` decode steps, eager and as replays of the captured
@@ -1773,6 +1903,16 @@ def profile_serving(fleet: Fleet, decode_steps: int = 8) -> None:
 # ---------------------------------------------------------------------------
 
 
+def sdpa_backend(*args, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for these
+    ``scaled_dot_product_attention`` arguments (``torch._fused_sdp_choice``,
+    a private helper: "unknown" where this build lacks it)."""
+    from torch.nn.attention import SDPBackend
+
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    return "unknown" if choose is None else SDPBackend(choose(*args, **kw)).name
+
+
 def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
                             causal: bool = True, prefix: int = 0,
                             label: str = "") -> dict:
@@ -1801,6 +1941,9 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
         (lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)),
     }
+    backend = (sdpa_backend(qt, kt, vt, attn_mask=mask, enable_gqa=True) if prefix
+               else sdpa_backend(qt, kt, vt, is_causal=causal, enable_gqa=True))
+    align = fa.row_alignment(q, k, v)
     ms, plain_ms, library_ms = (device_ms(f) for f in calls.values())
     call_ms = {k: cuda_ms(f) for k, f in calls.items()}
     queued = {k: queued_ms(calls[k]) for k in ("kernel", "library")}
@@ -1811,9 +1954,10 @@ def time_flash_attention_at(H: int, Kv: int, D: int, S: int = PREFILL_S,
     log(f"flash_attention timing{f' {label}' if label else ''} [{card_line()}] "
         f"bf16 B={B} H={H} Kv={Kv} S={S} "
         f"D={D} {'causal' if causal else 'bidirectional'}"
-        f"{f' prefix={prefix}' if prefix else ''}: "
+        f"{f' prefix={prefix}' if prefix else ''} "
+        f"({fa.kernel_form(torch.bfloat16, D, align)}, rows {align}-byte aligned): "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"(SDPA) kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} "
+        f"(SDPA, {backend}) kernel/library={ms / library_ms:.2f} bound_ms={b_ms:.5f} "
         f"({b_by}) achieved {flops / ms / 1e9:.1f} TFLOP/s [device time, "
         f"torch.profiler]; back to back behind a spin kernel (CUDA events): "
         f"{json.dumps(queued)}; per call with host overhead (CUDA events): "
@@ -1857,6 +2001,7 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     bytes that must move: q and the output, the mask, and the K/V rows of
     the valid slots, over the HBM rate)."""
     from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
 
     rng = np.random.default_rng(14 + D)
@@ -1878,16 +2023,20 @@ def time_flash_decode_at(H: int, Kv: int, D: int, S: int = DECODE_S,
     queued = {k: queued_ms(calls[k], iters=20) for k in ("kernel", "library")}
     work = cost.flash_decode_work(B, H, Kv, S, D, 2, n_valid)
     b_ms, b_by = bound_ms(work.flops, work.bytes)
-    # a kv head's query heads in group tiles, each a block that reads the
-    # head's K/V tiles: the first from HBM (the bound), the rest from L2
+    backend = sdpa_backend(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    # a kv head's query heads in group tiles, and past 256 its columns in
+    # slices, each a block that reads the head's K/V tiles (K whole, V its
+    # slice): the first from HBM (the bound), the rest from L2
     G = H // Kv
-    tiles = -(-G // fd.group_tile(torch.bfloat16, D, G))
+    align = fa.row_alignment(q[:, 0], k, v)
+    tiles = -(-G // fd.group_tile(torch.bfloat16, D, G, align)) * fd.slices(D)
     log(f"flash_decode timing{f' {label}' if label else ''} [{card_line()}] bf16 "
-        f"B={B} H={H} Kv={Kv} S={S} D={D} "
-        f"valid={n_valid} (G={G}: {tiles} group tile(s) a kv head, its K/V "
-        f"read {tiles} time(s), {tiles - 1} of them from L2 and not in the "
+        f"B={B} H={H} Kv={Kv} S={S} D={D} rows {align}-byte aligned "
+        f"valid={n_valid} (G={G}: {tiles} block(s) a kv head of group tiles "
+        f"and {fd.slices(D)} column slice(s), its K read {tiles} time(s), "
+        f"{tiles - 1} of them from L2 and not in the "
         f"bound): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (SDPA) kernel/library="
+        f"library_ms={library_ms:.4f} (SDPA, {backend}) kernel/library="
         f"{ms / library_ms:.2f} bound_ms={b_ms:.5f} ({b_by}) [device time, "
         f"torch.profiler]; back to back behind a spin kernel (CUDA events): "
         f"{json.dumps(queued)}; per call with host overhead (CUDA events): "
@@ -1920,10 +2069,16 @@ def time_flash_decode() -> dict:
 
 def time_public_shapes() -> None:
     """Step 3, each of PUBLIC_SHAPES' attention in bf16: its prefill and a
-    decode over 600 valid slots of 2,048, kernel, plain, SDPA and bound,
-    a line each (logged only: the kernels line keeps llama3.2-1b's)."""
+    decode over 600 valid slots of 2,048, kernel, plain, SDPA (and the
+    backend it picks) and bound, a line each (logged only: the kernels line
+    keeps llama3.2-1b's); then WIDE_PUBLIC_SHAPES' the same (causal prefill
+    at S = 1,024 where it has one)."""
     for name, H, Kv, D, S, causal in PUBLIC_SHAPES:
         time_flash_attention_at(H, Kv, D, S=S, causal=causal, label=name)
+        time_flash_decode_at(H, Kv, D, label=name)
+    for name, H, Kv, D, S in WIDE_PUBLIC_SHAPES:
+        if S:
+            time_flash_attention_at(H, Kv, D, S=S, label=name)
         time_flash_decode_at(H, Kv, D, label=name)
 
 
@@ -1940,12 +2095,12 @@ def phase_parent_ab(parent: Path) -> None:
     kernels against this tree's at the served widths, in one process.
     First both trees' flash_attention.cu and flash_decode.cu are compiled
     side by side, four nvcc at once, each timed (the build time before and
-    after).  Then, at AB_SHAPES, bf16 prefill (S = 1,024 causal) and
-    decode (600 of 2,048 slots) and the fp32 pair: bf16 outputs must be
-    equal to the bit (fp32 ones, whose kernels now run their width class,
-    within 2e-5), and each bf16 call is timed in turns (parent, tree,
-    tree, parent; device time, ``torch.profiler``) with the tree's mean
-    over the parent's printed and held to AB_TIME_TOL (logged, not
+    after) and the served instantiations' registers compared
+    (``compare_builds``).  Then, at AB_SHAPES, bf16 prefill (S = 1,024
+    causal) and decode (600 of 2,048 slots) and the fp32 pair: outputs must
+    be equal to the bit, and each bf16 call is timed in turns (parent,
+    tree, tree, parent, twice; device time, ``torch.profiler``) with the tree's
+    mean over the parent's printed and held to AB_TIME_TOL (logged, not
     failed: a few microseconds' kernels).  The parent's decode is called
     with this tree's arguments, of which it reads all but the last."""
     import ctypes
@@ -1962,10 +2117,11 @@ def phase_parent_ab(parent: Path) -> None:
     for who, csrc in (("parent", parent / "src/repro_torch/kernels/csrc"),
                       ("tree", build.CSRC)):
         for name in ("flash_attention", "flash_decode"):
-            jobs[who, name] = subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                 str(out / f"{who}_{name}.so"), str(csrc / f"{name}.cu")],
-                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+            with open(out / f"{who}_{name}.log", "w") as log_file:
+                jobs[who, name] = subprocess.Popen(
+                    [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                     str(out / f"{who}_{name}.so"), str(csrc / f"{name}.cu")],
+                    stdout=log_file, stderr=subprocess.STDOUT)
     seconds = {}
     pending = dict(jobs)
     while pending:
@@ -1978,6 +2134,7 @@ def phase_parent_ab(parent: Path) -> None:
         time.sleep(0.05)
     log("parent A/B build (four nvcc at once): " + ", ".join(
         f"{who} {name} {t:.1f} s" for (who, name), t in seconds.items()))
+    compare_builds(out)
     tree_fns = {"flash_attention": fa._kernel_fn(), "flash_decode": fd._kernel_fn()}
     parent_fns = {}
     for name, fn in tree_fns.items():
@@ -2009,6 +2166,7 @@ def phase_parent_ab(parent: Path) -> None:
                         use(who)
                         outs[who] = call()
                     torch.cuda.synchronize()
+                    # bit for bit: NaN-free outputs of the same kernels
                     same = torch.equal(outs["parent"], outs["tree"])
                     diff = (outs["parent"].float() - outs["tree"].float()).abs().max()
                     line = (f"parent A/B {name} {str(dtype)[6:]} H={H} Kv={Kv} "
@@ -2016,7 +2174,7 @@ def phase_parent_ab(parent: Path) -> None:
                             f"diff {diff.item():.3g})")
                     if dtype == torch.bfloat16:
                         ms = {"parent": [], "tree": []}
-                        for who in ("parent", "tree", "tree", "parent"):
+                        for who in ("parent", "tree", "tree", "parent") * 2:
                             use(who)
                             ms[who].append(device_ms(call, iters=20))
                         ratio = sum(ms["tree"]) / sum(ms["parent"])
@@ -2026,13 +2184,83 @@ def phase_parent_ab(parent: Path) -> None:
                                  f"at most {AB_TIME_TOL:.0%} slower "
                                  f"{ratio <= 1 + AB_TIME_TOL}")
                     log(line)
-                    # the served dtype keeps its code; fp32 runs its width
-                    # class, held to the reference's tolerance
-                    if not (same or dtype == torch.float32 and diff <= TOL[dtype]):
-                        raise AssertionError(f"{name} at D={D} differs from "
-                                             "the parent's kernel")
+                    # the served widths keep their code in both dtypes
+                    if not same:
+                        raise AssertionError(f"{name} {dtype} at D={D} differs "
+                                             "from the parent's kernel")
     finally:
         use("tree")
+
+
+def ptxas_registers(path: Path) -> dict:
+    """Each entry function's (registers, full mangled name) in an ``nvcc
+    -Xptxas -v`` log, by its mangled name without the anonymous namespace
+    (which carries a hash of the file)."""
+    regs, entry, full = {}, None, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            full = m.group(1)
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", full)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs[entry] = (int(m.group(1)), full)
+    return regs
+
+
+def sass(lib: Path, entry: str) -> list:
+    """The SASS of kernel ``entry`` in library ``lib`` (``cuobjdump -sass
+    -fun``, beside nvcc), the lines that carry an encoding alone
+    (address, instruction and both halves of each 128-bit word)."""
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", "-fun", entry, str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return [line.strip() for line in text.splitlines()
+            if re.search(r"/\* 0x[0-9a-f]{16} \*/", line)]
+
+
+# the served bf16 instantiations, by their template arguments in the
+# parent's names: the prefill's (tile width, head width) and the decode's
+# (class, head width) at a nonzero head width
+SERVED_ENTRY = re.compile(r"(flash_attention_(mma|ws)|flash_decode_kernelI13__nv_bfloat16)"
+                          r"I?Li(\d+)ELi([1-9]\d*)E")
+
+
+def compare_builds(out: Path) -> None:
+    """The parent's and this tree's register counts of every entry both
+    builds have (this tree's names lose their last template argument,
+    the copy mode: 0 or false for the whole-chunk copies),
+    and the served instantiations' SASS: their registers must be
+    unchanged, and whether their code is the same instruction for
+    instruction is printed."""
+    for name in ("flash_attention", "flash_decode"):
+        parent = ptxas_registers(out / f"parent_{name}.log")
+        tree = {re.sub(r"EL[bi]0EEEv", "EEEv", k): v
+                for k, v in ptxas_registers(out / f"tree_{name}.log").items()}
+        both = sorted(set(parent) & set(tree))
+        served = [e for e in both if SERVED_ENTRY.search(e)]
+        moved = [e for e in served if parent[e][0] != tree[e][0]]
+        same, diffs = 0, []
+        for e in served:
+            a = sass(out / f"parent_{name}.so", parent[e][1])
+            b = sass(out / f"tree_{name}.so", tree[e][1])
+            same += a == b
+            if a != b:      # where they differ, the first lines that do
+                pairs = [(x, y) for x, y in zip(a, b) if x != y]
+                diffs.append(f"{e}: {len(pairs)} of {len(a)} / {len(b)} lines differ, "
+                             f"first {pairs[:2]}")
+        log(f"parent A/B registers {name}: " + "; ".join(
+            f"{e}: parent {parent[e][0]} tree {tree[e][0]}" for e in both)
+            + f"; served instantiations {len(served)}, registers unchanged "
+            f"{len(served) - len(moved)}, SASS identical (cuobjdump -sass) {same}"
+            + "".join(f"; {d}" for d in diffs))
+        if len(served) != 5 or moved:
+            raise AssertionError(f"{name}: the served instantiations' registers "
+                                 f"moved or were not found ({moved or served})")
 
 
 def time_selective_scan() -> dict:
@@ -4563,6 +4791,10 @@ def main(argv=None) -> int:
         errors[name] = max(errors[name], err)
     for name, err in timed("width sweep", check_width_sweep).items():
         errors[name] = max(errors[name], err)
+    for name, err in timed("unaligned views", check_unaligned_views).items():
+        errors[name] = max(errors[name], err)
+    for head_dim in HEAD_WIDTH_MODELS:
+        timed(f"head_dim {head_dim} model", check_head_width_model, head_dim)
     # timed before the fleets: after both models' profiles, one run of this
     # script recorded kernels at 0.6 of their true time; the newest kernel
     # first, while the profiler is fresh

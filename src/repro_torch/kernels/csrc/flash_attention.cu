@@ -81,9 +81,9 @@
 // reference's fp32 tolerance of 2e-5; fp32 attention only carries the
 // fp32 logits check, not the served path.
 //
-// Head widths: every multiple of 8 from 8 to 256 (a bf16 row is whole
-// 16-byte chunks for cp.async and TMA; past 256 the O accumulator would no
-// longer fit one warpgroup's registers), in width classes: a class is a
+// Head widths: every D >= 1, in fp32 and bf16 (the Pallas kernel carries D
+// whole).  bf16 rows of whole aligned 16-byte chunks (D a multiple of 8,
+// every row start 16-byte aligned) up to 256 run width classes: a class is a
 // tile width, and the head width D rides beside it.  bf16 takes the tile
 // widths 64 (D = 8 .. 64) and 128 (72 .. 128) on the one-warpgroup kernel
 // and 192 (136 .. 192) and 256 (200 .. 256) on the warp-specialised one;
@@ -99,10 +99,24 @@
 // (the last one at D = 8 (mod 16) reads one zero chunk of Q and of K, so
 // 0 x 0 and never NaN); P.V keeps the class's product (its columns past D
 // are zeros times P and never stored); the stores stop at D.  At 112 that
-// is 1/7 more tensor-core work in P.V and no more bytes from HBM.  The
-// bf16 kernels need 16-byte-aligned rows (the wrapper checks the base
-// pointers and strides before the launch).  Query groups: any G = H / Kv;
-// query head h reads kv head h / G.
+// is 1/7 more tensor-core work in P.V and no more bytes from HBM.
+//
+// Any other bf16 row (D off a multiple of 8, or a view whose base or
+// strides are not 16-byte multiples; the wrapper passes the largest of 16,
+// 8, 4 and 2 bytes that divides them all) is read where it lies by
+// copy_chunk (mma_sm90.cuh): pieces of that size by cp.async, src-size 0
+// past the row, or 2-byte element loads, into the same zero-padded,
+// swizzled tiles, every stage of every tile written whole, so the last
+// chunk's elements past D and the rows past S read as zero (element loads
+// store the zeros themselves; stale shared memory would give 0 x NaN).  Up
+// to 128 that is the one-warpgroup kernel (LOOSE), its stores an element at
+// a time.  Past 128 (where TMA needs 16-byte strides) and at every width
+// past 256 (where one warpgroup's accumulator would pass its registers) it
+// is flash_attention_sliced, and fp32 past 256 flash_attention_f32_sliced:
+// the output columns in slices of 256 on the grid, each slice's scores over
+// all of D in chunks of 64.  fp32 up to 256 reads single elements at any
+// alignment.  Query groups: any G = H / Kv; query head h reads kv head
+// h / G.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -124,7 +138,7 @@ struct Params {
   const void* v;
   void* o;
   int B, H, Kv, Sq, Skv;
-  int D;                        // the head width (a multiple of 8, <= 256)
+  int D;                        // the head width (>= 1)
   long long q_sb, q_ss, q_sh;   // strides in elements; the D stride is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -133,6 +147,7 @@ struct Params {
   int window;                   // <= 0: no sliding window
   int prefix_len;
   float scale;
+  int align;                    // bytes dividing every q, k, v row start and D x the element
 };
 
 // The KV tiles a block with query rows [q_start, q_start + rows) visits, in
@@ -295,8 +310,10 @@ __device__ __forceinline__ void softmax_pv(const Params& p, int k_start, int w_q
 }
 
 // The warp's 16 output rows from w_q0, normalised by max(l, 1e-20): the
-// first nt (<= NT) n8 blocks of acc, rows past Sq not written.
-template <int NT>
+// first nt (<= NT) n8 blocks of acc, rows past Sq not written; LOOSE, the
+// first nt columns, an element at a time (a row may start at any even
+// address).
+template <int NT, bool LOOSE = false>
 __device__ __forceinline__ void store_rows(const Params& p, bf16* o, int w_q0,
                                            const float* acc, float l[2], int nt) {
   using namespace mma_sm90;
@@ -309,24 +326,36 @@ __device__ __forceinline__ void store_rows(const Params& p, bf16* o, int w_q0,
     if (qpos < p.Sq) {
       const float denom = fmaxf(l[i], 1e-20f);
       bf16* orow = o + qpos * p.o_ss + t4 * 2;
+      if constexpr (LOOSE) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        if (j < nt)
-          *reinterpret_cast<uint32_t*>(orow + j * 8) =
-              pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (j * 8 + t4 * 2 + e < nt)
+              orow[j * 8 + e] = __float2bfloat16(acc[j * 4 + 2 * i + e] / denom);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < nt)
+            *reinterpret_cast<uint32_t*>(orow + j * 8) =
+                pack_bf16x2(acc[j * 4 + 2 * i] / denom, acc[j * 4 + 2 * i + 1] / denom);
+      }
     }
   }
 }
 
 // D: the tile width (64 or 128); DT: the head width (a multiple of 8 in
 // (D - 64, D]), or 0 for the width class, whose head width p.D is read at
-// run time and bounds the same loops.
-template <int D, int DT>
+// run time and bounds the same loops.  LOOSE (a class only): rows that are
+// not whole aligned 16-byte chunks, copied by copy_chunk at p.align, the
+// last chunk's elements past p.D and every chunk past it zero in every
+// stage, and stored an element at a time.
+template <int D, int DT, bool LOOSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma(const Params p) {
   using namespace mma_sm90;
   static_assert((D == 64 || D == 128) && DT % 8 == 0 && DT <= D &&
-                (DT == 0 || D - DT < 64), "head width");
+                (DT == 0 || D - DT < 64) && !(LOOSE && DT), "head width");
   constexpr int RC = D / 8;     // 16-byte chunks per tile row
   // k16 steps of Q.K^T: a width's own (at 120 the last reads one zero
   // chunk); a class's all of the tile, the chunks past the row zero-filled
@@ -367,9 +396,14 @@ flash_attention_mma(const Params p) {
     for (int i = tid; i < 64 * per_row; i += MMA_THREADS) {
       const int r = i / per_row, c = i % per_row;
       const int s = start + r;
-      const bool in = s < limit && (DT != 0 || c < rt);
-      cp_async16(dst + sw128_index<64>(r, c), src + (in ? s * ss + c * 8 : 0),
-                 in ? 16 : 0);
+      if constexpr (LOOSE) {
+        copy_chunk(dst + sw128_index<64>(r, c), src + (s < limit ? s * ss : 0), c * 8,
+                   p.D, s < limit, p.align);
+      } else {
+        const bool in = s < limit && (DT != 0 || c < rt);
+        cp_async16(dst + sw128_index<64>(r, c), src + (in ? s * ss + c * 8 : 0),
+                   in ? 16 : 0);
+      }
     }
   };
   const TileRange tiles(p, q_start, BQ);
@@ -467,7 +501,7 @@ flash_attention_mma(const Params p) {
     if (t + 1 < tiles.n) step(t + 1, s2, s);
   }
   cp_async_wait<0>();
-  store_rows<ND>(p, o, w_q0, acc, l, rt);
+  store_rows<ND, LOOSE>(p, o, w_q0, acc, l, LOOSE ? p.D : rt);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,6 +659,107 @@ flash_attention_ws(const Params p, const __grid_constant__ CUtensorMap tq,
       store_rows<ND>(p, o, w_q0, acc, l, nt);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 past the classes: head widths past 256, and rows past 128 that are
+// not whole aligned 16-byte chunks (TMA needs 16-byte global strides)
+// ---------------------------------------------------------------------------
+
+constexpr int SL_WIDTH = 256;         // output columns of a slice
+constexpr int SL_CHUNK = 64;          // columns of Q and K a score step reads
+
+constexpr int sliced_smem_bytes() {
+  // two stages of a Q and a K chunk, then the V slice, all bf16
+  return static_cast<int>(sizeof(bf16)) * (2 * 2 * BQ * SL_CHUNK + BK * SL_WIDTH);
+}
+
+// One warpgroup owns 64 query rows and one slice of SL_WIDTH output columns
+// (the grid's third axis is query tile x slice).  Q.K^T runs over all of D
+// in chunks of 64 columns, Q's and K's chunk staged together through a
+// two-stage cp.async ring (copy_chunk: any alignment, zeros past D and past
+// the rows) and multiplied from shared memory (wgmma SS); the slice of V
+// lands once a tile beside them, and P.V (softmax_pv<256>, the
+// warp-specialised kernel's consumer step) runs on it alone.  A slice
+// recomputes the scores: at D = 512 two slices do 1.5 times the products of
+// one pass, at 1024 four do 2.5 times, and Q is read again for every KV tile
+// (from L2).  No bound on D: shared memory (64 KiB) and registers (the
+// 128-register accumulator of a 256-column slice) do not grow with it.
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+flash_attention_sliced(const Params p) {
+  using namespace mma_sm90;
+  constexpr int ND = SL_WIDTH / 8;    // n8 blocks of the slice's accumulator
+  constexpr int NK = BK / 8;
+  constexpr int QK = BQ * SL_CHUNK;   // elements of a Q or K chunk
+  extern __shared__ __align__(1024) unsigned char fa_sl_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(fa_sl_smem);   // [2][Q chunk | K chunk]
+  bf16* vs = ring + 2 * 2 * QK;                        // [BK x SL_WIDTH]
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (p.H / p.Kv);
+  const int n_sl = (p.D + SL_WIDTH - 1) / SL_WIDTH;
+  const int sl = blockIdx.z % n_sl;
+  // the query tile is the grid's slowest axis, last tile first
+  const int q_start = (gridDim.z / n_sl - 1 - blockIdx.z / n_sl) * BQ;
+  const int c0 = sl * SL_WIDTH;
+  const int n_ch = (p.D + SL_CHUNK - 1) / SL_CHUNK;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + c0;
+
+  // rows [start, start + 64) and columns [col, col + 8 nc) of an (S, D)
+  // operand into 64-column SW128 blocks, zeros past `limit` and past D
+  auto load = [&](bf16* dst, const bf16* src, long long ss, int start, int limit,
+                  int col, int nc) {
+    for (int i = tid; i < 64 * nc; i += MMA_THREADS) {
+      const int r = i / nc, c = i % nc, s = start + r;
+      copy_chunk(dst + sw128_index<64>(r, c), src + (s < limit ? s * ss : 0),
+                 col + c * 8, p.D, s < limit, p.align);
+    }
+  };
+  auto load_chunk = [&](int st, int k0, int ch) {
+    load(ring + st * 2 * QK, q, p.q_ss, q_start, p.Sq, ch * SL_CHUNK, SL_CHUNK / 8);
+    load(ring + st * 2 * QK + QK, k, p.k_ss, k0, p.Skv, ch * SL_CHUNK, SL_CHUNK / 8);
+  };
+
+  const TileRange tiles(p, q_start, BQ);
+  float acc[ND * 4];
+#pragma unroll
+  for (int j = 0; j < ND * 4; ++j) acc[j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float s[NK * 4];
+  const int w_q0 = q_start + warp * 16;
+  for (int t = 0; t < tiles.n; ++t) {
+    const int k0 = tiles.tile(t) * BK;
+    load(vs, v, p.v_ss, k0, p.Skv, c0, SL_WIDTH / 8);
+    load_chunk(0, k0, 0);
+    cp_async_commit();
+    for (int ch = 0; ch < n_ch; ++ch) {
+      if (ch + 1 < n_ch) load_chunk((ch + 1) % 2, k0, ch + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_proxy_async();
+      __syncthreads();        // chunk ch landed (with the first, the V slice)
+      const bf16* qt = ring + (ch % 2) * 2 * QK;
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < SL_CHUNK / 16; ++kd)
+        wgmma_m64n64_ss_kmajor(s, sw128_desc(qt + kd * 16, 16),
+                               sw128_desc(qt + QK + kd * 16, 16), ch > 0 || kd > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers<NK * 4>(s);
+      __syncthreads();        // stage ch % 2 is read by all
+    }
+    softmax_pv<SL_WIDTH>(p, k0, w_q0, s, acc, m, l, vs);
+    __syncthreads();          // the V slice is read by all
+  }
+  cp_async_wait<0>();
+  store_rows<ND, true>(p, o, w_q0, acc, l, min(SL_WIDTH, p.D - c0));
 }
 
 // cuTensorMapEncodeTiled, from libcuda through the runtime's entry-point
@@ -826,6 +961,149 @@ flash_attention_f32(const Params p) {
   }
 }
 
+// fp32 past 256: the scalar kernel's form with its output columns in
+// slices of F32_WIDTH (the grid's third axis is batch x slice) and Q.K^T
+// over D in chunks of F32_CHUNK, Q's and K's chunk read into shared memory
+// at each KV tile (so nothing grows with D).
+constexpr int F32_WIDTH = 256;
+constexpr int F32_CHUNK = 64;
+
+inline size_t f32_sliced_smem_bytes() {
+  // qs [BQ][F32_CHUNK+1], ks [BK][F32_CHUNK+1], vs [BK][F32_WIDTH], ps [BQ][BK+1]
+  return sizeof(float) * (BQ * (F32_CHUNK + 1) + BK * (F32_CHUNK + 1) +
+                          BK * F32_WIDTH + BQ * (BK + 1));
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_attention_f32_sliced(const Params p) {
+  constexpr int CP = F32_CHUNK + 1;   // padded chunk rows
+  constexpr int PP = BK + 1;
+  constexpr int NJ = F32_WIDTH / 16;
+  extern __shared__ float smem_sl[];
+  float* qs = smem_sl;
+  float* ks = qs + BQ * CP;
+  float* vs = ks + BK * CP;
+  float* ps = vs + BK * F32_WIDTH;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n_sl = (p.D + F32_WIDTH - 1) / F32_WIDTH;
+  const int h = blockIdx.y, b = blockIdx.z / n_sl, sl = blockIdx.z % n_sl;
+  const int kvh = h / (p.H / p.Kv);
+  const int q_start = blockIdx.x * BQ;
+  const int c0 = sl * F32_WIDTH, nc = min(F32_WIDTH, p.D - c0);
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + c0;
+
+  float m[4], l[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+
+  const TileRange tiles(p, q_start, BQ);
+  for (int t = 0; t < tiles.n; ++t) {
+    const int k_start = tiles.tile(t) * BK;
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
+    for (int d0 = 0; d0 < p.D; d0 += F32_CHUNK) {
+      const int w = min(F32_CHUNK, p.D - d0);
+      __syncthreads();          // the previous chunk (and tile's V, P) is read
+      for (int i = tid; i < BQ * w; i += THREADS) {
+        const int r = i / w, c = i % w;
+        const int sq = q_start + r, sk = k_start + r;
+        qs[r * CP + c] = sq < p.Sq ? q[sq * p.q_ss + d0 + c] : 0.f;
+        ks[r * CP + c] = sk < p.Skv ? k[sk * p.k_ss + d0 + c] : 0.f;
+      }
+      if (d0 == 0) {
+        for (int i = tid; i < BK * F32_WIDTH; i += THREADS) {
+          const int r = i / F32_WIDTH, c = i % F32_WIDTH;
+          const int s = k_start + r;
+          vs[i] = s < p.Skv && c < nc ? v[s * p.v_ss + c0 + c] : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int d = 0; d < w; ++d) {
+        float a[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * CP + d];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) bv[jj] = ks[(tx + 16 * jj) * CP + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) sc[i][jj] = fmaf(a[i], bv[jj], sc[i][jj]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const VisibleKeys visible(p, q_start + r);
+      float row_max = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float x = visible(k_start + tx + 16 * jj) ? sc[i][jj] * p.scale
+                                                        : NEG_INF;
+        sc[i][jj] = x;
+        row_max = fmaxf(row_max, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+      const float m_new = fmaxf(m[i], row_max);
+      const float corr = expf(m[i] - m_new);
+      float row_sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float pv = expf(sc[i][jj] - m_new);
+        ps[r * PP + tx + 16 * jj] = pv;
+        row_sum += pv;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
+      l[i] = l[i] * corr + row_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();            // ps complete
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float pr[4], vv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * PP + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) vv[j] = vs[c * F32_WIDTH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q_start + ty + 16 * i;
+    if (qpos < p.Sq) {
+      const float denom = fmaxf(l[i], 1e-20f);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < nc) o[qpos * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
+    }
+  }
+}
+
 // `asked`: the wrapper's number (flash_attention.py smem_bytes); a launch
 // whose number is not the kernel's is refused.
 template <typename Kernel>
@@ -846,11 +1124,26 @@ cudaError_t launch_f32(const Params& p, int asked, cudaStream_t s) {
                 static_cast<int>(smem_bytes(p.D)), asked, p, s);
 }
 
-template <int D, int DT>
+template <int D, int DT, bool LOOSE = false>
 cudaError_t launch_mma(const Params& p, int asked, cudaStream_t s) {
   const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ);
-  return launch(flash_attention_mma<D, DT>, grid, MMA_THREADS,
+  return launch(flash_attention_mma<D, DT, LOOSE>, grid, MMA_THREADS,
                 mma_smem_bytes<D>(), asked, p, s);
+}
+
+cudaError_t launch_sliced(const Params& p, int asked, cudaStream_t s) {
+  const int n_sl = (p.D + SL_WIDTH - 1) / SL_WIDTH;
+  const dim3 grid(p.H, p.B, (p.Sq + BQ - 1) / BQ * n_sl);
+  return launch(flash_attention_sliced, grid, MMA_THREADS, sliced_smem_bytes(),
+                asked, p, s);
+}
+
+cudaError_t launch_f32_sliced(const Params& p, int asked, cudaStream_t s) {
+  const int n_sl = (p.D + F32_WIDTH - 1) / F32_WIDTH;
+  if (static_cast<long long>(p.B) * n_sl > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B * n_sl);
+  return launch(flash_attention_f32_sliced, grid, THREADS,
+                static_cast<int>(f32_sliced_smem_bytes()), asked, p, s);
 }
 
 template <int D, int DT>
@@ -873,8 +1166,11 @@ cudaError_t launch_ws(const Params& p, int asked, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).
-// head_dim: a multiple of 8 from 8 to 256.  smem: the dynamic shared memory
-// the wrapper computed.  Returns a cudaError_t (0 = launched).
+// head_dim: any width >= 1.  smem: the dynamic shared memory the wrapper
+// computed.  align: a power of two (2 to 16) dividing the byte address of
+// every row start of q, k and v and head_dim times the element size; below
+// 16 a bf16 input runs the kernels that copy at any alignment.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     int dtype, int head_dim,
     const void* q, const void* k, const void* v, void* o,
@@ -884,7 +1180,7 @@ extern "C" int flash_attention_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, int prefix_len, float scale, void* stream,
-    int smem) {
+    int smem, int align) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.H = H; p.Kv = Kv; p.Sq = Sq; p.Skv = Skv;
@@ -895,15 +1191,24 @@ extern "C" int flash_attention_fwd(
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.causal = causal; p.window = window; p.prefix_len = prefix_len;
   p.scale = scale;
+  p.align = align;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim < 8 || head_dim > 256 || head_dim % 8 != 0 || Kv <= 0 || H % Kv != 0)
+  const int unit = dtype == 0 ? 4 : 2;
+  if (head_dim < 1 || Kv <= 0 || H % Kv != 0 || align < unit || align > 16 ||
+      (align & (align - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
+  if (dtype == 0) {     // scalar loads: any alignment
     if (head_dim <= 64) return launch_f32<64>(p, smem, s);
     if (head_dim <= 128) return launch_f32<128>(p, smem, s);
-    return launch_f32<256>(p, smem, s);
+    if (head_dim <= 256) return launch_f32<256>(p, smem, s);
+    return launch_f32_sliced(p, smem, s);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (align < 16 || head_dim > 256) {   // rows that are not whole aligned chunks
+    if (head_dim > 128) return launch_sliced(p, smem, s);
+    if (head_dim <= 64) return launch_mma<64, 0, true>(p, smem, s);
+    return launch_mma<128, 0, true>(p, smem, s);
+  }
   switch (head_dim) {   // the served models' widths keep their own code
     case 64: return launch_mma<64, 64>(p, smem, s);
     case 112: return launch_mma<128, 112>(p, smem, s);

@@ -58,14 +58,14 @@
 //   the tile loop is the same with or without them.
 //
 // Element types: float and bfloat16 (math in fp32).  Head widths: every
-// multiple of 8 from 8 to 256, in width classes (a class is the shared
-// row pitch and the most k16 steps; the head width D rides beside it):
-// bf16 rows in 64, 128, 192 or 256 elements (whole 8-chunk swizzle
-// groups), fp32 the classes 64, 128 and 256 of each lane's columns lane +
-// 32 j below D.  The served models' bf16 widths (64, 112, 120, 128, 256)
-// at G <= 8 keep their own instantiations, whose constants fold the
-// run-time bounds into the code they had; any other shape runs its
-// class's, which reads D at run time.  The chunks past a row are never
+// D >= 1.  Rows of whole aligned 16-byte chunks up to 256 run width classes
+// (a class is the shared row pitch and the most k16 steps; the head width D
+// rides beside it): bf16 rows in 64, 128, 192 or 256 elements (whole
+// 8-chunk swizzle groups), fp32 the classes 64, 128 and 256 of each lane's
+// columns lane + 32 j below D.  The served models' bf16 widths (64, 112,
+// 120, 128, 256) at G <= 8 keep their own instantiations, whose constants
+// fold the run-time bounds into the code they had; any other shape runs
+// its class's, which reads D at run time.  The chunks past a row are never
 // loaded; where D / 8 is odd, the last k16 step of Q.K^T takes one chunk
 // past the row: Q's fragment is zero there and K's chunk is set to zero
 // once, so the scores stay exact, and P.V's last 8 columns land in an
@@ -81,12 +81,25 @@
 // form's accumulator took 128 registers at 256, half of them padding, and
 // the thread 255 with a 16-byte spill; the transposed one takes 64 (a
 // warp's 16 slots into all 256 columns).  Its query rows reach shared
-// memory by 16-byte asynchronous copies that the mask scan does not wait
-// for (so they must be 16-byte aligned), where 64 scalar loads a thread had
-// held the scan up.  Tiles stay 64 slots: 32-slot tiles (two warps'
-// column halves per group of 16 slots) give 19 blocks instead of 10 at 600
-// valid slots of 2048, but measured slower on the H100, the last block
-// merging twice the partials.
+// memory by asynchronous copies that the mask scan does not wait for,
+// where 64 scalar loads a thread had held the scan up.  Tiles stay 64
+// slots: 32-slot tiles (two warps' column halves per group of 16 slots)
+// give 19 blocks instead of 10 at 600 valid slots of 2048, but measured
+// slower on the H100, the last block merging twice the partials.
+//
+// Other rows (mode ANY: D off whole 16-byte chunks, a view whose base or
+// strides are not 16-byte multiples, fp32 rows below 8 floats) run the
+// classes' kernels with copy_chunk's copies (mma_sm90.cuh) at the largest
+// of 16, 8, 4 and 2 bytes that divides them, into the same tiles (fp32 rows
+// padded to whole chunks), every chunk of every stage written whole, so
+// the elements past D and the slots past S read as zero; the partials'
+// rows are padded to whole float4s and the output is stored an element at
+// a time.  Past 256 (mode SLICED, both dtypes, any alignment) the output
+// columns go in slices of 256 on the grid (kv head x group tile x slice):
+// a block's scores run over all of D in chunks of 256 columns of K and of
+// its query rows through one ring stage, then P.V over its slice of V (the
+// wide form's products in bf16), so nothing grows with D; each slice
+// re-reads K (from L2 after the first) and writes its own m and l.
 //
 // Query groups: any G = H / Kv.  A block holds a group tile of one kv
 // head's query heads, and a kv head's G heads take ceil(G / tile) blocks
@@ -95,8 +108,7 @@
 // K/V tiles, from L2 after the first.  The tile is 16 heads on the bf16
 // classes up to 192 (the 16 rows of mma.sync.m16n8k16), and 8 elsewhere:
 // the served widths' own kernels, the class of 256 (8 n8 columns) and fp32
-// (two 16-lane halves of 4 heads).  K and V rows must be 16-byte aligned
-// (the wrapper checks).
+// (two 16-lane halves of 4 heads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,10 +157,19 @@ struct Params {
   float scale;
   float* lse;                   // (B, H) log-sum-exp of the scaled scores, or null
   int o_f32;                    // the output in fp32 (else T)
+  int align;                    // bytes dividing every q, k, v row start and D x the element
 };
 
-// The kernel of element type T, width class DC and head width DT (0: the
-// class's, read from p.D at run time).  bf16 at DC = 256 is the wide form.
+// How a kernel copies rows: WHOLE, in aligned 16-byte chunks (every width
+// the served models take); ANY, at any alignment (copy_chunk), the partial
+// buffer's rows padded to 4 floats; SLICED, past 256: the output columns in
+// slices of 256 on the grid, each block's scores over all of D in chunks of
+// 256 (the same copies as ANY).
+constexpr int WHOLE = 0, ANY = 1, SLICED = 2;
+
+// The kernel of element type T, width class DC, head width DT (0: the
+// class's, read from p.D at run time) and copy mode MODE.  bf16 at DC = 256
+// is the wide form (a slice of SLICED too).
 template <typename T, int DC>
 __host__ __device__ constexpr bool wide() {
   return std::is_same<T, bf16>::value && DC == 256;
@@ -163,27 +184,30 @@ __host__ __device__ constexpr int group_tile() {
 }
 
 // Stages of the K/V ring: two, or one for fp32 rows past 128 (two tiles of
-// K and V would pass 160 KiB at 256).
-template <typename T, int DC>
+// K and V would pass 160 KiB at 256) and for slices (a K chunk and the V
+// slice).
+template <typename T, int DC, int MODE>
 __host__ __device__ constexpr int ring_stages() {
-  return std::is_same<T, float>::value && DC > 128 ? 1 : STAGES;
+  return (std::is_same<T, float>::value && DC > 128) || MODE == SLICED ? 1 : STAGES;
 }
 
-// The K/V ring's bytes at head width D: bf16 rows take the class width (whole
-// 8-chunk swizzle groups), fp32 rows D.
-template <typename T, int DC>
+// The K/V ring's bytes at head width D: bf16 rows and slices take the class
+// width (whole 8-chunk swizzle groups), fp32 rows D (ANY: D rounded up to 4,
+// whole 16-byte chunks).
+template <typename T, int DC, int MODE>
 __host__ __device__ int ring_bytes(int D) {
-  const int pitch = std::is_same<T, bf16>::value ? DC : D;
-  return ring_stages<T, DC>() * 2 * TILE * pitch * static_cast<int>(sizeof(T));
+  const int pitch = std::is_same<T, bf16>::value || MODE == SLICED ? DC
+                    : MODE == ANY ? (D + 3) / 4 * 4 : D;
+  return ring_stages<T, DC, MODE>() * 2 * TILE * pitch * static_cast<int>(sizeof(T));
 }
 
 // Dynamic shared memory: the K/V ring, then the tile bitmap and the list,
 // and at least the last block's per-split weights and sums ([group tile]
 // [splits] each), which reuse the ring and the list once the tiles are done.
-template <typename T, int DC, int DT>
+template <typename T, int DC, int DT, int MODE>
 size_t smem_bytes(int D, int splits, int n_tiles) {
   const int merge = 8 * group_tile<T, DC, DT>() * splits;
-  const int ring = ring_bytes<T, DC>(D);
+  const int ring = ring_bytes<T, DC, MODE>(D);
   const int n_words = (n_tiles + 31) / 32;
   return static_cast<size_t>(ring > merge ? ring : merge) +
          4 * static_cast<size_t>(n_words + n_tiles);
@@ -192,9 +216,9 @@ size_t smem_bytes(int D, int splits, int n_tiles) {
 // Blocks an SM must hold: three for the narrow bf16 kernels up to 128 (at
 // most 168 registers a thread), so a grid of up to 396 blocks (zamba2-7b's
 // 32 kv heads x 9 splits) runs in one wave.
-template <typename T, int DC, int DT>
+template <typename T, int DC, int DT, int MODE>
 __host__ __device__ constexpr int min_blocks() {
-  return std::is_same<T, bf16>::value && !wide<T, DC>() && DC <= 128 ? 3 : 1;
+  return std::is_same<T, bf16>::value && !wide<T, DC>() && DC <= 128 && MODE != SLICED ? 3 : 1;
 }
 
 // The last block's merge: N4 float4 of the output a thread, MERGE splits'
@@ -205,13 +229,47 @@ __host__ __device__ constexpr int merge_depth() {
   return DT ? (N4 <= 4 ? 8 : 32 / N4) : (N4 >= 16 ? 1 : 16 / N4 > 8 ? 8 : 16 / N4);
 }
 
-template <typename T, int DC, int DT>
-__global__ void __launch_bounds__(THREADS, (min_blocks<T, DC, DT>()))
+// SLICED: columns [col0, col0 + DC) of a tile's K rows into ks (one ring
+// stage: bf16 rows swizzled, fp32 at pitch DC) and of the block's query
+// rows into qrows (pitch QP; rows past Gt zero), zeros past D and past S;
+// the caller commits and waits.  A function of its own: as a lambda in
+// the kernel, even unused, it changed the whole-chunk kernels' code.
+template <typename T, int DC, int GT, int QP>
+__device__ __forceinline__ void load_chunk(T* ks, T* qrows, const T* k, const T* q,
+                                           const Params& p, int tile, int col0, int Gt) {
+  using namespace mma_sm90;
+  constexpr bool BF16 = std::is_same<T, bf16>::value;
+  constexpr int EPC = 16 / static_cast<int>(sizeof(T)), RC = DC / EPC;
+  for (int i = threadIdx.x; i < TILE * RC; i += THREADS) {
+    const int r = i / RC, c = i % RC, s = tile * TILE + r;
+    copy_chunk(ks + (BF16 ? swizzle<DC / 8>(r, c) : r * DC + c * EPC),
+               k + (s < p.S ? s * p.k_ss : 0), col0 + c * EPC, p.D, s < p.S, p.align);
+  }
+  if constexpr (BF16) {
+    for (int i = threadIdx.x; i < GT * RC; i += THREADS) {
+      const int g = i / RC, c = i % RC;
+      copy_chunk(qrows + g * QP + c * EPC, q + (g < Gt ? g * p.q_sh : 0), col0 + c * EPC,
+                 p.D, g < Gt, p.align);
+    }
+  } else {
+    for (int i = threadIdx.x; i < GT * DC; i += THREADS) {
+      const int g = i / DC, d = i % DC;
+      qrows[g * QP + d] = g < Gt && col0 + d < p.D ? q[g * p.q_sh + col0 + d] : 0.f;
+    }
+  }
+}
+
+template <typename T, int DC, int DT, int MODE>
+__global__ void __launch_bounds__(THREADS, (min_blocks<T, DC, DT, MODE>()))
 flash_decode_kernel(const Params p) {
   using namespace mma_sm90;
+  static_assert(MODE == WHOLE || DT == 0, "the served widths copy whole chunks");
+  static_assert(MODE != SLICED || DC == 256, "slices of 256 columns");
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));      // elements per chunk
   constexpr bool BF16 = std::is_same<T, bf16>::value;
   constexpr bool WIDE = wide<T, DC>();                       // the transposed products
+  constexpr bool LOOSE = MODE != WHOLE;                      // copy_chunk's copies
+  constexpr bool SL = MODE == SLICED;
   // a class's narrow bf16 kernel: Q by cp.async and ldmatrix (16 rows of
   // scalar loads a thread would hold the mask scan up)
   constexpr bool QN = BF16 && !WIDE && DT == 0;
@@ -222,22 +280,34 @@ flash_decode_kernel(const Params p) {
   // bf16 k16 steps: a width's own (at 120 the last reads one zero chunk);
   // a class's all of the row, its chunks past the head width zero
   constexpr int KQ = DT ? (DT + 15) / 16 : DC / 16;
-  constexpr int ST = ring_stages<T, DC>();                   // K/V ring stages
+  constexpr int ST = ring_stages<T, DC, MODE>();             // K/V ring stages
   constexpr int WIDE_MT = DC / 16;                           // wide: m16 tiles of P.V
   const int D = DT ? DT : p.D;                               // the head width
-  const int CH = D * static_cast<int>(sizeof(T)) / 16;       // chunks per row
-  const int DP = BF16 ? DC : D;                              // shared row pitch
+  // chunks per row (ANY: the last one may be partial)
+  const int CH = LOOSE ? (D * static_cast<int>(sizeof(T)) + 15) / 16
+                       : D * static_cast<int>(sizeof(T)) / 16;
+  // shared row pitch; ANY fp32 rows padded to whole chunks
+  const int DP = BF16 || SL ? DC : LOOSE ? (D + 3) / 4 * 4 : D;
+  // SLICED: this block's slice of the output columns [c0, c0 + DV)
+  const int n_sl = SL ? (D + DC - 1) / DC : 1;
+  const int si = SL ? static_cast<int>(blockIdx.y) % n_sl : 0;
+  const int c0 = si * DC;
+  const int DV = SL ? min(DC, D - c0) : D;
+  // the pitch of the warps' accumulators and of the partials' rows (ANY:
+  // whole float4s)
+  const int WP = LOOSE ? (DV + 3) / 4 * 4 : D;
+  const int PP = LOOSE ? (D + 3) / 4 * 4 : D;
   // the loops over a row's chunks and a block's columns step by the class
   // (constant divisors), the rest masked
   const int row_chunks = DT ? CH : DC * static_cast<int>(sizeof(T)) / 16;
   const int row_cols = DT ? D : DC;
   extern __shared__ __align__(128) unsigned char fd_smem[];
   T* ring = reinterpret_cast<T*>(fd_smem);
-  uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, DC>(D));
+  uint32_t* words = reinterpret_cast<uint32_t*>(fd_smem + ring_bytes<T, DC, MODE>(D));
   const int n_words = (p.n_tiles + 31) / 32;
   int* list = reinterpret_cast<int*>(words + n_words);
   // the merge of the warps reuses the ring once the tiles are done
-  float* wacc = reinterpret_cast<float*>(fd_smem);          // [WARPS][GT][D]
+  float* wacc = reinterpret_cast<float*>(fd_smem);          // [WARPS][GT][WP]
   __shared__ float wm[WARPS][GT], wl[WARPS][GT];
   __shared__ float qs[BF16 ? 1 : GT][BF16 ? 1 : DC];        // fp32: the query rows
   __shared__ float ps[BF16 ? 1 : WARPS][GT][WARP_KEYS];     // fp32: a warp's P
@@ -254,7 +324,8 @@ flash_decode_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = p.H / p.Kv;
   const int n_gt = DT ? 1 : (G + GT - 1) / GT;
-  const int kvh = blockIdx.y / n_gt, g0 = (blockIdx.y % n_gt) * GT;
+  const unsigned by = SL ? blockIdx.y / n_sl : blockIdx.y;   // kv head x group tile
+  const int kvh = by / n_gt, g0 = (by % n_gt) * GT;
   const int Gt = min(GT, G - g0);             // query heads of this block
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (kvh * G + g0) * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
@@ -268,13 +339,20 @@ flash_decode_kernel(const Params p) {
   // does not wait for; the B fragments of Q^T (wide) or the A fragments are
   // read from there once the first tile has landed.
   uint32_t qa[BF16 && !WIDE ? KQ : 1][4];
-  uint32_t qb[WIDE ? KQ : 1][2];
-  if constexpr (WIDE || QN) {
+  uint32_t qb[WIDE && !SL ? KQ : 1][2];
+  if constexpr (SL) {
+    // slices read Q a chunk at a time beside K's (below)
+  } else if constexpr (WIDE || QN) {
     constexpr int QCH = 2 * KQ;
     for (int i = tid; i < GT * QCH; i += THREADS) {
       const int g = i / QCH, c = i % QCH;
-      const bool in = g < Gt && c < CH;
-      cp_async16(&qw[g][c * EPC], in ? q + g * p.q_sh + c * EPC : q, in ? 16 : 0);
+      if constexpr (LOOSE) {
+        copy_chunk(&qw[g][c * EPC], q + (g < Gt ? g * p.q_sh : 0), c * EPC, D, g < Gt,
+                   p.align);
+      } else {
+        const bool in = g < Gt && c < CH;
+        cp_async16(&qw[g][c * EPC], in ? q + g * p.q_sh + c * EPC : q, in ? 16 : 0);
+      }
     }
     cp_async_commit();
   } else if constexpr (BF16) {     // the served widths: rows g < 8
@@ -357,18 +435,31 @@ flash_decode_kernel(const Params p) {
       // bf16 classes copy every chunk of the shared row, zero-filling
       // those past the head width (so K's add 0 x 0 against Q's zero
       // columns and V's land in columns never stored); fp32 rows are D long
+      // (ANY: the last chunk's elements past D zero).  A slice's ring takes
+      // its V columns here, K's chunks in the tile's loop.
       for (int i = tid; i < TILE * row_chunks; i += THREADS) {
         const int r = i / row_chunks, c = i % row_chunks;
         const int s = tile * TILE + r;
-        const bool in = s < p.S && (DT != 0 || c < CH);
         const int dst = BF16 ? swizzle<SW>(r, c) : r * DP + c * EPC;
-        if (BF16 || c < CH) {
-          cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
-          cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
+        if constexpr (SL) {
+          copy_chunk(vs + dst, v + (s < p.S ? s * p.v_ss : 0), c0 + c * EPC, D, s < p.S,
+                     p.align);
+        } else if constexpr (LOOSE) {
+          if (BF16 || c < CH) {
+            copy_chunk(ks + dst, k + (s < p.S ? s * p.k_ss : 0), c * EPC, D, s < p.S,
+                       p.align);
+            copy_chunk(vs + dst, v + (s < p.S ? s * p.v_ss : 0), c * EPC, D, s < p.S,
+                       p.align);
+          }
+        } else {
+          const bool in = s < p.S && (DT != 0 || c < CH);
+          if (BF16 || c < CH) {
+            cp_async16(ks + dst, in ? k + s * p.k_ss + c * EPC : k, in ? 16 : 0);
+            cp_async16(vs + dst, in ? v + s * p.v_ss + c * EPC : v, in ? 16 : 0);
+          }
         }
       }
     };
-
     // per-warp online softmax state: narrow bf16 in mma C layout (rows
     // lane / 4 and + 8), fp32 warp-uniform per row with the columns split
     // over the lanes
@@ -416,7 +507,7 @@ flash_decode_kernel(const Params p) {
       for (int kk = 0; kk < KQ; ++kk)
         ldmatrix_x4(qa[kk], &qw[lane & 15][(kk * 2 + (lane >> 4)) * EPC]);
     }
-    if constexpr (WIDE) {
+    if constexpr (WIDE && !SL) {
       cp_async_wait<1>();                     // Q landed (tile 0 may not have)
       __syncthreads();
       // ldmatrix.x4 of rows 0-7 at chunks 2 kk .. 2 kk + 3: the b0, b1 of
@@ -444,13 +535,38 @@ flash_decode_kernel(const Params p) {
         // S^T = K Q^T: this warp's 16 slots (its key group) are the rows,
         // the GT heads the n8 columns, over all of D
         float c[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (SL) {
+          // a chunk of 256 columns at a time, Q^T's fragments read from
+          // shared memory at each
+          for (int ch = 0; ch * DC < D; ++ch) {
+            load_chunk<T, DC, GT, DC + 8>(ring, &qw[0][0], k, q, p, tile, ch * DC, Gt);
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+#pragma unroll 4
+            for (int kk = 0; kk < KQ; kk += 2) {
+              uint32_t r[4], a[4];
+              ldmatrix_x4(r, &qw[lane & 7][(kk * 2 + (lane >> 3)) * EPC]);
+              ldmatrix_x4(a, ks + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
+                                                  (((lane >> 3) & 1) << 3),
+                                              kk * 2 + (lane >> 4)));
+              mma_bf16(c, a, r[0], r[1]);
+              ldmatrix_x4(a, ks + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
+                                                  (((lane >> 3) & 1) << 3),
+                                              kk * 2 + 2 + (lane >> 4)));
+              mma_bf16(c, a, r[2], r[3]);
+            }
+            __syncthreads();                  // K's and Q's chunk are read
+          }
+        } else {
 #pragma unroll
-        for (int kk = 0; kk < KQ; ++kk) {
-          uint32_t a[4];
-          ldmatrix_x4(a, ks + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
-                                              (((lane >> 3) & 1) << 3),
-                                          kk * 2 + (lane >> 4)));
-          mma_bf16(c, a, qb[kk][0], qb[kk][1]);
+          for (int kk = 0; kk < KQ; ++kk) {
+            uint32_t a[4];
+            ldmatrix_x4(a, ks + swizzle<SW>(warp * WARP_KEYS + (lane & 7) +
+                                                (((lane >> 3) & 1) << 3),
+                                            kk * 2 + (lane >> 4)));
+            mma_bf16(c, a, qb[kk][0], qb[kk][1]);
+          }
         }
         // c[e]: slot g (e < 2) or g + 8, head 2 (lane % 4) + (e & 1)
         const int key0 = tile * TILE + warp * WARP_KEYS + lane / 4;
@@ -568,14 +684,35 @@ flash_decode_kernel(const Params p) {
         float s[4];
 #pragma unroll
         for (int i2 = 0; i2 < 4; ++i2) s[i2] = 0.f;
-        for (int dd = 0; dd < D; ++dd) {
-          // rotated by the slot: no bank conflict on K (kk < 16 < 3 D)
-          int d = dd + kk;
-          d -= d >= D ? D : 0;
-          d -= d >= D ? D : 0;
-          const float kv = kr[d];
+        if constexpr (LOOSE) {
+          // ANY: any width (D may be below 6); SLICED: a chunk at a time,
+          // Q's chunk in qs
+          for (int ch = 0; ch * (SL ? DC : D) < D; ++ch) {
+            const int w = SL ? min(DC, D - ch * DC) : D;
+            if constexpr (SL) {
+              load_chunk<T, DC, GT, DC>(ring, &qs[0][0], k, q, p, tile, ch * DC, Gt);
+              cp_async_commit();
+              cp_async_wait<0>();
+              __syncthreads();
+            }
+            for (int dd = 0; dd < w; ++dd) {
+              const int d = (dd + kk) % w;      // rotated by the slot, as below
+              const float kv = kr[d];   // SLICED: K's chunk (ks is the ring)
 #pragma unroll
-          for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
+              for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
+            }
+            if constexpr (SL) __syncthreads();
+          }
+        } else {
+          for (int dd = 0; dd < D; ++dd) {
+            // rotated by the slot: no bank conflict on K (kk < 16 < 3 D)
+            int d = dd + kk;
+            d -= d >= D ? D : 0;
+            d -= d >= D ? D : 0;
+            const float kv = kr[d];
+#pragma unroll
+            for (int i2 = 0; i2 < 4; ++i2) s[i2] = fmaf(qs[half * 4 + i2][d], kv, s[i2]);
+          }
         }
         const bool in = key < p.S;
         const bool ok = in && __ldg(valid + key) != 0;
@@ -612,7 +749,7 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
               const int col = lane + 32 * j;
-              if (col >= D) break;
+              if (col >= DV) break;
               float a = acc_f[BF16 ? 0 : g][j] * corr;
 #pragma unroll
               for (int kk2 = 0; kk2 < WARP_KEYS; ++kk2)
@@ -650,7 +787,7 @@ flash_decode_kernel(const Params p) {
         for (int e = 0; e < 4; ++e) {
           const int g = 2 * (lane % 4) + (e & 1);
           const int d = mt * 16 + lane / 4 + (e >> 1) * 8;
-          if (g < Gt && (DT != 0 || d < D)) wacc[(warp * GT + g) * D + d] = acc_w[mt][e];
+          if (g < Gt && (DT != 0 || d < DV)) wacc[(warp * GT + g) * WP + d] = acc_w[mt][e];
         }
     } else if constexpr (BF16) {
 #pragma unroll
@@ -665,7 +802,12 @@ flash_decode_kernel(const Params p) {
           }
 #pragma unroll
           for (int nb = 0; nb < 2 * KQ; ++nb) {
-            if (nb < D / 8) {
+            if constexpr (LOOSE) {
+              const int d = nb * 8 + 2 * (lane % 4);
+              float* dst = wacc + (warp * GT + g) * WP + d;
+              if (d < D) dst[0] = acc_b[nb][2 * h];
+              if (d + 1 < D) dst[1] = acc_b[nb][2 * h + 1];
+            } else if (nb < D / 8) {
               float* dst = wacc + (warp * GT + g) * D + nb * 8 + 2 * (lane % 4);
               dst[0] = acc_b[nb][2 * h];
               dst[1] = acc_b[nb][2 * h + 1];
@@ -683,8 +825,8 @@ flash_decode_kernel(const Params p) {
           }
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
-            if (lane + 32 * j < D)
-              wacc[(warp * GT + g) * D + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
+            if (lane + 32 * j < DV)
+              wacc[(warp * GT + g) * WP + lane + 32 * j] = acc_f[BF16 ? 0 : g][j];
         }
       }
     }
@@ -715,7 +857,7 @@ flash_decode_kernel(const Params p) {
       // columns
       for (int i = tid; i < (DT ? Gt : GT) * row_cols / 4; i += THREADS) {
         const int g = i / (row_cols / 4), d = 4 * (i % (row_cols / 4));
-        if (DT == 0 && (g >= Gt || d >= D)) continue;
+        if (DT == 0 && (g >= Gt || d >= DV)) continue;
         float mx = NEG_INF;
         if constexpr (DT != 0) {
 #pragma unroll
@@ -726,7 +868,7 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) {
           const float wt = DT ? expf(wm[w][g] - mx) : wm[w][g];
-          const float4 a = *reinterpret_cast<const float4*>(wacc + (w * GT + g) * D + d);
+          const float4 a = *reinterpret_cast<const float4*>(wacc + (w * GT + g) * WP + d);
           if (DT != 0) ls += wl[w][g] * wt;
           as.x += a.x * wt;
           as.y += a.y * wt;
@@ -738,16 +880,21 @@ flash_decode_kernel(const Params p) {
           ls = wl[1][g];
         }
         const long long row = (long long)(row0 + g) * p.splits + split;
-        *reinterpret_cast<float4*>(p.part + row * D + d) = as;
+        *reinterpret_cast<float4*>(p.part + row * PP + c0 + d) = as;
         if (d == 0) {
-          p.part[n_rows * D + row] = mx;
-          p.part[n_rows * (D + 1) + row] = ls;
+          if constexpr (LOOSE) {    // a slice's m and l rows, n_sl of each
+            p.part[n_rows * PP + si * n_rows + row] = mx;
+            p.part[n_rows * (PP + n_sl) + si * n_rows + row] = ls;
+          } else {
+            p.part[n_rows * D + row] = mx;
+            p.part[n_rows * (D + 1) + row] = ls;
+          }
         }
       }
     } else {
       for (int i = tid; i < (DT ? Gt : GT) * row_cols; i += THREADS) {
         const int g = i / row_cols, d = i % row_cols;
-        if (DT == 0 && (g >= Gt || d >= D)) continue;
+        if (DT == 0 && (g >= Gt || d >= DV)) continue;
         float mx = NEG_INF;
         if constexpr (DT != 0) {
 #pragma unroll
@@ -758,17 +905,22 @@ flash_decode_kernel(const Params p) {
         for (int w = 0; w < WARPS; ++w) {
           const float wt = DT ? expf(wm[w][g] - mx) : wm[w][g];
           if (DT != 0) ls += wl[w][g] * wt;
-          as += wacc[(w * GT + g) * D + d] * wt;
+          as += wacc[(w * GT + g) * WP + d] * wt;
         }
         if constexpr (DT == 0) {
           mx = wl[0][g];
           ls = wl[1][g];
         }
         const long long row = (long long)(row0 + g) * p.splits + split;
-        p.part[row * D + d] = as;
+        p.part[row * PP + c0 + d] = as;
         if (d == 0) {
-          p.part[n_rows * D + row] = mx;
-          p.part[n_rows * (D + 1) + row] = ls;
+          if constexpr (LOOSE) {
+            p.part[n_rows * PP + si * n_rows + row] = mx;
+            p.part[n_rows * (PP + n_sl) + si * n_rows + row] = ls;
+          } else {
+            p.part[n_rows * D + row] = mx;
+            p.part[n_rows * (D + 1) + row] = ls;
+          }
         }
       }
     }
@@ -777,7 +929,7 @@ flash_decode_kernel(const Params p) {
   // 4. The last block of this (batch, kv head, group tile) merges the
   //    splits in order.
   if constexpr (WIDE || QN) cp_async_wait<0>();   // a block without a tile: Q's copy
-  int* ticket_at = p.tickets + b * p.Kv * n_gt + blockIdx.y;
+  int* ticket_at = p.tickets + b * p.Kv * n_gt * n_sl + blockIdx.y;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -791,8 +943,8 @@ flash_decode_kernel(const Params p) {
   //     in shared memory (the ring is free): a warp per row, lanes over the
   //     splits, m and l fetched in one round trip, sums in a fixed order
   const long long n_rows = (long long)p.B * p.H * p.splits;
-  const float* pm = p.part + n_rows * D;
-  const float* pl = pm + n_rows;
+  const float* pm = LOOSE ? p.part + n_rows * PP + si * n_rows : p.part + n_rows * D;
+  const float* pl = LOOSE ? pm + n_sl * n_rows : pm + n_rows;
   // the accumulators, MERGE splits at a time (4 columns per thread,
   // 16-byte loads, at most 32 in flight); wide, the first MERGE are
   // fetched before the weights are known, so their round trip overlaps (a)'s
@@ -800,8 +952,9 @@ flash_decode_kernel(const Params p) {
   constexpr int MERGE = merge_depth<N4, DT>();
   // thread tid + i THREADS takes float4 d4 of row g: rows of row4 float4
   // (the class's, constant, in a class), those past Gt or D idle
-  const int D4 = D / 4, row4 = row_cols / 4;
-  const float4* pacc = reinterpret_cast<const float4*>(p.part) +
+  // D4: float4 a partial row (its pitch), V4: those this block merges
+  const int D4 = PP / 4, V4 = LOOSE ? (DV + 3) / 4 : D4, row4 = row_cols / 4;
+  const float4* pacc = reinterpret_cast<const float4*>(p.part + c0) +
                        (long long)row0 * p.splits * D4;
   float4 a[MERGE][N4];
   auto fetch = [&](int s0) {
@@ -810,7 +963,7 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < N4; ++i) {
         const int j = tid + i * THREADS, g = j / row4, d4 = j % row4;
-        a[u][i] = s0 + u < active && g < Gt && (DT != 0 || d4 < D4)
+        a[u][i] = s0 + u < active && g < Gt && (DT != 0 || d4 < V4)
                       ? __ldcg(pacc + ((long long)g * p.splits + s0 + u) * D4 + d4)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -858,7 +1011,7 @@ flash_decode_kernel(const Params p) {
     // the row's log-sum-exp in the units of the scaled scores: a row with
     // no valid slot gives -1e30 + log(count) = -1e30, finite, so a merge
     // over slot shards weighs it exp(-1e30 - m) = 0 beside any valid shard
-    if (p.lse != nullptr && lane == 0) p.lse[row0 + g] = mx + logf(ls);
+    if (p.lse != nullptr && lane == 0 && si == 0) p.lse[row0 + g] = mx + logf(ls);
     const float inv = 1.f / fmaxf(ls, 1e-20f);
     for (int s = lane; s < active; s += 32) sw[g * active + s] *= inv;
   }
@@ -888,7 +1041,22 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < N4; ++i) {
     const int j = tid + i * THREADS, g = j / row4, d = 4 * (j % row4);
-    if (DT == 0 && d >= D) continue;
+    if (DT == 0 && d >= DV) continue;
+    if constexpr (LOOSE) {      // the columns below DV, an element at a time
+      const float x[4] = {out[i].x, out[i].y, out[i].z, out[i].w};
+      if (g < Gt && p.o_f32) {
+        float* o = static_cast<float*>(p.o) + b * p.o_sb + (head0 + g) * p.o_sh + c0 + d;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d + e < DV) o[e] = x[e];
+      } else if (g < Gt) {
+        T* o = static_cast<T*>(p.o) + b * p.o_sb + (head0 + g) * p.o_sh + c0 + d;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d + e < DV) o[e] = from_float<T>(x[e]);
+      }
+      continue;
+    }
     if (g < Gt && p.o_f32) {    // a partial of a slot shard: cast once, after the merge
       float* o = static_cast<float*>(p.o) + b * p.o_sb + (head0 + g) * p.o_sh + d;
       o[0] = out[i].x;
@@ -909,36 +1077,42 @@ flash_decode_kernel(const Params p) {
 // `tile`, `group` and `smem` are the wrapper's numbers (flash_decode.py
 // TILE, group_tile and smem_bytes): a launch whose numbers are not the
 // kernel's is refused.
-template <typename T, int DC, int DT>
+template <typename T, int DC, int DT, int MODE = WHOLE>
 cudaError_t launch(Params p, int tile, int group, int smem_asked, cudaStream_t stream) {
   static size_t attr_bytes = 0;   // the dynamic shared memory allowed so far
   constexpr int GT = group_tile<T, DC, DT>();
   if (tile != TILE || group != GT) return cudaErrorInvalidValue;
   const int n_gt = (p.H / p.Kv + GT - 1) / GT;
-  if (static_cast<long long>(p.Kv) * n_gt > 65535 || (DT != 0 && n_gt > 1))
+  const int n_sl = MODE == SLICED ? (p.D + DC - 1) / DC : 1;
+  if (static_cast<long long>(p.Kv) * n_gt * n_sl > 65535 || (DT != 0 && n_gt > 1))
     return cudaErrorInvalidValue;
   p.n_tiles = (p.S + TILE - 1) / TILE;
-  const size_t smem = smem_bytes<T, DC, DT>(p.D, p.splits, p.n_tiles);
+  const size_t smem = smem_bytes<T, DC, DT, MODE>(p.D, p.splits, p.n_tiles);
   if (smem != static_cast<size_t>(smem_asked) || smem > 200 * 1024)
     return cudaErrorInvalidValue;
   if (smem > attr_bytes) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T, DC, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_kernel<T, DC, DT, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     attr_bytes = smem;
   }
-  const dim3 grid(p.splits, p.Kv * n_gt, p.B);
-  flash_decode_kernel<T, DC, DT><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid(p.splits, p.Kv * n_gt * n_sl, p.B);
+  flash_decode_kernel<T, DC, DT, MODE><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 8 from 8 to
-// 256.  part: B * H * splits * (D + 2) floats of scratch, 16-byte aligned;
-// tickets: B * Kv * ceil(G / group) ints, zero before the launch and zero
-// after it.  lse: null, or (B, H) contiguous floats that receive each row's
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: any width >= 1.  part:
+// B * H * splits * (P + 2 n) floats of scratch, 16-byte aligned, where P
+// is head_dim (whole aligned chunks) or head_dim rounded up to 4 (the
+// other kernels) and n the slices, ceil(head_dim / 256) past 256, else 1;
+// tickets: B * Kv * ceil(G / group) * n ints, zero before the launch and
+// zero after it.  align: a power of two (2 to 16) dividing the byte address
+// of every row start of q, k and v and head_dim times the element size;
+// below 16 (or an fp32 row below 8 elements) the kernels that copy at any
+// alignment run.  lse: null, or (B, H) contiguous floats that receive each row's
 // log-sum-exp of its scaled, masked scores.  out_f32: o holds floats
 // (strides in floats) whatever the input dtype.  tile: cache slots per
 // tile, group: query heads a block holds, and smem: the dynamic shared
@@ -954,7 +1128,7 @@ extern "C" int flash_decode_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long valid_sb, long long o_sb, long long o_sh,
     float scale, void* stream, void* lse, int out_f32, int tile, int smem,
-    int group) {
+    int group, int align) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.valid = static_cast<const uint8_t*>(valid);
@@ -971,16 +1145,35 @@ extern "C" int flash_decode_fwd(
   p.scale = scale;
   p.lse = static_cast<float*>(lse);
   p.o_f32 = out_f32;
-  if (Kv <= 0 || H % Kv != 0 || S <= 0 || splits <= 0 || B > 65535 ||
-      head_dim < 8 || head_dim > 256 || head_dim % 8 != 0)
+  p.align = align;
+  const int unit = dtype == 0 ? 4 : 2;
+  if (Kv <= 0 || H % Kv != 0 || S <= 0 || splits <= 0 || B > 65535 || head_dim < 1 ||
+      align < unit || align > 16 || (align & (align - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool any = align < 16 || (dtype == 0 && head_dim < 8);
+  if (head_dim > 256) {
+    if (dtype == 0) return launch<float, 256, 0, SLICED>(p, tile, group, smem, s);
+    if (dtype == 1) return launch<bf16, 256, 0, SLICED>(p, tile, group, smem, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0 && any) {
+    if (head_dim <= 64) return launch<float, 64, 0, ANY>(p, tile, group, smem, s);
+    if (head_dim <= 128) return launch<float, 128, 0, ANY>(p, tile, group, smem, s);
+    return launch<float, 256, 0, ANY>(p, tile, group, smem, s);
+  }
   if (dtype == 0) {
     if (head_dim <= 64) return launch<float, 64, 0>(p, tile, group, smem, s);
     if (head_dim <= 128) return launch<float, 128, 0>(p, tile, group, smem, s);
     return launch<float, 256, 0>(p, tile, group, smem, s);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (any) {
+    if (head_dim <= 64) return launch<bf16, 64, 0, ANY>(p, tile, group, smem, s);
+    if (head_dim <= 128) return launch<bf16, 128, 0, ANY>(p, tile, group, smem, s);
+    if (head_dim <= 192) return launch<bf16, 192, 0, ANY>(p, tile, group, smem, s);
+    return launch<bf16, 256, 0, ANY>(p, tile, group, smem, s);
+  }
   if (H / Kv <= 8) {    // the served models' widths keep their own code
     switch (head_dim) {
       case 64: return launch<bf16, 64, 64>(p, tile, group, smem, s);

@@ -41,6 +41,67 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// The same for 8 and 4 bytes (cp.async.ca: the narrower sizes go through
+// L1); both addresses aligned to the size.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// One 16-byte chunk of a tile row from a row in global memory at any
+// alignment: dst (16-byte aligned shared memory) receives the row's
+// elements [col, col + 16 / sizeof(T)) that lie below n (the row's
+// width), and zeros past them; all zeros where !in (a row past the
+// operand's end).  `align` (16, 8, 4 or 2) is a power of two that divides
+// the address of every row start and the row's width in bytes, so a piece
+// of that size is whole or wholly past n: pieces of 16, 8 or 4 bytes go by
+// cp.async (src-size 0 past the row, which zero-fills), and 2-byte rows
+// (odd bf16 widths or offsets) are read an element at a time and stored at
+// once, synchronously.  col is a multiple of 16 / sizeof(T).
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* row, int col, int n,
+                                           bool in, int align) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(T));
+  if (align >= 16) {
+    const bool ok = in && col < n;
+    cp_async16(dst, ok ? row + col : row, ok ? 16 : 0);
+  } else if (align == 8) {
+#pragma unroll
+    for (int e = 0; e < EPC; e += EPC / 2) {
+      const bool ok = in && col + e < n;
+      cp_async8(dst + e, ok ? row + col + e : row, ok ? 8 : 0);
+    }
+  } else if (sizeof(T) == 4 || align == 4) {
+#pragma unroll
+    for (int e = 0; e < EPC; e += EPC / 4) {
+      const bool ok = in && col + e < n;
+      cp_async4(dst + e, ok ? row + col + e : row, ok ? 4 : 0);
+    }
+  } else {
+    const uint16_t* r = reinterpret_cast<const uint16_t*>(row);
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col + 2 * j;
+      const uint32_t lo = in && c < n ? r[c] : 0u;
+      const uint32_t hi = in && c + 1 < n ? r[c + 1] : 0u;
+      w[j] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -16,7 +16,7 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.flash_attention import check_head_dim
+from repro_torch.kernels.flash_attention import check_head_dim, row_alignment
 from repro_torch.kernels.grid import arrival_counters, sm_count
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -24,8 +24,10 @@ TILE = 64                 # cache slots per tile (csrc TILE); a split takes whol
 BLOCKS_PER_SM = 2         # grid size the split count aims for
 STAGES = 2                # the K/V ring's stages (csrc STAGES)
 # bf16 widths whose kernels keep their own code at up to 8 query heads a kv
-# head (csrc flash_decode_fwd); every other shape runs its width class
+# head and rows of whole aligned 16-byte chunks (csrc flash_decode_fwd);
+# every other shape up to 256 runs its width class
 SERVED_WIDTHS = (64, 112, 120, 128, 256)
+SLICE = 256               # past 256: output columns a block owns (csrc DC)
 
 _fn = None
 
@@ -40,36 +42,56 @@ def _kernel_fn():
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 11
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 4
+            + [ctypes.c_int] * 5
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def group_tile(dtype: torch.dtype, D: int, G: int) -> int:
+def loose(dtype: torch.dtype, D: int, align: int = 16) -> bool:
+    """Whether the kernel copies at any alignment (csrc mode ANY; SLICED
+    past 256 does too): rows not whole aligned 16-byte chunks
+    (``row_alignment`` below 16), and fp32 rows below 8 elements."""
+    return align < 16 or (dtype == torch.float32 and D < 8)
+
+
+def slices(D: int) -> int:
+    """Blocks that share a row's output columns: ceil(D / 256) past 256,
+    else 1."""
+    return -(-D // SLICE) if D > SLICE else 1
+
+
+def group_tile(dtype: torch.dtype, D: int, G: int, align: int = 16) -> int:
     """Query heads of one kv head that a block holds (csrc group_tile): 16
     on the bf16 kernels that put the heads on the 16 rows of their products
     (the width classes up to 192), else 8 (the served widths' own kernels
-    at G <= 8, the D > 192 form with the heads on 8 columns, fp32).  A kv
-    head's G heads take ceil(G / group_tile) blocks, each reading the kv
-    head's K and V tiles."""
-    if dtype == torch.bfloat16 and D <= 192 and not (D in SERVED_WIDTHS and G <= 8):
+    at G <= 8 on whole aligned chunks, the D > 192 form with the heads on 8
+    columns, the slices past 256, fp32).  A kv head's G heads take
+    ceil(G / group_tile) blocks, each reading the kv head's K and V tiles."""
+    served = D in SERVED_WIDTHS and G <= 8 and not loose(dtype, D, align)
+    if dtype == torch.bfloat16 and D <= 192 and not served:
         return 16
     return 8
 
 
 def smem_bytes(dtype: torch.dtype, D: int, S: int, group: int = 8,
-               splits: int = 1) -> int:
+               splits: int = 1, align: int = 16) -> int:
     """The kernel's dynamic shared memory for a cache of S slots: the K/V
     ring (two stages of a K and a V tile, one for fp32 rows wider than 128;
-    bf16 rows padded to whole 64-element swizzle groups), at least the
-    last block's per-split weights and sums (2 x ``group`` x ``splits``
-    floats), then a bit per tile and the list of tiles.  The launch passes
-    it; the kernel refuses a number that is not its own."""
+    bf16 rows padded to whole 64-element swizzle groups, fp32 rows copied
+    at a loose alignment to whole 4-float chunks; past 256 one K chunk
+    and one V slice of 256 columns), at least the last block's per-split
+    weights and sums (2 x ``group`` x ``splits`` floats), then a bit per
+    tile and the list of tiles.  The launch passes it; the kernel refuses
+    a number that is not its own."""
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    pitch = -(-D // 64) * 64 if dtype == torch.bfloat16 else D
-    stages = 1 if dtype == torch.float32 and D > 128 else STAGES
+    if D > SLICE:
+        pitch, stages = SLICE, 1
+    else:
+        pitch = (-(-D // 64) * 64 if dtype == torch.bfloat16
+                 else -(-D // 4) * 4 if loose(dtype, D, align) else D)
+        stages = 1 if dtype == torch.float32 and D > 128 else STAGES
     ring = max(stages * 2 * TILE * pitch * itemsize, 8 * group * splits)
     n_tiles = -(-S // TILE)
     return ring + 4 * (-(-n_tiles // 32) + n_tiles)
@@ -78,7 +100,7 @@ def smem_bytes(dtype: torch.dtype, D: int, S: int, group: int = 8,
 def num_splits(B: int, Kv: int, S: int, sms: int) -> int:
     """Splits of each (batch, kv head) so that B * Kv * splits blocks fill
     the SMs about ``BLOCKS_PER_SM`` times over, and no more splits than S
-    has tiles (``Kv``: the kv heads times their group tiles).  Chosen from
+    has tiles (``Kv``: the kv heads times their group tiles and slices).  Chosen from
     shapes alone: the kernel divides the tiles that hold a valid slot among
     the splits on the card, so the mask is never read back to the host."""
     want = -(-BLOCKS_PER_SM * sms // max(B * Kv, 1))
@@ -136,8 +158,10 @@ def launch(
 ):
     """Launch the kernel on the current stream; returns (B, 1, H, D) in
     q's dtype, or with ``return_lse`` (the output in fp32, each row's
-    log-sum-exp (B, H) fp32).  Raises on inputs the kernel does not take
-    and on a refused launch."""
+    log-sum-exp (B, H) fp32).  Any head width and any layout whose last
+    axes have unit stride: the kernel reads the cache where it lies, at
+    its alignment (``row_alignment``).  Raises on inputs the kernel does
+    not take and on a refused launch."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     B, _, H, D = q.shape
@@ -162,17 +186,6 @@ def launch(
             raise ValueError("q, caches and kv_valid must lie on one CUDA device")
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError("the last axis of every input must have stride 1")
-    per_chunk = 16 // q.element_size()
-    for t in (k_cache, v_cache):      # rows move in 16-byte copies
-        if t.data_ptr() % 16 or any(st % per_chunk for st in t.stride()[:3]):
-            raise ValueError("cache rows must be 16-byte aligned")
-    # bf16 q goes in 16-byte copies but on the served narrow widths' kernels
-    copies_q = q.dtype == torch.bfloat16 and not (
-        D in SERVED_WIDTHS and D <= 128 and H // Kv <= 8)
-    if copies_q and (q.data_ptr() % 16 or any(
-            q.stride(i) % per_chunk for i in (0, 2) if q.shape[i] > 1)):
-        raise ValueError("bf16 q rows must be 16-byte aligned here: the kernel "
-                         "copies them in 16-byte pieces")
     if S == 0:
         raise ValueError("the cache has no slots")
     out = torch.empty((B, 1, H, D),
@@ -182,11 +195,16 @@ def launch(
            if return_lse else None)
     if B == 0:
         return (out, lse) if return_lse else out
-    group = group_tile(q.dtype, D, H // Kv)
-    blocks = Kv * -(-(H // Kv) // group)       # (kv head, group tile) pairs
+    align = row_alignment(q[:, 0], k_cache, v_cache)
+    group = group_tile(q.dtype, D, H // Kv, align)
+    # (kv head, group tile, slice) triples
+    blocks = Kv * -(-(H // Kv) // group) * slices(D)
     splits = num_splits(B, blocks, S, sm_count(q.device.index or 0))
-    part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
-                       device=q.device)
+    # partial rows of D floats (4-float multiples but on whole aligned
+    # chunks), then each slice's m and l
+    pitch = D if not loose(q.dtype, D, align) and D <= SLICE else -(-D // 4) * 4
+    part = torch.empty(B * H * splits * (pitch + 2 * slices(D)),
+                       dtype=torch.float32, device=q.device)
     vec_mask = int(kv_valid.data_ptr() % 16 == 0
                    and (B == 1 or kv_valid.stride(0) % 16 == 0))
     with torch.cuda.device(q.device):
@@ -204,7 +222,7 @@ def launch(
             kv_valid.stride(0), out.stride(0), out.stride(2),
             1.0 / math.sqrt(D), stream,
             lse.data_ptr() if return_lse else None, int(return_lse),
-            TILE, smem_bytes(q.dtype, D, S, group, splits), group,
+            TILE, smem_bytes(q.dtype, D, S, group, splits, align), group, align,
         )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")

@@ -108,6 +108,33 @@ ANY_DECODE_CASES = [
     (1, 71, 1, 64, 64, "prefix"),
 ]
 
+# test_torch_any_width.py's cases: head widths 1 to 576 (off a multiple of
+# 8, past 256) under every mask, kernel against plain
+ANY_WIDTH_ATTN_CASES = [
+    (1, 4, 2, 128, 128, 1, True, None, 0),
+    (2, 4, 4, 100, 100, 4, False, None, 0),
+    (1, 4, 1, 128, 128, 36, True, 48, 0),
+    (1, 4, 4, 96, 96, 100, True, None, 40),
+    (1, 8, 1, 80, 80, 130, True, None, 0),
+    (2, 2, 2, 64, 64, 250, False, None, 0),
+    (1, 4, 2, 128, 128, 264, True, 48, 0),
+    (1, 2, 1, 100, 100, 288, True, None, 30),
+    (1, 2, 2, 72, 72, 512, True, None, 0),
+    (1, 2, 1, 64, 64, 576, False, None, 0),
+]
+ANY_WIDTH_DECODE_CASES = [
+    (2, 4, 2, 128, 1, "prefix"),
+    (2, 4, 4, 128, 4, "ring"),
+    (2, 8, 1, 128, 36, "none"),
+    (2, 4, 4, 128, 100, "prefix"),
+    (2, 8, 2, 128, 130, "ring"),
+    (2, 2, 1, 128, 250, "none"),
+    (2, 12, 1, 128, 264, "prefix"),
+    (2, 4, 2, 128, 288, "ring"),
+    (2, 2, 2, 96, 512, "none"),
+    (2, 4, 1, 128, 576, "prefix"),
+]
+
 # qwen3-moe-30b's attention (H=32, Kv=4, D=128) in bf16, in the layout of
 # ATTN_CASES: ragged lengths around the tensor-core kernel's 64-row tiles,
 # each with the causal, sliding-window and prefix-LM masks
@@ -306,6 +333,52 @@ def test_flash_attention_kernel_at_any_width_and_group(card, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ANY_WIDTH_ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_at_every_width(card, case, dtype):
+    B, H, Kv, Sq, Skv, D, causal, window, prefix = case
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(1100 + ANY_WIDTH_ATTN_CASES.index(case))
+    q = _randn(rng, (B, Sq, H, D), tdt, card)
+    k = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    v = _randn(rng, (B, Skv, Kv, D), tdt, card)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tfa.plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Kv,D", [(32, 8, 64), (32, 32, 112), (32, 8, 120),
+                                    (32, 4, 128), (8, 1, 256), (4, 2, 288)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernels_read_views_of_a_fused_buffer(card, H, Kv, D, dtype):
+    """q, k and v sliced out of one projection buffer one element in (rows
+    2-byte aligned in bf16, 4-byte in float32), and a cache likewise: the
+    kernels read the views where they lie."""
+    tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(1200 + D)
+    S, dS = 130, 300
+    fused = _randn(rng, (1, S, 1 + (H + 2 * Kv) * D), tdt, card)
+    q = fused[..., 1:1 + H * D].view(1, S, H, D)
+    k = fused[..., 1 + H * D:1 + (H + Kv) * D].view(1, S, Kv, D)
+    v = fused[..., 1 + (H + Kv) * D:].view(1, S, Kv, D)
+    assert tfa.row_alignment(q, k, v) == torch.finfo(tdt).bits // 8
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               tfa.plain(q, k, v).float(), atol=tol, rtol=tol)
+    cache = _randn(rng, (2, dS, 1 + 2 * Kv * D), tdt, card)
+    kd = cache[..., 1:1 + Kv * D].view(2, dS, Kv, D)
+    vd = cache[..., 1 + Kv * D:].view(2, dS, Kv, D)
+    qd = _randn(rng, (2, 1, 1 + H * D), tdt, card)[..., 1:].view(2, 1, H, D)
+    valid = decode_mask(2, dS, "empty beside 77", card)
+    torch.testing.assert_close(ops.flash_decode(qd, kd, vd, kv_valid=valid).float(),
+                               tfd.plain(qd, kd, vd, valid).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", PUBLIC_ATTN_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_at_public_shapes(card, case, dtype):
@@ -353,6 +426,13 @@ def test_flash_decode_kernel_at_wide_heads(card, case, dtype):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_decode_kernel_at_any_width_and_group(card, case, dtype):
     _check_decode(card, case, dtype, 1030 + ANY_DECODE_CASES.index(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ANY_WIDTH_DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_decode_kernel_at_every_width(card, case, dtype):
+    _check_decode(card, case, dtype, 1150 + ANY_WIDTH_DECODE_CASES.index(case))
 
 
 def decode_mask(B, S, mask, device, seed=0):
@@ -890,11 +970,14 @@ def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.launch(q, q, q)
-    # bf16 rows go in 16-byte copies: a base one element off is refused
-    q = torch.zeros((1 * 8 * 4 * 64 + 1,), device=card,
-                    dtype=torch.bfloat16)[1:].view(1, 8, 4, 64)
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa.launch(q, q, q)
+    # a bf16 base one element off is taken (its rows copied at 2-byte
+    # alignment) and agrees with the plain version; a width below 1 is not
+    q = torch.randn((1 * 8 * 4 * 64 + 1,), device=card).to(
+        torch.bfloat16)[1:].view(1, 8, 4, 64)
+    torch.testing.assert_close(tfa.launch(q, q, q).float(),
+                               tfa.plain(q, q, q).float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        tfa.launch(q[..., :0], q[..., :0], q[..., :0])
     q = torch.zeros((1, 8, 4, 64), device=card)
     with pytest.raises(ValueError, match="kv_valid"):
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), device=card))

@@ -424,24 +424,33 @@ def test_cpu_path_counts_no_launch():
 
 def test_kernel_launch_refuses_cpu_tensors():
     """The launchers never run a plain version: a CPU tensor is refused
-    before any build is attempted."""
+    before any build is attempted, at every head width the reference's
+    kernels take; a width below 1 is refused by rule."""
     q = torch.zeros((1, 8, 4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.launch(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         tfd.launch(q[:, :1], q, q, torch.ones((1, 8), dtype=torch.bool))
-    # past the largest width, and not a multiple of 8: refused by rule,
-    # before the device is looked at
+    # past 256, and not a multiple of 8: taken (the reference's BlockSpecs
+    # carry D whole), so refused only for the device; the meta route counts
     for D in (264, 36):
         x = torch.zeros((1, 8, 4, D))
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        with pytest.raises(ValueError, match="CUDA"):
             tfa.launch(x, x, x)
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        with pytest.raises(ValueError, match="CUDA"):
             tfd.launch(x[:, :1], x, x, torch.ones((1, 8), dtype=torch.bool))
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
-            ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
-        assert not tfa.supports(D)
-    assert all(tfa.supports(D) for D in range(8, 257, 8))
+        m = x.to("meta")
+        assert ops.flash_attention(m, m, m).shape == x.shape
+        assert tfa.supports(D)
+    x = torch.zeros((1, 8, 4, 0))
+    with pytest.raises(ValueError, match="head_dim 0"):
+        tfa.launch(x, x, x)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        tfd.launch(x[:, :1], x, x, torch.ones((1, 8), dtype=torch.bool))
+    with pytest.raises(ValueError, match="head_dim 0"):
+        ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
+    assert not tfa.supports(0)
+    assert all(tfa.supports(D) for D in range(1, 1025))
     with pytest.raises(ValueError, match="CUDA"):
         tss.launch(q, q, q[:, 0])
     with pytest.raises(ValueError, match="h0"):
